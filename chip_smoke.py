@@ -68,7 +68,7 @@ KC, K2, TOP_R = 30, 32, 100
 BATCH, QUERY_LEN = 256, 32
 K1_TERMS = 3                         # indexed terms per document
 
-# H100 SXM published peaks (the on-chip-measurement guide's table)
+# H100 SXM published peaks (NVIDIA H100 datasheet)
 PEAK_FP32_FLOPS = 67e12              # fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12                 # HBM3
 
