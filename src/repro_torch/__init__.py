@@ -1,10 +1,11 @@
-"""repro_torch — the PyTorch / CUDA port of the HI² serving path for one
-NVIDIA H100, beside the JAX reference package in ``src/repro/``.
+"""repro_torch — the PyTorch / CUDA port of the HI² index build and
+serving path for one NVIDIA H100, beside the JAX reference package in
+``src/repro/``.
 
 The layout mirrors the reference (``core/``, ``core/codecs/``,
-``core/exec/``, ``kernels/``, ``checkpoint/``, ``launch/``); each module
-names the reference file it answers to.  The package imports torch and
-numpy only — never jax, never the reference package.
+``core/exec/``, ``kernels/``, ``checkpoint/``, ``launch/``, ``data/``);
+each module names the reference file it answers to.  The package
+imports torch and numpy only — never jax, never the reference package.
 
 Entry points take ``device=`` and default to ``"cuda"``: without a card
 they raise unless the caller asks for ``device="cpu"``.  Kernels are

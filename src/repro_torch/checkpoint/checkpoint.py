@@ -11,6 +11,9 @@ no JAX tree structure:
     .codec_params...                   (by codec, see _codec_params)
     .doc_planes['<key>']               .doc_assign
     .doc_ns, .sparse_weights           (optional)
+
+A ``refine:<base>:<mult>`` index carries its base codec's params and,
+beside the base planes, ``.doc_planes['refine_emb']`` (fp16).
 """
 from __future__ import annotations
 
@@ -24,7 +27,10 @@ import torch
 from repro_torch import device as dev_mod
 from repro_torch.core import codecs
 from repro_torch.core.cluster_selector import ClusterSelector
-from repro_torch.core.codecs.pq import OPQCodebook, PQCodebook
+from repro_torch.core.codecs.flat import FlatCodec
+from repro_torch.core.codecs.pq import (OPQCodebook, OPQCodec, PQCodebook,
+                                        PQCodec)
+from repro_torch.core.codecs.sq8 import SQ8Codec
 from repro_torch.core.hybrid_index import HybridIndex
 from repro_torch.core.inverted_lists import PaddedLists
 from repro_torch.core.term_selector import TermSelector
@@ -32,14 +38,23 @@ from repro_torch.core.term_selector import TermSelector
 _PLANE = re.compile(r"^\.doc_planes\['([^']+)'\]$")
 
 
-def _codec_params(name: str, leaf):
-    if name == "flat":
+def _codec_params(codec_impl: codecs.Codec, leaf):
+    """The params leaves of the codec that owns them: a refine codec's
+    are its base codec's."""
+    while hasattr(codec_impl, "base"):
+        codec_impl = codec_impl.base
+    if isinstance(codec_impl, FlatCodec):
         return None
-    if name == "pq":
+    if isinstance(codec_impl, OPQCodec):
+        return OPQCodebook(rotation=leaf(".codec_params.rotation"),
+                           codebook=PQCodebook(
+                               leaf(".codec_params.codebook.codewords")))
+    if isinstance(codec_impl, PQCodec):
         return PQCodebook(leaf(".codec_params.codewords"))
-    return OPQCodebook(rotation=leaf(".codec_params.rotation"),
-                       codebook=PQCodebook(
-                           leaf(".codec_params.codebook.codewords")))
+    if isinstance(codec_impl, SQ8Codec):
+        return {"lo": leaf(".codec_params['lo']"),
+                "scale": leaf(".codec_params['scale']")}
+    raise ValueError(f"no checkpoint layout for codec {codec_impl!r}")
 
 
 def index_from_numpy(leaves: dict, codec: str,
@@ -47,7 +62,7 @@ def index_from_numpy(leaves: dict, codec: str,
     """Build a :class:`HybridIndex` on ``device`` from manifest leaf
     paths → numpy arrays (the layout of a reference ``save_index``)."""
     dev = dev_mod.resolve(device)
-    name = codecs.get(codec).name         # raises on unknown / unported
+    codec_impl = codecs.get(codec)        # raises on unknown specs
 
     def leaf(path: str) -> torch.Tensor:
         if path not in leaves:
@@ -68,7 +83,7 @@ def index_from_numpy(leaves: dict, codec: str,
                                   leaf(".cluster_lists.lengths")),
         term_lists=PaddedLists(leaf(".term_lists.entries"),
                                leaf(".term_lists.lengths")),
-        codec_params=_codec_params(name, leaf),
+        codec_params=_codec_params(codec_impl, leaf),
         doc_planes=planes,
         doc_assign=leaf(".doc_assign"),
         doc_ns=optional(".doc_ns"),

@@ -1,2 +1,3 @@
-"""Port of ``repro/core``: selectors, inverted lists, codecs, the staged
-query-execution engine and the hybrid index search."""
+"""Port of ``repro/core``: KMeans, BM25, selectors, inverted lists,
+pruning, codecs, the staged query-execution engine and the hybrid index
+build and search."""

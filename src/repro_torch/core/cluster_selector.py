@@ -1,9 +1,11 @@
-"""Cluster selector, search side (port of
-``repro/core/cluster_selector.py``: ``ClusterSelector``, ``scores``,
-``select_for_query``).
+"""Cluster selector, paper §4.1 (port of
+``repro/core/cluster_selector.py``: ``ClusterSelector``,
+``init_kmeans``, ``scores``, ``select_for_doc``, ``select_for_query``).
 
-Dispatch goes through :func:`repro_torch.kernels.assign_topk.ops.topk_scores`
-for every device: on a CUDA tensor that is the hand-written running
+Documents are indexed to their argmax cluster (one list per doc);
+queries are dispatched to the top-K^C clusters (Eq. 6).  Dispatch goes
+through :func:`repro_torch.kernels.assign_topk.ops.topk_scores` for
+every device: on a CUDA tensor that is the hand-written running
 top-k kernel (the (B, L) score plane never reaches device memory), on a
 CPU tensor its plain version.  There is no ``use_kernel`` switch.
 """
@@ -13,7 +15,12 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import kmeans
 from repro_torch.kernels.assign_topk import ops as at_ops
+
+#: documents per block of the indexing-side argmax (bounds the (n, L)
+#: score plane to BLOCK rows)
+BLOCK = 16_384
 
 
 class ClusterSelector(NamedTuple):
@@ -27,9 +34,29 @@ class ClusterSelector(NamedTuple):
         return ClusterSelector(self.embeddings.to(device))
 
 
+def init_kmeans(generator: torch.Generator, doc_embeddings: torch.Tensor,
+                n_clusters: int, n_iters: int = 20
+                ) -> tuple[ClusterSelector, torch.Tensor]:
+    """KMeans init → (selector, φ(D) assignments).  φ(D) is the
+    INNER-PRODUCT argmax over the centroids (paper §4.1), not the L2
+    assignment KMeans itself used."""
+    centroids, _ = kmeans.kmeans_fit(generator, doc_embeddings,
+                                     n_clusters=n_clusters, n_iters=n_iters)
+    selector = ClusterSelector(embeddings=centroids)
+    return selector, select_for_doc(selector, doc_embeddings)
+
+
 def scores(selector: ClusterSelector, x: torch.Tensor) -> torch.Tensor:
     """⟨e_x, e_C⟩ for a batch: (B, h) → (B, L)."""
     return x.float() @ selector.embeddings.T
+
+
+def select_for_doc(selector: ClusterSelector, doc_embeddings: torch.Tensor
+                   ) -> torch.Tensor:
+    """Indexing side: each document goes to exactly one cluster, the
+    argmax of :func:`scores` (lowest index on ties) → (n,) i32."""
+    return torch.cat([torch.argmax(scores(selector, x), dim=-1)
+                      for x in doc_embeddings.split(BLOCK)]).to(torch.int32)
 
 
 def select_for_query(selector: ClusterSelector,

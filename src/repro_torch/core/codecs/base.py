@@ -1,24 +1,35 @@
-"""The codec protocol, search side (port of
-``repro/core/codecs/base.py``: ``Codec``, ``RefineCtx``, ``gather_rows``,
-``single_device_ctx``).
+"""The codec protocol (port of ``repro/core/codecs/base.py``: ``Codec``,
+``RefineCtx``, ``gather_rows``, ``single_device_ctx``,
+``plane_bytes_per_doc``).
 
-A codec owns the document-representation-specific part of search:
-``params`` (codebooks, rotations; may be None) and ``doc_planes`` (a
-dict of per-document tensors).  Search asks it for a scorer over
-candidate rows, the stage-1 width R′ and the refine step:
+A codec owns the document-representation-specific part of an index:
+``params`` (codebooks, rotations, quantizer ranges; may be None) and
+``doc_planes`` (a dict of per-document tensors).  The build trains and
+encodes; search asks for a scorer over candidate rows, the stage-1
+width R′ and the refine step:
 
+    params = codec.train(generator, embeddings, pq_m=..., pq_k=...)
+    planes = codec.encode(params, embeddings)
     scorer = codec.make_scorer(params, doc_planes, queries)
     scores = scorer(candidate_rows, live)    # -inf where not live
     top    = topk_by_score(..., codec.refine_width(top_r))
     top    = codec.refine(..., top_r, ctx)   # identity unless re-ranking
 
-Training, encoding and the sharding hooks come with later slices.
+The sharding hooks (``partition``, ``replicate``) and ``abstract`` come
+with the multi-device slice.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+
+def plane_bytes_per_doc(doc_planes: dict) -> int:
+    """Per-document bytes of the doc planes (the device-memory ledger)."""
+    return sum(math.prod(leaf.shape[1:]) * leaf.element_size()
+               for leaf in doc_planes.values())
 
 
 def gather_rows(plane: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -40,10 +51,29 @@ def single_device_ctx() -> RefineCtx:
 
 
 class Codec:
-    """Base codec: the search-time hooks, identity refine by default."""
+    """Base codec: train/encode/decode, the search-time hooks, identity
+    refine by default."""
 
     name: str = "?"
 
+    # --- build-time ------------------------------------------------------
+    def train(self, generator: torch.Generator, embeddings: torch.Tensor,
+              *, pq_m: int = 8, pq_k: int = 256) -> Any:
+        """Fit codec parameters on the corpus (``None`` when the codec
+        is parameter-free).  ``generator`` lives on the embeddings'
+        device."""
+        return None
+
+    def encode(self, params: Any, embeddings: torch.Tensor) -> dict:
+        """(n_docs, h) → the per-document ``doc_planes`` dict."""
+        raise NotImplementedError
+
+    def decode(self, params: Any, doc_planes: dict) -> torch.Tensor:
+        """Reconstruct (n_docs, h) f32 embeddings — the numerics oracle
+        of the round-trip tests; not on the search path."""
+        raise NotImplementedError
+
+    # --- search-time -----------------------------------------------------
     def make_scorer(self, params: Any, doc_planes: dict,
                     queries: torch.Tensor) -> Callable[..., torch.Tensor]:
         """Returns ``score(ids, live=None) -> (B, C) f32`` over candidate
@@ -61,6 +91,10 @@ class Codec:
         """Re-rank the (B, R′) frontier down to (B, top_r); the identity,
         valid because ``refine_width`` is ``top_r`` here."""
         return scores, ids
+
+    # --- accounting ------------------------------------------------------
+    def bytes_per_doc(self, doc_planes: dict) -> int:
+        return plane_bytes_per_doc(doc_planes)
 
     def candidate_cost(self, budget: int, top_r: int) -> int:
         """Per-query latency proxy: the candidate budget plus any refine

@@ -1,6 +1,11 @@
-"""Term selector, search side (port of ``repro/core/term_selector.py``:
-``TermSelector`` and ``query_terms``; the indexing side comes with the
-build slice)."""
+"""Term selector, paper §4.2 Eq. 7–8 (port of
+``repro/core/term_selector.py``: ``TermSelector``, ``query_terms``,
+``doc_terms`` and ``fit_unsup``; the supervised MLP scorer comes with
+supervised training).
+
+Indexing side: the top-K₁ᵀ salient BM25 terms of each document.
+Search side: dispatch the query to ≤ K₂ᵀ of its own terms ranked by the
+stored corpus-average term scores s̄ — no model on the query path."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -39,3 +44,20 @@ def query_terms(selector: TermSelector, query_tokens: torch.Tensor,
     if k_eff < k2:
         ids = torch.nn.functional.pad(ids, (0, k2 - k_eff), value=PAD_ID)
     return ids
+
+
+def doc_terms(tokens: torch.Tensor, position_scores: torch.Tensor, k1: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Indexing side: top-K₁ᵀ unique terms per document (+ scores)."""
+    return bm25.top_terms(tokens, position_scores, k1)
+
+
+def fit_unsup(tokens: torch.Tensor, vocab_size: int, alpha: float = 0.82,
+              beta: float = 0.68
+              ) -> tuple[TermSelector, torch.Tensor, bm25.BM25Stats]:
+    """HI²_unsup: BM25 stats + s̄ from the corpus → (selector,
+    per-position corpus scores (n, L), stats)."""
+    stats = bm25.fit(tokens, vocab_size)
+    pos_scores = bm25.score_positions(tokens, stats, alpha=alpha, beta=beta)
+    sbar = bm25.average_term_scores(tokens, pos_scores, vocab_size)
+    return TermSelector(avg_scores=sbar), pos_scores, stats

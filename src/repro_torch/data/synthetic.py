@@ -1,0 +1,172 @@
+"""Synthetic retrieval corpus with controlled semantic/lexical structure
+(port of ``repro/data/synthetic.py``: a numpy-only copy, so the port
+needs nothing of the reference package; the same ``seed`` gives
+identical arrays).
+
+MS MARCO / NQ text and the paper's BERT checkpoints are unavailable
+offline, so we generate a corpus that preserves the *property the paper
+exploits* (DESIGN.md §2): a tunable fraction of relevant (query, doc)
+pairs are **semantically hard** — the query embedding lands far from the
+document's cluster — while still **sharing rare salient terms** with the
+document.  IVF alone must miss these pairs at small K^C; term-side lists
+recover them; the hybrid wins (paper RQ2).
+
+Generative model
+    topics   t = 1..T        : unit centers c_t ∈ R^h, topical term sets
+    document d (topic t)     : e_D = normalize(c_t + σ_doc·ε + idio)
+                               tokens ~ mix(Zipf background, topical terms,
+                                            doc-salient rare terms)
+    query    q → positive d  : tokens share d's salient terms;
+        easy  (1−p_hard)     : e_Q = normalize(e_D + σ_easy·ε)
+        hard  (p_hard)       : e_Q = normalize(mix(e_D, c_{t'}) + σ_hard·ε)
+                               (pulled toward a *different* topic)
+
+Two embedding "models" (A and B) of different quality are derived per
+corpus for the paper's RQ3 robustness study: B applies a fixed random
+orthogonal rotation plus extra noise to both sides — a weaker but
+consistent encoder.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+PAD_ID = -1
+
+
+@dataclasses.dataclass
+class Corpus:
+    doc_emb: np.ndarray        # (n_docs, h) f32 — embedding model A
+    doc_tokens: np.ndarray     # (n_docs, doc_len) i32, PAD_ID padded
+    query_emb: np.ndarray      # (n_queries, h)
+    query_tokens: np.ndarray   # (n_queries, query_len) i32
+    qrels: np.ndarray          # (n_queries,) i32 positive doc id
+    doc_topic: np.ndarray      # (n_docs,) i32
+    is_hard: np.ndarray        # (n_queries,) bool — semantically-hard flag
+    vocab_size: int
+    # embedding model B (same corpus, weaker encoder) for RQ3
+    doc_emb_b: Optional[np.ndarray] = None
+    query_emb_b: Optional[np.ndarray] = None
+
+
+def _normalize(x: np.ndarray) -> np.ndarray:
+    return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-9)
+
+
+def _zipf_probs(v: int, s: float = 1.07) -> np.ndarray:
+    p = 1.0 / np.arange(1, v + 1) ** s
+    return p / p.sum()
+
+
+def generate(seed: int = 0, *, n_docs: int = 20000, n_queries: int = 1000,
+             hidden: int = 64, vocab_size: int = 8192, n_topics: int = 128,
+             doc_len: int = 64, query_len: int = 8,
+             p_hard: float = 0.35, sigma_doc: float = 0.35,
+             sigma_easy: float = 0.12, sigma_hard: float = 0.22,
+             hard_topic_mix: float = 0.18, p_lexical: float = 0.75,
+             topical_terms: int = 40, salient_per_doc: int = 3,
+             make_model_b: bool = True) -> Corpus:
+    rng = np.random.default_rng(seed)
+
+    # --- topics -------------------------------------------------------------
+    centers = _normalize(rng.normal(size=(n_topics, hidden)))
+    # topical terms drawn from the mid-frequency band; doc-salient terms from
+    # the rare tail (high ids under the Zipf order) so they get high IDF.
+    mid_lo, mid_hi = vocab_size // 16, vocab_size // 2
+    topic_terms = rng.integers(mid_lo, mid_hi, size=(n_topics, topical_terms))
+    rare_lo = vocab_size // 2
+
+    # --- documents ----------------------------------------------------------
+    doc_topic = rng.integers(0, n_topics, size=n_docs)
+    idio = rng.normal(size=(n_docs, hidden)) * 0.15
+    doc_emb = _normalize(centers[doc_topic]
+                         + rng.normal(size=(n_docs, hidden)) * sigma_doc
+                         + idio).astype(np.float32)
+
+    zipf = _zipf_probs(vocab_size)
+    n_bg = doc_len - doc_len // 3 - salient_per_doc
+    n_top = doc_len // 3
+    bg = rng.choice(vocab_size, size=(n_docs, n_bg), p=zipf)
+    tt = topic_terms[doc_topic][
+        np.arange(n_docs)[:, None],
+        rng.integers(0, topical_terms, size=(n_docs, n_top))]
+    salient = rng.integers(rare_lo, vocab_size, size=(n_docs, salient_per_doc))
+    doc_tokens = np.concatenate([bg, tt, salient], axis=1).astype(np.int32)
+    perm = rng.random(doc_tokens.shape).argsort(axis=1)
+    doc_tokens = np.take_along_axis(doc_tokens, perm, axis=1)
+
+    # --- queries ------------------------------------------------------------
+    qrels = rng.integers(0, n_docs, size=n_queries).astype(np.int32)
+    is_hard = rng.random(n_queries) < p_hard
+
+    pos_emb = doc_emb[qrels]
+    other_topic = rng.integers(0, n_topics, size=n_queries)
+    hard_emb = _normalize((1 - hard_topic_mix) * pos_emb
+                          + hard_topic_mix * centers[other_topic]
+                          + rng.normal(size=(n_queries, hidden)) * sigma_hard)
+    easy_emb = _normalize(pos_emb
+                          + rng.normal(size=(n_queries, hidden)) * sigma_easy)
+    query_emb = np.where(is_hard[:, None], hard_emb, easy_emb).astype(np.float32)
+
+    # query tokens: the positive doc's salient terms + topical + background.
+    # Only a p_lexical fraction of queries carries the salient terms — term
+    # matching must be strong-but-imperfect (paper Fig. 4: w.o. Clus beats
+    # w.o. Term but both lose to the hybrid).
+    n_sal_q = min(2, salient_per_doc)
+    q_sal = salient[qrels][:, :n_sal_q]
+    has_lex = rng.random(n_queries) < p_lexical
+    lex_fallback = rng.choice(vocab_size, size=q_sal.shape, p=zipf)
+    q_sal = np.where(has_lex[:, None], q_sal, lex_fallback)
+    n_top_q = (query_len - n_sal_q) // 2
+    q_top = topic_terms[doc_topic[qrels]][
+        np.arange(n_queries)[:, None],
+        rng.integers(0, topical_terms, size=(n_queries, n_top_q))]
+    n_bg_q = query_len - n_sal_q - n_top_q
+    q_bg = rng.choice(vocab_size, size=(n_queries, n_bg_q), p=zipf)
+    query_tokens = np.concatenate([q_sal, q_top, q_bg], axis=1).astype(np.int32)
+
+    corpus = Corpus(doc_emb=doc_emb, doc_tokens=doc_tokens,
+                    query_emb=query_emb, query_tokens=query_tokens,
+                    qrels=qrels, doc_topic=doc_topic.astype(np.int32),
+                    is_hard=is_hard, vocab_size=vocab_size)
+
+    if make_model_b:
+        # model B: fixed orthogonal rotation + extra isotropic noise on both
+        # towers — a weaker encoder with consistent query/doc geometry.
+        # nb=0.1/dim ⇒ noise norm ≈ 0.8 vs unit signal: Flat recall drops
+        # to the paper's "weaker encoder" band rather than collapsing.
+        q_rot, _ = np.linalg.qr(rng.normal(size=(hidden, hidden)))
+        nb = 0.10
+        corpus.doc_emb_b = _normalize(
+            doc_emb @ q_rot + rng.normal(size=doc_emb.shape) * nb
+        ).astype(np.float32)
+        corpus.query_emb_b = _normalize(
+            query_emb @ q_rot + rng.normal(size=query_emb.shape) * nb
+        ).astype(np.float32)
+    return corpus
+
+
+def hard_negatives(corpus: Corpus, n_neg: int, seed: int = 0) -> np.ndarray:
+    """Topic-matched hard negatives for distillation training.
+
+    (The paper samples BM25 top-200; same-topic docs are the synthetic
+    equivalent — lexically & semantically confusable non-positives.)
+    """
+    rng = np.random.default_rng(seed)
+    n_queries = corpus.qrels.shape[0]
+    pos_topics = corpus.doc_topic[corpus.qrels]
+    # docs grouped by topic for O(1) sampling
+    order = np.argsort(corpus.doc_topic, kind="stable")
+    sorted_topics = corpus.doc_topic[order]
+    starts = np.searchsorted(sorted_topics, np.arange(sorted_topics.max() + 2))
+    negs = np.empty((n_queries, n_neg), np.int32)
+    for i in range(n_queries):
+        t = pos_topics[i]
+        lo, hi = starts[t], starts[t + 1]
+        pool = order[lo:hi]
+        if len(pool) == 0:
+            pool = np.arange(corpus.doc_emb.shape[0])
+        negs[i] = rng.choice(pool, size=n_neg, replace=len(pool) < n_neg)
+    return negs

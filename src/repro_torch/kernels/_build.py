@@ -27,6 +27,7 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 SOURCES = {
     "pq_adc_fused": _KERNELS / "pq_adc" / "csrc" / "pq_adc_fused.cu",
     "topk_scores": _KERNELS / "assign_topk" / "csrc" / "topk_scores.cu",
+    "sq8_dot_fused": _KERNELS / "sq8_dot" / "csrc" / "sq8_dot_fused.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

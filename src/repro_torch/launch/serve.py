@@ -1,19 +1,31 @@
 """Single-device serving (port of ``repro/launch/serve.py``:
-``ServeConfig``, ``resolve_widths``, ``Server``, ``make_server``).
+``ServeConfig``, ``resolve_widths``, ``Server``, ``make_server`` and the
+``main`` demo loop).
 
 :class:`Server` holds one index on one device and pads every request
 batch to ``max_batch``, so each search runs at one shape.  The sharded,
 2-D mesh, mutable and micro-batching layouts of the reference are not
 yet ported: asking for them raises.
+
+    python -m repro_torch.launch.serve --device cpu --codec refine:sq8
+
+builds an index over the synthetic corpus and serves its queries, as
+``python -m repro.launch.serve`` does; ``--device`` defaults to
+``cuda``, and the device chooses the kernels (no ``--use-kernel``).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import sys
+import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import device as dev_mod
+from repro_torch.core import codecs
 from repro_torch.core import hybrid_index as hi
 from repro_torch.core.exec import filters as ns_filters
 
@@ -123,3 +135,88 @@ def make_server(index: hi.HybridIndex, cfg: ServeConfig, *,
     """The server for ``cfg``: the single-device :class:`Server` (other
     layouts raise "not yet ported")."""
     return Server(index, cfg, device=device)
+
+
+#: reference flags whose layouts are not yet ported (flag → its default)
+_UNPORTED_FLAGS = {"shards": 1, "data_parallel": 1, "mutable": False,
+                   "runtime": False, "fusion_weight": None}
+
+
+def main(argv: Optional[list] = None) -> None:
+    ap = argparse.ArgumentParser(description="HI² serving demo loop")
+    ap.add_argument("--docs", type=int, default=8000)
+    ap.add_argument("--queries", type=int, default=256)
+    ap.add_argument("--codec", default=codecs.DEFAULT,
+                    metavar="|".join(codecs.registered()),
+                    help="any registered codec spec, e.g. sq8 or refine:pq:4")
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--kc", type=int, default=None,
+                    help=f"clusters probed per query (default {DEFAULT_KC})")
+    ap.add_argument("--k2", type=int, default=None,
+                    help=f"term lists probed per query (default "
+                         f"{DEFAULT_K2})")
+    ap.add_argument("--namespaces", type=int, default=0,
+                    help="partition the corpus into N namespaces and demo "
+                         "per-query filtered search (DESIGN.md §9)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; the hand-written kernels) or cpu "
+                         "(their plain PyTorch versions)")
+    for flag in ("--shards", "--data-parallel"):
+        ap.add_argument(flag, type=int, default=1, help="not yet ported")
+    for flag in ("--mutable", "--runtime"):
+        ap.add_argument(flag, action="store_true", help="not yet ported")
+    ap.add_argument("--fusion-weight", type=float, default=None,
+                    help="not yet ported")
+    args = ap.parse_args(argv)
+    for field, default in _UNPORTED_FLAGS.items():
+        if getattr(args, field) != default:
+            raise NotImplementedError(
+                f"--{field.replace('_', '-')} is not yet ported to "
+                "repro_torch")
+    codecs.get(args.codec)   # fail fast (with the registered names) on typos
+    dev = dev_mod.resolve(args.device)
+
+    from repro_torch.data import synthetic
+    corpus = synthetic.generate(seed=0, n_docs=args.docs,
+                                n_queries=args.queries,
+                                hidden=64, vocab_size=4096)
+    # round-robin tenant assignment for the demo corpus
+    doc_ns = (np.arange(args.docs) % args.namespaces
+              if args.namespaces else None)
+    index = hi.build(0, corpus.doc_emb, corpus.doc_tokens,
+                     corpus.vocab_size, n_clusters=128, k1_terms=10,
+                     codec=args.codec, pq_m=8, pq_k=256,
+                     cluster_capacity=192, term_capacity=96,
+                     kmeans_iters=8, doc_namespaces=doc_ns, device=dev)
+    server = make_server(index, ServeConfig(
+        kc=args.kc, k2=args.k2, max_batch=args.batch,
+        n_namespaces=args.namespaces), device=dev)
+    server.warmup(64, corpus.query_tokens.shape[1])
+    t0 = time.perf_counter()
+    for i in range(0, args.queries, args.batch):
+        server.query(corpus.query_emb[i:i + args.batch],
+                     corpus.query_tokens[i:i + args.batch])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    print(f"served {server.n_served} queries in {dt:.3f}s "
+          f"({server.n_served / dt:.0f} q/s, 1 device)")
+    if args.namespaces:
+        # each query restricted to one tenant; results must honor it
+        b = min(args.batch, args.queries)
+        want = [i % args.namespaces for i in range(b)]
+        res = server.query(corpus.query_emb[:b], corpus.query_tokens[:b],
+                           namespaces=want)
+        ids = res.doc_ids.cpu().numpy()
+        ok = all((ids[i][ids[i] >= 0] % args.namespaces == want[i]).all()
+                 for i in range(b))
+        print(f"filtered: {b} queries x 1/{args.namespaces} namespaces, "
+              f"mean candidates "
+              f"{float(res.n_candidates.float().mean()):.0f}, "
+              f"tenant isolation {'OK' if ok else 'VIOLATED'}")
+        if not ok:
+            sys.exit("namespace filter violated tenant isolation")
+
+
+if __name__ == "__main__":
+    main()

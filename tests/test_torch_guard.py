@@ -45,6 +45,10 @@ def _imported_modules(path: pathlib.Path) -> list[str]:
 def test_port_sources_import_neither_jax_nor_the_reference():
     files = sorted(_PORT.rglob("*.py")) + [_ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    walked = {f.relative_to(_PORT).as_posix() for f in files[:-1]}
+    assert {"data/synthetic.py", "kernels/sq8_dot/ops.py",
+            "kernels/sq8_dot/ref.py", "core/kmeans.py",
+            "core/codecs/sq8.py", "core/codecs/refine.py"} <= walked
     offenders = [(f.relative_to(_ROOT).as_posix(), m) for f in files
                  for m in _imported_modules(f) if _FORBIDDEN.search(m)]
     assert not offenders, offenders
@@ -63,6 +67,8 @@ def test_importing_every_port_module_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'repro'))\n"
         "assert len(mods) > 20, mods\n"
+        "assert {'repro_torch.data.synthetic',"
+        " 'repro_torch.kernels.sq8_dot.ops'} <= set(mods), mods\n"
         "assert not bad, bad\n")
     env = {"PYTHONPATH": str(_ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -111,9 +117,13 @@ def test_unported_layouts_and_codecs_raise(tmp_path):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             serve.make_server(index, serve.ServeConfig(**field),
                               device="cpu")
-    for spec in ("sq8", "refine:pq:4"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ckpt.index_from_numpy(leaves, spec, device="cpu")
+    # every reference codec is ported: an unknown spec names them all
+    with pytest.raises(ValueError, match="flat, opq, pq, refine, sq8"):
+        ckpt.index_from_numpy(leaves, "sq9", device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        hi.build(0, np.zeros((40, 8), np.float32),
+                 np.zeros((40, 3), np.int32), 16, n_clusters=4, k1_terms=1,
+                 sparse=True, device="cpu")
     with pytest.raises(NotImplementedError, match="fusion"):
         hi.search(index, np.zeros((1, 8), np.float32),
                   np.zeros((1, 2), np.int32), kc=1, k2=1, top_r=3,

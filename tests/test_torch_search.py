@@ -1,7 +1,8 @@
 """Port parity of the search path: ``repro_torch`` search and ``Server``
 on the CPU against ``repro.core.hybrid_index.search`` (both
 ``use_kernel`` settings), on indexes the JAX package built and saved
-with ``save_index`` and the port read with ``load_index``.
+with ``save_index`` and the port read with ``load_index`` — for every
+registered codec, the ``sq8`` and ``refine:*`` settings included.
 
 The contract is the reference's own (DESIGN.md §11): dispatch ids,
 candidate planes and ``n_candidates`` exact; top-R ids exact up to
@@ -10,6 +11,8 @@ order for the bitwise ``flat`` codec; scores within rtol=atol=1e-4.
 The framework tie traps (top-k tie order, the two-key total order,
 stable dedup, C < R padding) each have a pinned case below.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +22,7 @@ import torch
 from repro.checkpoint import checkpoint as jckpt
 from repro.core import bm25 as jbm25
 from repro.core import cluster_selector as jcs
+from repro.core import codecs as jcodecs
 from repro.core import exec as jexec
 from repro.core import hybrid_index as jhi
 from repro.core import inverted_lists as jil
@@ -27,6 +31,7 @@ from repro.core.exec import filters as jfilters
 from repro.data import synthetic
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core import cluster_selector as cs
+from repro_torch.core import codecs
 from repro_torch.core import exec as qexec
 from repro_torch.core import hybrid_index as hi
 from repro_torch.core import inverted_lists as il
@@ -48,19 +53,31 @@ def corpus():
                               vocab_size=512, n_topics=8)
 
 
+#: index name → (codec spec, namespaces?); the sq8 and refine settings
+#: reuse the opq index's KMeans (cluster_sel + doc_assign), the pattern
+#: of examples/quickstart.py's codec sweep
+SETTINGS = {"opq": ("opq", False), "pq": ("pq", False),
+            "flat": ("flat", False), "opq_filtered": ("opq", True),
+            "sq8": ("sq8", False), "refine_sq8": ("refine:sq8:4", False),
+            "refine_pq": ("refine:pq:4", False),
+            "refine_opq": ("refine:opq", False)}
+
+
 @pytest.fixture(scope="module")
 def indexes(corpus, tmp_path_factory):
     """name → (JAX index, port index loaded from its checkpoint)."""
     out = {}
     ns = (np.arange(1500) % N_NS).astype(np.int32)
-    for name, codec, doc_ns in (("opq", "opq", None), ("pq", "pq", None),
-                                ("flat", "flat", None),
-                                ("opq_filtered", "opq", ns)):
+    for name, (codec, filtered) in SETTINGS.items():
+        reuse = ({} if name in ("opq", "pq", "flat", "opq_filtered") else
+                 dict(cluster_sel=out["opq"][0].cluster_sel,
+                      doc_assign=out["opq"][0].doc_assign))
         idx = jhi.build(jax.random.key(0), jnp.asarray(corpus.doc_emb),
                         jnp.asarray(corpus.doc_tokens), corpus.vocab_size,
                         n_clusters=16, k1_terms=4, codec=codec, pq_m=4,
                         pq_k=64, cluster_capacity=128, term_capacity=32,
-                        kmeans_iters=3, doc_namespaces=doc_ns)
+                        kmeans_iters=3, doc_namespaces=ns if filtered
+                        else None, **reuse)
         path = jckpt.save_index(str(tmp_path_factory.mktemp(name)), 0, idx)
         out[name] = (idx, ckpt.load_index(path, device="cpu"))
     return out
@@ -97,7 +114,7 @@ def _jax_stages(idx, qe, qt, kc, k2, use_kernel):
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
-@pytest.mark.parametrize("name", ["opq", "pq", "flat", "opq_filtered"])
+@pytest.mark.parametrize("name", sorted(SETTINGS))
 def test_search_matches_reference(indexes, corpus, name, use_kernel):
     jidx, tidx = indexes[name]
     qe, qt = corpus.query_emb, corpus.query_tokens
@@ -121,7 +138,8 @@ def test_search_matches_reference(indexes, corpus, name, use_kernel):
                       exact=name == "flat")
 
 
-@pytest.mark.parametrize("name", ["opq", "flat", "opq_filtered"])
+@pytest.mark.parametrize("name", ["opq", "flat", "opq_filtered",
+                                  "refine_sq8"])
 def test_server_ragged_batch_matches_reference(indexes, corpus, name):
     jidx, tidx = indexes[name]
     n = 11                                            # < max_batch
@@ -176,6 +194,50 @@ def test_ivf_and_term_only_and_cost_match_reference(indexes, corpus):
             == jhi.candidate_budget(jidx, 6, 8))
     assert (hi.candidate_cost(tidx, 6, 8, 100)
             == jhi.candidate_cost(jidx, 6, 8, 100))
+
+
+@pytest.mark.parametrize("name", ["sq8", "refine_sq8", "refine_pq",
+                                  "refine_opq"])
+def test_quantized_checkpoints_load_with_the_reference_planes(indexes,
+                                                              name):
+    """The sq8 params and the fp16 refine plane arrive as the JAX build
+    wrote them, and the codec's cost accounting agrees."""
+    jidx, tidx = indexes[name]
+    assert tidx.codec == SETTINGS[name][0]
+    for key, plane in jidx.doc_planes.items():
+        got = tidx.doc_planes[key].numpy()
+        assert got.dtype == np.asarray(plane).dtype, key
+        np.testing.assert_array_equal(got, np.asarray(plane))
+    if "sq8" in name:
+        for key in ("lo", "scale"):
+            np.testing.assert_array_equal(
+                tidx.codec_params[key].numpy(),
+                np.asarray(jidx.codec_params[key]))
+    spec = SETTINGS[name][0]
+    assert (codecs.get(spec).bytes_per_doc(tidx.doc_planes)
+            == jcodecs.get(spec).bytes_per_doc(jidx.doc_planes))
+    for kc, k2, r in ((6, 8, 100), (2, 3, 10)):
+        assert (hi.candidate_cost(tidx, kc, k2, r)
+                == jhi.candidate_cost(jidx, kc, k2, r))
+
+
+@pytest.mark.parametrize("spec", ["refine", "refine:sq8", "refine:opq:2",
+                                  "refine:flat:1", "sq8"])
+def test_codec_spec_grammar_matches_reference(spec):
+    got, want = codecs.get(spec), jcodecs.get(spec)
+    assert got.name == want.name
+    assert got.refine_width(100) == want.refine_width(100)
+    assert got.candidate_cost(5000, 100) == want.candidate_cost(5000, 100)
+
+
+@pytest.mark.parametrize("spec,err", [("refine:pq:x", "refine[:base[:mult]]"),
+                                      ("refine:pq:0", "mult must be >= 1"),
+                                      ("refine:nope", "unknown codec"),
+                                      ("sq9", "unknown codec")])
+def test_codec_spec_errors_match_reference(spec, err):
+    for get in (codecs.get, jcodecs.get):
+        with pytest.raises(ValueError, match=re.escape(err)):
+            get(spec)
 
 
 def test_metrics_match_reference(indexes, corpus):
