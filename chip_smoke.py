@@ -37,11 +37,34 @@ never prints the final line.  Every phase prints its seconds.
               ``refine:sq8:4``, then ``opq`` and ``flat`` over the same
               KMeans; each is served in 256-query batches and scored
               (R@100, MRR@10) beside the brute-force ``flat.search``;
-              ``refine:sq8:4`` must stay within 0.01 R@100 of ``flat``;
+              ``refine:sq8:4`` must stay within 0.01 R@100 of ``flat``.
+              Each build is a counted run: KMeans and OPQ training must
+              launch ``assign_argmax`` the expected number of times;
+ 11a. flash   ``flash_attention`` against its plain version at edge cases
+              (f32 / bf16, d 16-128, causal, windows, GQA, ragged and
+              fully-masked rows, strided inputs; out and lse) and at
+              llama3-8b's attention shape;
+ 11b. assign  ``assign_argmax`` against its plain version at ragged N / L,
+              h 8 / 40 / 768, the batched PQ axis, constructed ties, and
+              the build's full width on 65,536 corpus points;
+ 12. sup      the HI²_sup indexing path: the term-scorer encoder at the
+              paper's BERT slot (768-d, 12 heads, 2 layers, V = 30,528;
+              random weights from ``--seed`` carried across in the
+              reference's leaf layout) and phase 10's cluster embeddings;
+              position scores of 1,024 docs against the CPU plain path;
+              ``build_sup_index(codec="refine:sq8:4")`` over all N as a
+              counted run (one ``flash_attention`` launch per layer per
+              4,096-doc chunk); 4 x 256 queries served and 8 checked
+              against the CPU; R@100 / MRR@10 beside phase 10's;
+ 13. times    both new kernels at the path's shapes, beside their bounds,
+              plain versions and library yardsticks;
 
-then prints the ``kernels`` JSON line and, last, the ``ok`` line.  It
-imports only the port, never jax or the reference package, and exits
-non-zero without a card.
+then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
+kernel's ``launches`` is read from the counted run of the path that runs
+it: ``pq_adc_fused`` and ``topk_scores`` from phase 5, ``sq8_dot_fused``
+from 9c, ``assign_argmax`` from phase 10's builds, ``flash_attention``
+from phase 12.  It imports only the port, never jax or the reference
+package, and exits non-zero without a card.
 """
 from __future__ import annotations
 
@@ -55,6 +78,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -67,6 +91,7 @@ from repro_torch.core import exec as qexec  # noqa: E402
 from repro_torch.core import hybrid_index as hi  # noqa: E402
 from repro_torch.core import inverted_lists  # noqa: E402
 from repro_torch.core import metrics  # noqa: E402
+from repro_torch.core import term_selector as ts_mod  # noqa: E402
 from repro_torch.core.codecs import flat as flat_codec  # noqa: E402
 from repro_torch.core.codecs import pq as pq_codec  # noqa: E402
 from repro_torch.core.codecs import sq8 as sq8_codec  # noqa: E402
@@ -74,11 +99,15 @@ from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.assign_topk import ops as at_ops  # noqa: E402
 from repro_torch.kernels.assign_topk import ref as at_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.pq_adc import ops as adc_ops  # noqa: E402
 from repro_torch.kernels.pq_adc import ref as adc_ref  # noqa: E402
 from repro_torch.kernels.sq8_dot import ops as sq8_ops  # noqa: E402
 from repro_torch.kernels.sq8_dot import ref as sq8_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 
 # the serve_msmarco serving shape (configs/hi2_synth.py::HI2ServeShape)
 N_DOCS, HIDDEN, N_CLUSTERS, VOCAB = 8_841_984, 768, 10_000, 30_528
@@ -93,6 +122,31 @@ REFINE_CODEC = "refine:sq8:4"        # serve_msmarco_refine_sq8's codec
 BUILD_DOCS, BUILD_QUERIES, BUILD_ITERS = 1_048_576, 1_024, 15
 REFINE_RECALL_GAP = 0.01             # R@100 of refine:sq8:4 vs flat
 DESIGN_RECALL_GAP = 0.001            # the DESIGN.md §7 contract, reported
+# assign_argmax launches of each phase-10 build: KMeans runs BUILD_ITERS
+# Lloyd steps and a final assignment; OPQ (codecs/pq.py::train_opq
+# defaults) fits PQ_FITS = 5 PQ codebooks of PQ_ITERS + 1 assignments,
+# encodes 4 times for Procrustes, and the build encodes once more
+PQ_FITS, PQ_ITERS, OPQ_OUTER = 5, 10, 4
+BUILD_ASSIGN_LAUNCHES = {REFINE_CODEC: BUILD_ITERS + 1,
+                         "opq": PQ_FITS * (PQ_ITERS + 1) + OPQ_OUTER + 1,
+                         "flat": 0}
+# stage seconds of the cuBLAS + argmax assignment route that
+# assign_argmax replaced, on an H100 80GB HBM3 at 700 W (PERF.md §5)
+CUBLAS_ROUTE_STAGES = {"clusters": 6.65, "codec_train": 13.13}
+
+# the HI²_sup term scorer: the encoder train_hi2_sup builds at the
+# paper's BERT slot (768-d, 12 heads, d_ff 4·d, 2 layers = SupTrainConfig
+# encoder_layers), f32 compute; chunks of ENCODE_BATCH documents
+ENC_LAYERS, ENC_HEADS, ENCODE_BATCH = 2, 12, 4096
+N_SUP_CHECK = 1_024                  # docs held against the CPU encoder
+SUP_TOL = 1e-4                       # position scores, rtol = atol
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # out, rtol = atol
+LSE_TOL = 1e-4
+ASSIGN_TOL = 1e-5                    # rtol = atol: dot-product order
+ASSIGN_BLOCK = 65_536                # points per block of a timed plane
+ASSIGN_SIZES = (1, 7, 513, 10_000)   # ragged N and L of phase 11b
+# llama3-8b's attention (configs/llama3_8b.py): B, S, Hq, Hkv, d (bf16)
+LLAMA_ATTN = (1, 4096, 32, 8, 128)
 
 # H100 SXM published peaks (NVIDIA H100 datasheet)
 PEAK_FP32_FLOPS = 67e12              # fp32 outside the tensor cores
@@ -104,9 +158,12 @@ SQ8_EDGE_RTOL, SQ8_EDGE_ATOL = 1e-4, 1e-2   # the JAX kernel test's own
 SQ8_TOL = 1e-4                       # rtol = atol after the bias
 N_CHECK = 8                          # queries held against the CPU path
 
-#: kernel → its wrapper module (each holds the ``launches`` count)
-COUNTERS = {"pq_adc_fused": adc_ops, "topk_scores": at_ops,
-            "sq8_dot_fused": sq8_ops}
+#: kernel → (its wrapper module, the name of its launch count there)
+COUNTERS = {"pq_adc_fused": (adc_ops, "launches"),
+            "topk_scores": (at_ops, "launches"),
+            "sq8_dot_fused": (sq8_ops, "launches"),
+            "assign_argmax": (at_ops, "assign_launches"),
+            "flash_attention": (fa_ops, "launches")}
 
 
 def log(*parts) -> None:
@@ -128,12 +185,12 @@ def phase(name: str):
 
 
 def reset_counts() -> None:
-    for mod in COUNTERS.values():
-        mod.launches = 0
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def read_counts() -> dict:
-    return {k: mod.launches for k, mod in COUNTERS.items()}
+    return {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
 
 
 # --------------------------------------------------------------------------
@@ -626,29 +683,45 @@ def check_planted(results, qrels, what: str) -> None:
 
 def check_cpu(cpu_index, qe8, qt8, inp: dict, first, tol: float) -> None:
     """Phase 6: the first N_CHECK queries against the CPU plain path
-    over the same planes; near-tie queries are listed, not checked."""
+    over the same planes.  A query whose K^C-th and next cluster scores
+    lie within TOPK_TOL may dispatch another set of clusters: it is
+    listed, not checked.  One whose near-ties lie inside its top K^C
+    dispatches the same set in a possibly other order: its cluster ids
+    are compared as a set and its candidate plane (ordered by dispatch)
+    is not, while n_candidates and the top-R are checked as for any
+    other query."""
     t0 = time.perf_counter()
     ref = hi.search(cpu_index, qe8, qt8, kc=KC, k2=K2, top_r=TOP_R,
                     device="cpu")
     cpu_s = time.perf_counter() - t0
     full = torch.from_numpy(qe8) @ cpu_index.cluster_sel.embeddings.T
     top = torch.sort(full, dim=-1, descending=True).values[:, : KC + 1]
-    near_tie = ((top[:, :-1] - top[:, 1:]) <= TOPK_TOL).any(dim=1)
+    gaps = top[:, :-1] - top[:, 1:]
+    boundary = gaps[:, KC - 1] <= TOPK_TOL
+    inner = (gaps[:, : KC - 1] <= TOPK_TOL).any(dim=1)
     with torch.inference_mode():
         cpu_cl, cpu_tm = qexec.dispatch(
             cpu_index.cluster_sel, cpu_index.term_sel,
             torch.from_numpy(qe8), torch.from_numpy(qt8).long(), KC, K2)
         cpu_cands = qexec.gather([hi.base_source(cpu_index)], cpu_cl,
                                  cpu_tm).cands
-    skipped = []
+    skipped, as_sets = [], []
     for b in range(N_CHECK):
-        if bool(near_tie[b]):
+        if bool(boundary[b]):
             skipped.append(b)
             continue
-        if not torch.equal(inp["cl_ids"][b].cpu(), cpu_cl[b]):
-            fail(f"query {b}: dispatch ids differ from the CPU path")
-        if not torch.equal(inp["cands"][b].cpu(), cpu_cands[b]):
-            fail(f"query {b}: candidate plane differs from the CPU path")
+        got_cl = inp["cl_ids"][b].cpu()
+        if bool(inner[b]):
+            as_sets.append(b)
+            if not torch.equal(torch.sort(got_cl).values,
+                               torch.sort(cpu_cl[b]).values):
+                fail(f"query {b}: dispatched clusters differ from the CPU "
+                     f"path")
+        else:
+            if not torch.equal(got_cl, cpu_cl[b]):
+                fail(f"query {b}: dispatch ids differ from the CPU path")
+            if not torch.equal(inp["cands"][b].cpu(), cpu_cands[b]):
+                fail(f"query {b}: candidate plane differs from the CPU path")
         if int(first.n_candidates[b]) != int(ref.n_candidates[b]):
             fail(f"query {b}: n_candidates differs from the CPU path")
         if not topk_match(ref.doc_ids[b].numpy(), ref.scores[b].numpy(),
@@ -657,7 +730,8 @@ def check_cpu(cpu_index, qe8, qt8, inp: dict, first, tol: float) -> None:
             fail(f"query {b}: top-R differs from the CPU path")
     log(f"[check] {cpu_index.codec}: {N_CHECK - len(skipped)} of {N_CHECK} "
         f"queries match the CPU plain path (CPU search {cpu_s:.1f} s); "
-        f"near-tie queries skipped: {skipped}")
+        f"near-ties inside the top K^C (clusters compared as a set): "
+        f"{as_sets}; near-ties at the K^C boundary, skipped: {skipped}")
 
 
 def time_kernels(inp: dict) -> dict:
@@ -735,9 +809,13 @@ def time_sq8(inp: dict) -> dict:
         bound_ms=sq8_bound[0], bound_by=sq8_bound[1])}
 
 
-def build_on_card(dev, seed: int) -> None:
+def build_on_card(dev, seed: int) -> dict:
     """Phase 10: the port's build on the card at N = BUILD_DOCS (full
-    widths), three codecs over one KMeans, each served and scored."""
+    widths), three codecs over one KMeans, each served and scored.  Each
+    build is a counted run that must launch ``assign_argmax`` exactly
+    BUILD_ASSIGN_LAUNCHES times.  Returns what phase 12 reuses: the
+    corpus, its planes on the card, the KMeans selector and φ(D), the
+    ``refine:sq8:4`` quality and the builds' ``assign_argmax`` launches."""
     with phase("build: synthetic corpus on the host"):
         corpus = synthetic.generate(seed, n_docs=BUILD_DOCS,
                                     n_queries=BUILD_QUERIES, hidden=HIDDEN,
@@ -756,29 +834,46 @@ def build_on_card(dev, seed: int) -> None:
     kernels = {REFINE_CODEC: ("sq8_dot_fused", "topk_scores"),
                "opq": ("pq_adc_fused", "topk_scores"),
                "flat": ("topk_scores",)}
-    recall, base = {}, None
+    recall, mrr, base, assign_launches = {}, {}, None, 0
     for spec in (REFINE_CODEC, "opq", "flat"):
         with phase(f"build: {spec} index"):
             timings = {}
             reuse = ({} if base is None else
                      dict(cluster_sel=base.cluster_sel,
                           doc_assign=base.doc_assign))
+            reset_counts()
             index = hi.build(seed, emb, tokens, VOCAB, n_clusters=N_CLUSTERS,
                              k1_terms=K1_TERMS, codec=spec, pq_m=PQ_M,
                              pq_k=PQ_K, cluster_capacity=CLUSTER_CAP,
                              term_capacity=TERM_CAP,
                              kmeans_iters=BUILD_ITERS, device=dev,
                              timings=timings, **reuse)
+            torch.cuda.synchronize()
+            launches = read_counts()
             log(f"[build] {spec} stage seconds: "
-                + ", ".join(f"{k} {v:.2f}" for k, v in timings.items()))
+                + ", ".join(f"{k} {v:.2f}" for k, v in timings.items())
+                + f"; launches {launches}")
+            before = {k: v for k, v in CUBLAS_ROUTE_STAGES.items()
+                      if k in timings and timings[k] > 1.0}
+            if before:
+                log(f"[build] {spec} with assign_argmax beside the cuBLAS + "
+                    f"argmax route: " + ", ".join(
+                        f"{k} {timings[k]:.2f} s (cuBLAS + argmax: {v} s)"
+                        for k, v in before.items()))
+            if launches["assign_argmax"] != BUILD_ASSIGN_LAUNCHES[spec]:
+                fail(f"{spec} build launched assign_argmax "
+                     f"{launches['assign_argmax']} times, expected "
+                     f"{BUILD_ASSIGN_LAUNCHES[spec]}")
+            assign_launches += launches["assign_argmax"]
         with phase(f"build: serve {spec}"):
             _, results, launches = serve_batches(
                 index, dev, qe, qt, BUILD_QUERIES // BATCH, kernels[spec],
                 f"built {spec}")
             ids = torch.cat([r.doc_ids for r in results]).cpu()
             recall[spec] = metrics.recall_at_k(ids, corpus.qrels, 100)
+            mrr[spec] = metrics.mrr_at_k(ids, corpus.qrels, 10)
             log(f"[build] {spec}: R@100 {recall[spec]:.4f}, MRR@10 "
-                f"{metrics.mrr_at_k(ids, corpus.qrels, 10):.4f}, candidate "
+                f"{mrr[spec]:.4f}, candidate "
                 f"cost {hi.candidate_cost(index, KC, K2, TOP_R)}, launches "
                 f"{launches}")
         base = index if base is None else base
@@ -789,6 +884,380 @@ def build_on_card(dev, seed: int) -> None:
     if gap > REFINE_RECALL_GAP:
         fail(f"{REFINE_CODEC} R@100 {recall[REFINE_CODEC]} is more than "
              f"{REFINE_RECALL_GAP} below flat's {recall['flat']}")
+    return dict(corpus=corpus, emb=emb, tokens=tokens,
+                cluster_sel=base.cluster_sel, doc_assign=base.doc_assign,
+                recall=recall[REFINE_CODEC], mrr=mrr[REFINE_CODEC],
+                assign_launches=assign_launches)
+
+
+# --------------------------------------------------------------------------
+# phases 11-13: flash_attention, assign_argmax and the HI²_sup path
+# --------------------------------------------------------------------------
+
+def _bshd(gen, dev, b, s, h, d, dtype):
+    """A (B, H, S, d) view of (B, S, H, d) memory, as the attention
+    layer's projections hand the kernel."""
+    return torch.randn((b, s, h, d), generator=gen, device=dev).to(
+        dtype).transpose(1, 2)
+
+
+def check_flash(q, k, v, causal, window, what: str) -> float:
+    """Kernel against the plain version: out within FLASH_TOL of its
+    dtype, lse within LSE_TOL of the plain scores' logsumexp, dead rows
+    (no visible key) zeros with lse NEG_INF.  Returns the out error."""
+    out, lse = fa_ops.flash_attention(q, k, v, causal, window)
+    want, wlse = fa_ref.flash_attention(q, k, v, causal, window)
+    tol = FLASH_TOL[q.dtype]
+    if not torch.allclose(out.float(), want.float(), rtol=tol, atol=tol):
+        fail(f"flash_attention {what}: out differs beyond {tol} (max "
+             f"{float((out.float() - want.float()).abs().max()):.3g})")
+    if not torch.allclose(lse, wlse, rtol=LSE_TOL, atol=LSE_TOL):
+        fail(f"flash_attention {what}: lse differs beyond {LSE_TOL}")
+    dead = wlse == fa_ref.NEG_INF
+    if not torch.equal(lse == fa_ref.NEG_INF, dead) or bool(
+            (out[dead] != 0).any()):
+        fail(f"flash_attention {what}: fully-masked rows are not zeros "
+             f"with lse -1e30")
+    return float((out.float() - want.float()).abs().max())
+
+
+def llama_qkv(gen, dev):
+    b, s_len, hq, hkv, d = LLAMA_ATTN
+    return (_bshd(gen, dev, b, s_len, hq, d, torch.bfloat16),
+            *(_bshd(gen, dev, b, s_len, hkv, d, torch.bfloat16)
+              for _ in range(2)))
+
+
+def flash_parity(dev, seed: int) -> float:
+    """Phase 11a: ``flash_attention`` at edge cases and at llama3-8b's
+    attention shape; returns the largest out error."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    heads = [(4, 4), (4, 2), (8, 1), (32, 8)]
+    lengths = [(1, 200), (63, 63), (200, 384), (384, 63), (384, 384)]
+    masks = [(False, 0), (True, 0), (False, 32), (True, 32)]
+    err, n_cases, n_dead = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (16, 64, 128):
+            for causal, window in masks:
+                hq, hkv = heads[n_cases % len(heads)]
+                sq, sk = lengths[n_cases % len(lengths)]
+                q = _bshd(gen, dev, 2, sq, hq, d, dtype)
+                k, v = (_bshd(gen, dev, 2, sk, hkv, d, dtype)
+                        for _ in range(2))
+                what = (f"{dtype} d={d} causal={causal} window={window} "
+                        f"heads=({hq},{hkv}) sq={sq} sk={sk}")
+                err[dtype] = max(err[dtype], check_flash(q, k, v, causal,
+                                                         window, what))
+                n_cases += 1
+    # non-causal windows with Sq != Sk: rows with no visible key
+    for sq, sk in ((384, 63), (200, 1)):
+        q = _bshd(gen, dev, 2, sq, 4, 64, torch.float32)
+        k, v = (_bshd(gen, dev, 2, sk, 2, 64, torch.float32)
+                for _ in range(2))
+        err[torch.float32] = max(err[torch.float32], check_flash(
+            q, k, v, False, 32, f"dead rows sq={sq} sk={sk}"))
+        n_dead += int((fa_ref.flash_attention(q, k, v, False, 32)[1]
+                       == fa_ref.NEG_INF).sum())
+    if not n_dead:
+        fail("flash_attention: the dead-row cases masked no row")
+    # full size: llama3-8b's attention, one batch
+    q, k, v = llama_qkv(gen, dev)
+    err[torch.bfloat16] = max(err[torch.bfloat16], check_flash(
+        q, k, v, True, 0, f"llama3-8b {LLAMA_ATTN} bf16 causal"))
+    log(f"[flash] {n_cases} edge cases + 2 dead-row cases ({n_dead} dead "
+        f"rows) + llama3-8b full size: max abs out err f32 "
+        f"{err[torch.float32]:.3g} (tol {FLASH_TOL[torch.float32]}), bf16 "
+        f"{err[torch.bfloat16]:.3g} (tol {FLASH_TOL[torch.bfloat16]}); lse "
+        f"within {LSE_TOL}")
+    return max(err.values())
+
+
+def check_assign(x, c, what: str, ties: bool = False) -> tuple[float, int]:
+    """Kernel against the plain version: scores within ASSIGN_TOL; ids
+    identical except where the plain scores of the two ids lie within
+    ASSIGN_TOL (listed by count); on constructed ties (every centroid j
+    of the upper half a copy of j - half) the lower twin always wins.
+    Returns (max score error, near-tie rows)."""
+    gs, gi = at_ops.assign_argmax(x, c)
+    ws, wi = at_ref.assign_argmax(x, c)
+    if not torch.allclose(gs, ws, rtol=ASSIGN_TOL, atol=ASSIGN_TOL):
+        fail(f"assign_argmax {what}: scores differ beyond {ASSIGN_TOL}")
+    diff = gi != wi
+    near = 0
+    if diff.any():
+        cb = c if c.dim() == 3 else c[None]
+        xb = x if x.dim() == 3 else x[None]
+        gib = gi if gi.dim() == 2 else gi[None]
+        own = (torch.einsum("mnh,mnh->mn", xb,
+                            torch.gather(cb, 1, gib.long()[..., None].expand(
+                                -1, -1, cb.shape[2])))
+               - 0.5 * torch.gather((cb * cb).sum(-1), 1, gib.long()))
+        gap = (own.reshape(ws.shape) - ws).abs()[diff]
+        if (gap > ASSIGN_TOL + ASSIGN_TOL * ws.abs()[diff]).any():
+            fail(f"assign_argmax {what}: ids differ beyond near-ties")
+        near = int(diff.sum())
+    if ties and bool((gi >= (c.shape[-2] + 1) // 2).any()):
+        fail(f"assign_argmax {what}: a constructed tie went to the higher "
+             f"index")
+    return float((gs - ws).abs().max()), near
+
+
+def assign_parity(dev, seed: int, emb, centroids) -> float:
+    """Phase 11b: ``assign_argmax`` at ragged N and L, h 8 / 40 / 768,
+    the batched PQ axis, constructed ties, and the build's full width on
+    65,536 corpus points against phase 10's centroids."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    err, near, n_cases = 0.0, {}, 0
+    for n in ASSIGN_SIZES:
+        for l in ASSIGN_SIZES:
+            h = (8, 40, 768)[n_cases % 3]
+            x = torch.randn((n, h), generator=gen, device=dev)
+            c = torch.randn((l, h), generator=gen, device=dev)
+            e, nt = check_assign(x, c, f"n={n} l={l} h={h}")
+            err, near[f"{n}x{l}x{h}"] = max(err, e), nt
+            n_cases += 1
+    big = ASSIGN_SIZES[-1]
+    for m, n, l, h in ((PQ_M, big, PQ_K, HIDDEN // PQ_M),
+                       (1, big, big, HIDDEN)):
+        x = torch.randn((n, m, h), generator=gen, device=dev).transpose(0, 1)
+        half = torch.randn((m, (l + 1) // 2, h), generator=gen, device=dev)
+        c = torch.cat([half, half], dim=1)[:, :l].contiguous()
+        e, nt = check_assign(x, c, f"ties m={m} n={n} l={l} h={h}",
+                             ties=True)
+        err, near[f"ties {m}x{n}x{l}x{h}"] = max(err, e), nt
+    e, nt = check_assign(emb[:ASSIGN_BLOCK], centroids, "build width")
+    err, near[f"build width {ASSIGN_BLOCK}x{centroids.shape[0]}"] = (
+        max(err, e), nt)
+    log(f"[assign] {n_cases} ragged cases + 2 tie cases + build width: max "
+        f"abs score err {err:.3g} (tol {ASSIGN_TOL}); ids differing at "
+        f"near-ties (plain scores within {ASSIGN_TOL}): "
+        f"{ {k: v for k, v in near.items() if v} }")
+    return err
+
+
+def sup_params(rng: np.random.Generator, centroids: np.ndarray) -> dict:
+    """DistillParams leaves in the reference's layout: the term-scorer
+    encoder and MLP drawn at the init scales of ``layers.dense_init``
+    (N(0, 1/d_in)), ``embedding_init`` (N(0, 0.02²)) and
+    ``term_selector.init_mlp``; the cluster embeddings given."""
+    d, f, L = HIDDEN, 4 * HIDDEN, ENC_LAYERS
+
+    def normal(shape, scale):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(scale))
+
+    leaves = {
+        ".cluster_embeddings": centroids,
+        ".term_mlp.w1": normal((d, d), d ** -0.5),
+        ".term_mlp.b1": np.zeros(d, np.float32),
+        ".term_mlp.w2": normal((d, 1), d ** -0.5),
+        ".term_mlp.b2": np.zeros(1, np.float32),
+        ".encoder['embed']['table']": normal((VOCAB, d), 0.02),
+        ".encoder['final_norm']['scale']": np.ones(d, np.float32),
+        ".encoder['unembed']['w']": normal((d, VOCAB), d ** -0.5),
+        ".encoder['layers']['attn_norm']['scale']": np.ones((L, d),
+                                                            np.float32),
+        ".encoder['layers']['mlp_norm']['scale']": np.ones((L, d),
+                                                           np.float32),
+        ".encoder['layers']['mlp']['w_gate']['w']": normal((L, d, f),
+                                                           d ** -0.5),
+        ".encoder['layers']['mlp']['w_up']['w']": normal((L, d, f),
+                                                         d ** -0.5),
+        ".encoder['layers']['mlp']['w_down']['w']": normal((L, f, d),
+                                                           f ** -0.5),
+    }
+    for w in ("wq", "wk", "wv", "wo"):
+        leaves[f".encoder['layers']['attn']['{w}']['w']"] = normal(
+            (L, d, d), d ** -0.5)
+    return leaves
+
+
+def check_sup_scores(sel, params, enc_cfg, tokens) -> None:
+    """The first N_SUP_CHECK documents' position scores against the CPU
+    plain path, and their top-K₁ᵀ term lists, equal except documents
+    whose CPU scores hold a near-tie within SUP_TOL (listed)."""
+    first = sel.position_scores(tokens[:ENCODE_BATCH])[:N_SUP_CHECK].cpu()
+    cpu_tokens = tokens[:N_SUP_CHECK].cpu()
+    t0 = time.perf_counter()
+    cpu = train.SupSelectors(params, enc_cfg, encode_batch=N_SUP_CHECK,
+                             device="cpu").position_scores(cpu_tokens)
+    cpu_s = time.perf_counter() - t0
+    if not torch.allclose(first, cpu, rtol=SUP_TOL, atol=SUP_TOL):
+        fail(f"HI²_sup position scores differ from the CPU beyond "
+             f"{SUP_TOL} (max {float((first - cpu).abs().max()):.3g})")
+    ids, _ = ts_mod.doc_terms(cpu_tokens, first, K1_TERMS)
+    wids, wsc = ts_mod.doc_terms(cpu_tokens, cpu, K1_TERMS + 1)
+    gaps = (wsc[:, :-1] - wsc[:, 1:]).abs()
+    near = torch.nonzero((gaps <= SUP_TOL).any(dim=1)).flatten().tolist()
+    same = (ids == wids[:, :K1_TERMS]).all(dim=1)
+    bad = [d for d in torch.nonzero(~same).flatten().tolist()
+           if d not in near]
+    if bad:
+        fail(f"HI²_sup term lists differ from the CPU on docs {bad[:10]}")
+    log(f"[sup] {N_SUP_CHECK} docs: position scores match the CPU plain "
+        f"path (max abs err {float((first - cpu).abs().max()):.3g}, tol "
+        f"{SUP_TOL}; CPU encoder {cpu_s:.1f} s); term lists equal except "
+        f"near-tie docs {near} (of which differing: "
+        f"{[d for d in near if not bool(same[d])]})")
+
+
+def sup_path(dev, seed: int, built: dict) -> tuple[dict, dict]:
+    """Phase 12: the HI²_sup indexing path at the paper's BERT slot over
+    phase 10's corpus and cluster embeddings.  Returns (the counted
+    run's launches, what phase 13 times: one chunk's q, k, v)."""
+    with phase("12a sup: parameters"):
+        enc_cfg = tfm.TransformerConfig(
+            n_layers=ENC_LAYERS, d_model=HIDDEN, n_heads=ENC_HEADS,
+            n_kv_heads=ENC_HEADS, d_ff=4 * HIDDEN, vocab_size=VOCAB,
+            causal=False, compute_dtype=torch.float32, remat=False)
+        leaves = sup_params(np.random.default_rng(seed),
+                            built["cluster_sel"].embeddings.cpu().numpy())
+        n_params = sum(a.size for p, a in leaves.items()
+                       if p.startswith(".encoder"))
+        params = ckpt.distill_params_from_numpy(leaves, enc_cfg, device=dev)
+        del leaves
+        sel = train.SupSelectors(params, enc_cfg, encode_batch=ENCODE_BATCH,
+                                 device=dev)
+        log(f"[sup] encoder {ENC_LAYERS} layers x d {HIDDEN}, {ENC_HEADS} "
+            f"heads, d_ff {4 * HIDDEN}, V {VOCAB}: {n_params / 1e6:.1f} M "
+            f"parameters")
+    with phase("12b sup: scores against the CPU"):
+        check_sup_scores(sel, params, enc_cfg, built["tokens"])
+    corpus = built["corpus"]
+    with phase("12c sup: build_sup_index (counted)"):
+        timings = {}
+        reset_counts()
+        index = train.build_sup_index(
+            types.SimpleNamespace(doc_emb=built["emb"],
+                                  doc_tokens=built["tokens"],
+                                  vocab_size=VOCAB),
+            params, enc_cfg, built["doc_assign"], k1_terms=K1_TERMS,
+            codec=REFINE_CODEC, cluster_capacity=CLUSTER_CAP,
+            term_capacity=TERM_CAP, encode_batch=ENCODE_BATCH, device=dev,
+            timings=timings)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        chunks = -(-BUILD_DOCS // ENCODE_BATCH)
+        n_tokens = BUILD_DOCS * corpus.doc_tokens.shape[1]
+        log(f"[sup] build_sup_index stage seconds: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in timings.items())
+            + f"; launches {launches}; the encoder over {n_tokens} tokens: "
+            f"{n_tokens / timings['position_scores'] / 1e6:.2f} M tokens/s")
+        want = {"flash_attention": ENC_LAYERS * chunks, "assign_argmax": 0}
+        for kname, n in want.items():
+            if launches[kname] != n:
+                fail(f"HI²_sup build launched {kname} {launches[kname]} "
+                     f"times, expected {n}")
+    with phase("12d sup: serving"):
+        qe, qt = corpus.query_emb, corpus.query_tokens
+        _, results, serve_launches = serve_batches(
+            index, dev, qe, qt, BUILD_QUERIES // BATCH,
+            ("sq8_dot_fused", "topk_scores"), f"HI²_sup {REFINE_CODEC}")
+        ids = torch.cat([r.doc_ids for r in results]).cpu()
+        r100 = metrics.recall_at_k(ids, corpus.qrels, 100)
+        m10 = metrics.mrr_at_k(ids, corpus.qrels, 10)
+        log(f"[sup] HI²_sup {REFINE_CODEC}: R@100 {r100:.4f}, MRR@10 "
+            f"{m10:.4f} beside phase 10's HI²_unsup {REFINE_CODEC}: R@100 "
+            f"{built['recall']:.4f}, MRR@10 {built['mrr']:.4f} (random "
+            f"encoder: this checks the path, not quality)")
+    with phase("12e sup: check against the CPU"):
+        qe0 = torch.from_numpy(qe[:BATCH]).to(dev)
+        qt0 = torch.from_numpy(qt[:BATCH]).to(dev).long()
+        inp = main_path_inputs(index, qe0, qt0)
+        check_cpu(index.to("cpu"), qe[:N_CHECK], qt[:N_CHECK], inp,
+                  results[0], SQ8_TOL)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s_len = corpus.doc_tokens.shape[1]
+    d_head = HIDDEN // ENC_HEADS
+    shapes = dict(q=_bshd(gen, dev, ENCODE_BATCH, s_len, ENC_HEADS, d_head,
+                          torch.float32))
+    shapes["k"], shapes["v"] = (_bshd(gen, dev, ENCODE_BATCH, s_len,
+                                      ENC_HEADS, d_head, torch.float32)
+                                for _ in range(2))
+    return launches, shapes
+
+
+def time_new_kernels(flash_in: dict, emb, centroids) -> dict:
+    """Phase 13: ``flash_attention`` at one encoder chunk's shape and
+    ``assign_argmax`` at the build's KMeans and PQ shapes: kernel, plain
+    and library times beside each bound.  The plain versions and the
+    library's assignment build an (n, L) plane, so they run in blocks of
+    ASSIGN_BLOCK points (the whole plane at N = 1,048,576 is 42 GB)."""
+    timer = Timer()
+    q, k, v = flash_in["q"], flash_in["k"], flash_in["v"]
+    b, hq, s_len, d = q.shape
+    fa_flops = 4.0 * b * hq * s_len * s_len * d
+    fa_bytes = 4.0 * (4 * b * hq * s_len * d + b * hq * s_len)
+    fa_bound = bound(fa_flops, fa_bytes)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flash = dict(
+        ms=timer.ms(lambda: fa_ops.flash_attention(q, k, v, False, 0),
+                    reps=10),
+        plain_ms=timer.ms(lambda: fa_ref.flash_attention(q, k, v, False, 0),
+                          reps=5),
+        library_ms=timer.ms(lambda: sdpa(q, k, v), reps=10),
+        bound_ms=fa_bound[0], bound_by=fa_bound[1])
+    log(f"[times] flash_attention at B={b}, H={hq}, S={s_len}, d={d} f32 "
+        f"(one encoder chunk): {fa_flops / 1e9:.1f} GFLOP, "
+        f"{fa_bytes / 1e9:.2f} GB; kernel {flash['ms']:.3f} ms, plain "
+        f"{flash['plain_ms']:.3f} ms, library (scaled_dot_product_attention)"
+        f" {flash['library_ms']:.3f} ms, bound {fa_bound[0]:.3f} ms "
+        f"({fa_bound[1]})")
+    gen = torch.Generator(device=q.device).manual_seed(1)
+    lq, lk, lv = llama_qkv(gen, q.device)
+    lb, ls, lhq, lhkv, ld = LLAMA_ATTN
+    l_bound = bound(4.0 * lb * lhq * ls * ls * ld / 2,    # causal: half
+                    2.0 * lb * ls * ld * (2 * lhq + 2 * lhkv))
+    l_ms = timer.ms(lambda: fa_ops.flash_attention(lq, lk, lv, True, 0),
+                    reps=10)
+    l_lib = timer.ms(lambda: sdpa(lq, lk, lv, is_causal=True,
+                                  enable_gqa=True), reps=10)
+    log(f"[times] flash_attention at llama3-8b's shape {LLAMA_ATTN} (B, S, "
+        f"Hq, Hkv, d; bf16, causal): kernel {l_ms:.3f} ms, library "
+        f"{l_lib:.3f} ms, bound at the fp32 FMA rate {l_bound[0]:.3f} ms "
+        f"({l_bound[1]}; the kernel widens bf16 to fp32 FMAs)")
+
+    def blocked(fn, x, c):
+        def run():
+            for i in range(0, x.shape[-2], ASSIGN_BLOCK):
+                fn(x[..., i:i + ASSIGN_BLOCK, :], c)
+        return run
+
+    def library(xb, c):
+        return torch.argmax(xb @ c.transpose(-1, -2)
+                            - 0.5 * (c * c).sum(-1)[..., None, :], dim=-1)
+
+    n, h = emb.shape
+    l = centroids.shape[0]
+    as_flops = 2.0 * n * l * h
+    as_bytes = 4.0 * (n * h + l * h + 2 * n)
+    as_bound = bound(as_flops, as_bytes)
+    assign = dict(
+        ms=timer.ms(lambda: at_ops.assign_argmax(emb, centroids), reps=3,
+                    warm=1),
+        plain_ms=timer.ms(blocked(at_ref.assign_argmax, emb, centroids),
+                          reps=2, warm=1),
+        library_ms=timer.ms(blocked(library, emb, centroids), reps=2,
+                            warm=1),
+        bound_ms=as_bound[0], bound_by=as_bound[1])
+    log(f"[times] assign_argmax at the KMeans shape N={n}, L={l}, h={h}: "
+        f"{as_flops / 1e12:.2f} TFLOP; kernel {assign['ms']:.1f} ms, plain "
+        f"{assign['plain_ms']:.1f} ms, library (torch.argmax(x @ c.T - "
+        f"½‖c‖²) in {ASSIGN_BLOCK}-point blocks) {assign['library_ms']:.1f} "
+        f"ms, bound {as_bound[0]:.1f} ms ({as_bound[1]})")
+    m, dsub = PQ_M, h // PQ_M
+    frags = emb.reshape(n, m, dsub).transpose(0, 1)
+    gen = torch.Generator(device=emb.device).manual_seed(2)
+    cw = torch.randn((m, PQ_K, dsub), generator=gen, device=emb.device)
+    pq_bound = bound(2.0 * m * n * PQ_K * dsub,
+                     4.0 * (n * h + m * PQ_K * dsub + 2 * m * n))
+    pq_ms = timer.ms(lambda: at_ops.assign_argmax(frags, cw), reps=5)
+    pq_lib = timer.ms(blocked(library, frags, cw), reps=3, warm=1)
+    log(f"[times] assign_argmax at the PQ shape m={m}, N={n}, k={PQ_K}, "
+        f"d_sub={dsub} (strided view): kernel {pq_ms:.1f} ms, library "
+        f"(blocked) {pq_lib:.1f} ms, bound {pq_bound[0]:.2f} ms "
+        f"({pq_bound[1]})")
+    return {"flash_attention": flash, "assign_argmax": assign}
 
 
 SOURCES = {   # kernel → (CUDA source, the TPU kernel's pallas_call)
@@ -800,6 +1269,12 @@ SOURCES = {   # kernel → (CUDA source, the TPU kernel's pallas_call)
     "sq8_dot_fused": ("src/repro_torch/kernels/sq8_dot/csrc/"
                       "sq8_dot_fused.cu",
                       "src/repro/kernels/sq8_dot/kernel.py:79"),
+    "assign_argmax": ("src/repro_torch/kernels/assign_topk/csrc/"
+                      "assign_argmax.cu",
+                      "src/repro/kernels/assign_topk/kernel.py:156"),
+    "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/"
+                        "flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:117"),
 }
 
 
@@ -886,14 +1361,26 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
 
     with phase("10 build on the card"):
-        build_on_card(dev, args.seed)
+        built = build_on_card(dev, args.seed)
+    with phase("11a parity (flash_attention)"):
+        errs["flash_attention"] = flash_parity(dev, args.seed + 2)
+    with phase("11b parity (assign_argmax)"):
+        errs["assign_argmax"] = assign_parity(
+            dev, args.seed + 3, built["emb"], built["cluster_sel"].embeddings)
+    with phase("12 HI²_sup path"):
+        sup_launches, flash_in = sup_path(dev, args.seed, built)
+    with phase("13 times (flash_attention, assign_argmax)"):
+        times.update(time_new_kernels(flash_in, built["emb"],
+                                      built["cluster_sel"].embeddings))
 
-    launches = dict(opq_launches, sq8_dot_fused=refine_launches[
-        "sq8_dot_fused"])
+    launches = dict(opq_launches,
+                    sq8_dot_fused=refine_launches["sq8_dot_fused"],
+                    assign_argmax=built["assign_launches"],
+                    flash_attention=sup_launches["flash_attention"])
     kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
                     replaces=SOURCES[k][1], launches=launches[k],
                     max_abs_err=errs[k], **times[k])
-               for k in ("pq_adc_fused", "topk_scores", "sq8_dot_fused")]
+               for k in SOURCES]
     log(f"[seconds] total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

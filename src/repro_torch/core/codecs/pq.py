@@ -90,13 +90,9 @@ def pq_encode(codebook: PQCodebook, x: torch.Tensor) -> torch.Tensor:
     """Quantize embeddings to codes: (n, h) → (n, m) i32, per subspace
     the argmax of ⟨x, c⟩ − ‖c‖²/2 (the L2 argmin, lowest code on
     ties)."""
-    c = codebook.codewords.float()                           # (m, k, dsub)
-    c_norm = 0.5 * torch.sum(c * c, dim=-1)[:, None, :]      # (m, 1, k)
-    ct = c.transpose(1, 2)
-    return torch.cat([
-        torch.argmax(split_fragments(xb.float(), codebook.m).transpose(0, 1)
-                     @ ct - c_norm, dim=-1).T            # (blk, m)
-        for xb in x.split(ENCODE_BLOCK)]).to(torch.int32)
+    frags = split_fragments(x.float(), codebook.m).transpose(0, 1)
+    return kmeans.assign_blocked(frags, codebook.codewords,
+                                 block=ENCODE_BLOCK).T.contiguous()
 
 
 def pq_decode(codebook: PQCodebook, codes: torch.Tensor) -> torch.Tensor:

@@ -4,10 +4,13 @@
 
 The substrate of the cluster selector (paper §4.1: cluster embeddings
 from KMeans over all document embeddings) and of PQ training (one
-KMeans per embedding fragment, §3.2).  Assignment is a blocked fp32
-matmul + argmax, as in the reference (plain jnp there, no Pallas);
-TF32 stays off (``repro_torch/__init__.py``), since it would move
-assignments.  Every function also takes a leading batch axis — points
+KMeans per embedding fragment, §3.2).  Assignment goes through
+:func:`repro_torch.kernels.assign_topk.ops.assign_argmax`: on a CUDA
+tensor the hand-written kernel, one launch per call over the whole
+(m, n, h) batch (it builds no (n, L) score plane); on a CPU tensor its
+plain version, a fp32 matmul + argmax in blocks of ``block`` points as
+in the reference (``assign_blocked``, plain jnp there).  TF32 stays off
+(``repro_torch/__init__.py``), since it would move assignments.  Every function also takes a leading batch axis — points
 (m, n, h) against centroids (m, L, h) — which is the reference's
 ``vmap`` of m independent fits written out (``pq.train_pq``).
 
@@ -18,13 +21,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.assign_topk import ops as at_ops
+
 
 def _assign(x: torch.Tensor, c: torch.Tensor, block: int) -> torch.Tensor:
-    c = c.float()
-    c_norm = 0.5 * torch.sum(c * c, dim=-1)[:, None, :]        # (m, 1, L)
-    ct = c.transpose(1, 2)
-    return torch.cat([torch.argmax(xb.float() @ ct - c_norm, dim=-1)
-                      for xb in x.split(block, dim=1)], dim=1).to(torch.int32)
+    x, c = x.float(), c.float().contiguous()
+    if x.device.type == "cuda":
+        return at_ops.assign_argmax(x, c)[1]
+    return torch.cat([at_ops.assign_argmax(xb, c)[1]
+                      for xb in x.split(block, dim=1)], dim=1)
 
 
 def _sums(x: torch.Tensor, assign: torch.Tensor, n_clusters: int

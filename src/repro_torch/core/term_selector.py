@@ -1,9 +1,10 @@
 """Term selector, paper §4.2 Eq. 7–8 (port of
 ``repro/core/term_selector.py``: ``TermSelector``, ``query_terms``,
-``doc_terms`` and ``fit_unsup``; the supervised MLP scorer comes with
-supervised training).
+``doc_terms``, ``fit_unsup``, and the HI²_sup scorer ``TermMLP`` /
+``mlp_token_scores``; ``init_mlp`` comes with supervised training).
 
-Indexing side: the top-K₁ᵀ salient BM25 terms of each document.
+Indexing side: the top-K₁ᵀ salient terms of each document, scored by
+BM25 (HI²_unsup) or by the MLP over encoder token states (HI²_sup).
 Search side: dispatch the query to ≤ K₂ᵀ of its own terms ranked by the
 stored corpus-average term scores s̄ — no model on the query path."""
 from __future__ import annotations
@@ -14,6 +15,27 @@ import torch
 
 from repro_torch.core import bm25
 from repro_torch.core.bm25 import PAD_ID
+
+
+class TermMLP(NamedTuple):
+    """f(·) in Eq. 7: two-layer MLP with ReLU, R^h → R."""
+    w1: torch.Tensor  # (h, h)
+    b1: torch.Tensor  # (h,)
+    w2: torch.Tensor  # (h, 1)
+    b2: torch.Tensor  # (1,)
+
+    def to(self, device) -> "TermMLP":
+        return TermMLP(*(t.to(device) for t in self))
+
+
+def mlp_token_scores(mlp: TermMLP, hidden_states: torch.Tensor,
+                     tokens: torch.Tensor) -> torch.Tensor:
+    """Per-position saliency from encoder states, (B, L, h) → (B, L):
+    softplus of the MLP (positive, on BM25's scale); PAD positions score
+    0."""
+    x = torch.relu(hidden_states @ mlp.w1 + mlp.b1)
+    s = torch.nn.functional.softplus((x @ mlp.w2 + mlp.b2)[..., 0])
+    return s * (tokens != PAD_ID)
 
 
 class TermSelector(NamedTuple):

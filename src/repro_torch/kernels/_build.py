@@ -28,6 +28,9 @@ SOURCES = {
     "pq_adc_fused": _KERNELS / "pq_adc" / "csrc" / "pq_adc_fused.cu",
     "topk_scores": _KERNELS / "assign_topk" / "csrc" / "topk_scores.cu",
     "sq8_dot_fused": _KERNELS / "sq8_dot" / "csrc" / "sq8_dot_fused.cu",
+    "assign_argmax": _KERNELS / "assign_topk" / "csrc" / "assign_argmax.cu",
+    "flash_attention": (_KERNELS / "flash_attention" / "csrc"
+                        / "flash_attention.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

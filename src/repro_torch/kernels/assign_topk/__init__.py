@@ -1,2 +1,3 @@
-"""Dispatch top-k kernel (port of ``repro/kernels/assign_topk``: the
-``topk_scores`` entry; ``assign_argmax`` is still to be ported)."""
+"""Dispatch top-k and KMeans assignment kernels (port of
+``repro/kernels/assign_topk``: the ``topk_scores`` and ``assign_argmax``
+entries)."""

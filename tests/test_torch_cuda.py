@@ -9,7 +9,11 @@ ADC scores rtol=atol=1e-4 with identical ``-inf`` lanes; top-k ids
 identical except swaps between plain scores within 1e-5, scores within
 rtol=atol=1e-5 (the kernel and cuBLAS sum the h products in different
 orders); SQ8 dots rtol 1e-4, atol 1e-2 (the JAX kernel test's own) with
-identical ``-inf`` lanes.
+identical ``-inf`` lanes; assignment ids identical except where the
+plain scores of the two ids lie within 1e-5, and identical on
+constructed ties (duplicate centroids), scores rtol=atol=1e-5; attention
+outputs and ``lse`` rtol=atol=1e-4 in f32 (exp and the sum order) and
+2e-2 in bf16 (one bf16 rounding of the output).
 """
 import numpy as np
 import pytest
@@ -20,6 +24,8 @@ from repro_torch.core import hybrid_index as hi
 from repro_torch.core import inverted_lists as il
 from repro_torch.kernels.assign_topk import ops as at_ops
 from repro_torch.kernels.assign_topk import ref as at_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.pq_adc import ops as adc_ops
 from repro_torch.kernels.pq_adc import ref as adc_ref
 from repro_torch.kernels.sq8_dot import ops as sq8_ops
@@ -263,3 +269,134 @@ def test_build_on_the_card_matches_the_cpu_where_it_is_deterministic(cuda):
                               torch.from_numpy(c.doc_emb).to(cuda)).cpu()
             == cpu.doc_assign)
     assert float(same.float().mean()) > 0.999
+
+
+ASSIGN_CASES = {
+    # name: (m, n, l, h, duplicated centroid rows)
+    "ragged": (1, 513, 7, 40, False),
+    "one_point": (1, 1, 10_000, 768, False),
+    "ties": (1, 300, 1030, 64, True),
+    "pq_batch": (96, 700, 256, 8, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ASSIGN_CASES))
+def test_assign_argmax_kernel_matches_plain(cuda, name):
+    m, n, l, h, ties = ASSIGN_CASES[name]
+    rng = np.random.default_rng(n + l)
+    x = torch.tensor(rng.normal(size=(m, n, h)), dtype=torch.float32,
+                     device=cuda)
+    c = rng.normal(size=(m, l, h))
+    if ties:
+        c = np.concatenate([c[:, : (l + 1) // 2]] * 2, axis=1)[:, :l]
+    c = torch.tensor(c, dtype=torch.float32, device=cuda)
+    before = at_ops.assign_launches
+    gs, gi = at_ops.assign_argmax(x, c)
+    ws, wi = at_ref.assign_argmax(x, c)
+    torch.cuda.synchronize()
+    assert at_ops.assign_launches == before + 1
+    torch.testing.assert_close(gs, ws, rtol=1e-5, atol=1e-5)
+    full = x @ c.transpose(1, 2) - 0.5 * (c * c).sum(-1)[:, None, :]
+    own = torch.gather(full, 2, gi.long()[..., None])[..., 0]
+    diff = gi != wi
+    assert ((own - ws).abs()[diff] <= 1e-5 + 1e-5 * ws.abs()[diff]).all()
+    if ties:                           # the lower twin wins every tie
+        assert bool((gi < (l + 1) // 2).all())
+
+
+def test_kmeans_assign_is_one_launch_over_the_batch(cuda):
+    """PQ's (m, n, d_sub) strided view of (n, h) data goes to the kernel
+    whole: one launch, no copy, the CPU's codes."""
+    from repro_torch.core import kmeans
+    from repro_torch.core.codecs import pq
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.normal(size=(20_000, 64)), dtype=torch.float32)
+    cb = pq.PQCodebook(torch.tensor(rng.normal(size=(8, 256, 8)),
+                                    dtype=torch.float32))
+    want = pq.pq_encode(cb, x)
+    before = at_ops.assign_launches
+    got = pq.pq_encode(cb.to(cuda), x.to(cuda))
+    torch.cuda.synchronize()
+    assert at_ops.assign_launches == before + 1
+    assert float((got.cpu() == want).float().mean()) > 0.9999
+    before = at_ops.assign_launches
+    kmeans.kmeans_fit(torch.Generator(device=cuda).manual_seed(0),
+                      x[:4000].to(cuda), n_clusters=16, n_iters=3)
+    assert at_ops.assign_launches == before + 4
+
+
+FLASH_CASES = {
+    # name: (dtype, b, hq, hkv, sq, sk, d, causal, window)
+    "f32_encoder_d64": (torch.float32, 3, 12, 12, 64, 64, 64, False, 0),
+    "f32_d16_gqa_ragged": (torch.float32, 2, 4, 2, 63, 63, 16, True, 0),
+    "f32_d128_window": (torch.float32, 1, 8, 1, 200, 200, 128, True, 32),
+    "f32_dead_rows": (torch.float32, 2, 4, 4, 384, 63, 32, False, 32),
+    "bf16_d128_gqa": (torch.bfloat16, 1, 32, 8, 384, 384, 128, True, 0),
+    "bf16_one_row": (torch.bfloat16, 2, 4, 2, 1, 200, 64, False, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_attention_kernel_matches_plain(cuda, name):
+    dtype, b, hq, hkv, sq, sk, d, causal, window = FLASH_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(len(name))
+    # q, k, v as (B, H, S, d) views of (B, S, H, d) memory
+    q = torch.randn((b, sq, hq, d), generator=g, device=cuda).to(
+        dtype).transpose(1, 2)
+    k, v = (torch.randn((b, sk, hkv, d), generator=g, device=cuda).to(
+        dtype).transpose(1, 2) for _ in range(2))
+    before = fa_ops.launches
+    out, lse = fa_ops.flash_attention(q, k, v, causal, window)
+    want, wlse = fa_ref.flash_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    assert out.dtype == dtype and out.shape == (b, hq, sq, d)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, wlse, rtol=1e-4, atol=1e-4)
+    dead = wlse == fa_ref.NEG_INF
+    assert torch.equal(lse == fa_ref.NEG_INF, dead)
+    assert bool((out[dead] == 0).all())
+    if name == "f32_dead_rows":
+        assert bool(dead.any())
+
+
+def test_sup_position_scores_on_the_card_match_the_cpu(cuda):
+    """The HI²_sup term scorer on the card: every layer's attention is
+    one flash launch, and the scores are the CPU's within 1e-4."""
+    from repro_torch.core import distill, term_selector as ts
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    rng = np.random.default_rng(4)
+    cfg = tfm.TransformerConfig(n_layers=2, d_model=64, n_heads=4,
+                                n_kv_heads=4, d_ff=256, vocab_size=300,
+                                causal=False, compute_dtype=torch.float32)
+
+    def w(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale,
+                            dtype=torch.float32)
+
+    d, f, L = 64, 256, 2
+    enc = {"embed": {"table": w(300, d, scale=0.02)},
+           "final_norm": {"scale": torch.ones(d)},
+           "unembed": {"w": w(d, 300, scale=d ** -0.5)},
+           "layers": {"attn_norm": {"scale": torch.ones(L, d)},
+                      "mlp_norm": {"scale": torch.ones(L, d)},
+                      "attn": {k: {"w": w(L, d, d, scale=d ** -0.5)}
+                               for k in ("wq", "wk", "wv", "wo")},
+                      "mlp": {"w_gate": {"w": w(L, d, f, scale=d ** -0.5)},
+                              "w_up": {"w": w(L, d, f, scale=d ** -0.5)},
+                              "w_down": {"w": w(L, f, d, scale=f ** -0.5)}}}}
+    params = distill.DistillParams(
+        w(16, 32), ts.TermMLP(w(d, d, scale=0.125), torch.zeros(d),
+                              w(d, 1, scale=0.125), torch.zeros(1)), enc)
+    tokens = rng.integers(0, 300, (100, 64)).astype(np.int32)
+    tokens[::4, 40:] = -1
+    want = train.SupSelectors(params, cfg, encode_batch=64,
+                              device="cpu").position_scores(tokens)
+    before = fa_ops.launches
+    got = train.SupSelectors(params, cfg, encode_batch=64,
+                             device=cuda).position_scores(tokens)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 2 * 2      # 2 chunks x 2 layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

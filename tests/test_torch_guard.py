@@ -15,7 +15,11 @@ import torch
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core import hybrid_index as hi
 from repro_torch.kernels import _build
+from repro_torch.kernels.assign_topk import ops as at_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.launch import serve
+from repro_torch.launch import train
+from repro_torch.models import transformer as tfm
 
 torch.set_num_threads(2)
 
@@ -48,7 +52,12 @@ def test_port_sources_import_neither_jax_nor_the_reference():
     walked = {f.relative_to(_PORT).as_posix() for f in files[:-1]}
     assert {"data/synthetic.py", "kernels/sq8_dot/ops.py",
             "kernels/sq8_dot/ref.py", "core/kmeans.py",
-            "core/codecs/sq8.py", "core/codecs/refine.py"} <= walked
+            "core/codecs/sq8.py", "core/codecs/refine.py",
+            "models/layers.py", "models/attention.py",
+            "models/transformer.py", "core/distill.py", "launch/train.py",
+            "kernels/flash_attention/ops.py",
+            "kernels/flash_attention/ref.py",
+            "kernels/assign_topk/ops.py"} <= walked
     offenders = [(f.relative_to(_ROOT).as_posix(), m) for f in files
                  for m in _imported_modules(f) if _FORBIDDEN.search(m)]
     assert not offenders, offenders
@@ -68,7 +77,9 @@ def test_importing_every_port_module_loads_no_jax():
         " ('jax', 'jaxlib', 'repro'))\n"
         "assert len(mods) > 20, mods\n"
         "assert {'repro_torch.data.synthetic',"
-        " 'repro_torch.kernels.sq8_dot.ops'} <= set(mods), mods\n"
+        " 'repro_torch.kernels.sq8_dot.ops', 'repro_torch.launch.train',"
+        " 'repro_torch.models.transformer',"
+        " 'repro_torch.kernels.flash_attention.ops'} <= set(mods), mods\n"
         "assert not bad, bad\n")
     env = {"PYTHONPATH": str(_ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -157,3 +168,61 @@ def test_kernel_build_is_lazy_and_outside_the_package():
     assert srcs == sorted(p.relative_to(_PORT).as_posix()
                           for p in _build.SOURCES.values())
     assert "build/" in (_ROOT / ".gitignore").read_text().split()
+
+
+def _tiny_sup(device="cpu"):
+    """A 1-layer encoder and its DistillParams, all zeros but the norms."""
+    cfg = tfm.TransformerConfig(n_layers=1, d_model=8, n_heads=2,
+                                n_kv_heads=2, d_ff=16, vocab_size=12,
+                                causal=False, compute_dtype=torch.float32)
+    z = torch.zeros
+    enc = {"embed": {"table": z(12, 8)}, "final_norm": {"scale": z(8) + 1},
+           "unembed": {"w": z(8, 12)},
+           "layers": {"attn_norm": {"scale": z(1, 8) + 1},
+                      "mlp_norm": {"scale": z(1, 8) + 1},
+                      "attn": {k: {"w": z(1, 8, 8)}
+                               for k in ("wq", "wk", "wv", "wo")},
+                      "mlp": {"w_gate": {"w": z(1, 8, 16)},
+                              "w_up": {"w": z(1, 8, 16)},
+                              "w_down": {"w": z(1, 16, 8)}}}}
+    from repro_torch.core import distill, term_selector as ts
+    params = distill.DistillParams(
+        z(4, 8), ts.TermMLP(z(8, 8), z(8), z(8, 1), z(1)), enc)
+    return cfg, params
+
+
+def test_sup_entry_points_without_device_raise_when_cuda_is_absent(
+        monkeypatch):
+    """HI²_sup indexing defaults to the card and never falls back to the
+    CPU; the same calls run when the caller asks for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, params = _tiny_sup()
+
+    class Corpus:
+        doc_emb = np.random.default_rng(0).normal(size=(40, 8)).astype(
+            np.float32)
+        doc_tokens = np.random.default_rng(1).integers(0, 12, (40, 6))
+        vocab_size = 12
+
+    assign = np.arange(40, dtype=np.int32) % 4
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.SupSelectors(params, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.build_sup_index(Corpus, params, cfg, assign, k1_terms=2,
+                              codec="flat")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ckpt.distill_params_from_numpy({}, cfg)
+    idx = train.build_sup_index(Corpus, params, cfg, assign, k1_terms=2,
+                                codec="flat", device="cpu")
+    assert idx.device == torch.device("cpu") and idx.n_docs == 40
+
+
+def test_new_kernel_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on a card is refused, not
+    computed some other way."""
+    x = torch.zeros(3, 8, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        at_ops.assign_argmax(x, torch.zeros(4, 8, device="meta"))
+    q = torch.zeros(1, 2, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fa_ops.flash_attention(q, q, q)
