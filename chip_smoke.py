@@ -12,7 +12,8 @@ never prints the final line.  Every phase prints its seconds.
   3. index    the ``serve_msmarco`` shape (configs/hi2_synth.py:
               8,841,984 docs, h=768, L=10,000, V=30,528, capacities
               1,024, OPQ m=96 k=256) synthesized on the host from
-              ``--seed`` and moved to the card;
+              ``--seed``, with a (V, Ct) f32 BM25 impact plane, and
+              moved to the card;
   4. parity   each kernel against its plain PyTorch version on the
               card at edge shapes, and the two kernels of the ``opq``
               path at its full width;
@@ -21,12 +22,21 @@ never prints the final line.  Every phase prints its seconds.
               queries with every launch count reset just before; each
               kernel of the path must have launched, and each query must
               rank first the positive planted for it (recall@1 = 1);
+  5b. unfused ``pq_adc`` over phase 4's candidates gathered into
+              (B, C, m) codes, uint8 and int32: against its plain
+              version, bitwise equal to ``pq_adc_fused`` on live lanes,
+              and timed beside its bound;
   6. check    the first 8 queries against the same search on the CPU
               (the plain path) over the same planes;
   7. times    each kernel, its plain version and the library yardstick
               with CUDA events, beside the kernel's bound;
   8. profile  device time by kernel over one served batch
               (torch.profiler) and the device's busy share;
+  8b-d. fused the same server with ``fusion_weight=0.5`` (hybrid
+              dense∥sparse, DESIGN.md §13) answers ``--batches`` batches;
+              weight 1.0 ids bitwise equal to phase 5's, weight 0.0
+              equal to a host BM25 oracle, weight 0.5 against the CPU
+              plain path on 8 queries; one profiled fused batch;
   9. refine   the ``serve_msmarco_refine_sq8`` setting (codec
               ``refine:sq8:4``) over the same lists: an fp16 refine
               plane drawn on the card from ``--seed`` and its SQ8
@@ -39,7 +49,9 @@ never prints the final line.  Every phase prints its seconds.
               (R@100, MRR@10) beside the brute-force ``flat.search``;
               ``refine:sq8:4`` must stay within 0.01 R@100 of ``flat``.
               Each build is a counted run: KMeans and OPQ training must
-              launch ``assign_argmax`` the expected number of times;
+              launch ``assign_argmax`` the expected number of times.
+              The ``opq`` build carries the BM25 impact plane of its
+              corpus (``sparse=True``) and is also served fused;
  11a. flash   ``flash_attention`` against its plain version at edge cases
               (f32 / bf16, d 16-128, causal, windows, GQA, ragged and
               fully-masked rows, strided inputs; out and lse) and at
@@ -56,14 +68,17 @@ never prints the final line.  Every phase prints its seconds.
               counted run (one ``flash_attention`` launch per layer per
               4,096-doc chunk); 4 x 256 queries served and 8 checked
               against the CPU; R@100 / MRR@10 beside phase 10's;
- 13. times    both new kernels at the path's shapes, beside their bounds,
-              plain versions and library yardsticks;
+ 13. times    ``flash_attention`` and ``assign_argmax`` at the path's shapes,
+              beside their bounds, plain versions and library yardsticks;
+ 14. bench    the port's ``kernel_bench`` at its full shapes with
+              ``--check`` semantics, as a counted run; its report is
+              printed as a JSON line;
 
 then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
 kernel's ``launches`` is read from the counted run of the path that runs
 it: ``pq_adc_fused`` and ``topk_scores`` from phase 5, ``sq8_dot_fused``
 from 9c, ``assign_argmax`` from phase 10's builds, ``flash_attention``
-from phase 12.  It imports only the port, never jax or the reference
+from phase 12, ``pq_adc`` from phase 14.  It imports only the port, never jax or the reference
 package, and exits non-zero without a card.
 """
 from __future__ import annotations
@@ -86,6 +101,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.benchmarks import kernel_bench  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
 from repro_torch.core import exec as qexec  # noqa: E402
 from repro_torch.core import hybrid_index as hi  # noqa: E402
@@ -157,9 +173,11 @@ TOPK_TOL = 1e-5                      # rtol = atol: dot-product order
 SQ8_EDGE_RTOL, SQ8_EDGE_ATOL = 1e-4, 1e-2   # the JAX kernel test's own
 SQ8_TOL = 1e-4                       # rtol = atol after the bias
 N_CHECK = 8                          # queries held against the CPU path
+FUSION_WEIGHT = 0.5                  # the fused serving phases' RRF weight
 
 #: kernel → (its wrapper module, the name of its launch count there)
 COUNTERS = {"pq_adc_fused": (adc_ops, "launches"),
+            "pq_adc": (adc_ops, "unfused_launches"),
             "topk_scores": (at_ops, "launches"),
             "sq8_dot_fused": (sq8_ops, "launches"),
             "assign_argmax": (at_ops, "assign_launches"),
@@ -201,16 +219,18 @@ def synth_leaves(rng: np.random.Generator) -> dict:
     """Index leaves at the serve_msmarco shape: Gaussian centroids and
     codewords, an orthogonal rotation (QR of a Gaussian), uniform codes
     and doc→cluster assignment, K₁ᵀ=3 Zipf terms per document with
-    random positive impacts, positive average term scores."""
+    random impacts in [0.05, 1.05) (the (V, Ct) f32 impact plane of
+    hybrid search, descending per list, 0.0 at pads), positive average
+    term scores."""
     zipf = 1.0 / np.arange(1, VOCAB + 1) ** 1.07
     zipf /= zipf.sum()
     doc_assign = rng.integers(0, N_CLUSTERS, N_DOCS).astype(np.int32)
     cl = inverted_lists.build(np.arange(N_DOCS), doc_assign, None,
                               N_CLUSTERS, CLUSTER_CAP, device="cpu")
     terms = rng.choice(VOCAB, size=N_DOCS * K1_TERMS, p=zipf)
-    tl = inverted_lists.build(np.repeat(np.arange(N_DOCS), K1_TERMS), terms,
-                              rng.random(terms.size), VOCAB, TERM_CAP,
-                              device="cpu")
+    tl, impacts = inverted_lists.build_scored(
+        np.repeat(np.arange(N_DOCS), K1_TERMS), terms,
+        rng.random(terms.size) + 0.05, VOCAB, TERM_CAP, device="cpu")
     rotation, _ = np.linalg.qr(rng.normal(size=(HIDDEN, HIDDEN)))
     return {
         ".cluster_sel.embeddings":
@@ -220,6 +240,7 @@ def synth_leaves(rng: np.random.Generator) -> dict:
         ".cluster_lists.lengths": cl.lengths.numpy(),
         ".term_lists.entries": tl.entries.numpy(),
         ".term_lists.lengths": tl.lengths.numpy(),
+        ".sparse_weights": impacts.numpy(),
         ".codec_params.rotation": rotation.astype(np.float32),
         ".codec_params.codebook.codewords": rng.normal(
             size=(PQ_M, PQ_K, HIDDEN // PQ_M)).astype(np.float32),
@@ -541,9 +562,23 @@ def parity_edges(dev, prng: np.random.Generator) -> dict:
         sq8_ops.sq8_dot_fused(q, plane, ids, live),
         sq8_ref.sq8_dot_fused(q, plane, ids, live), SQ8_EDGE_RTOL,
         SQ8_EDGE_ATOL, "sq8_dot_fused", "unaligned_view"))
+    unfused_cases = [  # (name, b, c, m, k, code dtype, unaligned view)
+        ("c_one", 2, 1, 96, 256, np.uint8, False),
+        ("m_one", 3, 700, 1, 64, np.uint8, False),
+        ("odd_k", 2, 999, 12, 77, np.int32, False),
+        ("c_ragged_i32", 2, 8192 + 300, 96, 256, np.int32, False),
+        ("unaligned_view", 2, 500, 96, 256, np.uint8, True),
+    ]
+    for cname, b, c, m, k, dtype, unaligned in unfused_cases:
+        lut, flat = _cases_to(dev, prng.normal(size=(b, m, k)).astype(
+            np.float32), prng.integers(0, k, b * c * m + 3).astype(dtype))
+        codes = (flat[3:] if unaligned else flat[:-3]).view(b, c, m)
+        got, want = adc_ops.pq_adc(lut, codes), adc_ref.pq_adc(lut, codes)
+        errs["pq_adc"] = max(errs["pq_adc"], check_masked(
+            got, want, ADC_TOL, ADC_TOL, "pq_adc", cname))
     log(f"[parity] edge shapes: pq_adc_fused {len(adc_cases) + 1} cases, "
-        f"topk_scores {len(topk_cases)} cases, sq8_dot_fused "
-        f"{len(sq8_cases) + 1} cases")
+        f"pq_adc {len(unfused_cases)} cases, topk_scores {len(topk_cases)} "
+        f"cases, sq8_dot_fused {len(sq8_cases) + 1} cases")
     return errs
 
 
@@ -635,12 +670,14 @@ def parity_full_width_sq8(inp: dict, errs: dict) -> None:
 
 
 def serve_batches(index, dev, qe_all, qt_all, batches: int, kernels,
-                  what: str):
+                  what: str, fusion_weight=None):
     """A counted main-path run: every launch count is set to 0 just
     before the batches and read just after; each kernel in ``kernels``
-    must have launched.  Returns (server, results, launches)."""
+    must have launched.  ``fusion_weight`` serves hybrid search.
+    Returns (server, results, launches)."""
     server = serve.Server(index, serve.ServeConfig(
-        kc=KC, k2=K2, top_r=TOP_R, max_batch=BATCH), device=dev)
+        kc=KC, k2=K2, top_r=TOP_R, max_batch=BATCH,
+        fusion_weight=fusion_weight), device=dev)
     server.warmup(qe_all.shape[1], qt_all.shape[1])
     reset_counts()
     results, batch_s = [], []
@@ -667,8 +704,9 @@ def serve_batches(index, dev, qe_all, qt_all, batches: int, kernels,
             fail(f"{what}: a query evaluated fewer than R candidates")
     mean_cand = float(torch.cat([r.n_candidates for r in results])
                       .float().mean())
-    log(f"[serving] {what}: mean unique live candidates {mean_cand:.0f} of "
-        f"{hi.candidate_budget(index, KC, K2)} slots")
+    log(f"[serving] {what}: mean unique live candidates {mean_cand:.0f} "
+        f"({'dense + sparse matches; ' if fusion_weight is not None else ''}"
+        f"{hi.candidate_budget(index, KC, K2)} dense slots)")
     return server, results, launches
 
 
@@ -732,6 +770,108 @@ def check_cpu(cpu_index, qe8, qt8, inp: dict, first, tol: float) -> None:
         f"queries match the CPU plain path (CPU search {cpu_s:.1f} s); "
         f"near-ties inside the top K^C (clusters compared as a set): "
         f"{as_sets}; near-ties at the K^C boundary, skipped: {skipped}")
+
+
+def bm25_oracle(leaves: dict, term_ids: np.ndarray) -> np.ndarray:
+    """Pure sparse top-R on the host: each query's stored impacts summed
+    per document over its probed term lists in probed order (float32 adds
+    in slot order, as the fixed-shape path adds them), ranked by (score
+    desc, id asc), zero-score documents excluded."""
+    entries, weights = leaves[".term_lists.entries"], leaves[".sparse_weights"]
+    out = np.full((len(term_ids), TOP_R), inverted_lists.PAD_DOC, np.int64)
+    for b, row in enumerate(term_ids):
+        ids = entries[row[row >= 0]].reshape(-1)
+        w = weights[row[row >= 0]].reshape(-1)
+        acc = np.zeros(N_DOCS, np.float32)
+        np.add.at(acc, ids[ids >= 0], w[ids >= 0])
+        live = np.flatnonzero(acc > 0.0)
+        order = live[np.lexsort((live, -acc[live]))][:TOP_R]
+        out[b, :order.size] = order
+    return out
+
+
+def check_fused(server, cpu_index, leaves, qe_all, qt_all, dense) -> None:
+    """Phase 8c: the fused server's three contracts.  Weight 1.0: every
+    batch's ids bitwise equal to phase 5's dense-only results.  Weight
+    0.0: the first N_CHECK queries' ids equal to the host BM25 oracle.
+    Weight FUSION_WEIGHT against the CPU plain path on N_CHECK queries:
+    the sparse top-R and its count bitwise equal to the CPU's, the fused
+    top-R bitwise equal to the CPU's fusion of the card's dense and
+    sparse lists (the dense half is held to the CPU by phase 6), and
+    every query whose dense ids equal the CPU's dense ids has the CPU's
+    fused result exactly (the others, dense near-ties, are listed)."""
+    server.set_fusion(1.0)
+    for i, want in enumerate(dense):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        if not torch.equal(server.query(qe_all[sl], qt_all[sl]).doc_ids,
+                           want.doc_ids):
+            fail(f"fused weight 1.0 batch {i}: ids differ from dense-only")
+    qe8, qt8 = qe_all[:N_CHECK], qt_all[:N_CHECK]
+    term_ids = ts_mod.query_terms(cpu_index.term_sel,
+                                  torch.from_numpy(qt8).long(), K2)
+    server.set_fusion(0.0)
+    got0 = server.query(qe8, qt8).doc_ids.cpu().numpy()
+    t0 = time.perf_counter()
+    oracle = bm25_oracle(leaves, term_ids.numpy())
+    oracle_s = time.perf_counter() - t0
+    if not np.array_equal(got0, oracle):
+        fail("fused weight 0.0 differs from the BM25 oracle on queries "
+             f"{np.flatnonzero((got0 != oracle).any(axis=1)).tolist()}")
+    server.set_fusion(FUSION_WEIGHT)
+    fus = qexec.FusionSpec(weight=FUSION_WEIGHT)
+    got = server.query(qe8, qt8)
+    dev = server.device
+    with torch.inference_mode():
+        _, dev_terms = qexec.dispatch(
+            server.index.cluster_sel, server.index.term_sel,
+            torch.from_numpy(qe8).to(dev), torch.from_numpy(qt8).to(dev)
+            .long(), KC, K2)
+        card_sp = qexec.sparse_topk([hi.base_source(server.index)],
+                                    dev_terms, TOP_R, None)
+        cpu_sp = qexec.sparse_topk([hi.base_source(cpu_index)], term_ids,
+                                   TOP_R, None)
+    if not torch.equal(dev_terms.cpu(), term_ids):
+        fail("fused: dispatched term ids differ from the CPU's")
+    for g, w, what in zip(card_sp, cpu_sp, ("scores", "ids", "counts")):
+        if not torch.equal(g.cpu(), w):
+            fail(f"fused: sparse top-R {what} differ from the CPU's")
+    d_ids = dense[0].doc_ids[:N_CHECK].cpu()
+    d_s = torch.where(d_ids >= 0, dense[0].scores[:N_CHECK].cpu(),
+                      -torch.inf)
+    want_s, want_ids = qexec.fuse(d_s, d_ids, *cpu_sp[:2], fus, TOP_R)
+    valid = torch.isfinite(want_s)
+    if not (torch.equal(got.doc_ids.cpu(), torch.where(
+            valid, want_ids, inverted_lists.PAD_DOC).int())
+            and torch.equal(got.scores.cpu(),
+                            torch.where(valid, want_s, 0.0))):
+        fail("fused: top-R differs from the CPU fusion of the card's lists")
+    if not torch.equal(got.n_candidates.cpu(),
+                       dense[0].n_candidates[:N_CHECK].cpu() + cpu_sp[2]):
+        fail("fused: n_candidates is not dense + sparse matches")
+    t0 = time.perf_counter()
+    cpu = hi.search(cpu_index, qe8, qt8, kc=KC, k2=K2, top_r=TOP_R,
+                    fusion=fus, device="cpu")
+    cpu_dense = hi.search(cpu_index, qe8, qt8, kc=KC, k2=K2, top_r=TOP_R,
+                          device="cpu")
+    cpu_s = time.perf_counter() - t0
+    near = []
+    for b in range(N_CHECK):
+        if not torch.equal(d_ids[b], cpu_dense.doc_ids[b]):
+            near.append(b)
+            continue
+        if not (torch.equal(got.doc_ids[b].cpu(), cpu.doc_ids[b])
+                and torch.equal(got.scores[b].cpu(), cpu.scores[b])
+                and int(got.n_candidates[b]) == int(cpu.n_candidates[b])):
+            fail(f"fused query {b}: differs from the CPU plain path")
+    log(f"[fused] weight 1.0: {len(dense)} batches bitwise equal to "
+        f"dense-only; weight 0.0: {N_CHECK} queries equal to the BM25 "
+        f"oracle (host oracle {oracle_s:.1f} s); weight {FUSION_WEIGHT}: "
+        f"sparse top-R bitwise equal to the CPU's, fusion of the card's "
+        f"lists bitwise equal to the CPU's, {N_CHECK - len(near)} of "
+        f"{N_CHECK} queries equal to the CPU plain path (CPU searches "
+        f"{cpu_s:.1f} s); dense near-tie queries checked through the "
+        f"decomposition only: {near}; mean sparse matches "
+        f"{float(cpu_sp[2].float().mean()):.0f} of {K2 * TERM_CAP} slots")
 
 
 def time_kernels(inp: dict) -> dict:
@@ -809,11 +949,67 @@ def time_sq8(inp: dict) -> dict:
         bound_ms=sq8_bound[0], bound_by=sq8_bound[1])}
 
 
+def unfused_at_width(inp: dict, errs: dict) -> dict:
+    """Phase 5b: ``pq_adc`` over the opq path's candidates gathered into a
+    (B, C, m) codes tensor, as uint8 and as int32: within ADC_TOL of the
+    plain version on N_CHECK queries, bitwise equal to ``pq_adc_fused``
+    on every live lane of the full batch, and timed beside its bound
+    (the bytes of the codes read once, the LUT, the scores written).
+    No one PyTorch call computes a LUT gather-sum, so library_ms is
+    null."""
+    timer = Timer()
+    lut, plane, rows, live = (inp[k] for k in ("lut", "plane", "rows",
+                                                "live"))
+    b, c = rows.shape
+    fused = adc_ops.pq_adc_fused(lut, plane, rows, live)
+    q = slice(0, N_CHECK)
+    out, gb = {}, {}
+    for name, dtype in (("u8", torch.uint8), ("i32", torch.int32)):
+        codes = plane[rows.long()].to(dtype)
+        got = adc_ops.pq_adc(lut, codes)
+        if not torch.equal(got[live], fused[live]):
+            n_diff = int((got[live] != fused[live]).sum())
+            fail(f"pq_adc ({name} codes) differs from pq_adc_fused on "
+                 f"{n_diff} live lanes")
+        errs["pq_adc"] = max(errs["pq_adc"], check_masked(
+            got[q], adc_ref.pq_adc(lut[q], codes[q]), ADC_TOL, ADC_TOL,
+            "pq_adc", f"full width {name}"))
+        nbytes = codes.numel() * codes.element_size() + lut.numel() * 4 \
+            + b * c * 4
+        gb[name] = nbytes / 1e9
+        t_bound = bound(b * c * PQ_M, nbytes)
+
+        def plain(codes=codes):       # in 32-query chunks: it gathers
+            for s in range(0, b, 32):  # (B, C, m) int64 indices
+                adc_ref.pq_adc(lut[s:s + 32], codes[s:s + 32])
+
+        out[name] = dict(
+            ms=timer.ms(lambda codes=codes: adc_ops.pq_adc(lut, codes),
+                        reps=10),
+            plain_ms=timer.ms(plain, reps=3, warm=1), library_ms=None,
+            bound_ms=t_bound[0], bound_by=t_bound[1])
+        del codes, got
+    fused_ms = timer.ms(lambda: adc_ops.pq_adc_fused(lut, plane, rows, live),
+                        reps=10)
+    log(f"[times] pq_adc at B={b}, C={c}, m={PQ_M}, k={PQ_K}: uint8 codes "
+        f"{gb['u8']:.3f} GB to move: kernel {out['u8']['ms']:.3f} ms, plain "
+        f"{out['u8']['plain_ms']:.3f} ms, bound {out['u8']['bound_ms']:.3f} "
+        f"ms ({out['u8']['bound_by']}); int32 codes {gb['i32']:.3f} GB: "
+        f"kernel {out['i32']['ms']:.3f} ms, plain "
+        f"{out['i32']['plain_ms']:.3f} ms, bound {out['i32']['bound_ms']:.3f}"
+        f" ms; pq_adc_fused on the same slots {fused_ms:.3f} ms; "
+        f"bitwise equal to pq_adc_fused on all {int(live.sum())} live lanes "
+        f"(uint8 and int32); max abs err vs plain {errs['pq_adc']:.3g} "
+        f"(tol {ADC_TOL})")
+    return {"pq_adc": out["u8"]}
+
+
 def build_on_card(dev, seed: int) -> dict:
     """Phase 10: the port's build on the card at N = BUILD_DOCS (full
     widths), three codecs over one KMeans, each served and scored.  Each
     build is a counted run that must launch ``assign_argmax`` exactly
-    BUILD_ASSIGN_LAUNCHES times.  Returns what phase 12 reuses: the
+    BUILD_ASSIGN_LAUNCHES times.  The ``opq`` build carries the BM25
+    impact plane (``sparse=True``) and is served fused too.  Returns what phase 12 reuses: the
     corpus, its planes on the card, the KMeans selector and φ(D), the
     ``refine:sq8:4`` quality and the builds' ``assign_argmax`` launches."""
     with phase("build: synthetic corpus on the host"):
@@ -847,7 +1043,8 @@ def build_on_card(dev, seed: int) -> dict:
                              pq_k=PQ_K, cluster_capacity=CLUSTER_CAP,
                              term_capacity=TERM_CAP,
                              kmeans_iters=BUILD_ITERS, device=dev,
-                             timings=timings, **reuse)
+                             timings=timings, sparse=spec == "opq",
+                             **reuse)
             torch.cuda.synchronize()
             launches = read_counts()
             log(f"[build] {spec} stage seconds: "
@@ -876,6 +1073,19 @@ def build_on_card(dev, seed: int) -> dict:
                 f"{mrr[spec]:.4f}, candidate "
                 f"cost {hi.candidate_cost(index, KC, K2, TOP_R)}, launches "
                 f"{launches}")
+        if index.sparse_weights is not None:
+            with phase(f"build: serve {spec} fused"):
+                _, results, launches = serve_batches(
+                    index, dev, qe, qt, BUILD_QUERIES // BATCH,
+                    kernels[spec], f"built {spec} fused (weight "
+                    f"{FUSION_WEIGHT})", fusion_weight=FUSION_WEIGHT)
+                ids = torch.cat([r.doc_ids for r in results]).cpu()
+                log(f"[build] {spec} on real BM25 impacts "
+                    f"{tuple(index.sparse_weights.shape)}: dense-only R@100 "
+                    f"{recall[spec]:.4f}, MRR@10 {mrr[spec]:.4f}; fused at "
+                    f"weight {FUSION_WEIGHT} R@100 "
+                    f"{metrics.recall_at_k(ids, corpus.qrels, 100):.4f}, "
+                    f"MRR@10 {metrics.mrr_at_k(ids, corpus.qrels, 10):.4f}")
         base = index if base is None else base
     gap = recall["flat"] - recall[REFINE_CODEC]
     log(f"[build] R@100 gap flat - {REFINE_CODEC}: {gap:.4f} (fails above "
@@ -1260,9 +1470,33 @@ def time_new_kernels(flash_in: dict, emb, centroids) -> dict:
     return {"flash_attention": flash, "assign_argmax": assign}
 
 
+def run_kernel_bench() -> dict:
+    """Phase 14: the port's ``kernel_bench`` at its full shapes with
+    ``--check`` semantics, as a counted run: the main path of ``pq_adc``
+    (its unfused section), which must launch every kernel it compares.
+    Returns the launches."""
+    reset_counts()
+    report = kernel_bench.run(kernel_bench.parse_args(["--check"]))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(json.dumps(report, sort_keys=True))
+    log(f"[kernel_bench] launches {launches}")
+    if report["backend"] != "cuda" or report["interpret_mode"]:
+        fail("kernel_bench did not run the kernels on the card")
+    if report["check_failures"]:
+        fail(f"kernel_bench: {report['check_failures']}")
+    missing = [k for k in ("pq_adc", "pq_adc_fused", "sq8_dot_fused",
+                           "topk_scores") if launches[k] < 1]
+    if missing:
+        fail(f"kernel_bench never launched {missing}")
+    return launches
+
+
 SOURCES = {   # kernel → (CUDA source, the TPU kernel's pallas_call)
     "pq_adc_fused": ("src/repro_torch/kernels/pq_adc/csrc/pq_adc_fused.cu",
                      "src/repro/kernels/pq_adc/kernel.py:163"),
+    "pq_adc": ("src/repro_torch/kernels/pq_adc/csrc/pq_adc.cu",
+               "src/repro/kernels/pq_adc/kernel.py:58"),
     "topk_scores": ("src/repro_torch/kernels/assign_topk/csrc/"
                     "topk_scores.cu",
                     "src/repro/kernels/assign_topk/kernel.py:124"),
@@ -1320,15 +1554,28 @@ def main(argv=None) -> None:
             index, dev, qe_all, qt_all, args.batches,
             ("pq_adc_fused", "topk_scores"), "serve_msmarco (opq)")
         check_planted(results, qrels, "opq")
+    with phase("5b pq_adc (unfused) at full width"):
+        times = unfused_at_width(inp, errs)
     with phase("6 check (opq)"):
-        check_cpu(ckpt.index_from_numpy(leaves, "opq", device="cpu"),
-                  qe_all[:N_CHECK], qt_all[:N_CHECK], inp, results[0],
-                  ADC_TOL)
+        cpu_index = ckpt.index_from_numpy(leaves, "opq", device="cpu")
+        check_cpu(cpu_index, qe_all[:N_CHECK], qt_all[:N_CHECK], inp,
+                  results[0], ADC_TOL)
     with phase("7 times (opq)"):
-        times = time_kernels(inp)
+        times.update(time_kernels(inp))
     with phase("8 profile (opq)"):
         profile_batch(server, qe_all[:BATCH], qt_all[:BATCH])
-    del server, results, leaves, inp
+    with phase(f"8b serving (opq, fused at {FUSION_WEIGHT})"):
+        fserver, _, _ = serve_batches(
+            index, dev, qe_all, qt_all, args.batches,
+            ("pq_adc_fused", "topk_scores"),
+            f"serve_msmarco fused (opq, weight {FUSION_WEIGHT})",
+            fusion_weight=FUSION_WEIGHT)
+    with phase("8c check (fused)"):
+        check_fused(fserver, cpu_index, leaves, qe_all, qt_all, results)
+    with phase("8d profile (fused)"):
+        fserver.set_fusion(FUSION_WEIGHT)
+        profile_batch(fserver, qe_all[:BATCH], qt_all[:BATCH])
+    del server, fserver, results, leaves, inp, cpu_index
 
     with phase("9a refine index (refine:sq8:4)"):
         rindex, rqrels = refine_index(index, dev, args.seed, qe_all)
@@ -1372,11 +1619,14 @@ def main(argv=None) -> None:
     with phase("13 times (flash_attention, assign_argmax)"):
         times.update(time_new_kernels(flash_in, built["emb"],
                                       built["cluster_sel"].embeddings))
+    with phase("14 kernel_bench (counted)"):
+        bench_launches = run_kernel_bench()
 
     launches = dict(opq_launches,
                     sq8_dot_fused=refine_launches["sq8_dot_fused"],
                     assign_argmax=built["assign_launches"],
-                    flash_attention=sup_launches["flash_attention"])
+                    flash_attention=sup_launches["flash_attention"],
+                    pq_adc=bench_launches["pq_adc"])
     kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
                     replaces=SOURCES[k][1], launches=launches[k],
                     max_abs_err=errs[k], **times[k])

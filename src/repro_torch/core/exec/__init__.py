@@ -1,18 +1,20 @@
 """The query-execution layer (port of ``repro/core/exec``; DESIGN.md
-§9): :mod:`.stages` (the engine), :mod:`.filters` (namespace bitmaps)
-and :mod:`.cost` (the latency proxy).  Fusion, the frontier tuner and
-sharded execution come with later slices."""
+§9): :mod:`.stages` (the engine), :mod:`.filters` (namespace bitmaps),
+:mod:`.fusion` (the hybrid dense∥sparse spec and its per-document
+aggregation, DESIGN.md §13) and :mod:`.cost` (the latency proxy).  The
+frontier tuner and sharded execution come with later slices."""
 from repro_torch.core.exec import filters
 from repro_torch.core.exec.cost import candidate_budget, candidate_cost
+from repro_torch.core.exec.fusion import FusionSpec
 from repro_torch.core.exec.stages import (Frontier, SearchResult, Source,
                                           dedup, dispatch, execute,
-                                          filter_stage, gather,
-                                          make_refine_ctx, score, topk,
-                                          topk_by_score)
+                                          filter_stage, fuse, gather,
+                                          make_refine_ctx, score,
+                                          sparse_topk, topk, topk_by_score)
 
 __all__ = [
-    "Frontier", "SearchResult", "Source", "candidate_budget",
+    "Frontier", "FusionSpec", "SearchResult", "Source", "candidate_budget",
     "candidate_cost", "dedup", "dispatch", "execute", "filter_stage",
-    "filters", "gather", "make_refine_ctx", "score",
+    "filters", "fuse", "gather", "make_refine_ctx", "score", "sparse_topk",
     "topk", "topk_by_score",
 ]

@@ -3,10 +3,11 @@
 
     dispatch → gather → dedup → filter → score → topk → refine
 
-over a list of :class:`Source`s.  This slice serves one Source on one
-device: several sources (the mutable index), ``execute(shard=...)`` and
-``execute(fusion=...)`` raise ``NotImplementedError`` until the
-mutable, sharding and fusion slices land.
+over a list of :class:`Source`s, on one Source on one device: several
+sources (the mutable index) and ``execute(shard=...)`` raise
+``NotImplementedError`` until the mutable and sharding slices land.
+``execute(fusion=...)`` adds the sparse BM25 path and the RRF fusion of
+DESIGN.md §13 (:func:`sparse_topk`, :func:`fuse`) after refine.
 
 Selection goes through :func:`topk_by_score`'s total order (score desc,
 doc id asc), so results are a pure function of the (score, id) set of
@@ -24,6 +25,8 @@ from repro_torch.core import inverted_lists as il
 from repro_torch.core import term_selector as ts_mod
 from repro_torch.core.codecs import base as codecs_base
 from repro_torch.core.exec import filters
+from repro_torch.core.exec import fusion as fusion_mod
+from repro_torch.core.exec.fusion import FusionSpec
 from repro_torch.core.inverted_lists import PAD_DOC, PaddedLists
 
 
@@ -37,16 +40,19 @@ class SearchResult(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class Source:
     """One gather+score source: a (cluster, term) list family over one
-    set of codec doc planes, with the global id of local row 0 and the
-    optional namespace plane the filter stage reads.  (The reference's
-    tombstone, family-range and impact planes come with the mutable and
-    fusion slices.)"""
+    set of codec doc planes, with the global id of local row 0, the
+    optional namespace plane the filter stage reads and the optional
+    BM25 impact plane aligned with ``term_lists.entries`` that the sparse
+    path of ``execute(fusion=...)`` reads (DESIGN.md §13).  (The
+    reference's tombstone and family-range planes come with the mutable
+    slice.)"""
     cluster_lists: PaddedLists
     term_lists: PaddedLists
     doc_planes: dict
     size: int                                    # local rows per plane
     offset: int = 0
     doc_ns: Optional[torch.Tensor] = None        # (size,) i32 namespaces
+    sparse_weights: Optional[torch.Tensor] = None  # (V, Ct) f32 impacts
 
 
 @dataclasses.dataclass
@@ -72,10 +78,17 @@ def topk_by_score(scores: torch.Tensor, ids: torch.Tensor, r: int
     The reference is one two-key ``lax.sort``; torch has no multi-key
     sort, so this sorts stably by id, then stably by descending score."""
     by_id = torch.argsort(ids, dim=-1, stable=True)
-    s = torch.gather(scores, -1, by_id)
-    i = torch.gather(ids, -1, by_id)
+    return _topk_of_id_sorted(torch.gather(scores, -1, by_id),
+                              torch.gather(ids, -1, by_id), r)
+
+
+def _topk_of_id_sorted(s: torch.Tensor, i: torch.Tensor, r: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`topk_by_score` of rows whose ids already ascend (the
+    output of :func:`fusion.sum_by_doc`): a stable sort by descending
+    score alone gives the total order."""
     top_s, order = torch.sort(s, dim=-1, descending=True, stable=True)
-    k_eff = min(r, scores.shape[-1])
+    k_eff = min(r, s.shape[-1])
     top_s = top_s[..., :k_eff]
     top_ids = torch.gather(i, -1, order[..., :k_eff])
     if k_eff < r:
@@ -160,6 +173,63 @@ def topk(frontier: Frontier, r_prime: int
     return topk_by_score(frontier.scores, frontier.cands, r_prime)
 
 
+def sparse_topk(sources: Sequence[Source], term_ids: torch.Tensor, r: int,
+                ns_filter: Optional[torch.Tensor]
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sparse (BM25) query path (DESIGN.md §13): top-r documents by
+    summed term impact over the ≤K₂ᵀ dispatched term lists, which the
+    dense path probes too.  Namespace-filtered postings mask to
+    (PAD_DOC, 0), as in the dense filter stage; documents whose impacts
+    sum to 0 rank as non-matches.  Returns ``(scores, ids, n_sparse)``:
+    (B, r) planes (``-inf``/PAD_DOC padded) and the unique matched-doc
+    count per query."""
+    if len(sources) != 1:
+        raise NotImplementedError("multi-source (mutable) sparse search is "
+                                  "not yet ported")
+    s = sources[0]
+    b = term_ids.shape[0]
+    safe = term_ids.clamp(min=0).long()
+    probed = (term_ids >= 0)[:, :, None]
+    ids = torch.where(probed, s.term_lists.entries[safe],
+                      PAD_DOC).reshape(b, -1)
+    w = torch.where(probed, s.sparse_weights[safe], 0.0).reshape(b, -1)
+    live = ids != PAD_DOC
+    if ns_filter is not None:
+        loc = (ids - s.offset).clamp(0, s.size - 1).long()
+        live = live & filters.allowed_mask(ns_filter, s.doc_ns[loc])
+    sid, totals, first = fusion_mod.sum_by_doc(
+        torch.where(live, ids, PAD_DOC), torch.where(live, w, 0.0))
+    rep = first & (sid != PAD_DOC) & (totals > 0.0)
+    scores = torch.where(rep, totals, -torch.inf)
+    top_s, top_ids = _topk_of_id_sorted(scores, sid, r)
+    return top_s, top_ids, rep.sum(dim=-1, dtype=torch.int32)
+
+
+def fuse(dense_scores: torch.Tensor, dense_ids: torch.Tensor,
+         sparse_scores: torch.Tensor, sparse_ids: torch.Tensor,
+         fusion: FusionSpec, top_r: int
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reciprocal-rank fusion of the final dense and sparse rankings
+    (DESIGN.md §13): ``weight/(rrf_k+1+rank)`` from the dense list,
+    ``(1−weight)/(rrf_k+1+rank)`` from the sparse one, summed per
+    document and selected under :func:`topk_by_score`'s total order.
+    At ``weight=1.0`` sparse contributions are exactly 0.0 and
+    sparse-only documents mask out, so the fused ids equal the
+    dense-only ones bit for bit."""
+    d = fusion_mod.rrf_contributions(dense_scores, fusion.weight,
+                                     fusion.rrf_k)
+    sp = fusion_mod.rrf_contributions(sparse_scores, 1.0 - fusion.weight,
+                                      fusion.rrf_k)
+    ids = torch.cat(
+        [torch.where(torch.isfinite(dense_scores), dense_ids, PAD_DOC),
+         torch.where(torch.isfinite(sparse_scores), sparse_ids.to(
+             dense_ids.dtype), PAD_DOC)], -1)
+    sid, totals, first = fusion_mod.sum_by_doc(ids, torch.cat([d, sp], -1))
+    live = first & (sid != PAD_DOC) & (totals > 0.0)
+    return _topk_of_id_sorted(torch.where(live, totals, -torch.inf), sid,
+                              top_r)
+
+
 # --------------------------------------------------------------------------
 # refine plumbing (one source; multi-source routing comes with the
 # mutable slice)
@@ -188,18 +258,23 @@ def execute(codec_impl: codecs_base.Codec, codec_params: Any,
             query_embeddings: torch.Tensor, query_tokens: torch.Tensor, *,
             kc: int, k2: int, top_r: int,
             ns_filter: Optional[torch.Tensor] = None,
-            shard: Any = None, fusion: Any = None) -> SearchResult:
+            shard: Any = None,
+            fusion: Optional[FusionSpec] = None) -> SearchResult:
     """Run the stage chain over ``sources`` (Eq. 5 + DESIGN.md §9).
     ``ns_filter`` is an int64 (B, W) namespace bitmap
-    (:func:`repro_torch.core.exec.filters.make_filter`) or None."""
+    (:func:`repro_torch.core.exec.filters.make_filter`) or None.
+
+    ``fusion`` (a :class:`FusionSpec`) adds the sparse BM25 path and RRF
+    fusion after refine when every source carries ``sparse_weights``;
+    otherwise the result is the dense-only one, bit for bit.  Under
+    fusion, ``scores`` are RRF mass and ``n_candidates`` also counts the
+    unique sparse-matched documents (a document both paths see counts
+    in each)."""
     if shard is not None:
         raise NotImplementedError("sharded execution is not yet ported")
     if len(sources) != 1:
         raise NotImplementedError("multi-source (mutable) execution is not "
                                   "yet ported")
-    if fusion is not None:
-        raise NotImplementedError("hybrid dense∥sparse fusion is not yet "
-                                  "ported")
     cluster_ids, term_ids = dispatch(cluster_sel, term_sel,
                                      query_embeddings, query_tokens, kc, k2)
     frontier = gather(sources, cluster_ids, term_ids)
@@ -211,7 +286,16 @@ def execute(codec_impl: codecs_base.Codec, codec_params: Any,
     top_s, top_ids = codec_impl.refine(
         codec_params, sources[0].doc_planes, query_embeddings,
         top_s, top_ids, top_r, make_refine_ctx(sources[0]))
-    n_cand = frontier.live.sum(dim=-1, dtype=torch.int32)
+    # the reference's §13 contract: an index without the impact plane
+    # serves the dense-only result, unchanged to the bit
+    if fusion is not None and all(s.sparse_weights is not None
+                                  for s in sources):
+        sp_s, sp_ids, n_sparse = sparse_topk(sources, term_ids, top_r,
+                                             ns_filter)
+        top_s, top_ids = fuse(top_s, top_ids, sp_s, sp_ids, fusion, top_r)
+    else:
+        n_sparse = 0
+    n_cand = frontier.live.sum(dim=-1, dtype=torch.int32) + n_sparse
     valid = torch.isfinite(top_s)
     return SearchResult(
         doc_ids=torch.where(valid, top_ids,

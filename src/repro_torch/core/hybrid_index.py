@@ -140,18 +140,15 @@ def build(seed: int,
     ``doc_assign`` / ``term_pos_scores`` / ``term_sel`` instead.
     ``use_clusters`` / ``use_terms`` are the paper's ablations (§5.3),
     ``doc_namespaces`` ((n_docs,) ids) enables filtered search.
-    ``sparse=True`` (the impact plane of hybrid search) is not yet
-    ported.  ``timings``, when a dict, receives the seconds of each
-    build stage."""
+    ``sparse=True`` also builds the BM25 impact plane next to the term
+    lists, for hybrid search through ``search(fusion=...)`` (DESIGN.md
+    §13).  ``timings``, when a dict, receives the seconds of each build
+    stage."""
     codec_impl = codecs.get(codec)    # fail fast on unknown specs
     if sparse and not use_terms:
         raise ValueError("sparse=True needs the term lists "
                          "(use_terms=True): the sparse path scores over "
                          "the term postings")
-    if sparse:
-        raise NotImplementedError("build(sparse=True), the BM25 impact "
-                                  "plane of hybrid search, is not yet "
-                                  "ported to repro_torch")
     dev = dev_mod.resolve(device)
     emb = dev_mod.as_tensor(doc_embeddings, dev, torch.float32)
     tokens = dev_mod.as_tensor(doc_tokens, dev, torch.int64)
@@ -201,14 +198,18 @@ def build(seed: int,
         term_pos_scores = dev_mod.as_tensor(term_pos_scores, dev,
                                             torch.float32)
     stage("bm25")
+    sparse_weights = None
     if use_terms:
         term_ids, term_scores = ts_mod.doc_terms(tokens, term_pos_scores,
                                                  k1_terms)
-        term_lists = il.build(
-            np.repeat(np.arange(n_docs), k1_terms),
-            term_ids.cpu().numpy().reshape(-1),
-            term_scores.cpu().numpy().reshape(-1),
-            n_lists=vocab_size, capacity=term_capacity, device=dev)
+        postings = (np.repeat(np.arange(n_docs), k1_terms),
+                    term_ids.cpu().numpy().reshape(-1),
+                    term_scores.cpu().numpy().reshape(-1))
+        kw = dict(n_lists=vocab_size, capacity=term_capacity, device=dev)
+        if sparse:
+            term_lists, sparse_weights = il.build_scored(*postings, **kw)
+        else:
+            term_lists = il.build(*postings, **kw)
     else:
         term_lists = _pad_lists(vocab_size, dev)
     stage("term_lists")
@@ -223,7 +224,7 @@ def build(seed: int,
                        cluster_lists=cluster_lists, term_lists=term_lists,
                        codec_params=codec_params, doc_planes=doc_planes,
                        doc_assign=doc_assign, doc_ns=doc_namespaces,
-                       codec=codec)
+                       sparse_weights=sparse_weights, codec=codec)
 
 
 def build_ivf(seed: int, doc_embeddings, doc_tokens, vocab_size: int, *,
@@ -263,7 +264,8 @@ def base_source(index: HybridIndex) -> qexec.Source:
     return qexec.Source(cluster_lists=index.cluster_lists,
                         term_lists=index.term_lists,
                         doc_planes=index.doc_planes, size=index.n_docs,
-                        doc_ns=index.doc_ns)
+                        doc_ns=index.doc_ns,
+                        sparse_weights=index.sparse_weights)
 
 
 def search(index: HybridIndex, query_embeddings, query_tokens, *,
@@ -275,8 +277,11 @@ def search(index: HybridIndex, query_embeddings, query_tokens, *,
     numpy arrays or tensors; they move to ``device``, where the index
     must already live.  ``filter`` is an optional (B, W) namespace
     bitmap (uint32 numpy from the reference, or the int64 tensor of
-    :func:`repro_torch.core.exec.filters.make_filter`).  Hybrid fusion
-    is not yet ported."""
+    :func:`repro_torch.core.exec.filters.make_filter`).  ``fusion`` (a
+    :class:`~repro_torch.core.exec.FusionSpec`) adds hybrid dense∥sparse
+    search on an index built with ``sparse=True`` (DESIGN.md §13); on
+    an index without the impact plane the result is the dense one, bit
+    for bit."""
     dev = dev_mod.resolve(device)
     if index.device != dev:
         raise ValueError(f"index lives on {index.device}, search asked for "

@@ -85,6 +85,27 @@ def build(doc_ids: np.ndarray, list_ids: np.ndarray,
                        lengths=torch.from_numpy(lengths).to(dev))
 
 
+def build_scored(doc_ids: np.ndarray, list_ids: np.ndarray,
+                 scores: np.ndarray, n_lists: int,
+                 capacity: Optional[int] = None, *,
+                 device: dev_mod.DeviceLike = "cuda"
+                 ) -> tuple[PaddedLists, torch.Tensor]:
+    """:func:`build` plus the aligned impact plane of sparse search
+    (DESIGN.md §13): ``weights[v, j]`` is the score of posting
+    ``entries[v, j]``, 0.0 at pads.  ``scores`` is required: the FIFO
+    fallback's insertion-order scores are no impacts."""
+    if scores is None:
+        raise ValueError(
+            "build_scored needs real per-posting scores; the FIFO "
+            "fallback of build() has no meaningful impacts")
+    dev = dev_mod.resolve(device)
+    entries, lengths, weights = _bucket(doc_ids, list_ids, scores, n_lists,
+                                        capacity)
+    return (PaddedLists(entries=torch.from_numpy(entries).to(dev),
+                        lengths=torch.from_numpy(lengths).to(dev)),
+            torch.from_numpy(weights).to(dev))
+
+
 def gather_candidates(lists: PaddedLists,
                       dispatched: torch.Tensor) -> torch.Tensor:
     """(B, K) dispatched list ids (PAD=-1 allowed) → (B, K·capacity)

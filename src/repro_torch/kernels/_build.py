@@ -26,6 +26,7 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 
 SOURCES = {
     "pq_adc_fused": _KERNELS / "pq_adc" / "csrc" / "pq_adc_fused.cu",
+    "pq_adc": _KERNELS / "pq_adc" / "csrc" / "pq_adc.cu",
     "topk_scores": _KERNELS / "assign_topk" / "csrc" / "topk_scores.cu",
     "sq8_dot_fused": _KERNELS / "sq8_dot" / "csrc" / "sq8_dot_fused.cu",
     "assign_argmax": _KERNELS / "assign_topk" / "csrc" / "assign_argmax.cu",

@@ -1,6 +1,7 @@
-"""Plain PyTorch version of the fused ADC kernel (port of
-``repro/kernels/pq_adc/ref.py``).  The wrapper takes it for CPU tensors;
-on the card only the smoke check calls it, as the kernel's yardstick."""
+"""Plain PyTorch versions of the two ADC kernels (port of
+``repro/kernels/pq_adc/ref.py``).  The wrappers take them for CPU
+tensors; on the card only the checks and the kernel benchmark call
+them, as the kernels' yardsticks."""
 from __future__ import annotations
 
 import torch

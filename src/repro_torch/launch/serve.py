@@ -3,15 +3,20 @@
 ``main`` demo loop).
 
 :class:`Server` holds one index on one device and pads every request
-batch to ``max_batch``, so each search runs at one shape.  The sharded,
-2-D mesh, mutable and micro-batching layouts of the reference are not
-yet ported: asking for them raises.
+batch to ``max_batch``, so each search runs at one shape.  It serves
+hybrid dense∥sparse fusion (DESIGN.md §13) when ``fusion_weight`` is
+set: :meth:`Server.set_fusion` re-weights live.  The sharded, 2-D mesh,
+mutable and micro-batching layouts of the reference are not yet ported:
+asking for them raises.
 
     python -m repro_torch.launch.serve --device cpu --codec refine:sq8
+    python -m repro_torch.launch.serve --device cpu --fusion-weight 0.5
 
 builds an index over the synthetic corpus and serves its queries, as
-``python -m repro.launch.serve`` does; ``--device`` defaults to
-``cuda``, and the device chooses the kernels (no ``--use-kernel``).
+``python -m repro.launch.serve`` does; ``--fusion-weight W`` builds the
+BM25 impact plane and fuses by RRF with dense weight W.  ``--device``
+defaults to ``cuda``, and the device chooses the kernels (no
+``--use-kernel``).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch
 
 from repro_torch import device as dev_mod
 from repro_torch.core import codecs
+from repro_torch.core import exec as qexec
 from repro_torch.core import hybrid_index as hi
 from repro_torch.core.exec import filters as ns_filters
 
@@ -43,6 +49,10 @@ class ServeConfig:
     n_shards: int = 1            # >1: sharded layout, not yet ported
     data_parallel: int = 1       # >1: 2-D serving mesh, not yet ported
     mutable: bool = False        # mutable index, not yet ported
+    # hybrid dense∥sparse fusion (§13): None = dense-only; else the RRF
+    # dense weight in [0, 1] (sparse gets 1-w).  Needs an index built
+    # with sparse=True, otherwise the dense-only result is served.
+    fusion_weight: Optional[float] = None
 
 
 def resolve_widths(cfg: ServeConfig, index) -> tuple:
@@ -75,12 +85,27 @@ class Server:
         self.index = index.to(self.device)
         self.cfg = cfg
         self.kc, self.k2, self.width_source = resolve_widths(cfg, index)
+        self.set_fusion(cfg.fusion_weight)
         self.n_served = 0
+
+    @property
+    def fusion(self) -> Optional[qexec.FusionSpec]:
+        """The active hybrid-fusion spec, read from ``cfg.fusion_weight``
+        at call time; None = dense-only."""
+        w = self.cfg.fusion_weight
+        return None if w is None else qexec.FusionSpec(weight=float(w))
+
+    def set_fusion(self, weight: Optional[float]) -> None:
+        """Re-weight (or disable, with None) hybrid fusion; takes effect
+        on the next query."""
+        if weight is not None:
+            qexec.FusionSpec(weight=float(weight))  # validate eagerly
+        self.cfg.fusion_weight = weight
 
     def _search(self, qe, qt, filter=None) -> hi.SearchResult:
         return hi.search(self.index, qe, qt, kc=self.kc, k2=self.k2,
                          top_r=self.cfg.top_r, filter=filter,
-                         device=self.device)
+                         fusion=self.fusion, device=self.device)
 
     def warmup(self, hidden: int, query_len: int) -> None:
         """One full-batch search of PAD queries (builds the kernels)."""
@@ -139,7 +164,7 @@ def make_server(index: hi.HybridIndex, cfg: ServeConfig, *,
 
 #: reference flags whose layouts are not yet ported (flag → its default)
 _UNPORTED_FLAGS = {"shards": 1, "data_parallel": 1, "mutable": False,
-                   "runtime": False, "fusion_weight": None}
+                   "runtime": False}
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -166,7 +191,11 @@ def main(argv: Optional[list] = None) -> None:
     for flag in ("--mutable", "--runtime"):
         ap.add_argument(flag, action="store_true", help="not yet ported")
     ap.add_argument("--fusion-weight", type=float, default=None,
-                    help="not yet ported")
+                    metavar="W",
+                    help="hybrid dense∥sparse serving (DESIGN.md §13): "
+                         "build the BM25 impact plane and fuse dense and "
+                         "sparse rankings by RRF with dense weight W in "
+                         "[0,1] (1.0 = dense-only, 0.0 = pure lexical)")
     args = ap.parse_args(argv)
     for field, default in _UNPORTED_FLAGS.items():
         if getattr(args, field) != default:
@@ -187,10 +216,12 @@ def main(argv: Optional[list] = None) -> None:
                      corpus.vocab_size, n_clusters=128, k1_terms=10,
                      codec=args.codec, pq_m=8, pq_k=256,
                      cluster_capacity=192, term_capacity=96,
-                     kmeans_iters=8, doc_namespaces=doc_ns, device=dev)
+                     kmeans_iters=8, doc_namespaces=doc_ns,
+                     sparse=args.fusion_weight is not None, device=dev)
     server = make_server(index, ServeConfig(
         kc=args.kc, k2=args.k2, max_batch=args.batch,
-        n_namespaces=args.namespaces), device=dev)
+        n_namespaces=args.namespaces, fusion_weight=args.fusion_weight),
+        device=dev)
     server.warmup(64, corpus.query_tokens.shape[1])
     t0 = time.perf_counter()
     for i in range(0, args.queries, args.batch):

@@ -101,12 +101,9 @@ def build_sup_index(corpus, params: distill.DistillParams,
     ``doc_emb``, ``doc_tokens`` and ``vocab_size``.  ``seed`` stands in
     for the reference's ``jax.random.key(1)``; ``timings``, when a dict,
     receives the seconds of the position scores and of each build
-    stage.  ``sparse=True`` is not yet ported and raises before any
-    work."""
-    if sparse:
-        raise NotImplementedError("build_sup_index(sparse=True), the BM25 "
-                                  "impact plane of hybrid search, is not "
-                                  "yet ported to repro_torch")
+    stage.  ``sparse``/``doc_namespaces`` pass through to
+    :func:`repro_torch.core.hybrid_index.build`, so a supervised index
+    serves hybrid and filtered search as the unsupervised one does."""
     sel = SupSelectors(params=params, enc_cfg=enc_cfg,
                        encode_batch=encode_batch, device=device)
     dev = sel.device
@@ -126,7 +123,8 @@ def build_sup_index(corpus, params: distill.DistillParams,
         cluster_sel=cs_mod.ClusterSelector(sel.params.cluster_embeddings),
         doc_assign=doc_assign, term_pos_scores=pos_scores,
         term_sel=ts_mod.TermSelector(avg_scores=sbar),
-        doc_namespaces=doc_namespaces, device=dev, timings=timings)
+        sparse=sparse, doc_namespaces=doc_namespaces, device=dev,
+        timings=timings)
     if prune_gamma is not None:
         index = dataclasses.replace(
             index, term_lists=pruning.prune_percentile(index.term_lists,

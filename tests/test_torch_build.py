@@ -425,8 +425,12 @@ def test_build_fails_fast(corpus):
         hi.build(*args, doc_namespaces=-np.ones(1500, np.int32), **kw)
     with pytest.raises(ValueError, match="use_terms=True"):
         hi.build(*args, sparse=True, use_terms=False, **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        hi.build(*args, sparse=True, **kw)
+    # sparse=True is ported: the impact plane lies beside the term lists
+    sparse = hi.build(*args, sparse=True, **kw)
+    entries = sparse.term_lists.entries
+    assert sparse.sparse_weights.shape == entries.shape
+    assert bool((sparse.sparse_weights[entries == il.PAD_DOC] == 0).all())
+    assert bool((sparse.sparse_weights[entries != il.PAD_DOC] > 0).all())
 
 
 def test_full_unsupervised_build_reaches_the_reference_quality():
@@ -489,8 +493,16 @@ def test_serve_cli_builds_and_serves_with_tenant_isolation(capsys):
     assert out[1].startswith("filtered: 32 queries x 1/4 namespaces")
     assert out[1].endswith("tenant isolation OK")
     for flag in (["--shards", "2"], ["--data-parallel", "2"], ["--mutable"],
-                 ["--runtime"], ["--fusion-weight", "0.5"]):
+                 ["--runtime"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             serve.main(["--device", "cpu", *flag])
+    # --fusion-weight is ported: build the impact plane, serve fused
+    serve.main(["--device", "cpu", "--docs", "1000", "--queries", "64",
+                "--batch", "32", "--fusion-weight", "0.5"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("served 64 queries in ")
+    with pytest.raises(ValueError, match="fusion weight"):
+        serve.main(["--device", "cpu", "--docs", "1000", "--queries", "32",
+                    "--fusion-weight", "1.5"])
     with pytest.raises(ValueError, match="unknown codec"):
         serve.main(["--device", "cpu", "--codec", "sq9"])

@@ -5,7 +5,9 @@ index.  They skip without a card; on a machine with one:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Imports only the port (the card's machine has no JAX).  Tolerances:
-ADC scores rtol=atol=1e-4 with identical ``-inf`` lanes; top-k ids
+ADC scores rtol=atol=1e-4 with identical ``-inf`` lanes, and the
+unfused ``pq_adc`` bitwise equal to ``pq_adc_fused`` on live lanes;
+fused search bitwise against the CPU's sparse path and fusion; top-k ids
 identical except swaps between plain scores within 1e-5, scores within
 rtol=atol=1e-5 (the kernel and cuBLAS sum the h products in different
 orders); SQ8 dots rtol 1e-4, atol 1e-2 (the JAX kernel test's own) with
@@ -75,6 +77,57 @@ def test_pq_adc_fused_kernel_matches_plain(cuda, name):
     assert torch.equal(torch.isneginf(got), torch.isneginf(want))
     fin = torch.isfinite(want)
     torch.testing.assert_close(got[fin], want[fin], rtol=1e-4, atol=1e-4)
+
+
+UNFUSED_CASES = {
+    # name: (b, c, m, k, code dtype, codes a view off 16-byte alignment)
+    "paper_u8": (3, 8192 + 300, 96, 256, np.uint8, False),
+    "paper_i32": (2, 5000, 96, 256, np.int32, False),
+    "c_one": (2, 1, 8, 128, np.uint8, False),
+    "m_one": (3, 700, 1, 64, np.uint8, False),
+    "odd_k": (2, 999, 12, 77, np.int32, False),
+    "unaligned_view": (2, 500, 96, 256, np.uint8, True),
+}
+
+
+def _unfused_inputs(cuda, name):
+    b, c, m, k, dtype, unaligned = UNFUSED_CASES[name]
+    rng = np.random.default_rng(len(name))
+    lut = torch.tensor(rng.normal(size=(b, m, k)), dtype=torch.float32,
+                       device=cuda)
+    flat = torch.tensor(rng.integers(0, k, b * c * m + 3).astype(dtype),
+                        device=cuda)
+    codes = (flat[3:] if unaligned else flat[:-3]).view(b, c, m)
+    return lut, codes
+
+
+@pytest.mark.parametrize("name", sorted(UNFUSED_CASES))
+def test_pq_adc_kernel_matches_plain(cuda, name):
+    lut, codes = _unfused_inputs(cuda, name)
+    before = adc_ops.unfused_launches
+    got = adc_ops.pq_adc(lut, codes)
+    want = adc_ref.pq_adc(lut, codes)
+    torch.cuda.synchronize()
+    assert adc_ops.unfused_launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_pq_adc_kernel_equals_pq_adc_fused_on_live_lanes(cuda):
+    """Both kernels add the m fragments in the order j = 0..m-1, so the
+    unfused score of gathered codes equals the fused score bit for bit
+    on every live lane, for uint8 and int32 planes."""
+    rng = np.random.default_rng(11)
+    for dtype, k in ((np.uint8, 256), (np.int32, 300)):
+        lut = torch.tensor(rng.normal(size=(4, 96, k)), dtype=torch.float32,
+                           device=cuda)
+        plane = torch.tensor(rng.integers(0, k, (5000, 96)).astype(dtype),
+                             device=cuda)
+        ids = torch.tensor(rng.integers(0, 5000, (4, 9000)).astype(np.int32),
+                           device=cuda)
+        live = torch.tensor(rng.random((4, 9000)) < 0.7, device=cuda)
+        fused = adc_ops.pq_adc_fused(lut, plane, ids, live)
+        unfused = adc_ops.pq_adc(lut, plane[ids.long()])
+        assert torch.equal(fused[live], unfused[live]), dtype
 
 
 TOPK_CASES = {
@@ -201,6 +254,54 @@ def test_search_on_the_card_matches_the_cpu(cuda):
         ref = ws[b, where[0]] if where.numel() else ws[b, -1]
         assert abs(float(ref - got.scores[b, p])) <= 1e-4 + 1e-4 * abs(
             float(ref))
+
+
+def test_fused_search_on_the_card_matches_the_cpu(cuda):
+    """Hybrid search over an impact plane: the sparse top-R and its
+    count bitwise equal to the CPU's, the fused top-R bitwise equal to
+    the CPU's fusion of the card's own dense and sparse lists (the dense
+    half is held to the CPU by the test above), weight 1.0 ids bitwise
+    equal to dense-only."""
+    from repro_torch.core import exec as qexec
+    rng = np.random.default_rng(9)
+    leaves = _random_index_leaves(rng)
+    entries = leaves[".term_lists.entries"]
+    leaves[".sparse_weights"] = np.where(
+        entries >= 0, rng.random(entries.shape) + 0.05, 0.0).astype(
+            np.float32)
+    qe = rng.normal(size=(24, 64))
+    qe = (qe / np.linalg.norm(qe, axis=-1, keepdims=True)).astype(
+        np.float32)
+    qt = rng.integers(-1, 300, (24, 12)).astype(np.int32)
+    kw = dict(kc=6, k2=8, top_r=100)
+    cpu_index = ckpt.index_from_numpy(leaves, "opq", device="cpu")
+    index = ckpt.index_from_numpy(leaves, "opq", device=cuda)
+    _, cpu_terms = qexec.dispatch(cpu_index.cluster_sel, cpu_index.term_sel,
+                                  torch.from_numpy(qe),
+                                  torch.from_numpy(qt).long(), 6, 8)
+    want_sp = qexec.sparse_topk([hi.base_source(cpu_index)], cpu_terms, 100,
+                                None)
+    got_sp = qexec.sparse_topk([hi.base_source(index)], cpu_terms.to(cuda),
+                               100, None)
+    for g, w in zip(got_sp, want_sp):
+        assert torch.equal(g.cpu(), w)
+    dense = hi.search(index, qe, qt, device=cuda, **kw)
+    for weight in (0.0, 0.5, 1.0):
+        fus = qexec.FusionSpec(weight=weight)
+        got = hi.search(index, qe, qt, device=cuda, fusion=fus, **kw)
+        d_s = torch.where(dense.doc_ids >= 0, dense.scores,
+                          -torch.inf).cpu()
+        want_s, want_ids = qexec.fuse(d_s, dense.doc_ids.cpu(), *want_sp[:2],
+                                      fus, 100)
+        valid = torch.isfinite(want_s)
+        assert torch.equal(got.doc_ids.cpu(),
+                           torch.where(valid, want_ids, il.PAD_DOC).int())
+        assert torch.equal(got.scores.cpu(),
+                           torch.where(valid, want_s, 0.0))
+        assert torch.equal(got.n_candidates.cpu(),
+                           dense.n_candidates.cpu() + want_sp[2])
+        if weight == 1.0:
+            assert torch.equal(got.doc_ids, dense.doc_ids)
 
 
 def test_refine_sq8_search_on_the_card_matches_the_cpu(cuda):

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.core import exec as qexec
 from repro_torch.core import hybrid_index as hi
 from repro_torch.kernels import _build
 from repro_torch.kernels.assign_topk import ops as at_ops
@@ -131,14 +132,21 @@ def test_unported_layouts_and_codecs_raise(tmp_path):
     # every reference codec is ported: an unknown spec names them all
     with pytest.raises(ValueError, match="flat, opq, pq, refine, sq8"):
         ckpt.index_from_numpy(leaves, "sq9", device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        hi.build(0, np.zeros((40, 8), np.float32),
-                 np.zeros((40, 3), np.int32), 16, n_clusters=4, k1_terms=1,
-                 sparse=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="fusion"):
-        hi.search(index, np.zeros((1, 8), np.float32),
-                  np.zeros((1, 2), np.int32), kc=1, k2=1, top_r=3,
-                  fusion=object(), device="cpu")
+    # hybrid fusion is ported: sparse=True builds the impact plane, and
+    # an index without one serves a fusion request dense-only, exactly
+    rng = np.random.default_rng(1)
+    sparse = hi.build(0, rng.normal(size=(40, 8)).astype(np.float32),
+                      rng.integers(0, 16, (40, 3)).astype(np.int32), 16,
+                      n_clusters=4, k1_terms=1, sparse=True, device="cpu")
+    assert (sparse.sparse_weights.shape
+            == sparse.term_lists.entries.shape)
+    qe, qt = np.zeros((1, 8), np.float32), np.zeros((1, 2), np.int32)
+    dense = hi.search(index, qe, qt, kc=1, k2=1, top_r=3, device="cpu")
+    fused = hi.search(index, qe, qt, kc=1, k2=1, top_r=3, device="cpu",
+                      fusion=qexec.FusionSpec(weight=0.5))
+    assert index.sparse_weights is None
+    assert torch.equal(dense.doc_ids, fused.doc_ids)
+    assert torch.equal(dense.scores, fused.scores)
 
 
 def test_load_index_refuses_tuned_widths(tmp_path):

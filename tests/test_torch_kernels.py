@@ -5,11 +5,13 @@ mode and their jnp oracles, on identical numpy inputs from a seed.  The
 CUDA kernels themselves are held against the same plain versions on the
 card by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 
-Tolerances: ADC scores 1e-4 (the kernels sum the m fragments in
-another order than the oracles); top-k ids bit-identical, including the
-lowest-index-first order under constructed ties, scores 1e-5; SQ8 dots
-rtol 1e-4, atol 1e-2 (the reference kernel test's own: an h-long dot of
-byte codes against the MXU's reduction order), ``-inf`` lanes identical;
+Tolerances: fused ADC scores 1e-4 (the kernels sum the m fragments in
+another order than the oracles); unfused ADC scores 1e-5 on the
+reference test's grid and 1e-4 at m = 96, its own; top-k ids
+bit-identical, including the lowest-index-first order under constructed
+ties, scores 1e-5; SQ8 dots rtol 1e-4, atol 1e-2 (the reference kernel
+test's own: an h-long dot of byte codes against the MXU's reduction
+order), ``-inf`` lanes identical;
 assignment ids bit-identical (ties included), scores 1e-5; attention
 outputs and ``lse`` 3e-4 (the reference kernel test's own).
 """
@@ -89,6 +91,57 @@ def test_pq_adc_fused_plain_matches_jax(name):
                                    atol=1e-4)
     if mask_row is not None:
         assert np.isneginf(got[mask_row % b]).all()
+
+
+# --------------------------------------------------------------------------
+# pq_adc (the unfused ADC over gathered codes)
+# --------------------------------------------------------------------------
+
+def _unfused_case(seed, b, c, m, k, dtype):
+    rng = np.random.default_rng(seed)
+    lut = rng.normal(size=(b, m, k)).astype(np.float32)
+    return lut, rng.integers(0, k, size=(b, c, m)).astype(dtype)
+
+
+def _assert_pq_adc_matches_jax(lut, codes, tol):
+    got = adc_ops.pq_adc(torch.from_numpy(lut), torch.from_numpy(codes))
+    assert got.dtype == torch.float32 and got.shape == codes.shape[:2]
+    jl, jc = jnp.asarray(lut), jnp.asarray(codes.astype(np.int32))
+    for want in (jadc_ops.pq_adc(jl, jc, c_blk=128),     # interpret mode
+                 jadc_ref.pq_adc(jl, jc)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                                   atol=tol)
+
+
+@settings(max_examples=12, deadline=None)
+@given(b=st.integers(1, 4), c=st.integers(1, 700),
+       m=st.sampled_from([1, 3, 8, 16]), k=st.sampled_from([128, 256]),
+       u8=st.booleans())
+def test_pq_adc_plain_matches_jax(b, c, m, k, u8):
+    """The grid of tests/test_kernels.py::test_pq_adc_matches_oracle, with
+    uint8 and int32 codes, at its 1e-5."""
+    lut, codes = _unfused_case(b * 1000 + c, b, c, m, k,
+                               np.uint8 if u8 else np.int32)
+    _assert_pq_adc_matches_jax(lut, codes, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+def test_pq_adc_plain_matches_jax_paper_scale(dtype):
+    """m = 96, k = 256 over 2,048 candidates, at the reference's 1e-4."""
+    lut, codes = _unfused_case(0, 2, 2048, 96, 256, dtype)
+    _assert_pq_adc_matches_jax(lut, codes, 1e-4)
+
+
+def test_pq_adc_equals_pq_adc_fused_on_gathered_codes():
+    """The unfused path (gather, then ADC) scores live lanes as the fused
+    one does: bitwise on the CPU, where both take one plain version."""
+    lut, plane, ids, live = _adc_case(5, 3, 300, 8, 128, 200, np.uint8, 1,
+                                      True)
+    lut, plane, ids = (torch.from_numpy(a) for a in (lut, plane, ids))
+    live = torch.from_numpy(live.astype(bool))
+    fused = adc_ops.pq_adc_fused(lut, plane, ids, live)
+    unfused = adc_ops.pq_adc(lut, plane[ids.long()])
+    assert torch.equal(fused[live], unfused[live])
 
 
 # --------------------------------------------------------------------------
@@ -338,13 +391,15 @@ def test_cpu_tensors_never_touch_the_build(monkeypatch):
 
     monkeypatch.setattr(_build, "build", refuse)
     monkeypatch.setattr(_build, "library", refuse)
-    before = (adc_ops.launches, at_ops.launches, sq8_ops.launches,
-              at_ops.assign_launches, fa_ops.launches)
+    before = (adc_ops.launches, adc_ops.unfused_launches, at_ops.launches,
+              sq8_ops.launches, at_ops.assign_launches, fa_ops.launches)
     lut, plane, ids, live = _adc_case(0, 2, 40, 4, 64, 50, np.uint8, None,
                                       False)
     adc_ops.pq_adc_fused(torch.from_numpy(lut), torch.from_numpy(plane),
                          torch.from_numpy(ids),
                          torch.from_numpy(live.astype(bool)))
+    adc_ops.pq_adc(torch.from_numpy(lut), torch.from_numpy(plane)[
+        torch.from_numpy(ids).long()])
     at_ops.topk_scores(torch.randn(4, 8), torch.randn(20, 8), 3)
     q, plane, ids, live = _sq8_case(0, 2, 40, 16, 50, None)
     sq8_ops.sq8_dot_fused(torch.from_numpy(q), torch.from_numpy(plane),
@@ -353,8 +408,9 @@ def test_cpu_tensors_never_touch_the_build(monkeypatch):
     at_ops.assign_argmax(torch.randn(2, 9, 8), torch.randn(2, 4, 8))
     fa_ops.flash_attention(torch.randn(1, 2, 5, 16), torch.randn(1, 1, 7, 16),
                            torch.randn(1, 1, 7, 16))
-    assert (adc_ops.launches, at_ops.launches, sq8_ops.launches,
-            at_ops.assign_launches, fa_ops.launches) == before
+    assert (adc_ops.launches, adc_ops.unfused_launches, at_ops.launches,
+            sq8_ops.launches, at_ops.assign_launches,
+            fa_ops.launches) == before
 
 
 @pytest.mark.parametrize("bad", ["lut_f64", "ids_i64", "live_i32", "plane_m"])
@@ -373,6 +429,30 @@ def test_pq_adc_fused_rejects_what_the_kernel_does_not_take(bad):
         plane = torch.zeros(10, 3, dtype=torch.uint8)
     with pytest.raises(ValueError):
         adc_ops.pq_adc_fused(lut, plane, ids, live)
+
+
+@pytest.mark.parametrize("bad", ["lut_f64", "codes_i64", "codes_f32",
+                                 "codes_m", "codes_b", "codes_2d",
+                                 "device_mix"])
+def test_pq_adc_rejects_what_the_kernel_does_not_take(bad):
+    lut = torch.zeros(2, 4, 16)
+    codes = torch.zeros(2, 5, 4, dtype=torch.uint8)
+    if bad == "lut_f64":
+        lut = lut.double()
+    elif bad == "codes_i64":
+        codes = codes.long()
+    elif bad == "codes_f32":
+        codes = codes.float()
+    elif bad == "codes_m":
+        codes = torch.zeros(2, 5, 3, dtype=torch.uint8)
+    elif bad == "codes_b":
+        codes = torch.zeros(3, 5, 4, dtype=torch.uint8)
+    elif bad == "codes_2d":
+        codes = torch.zeros(10, 4, dtype=torch.uint8)
+    else:
+        codes = codes.to("meta")
+    with pytest.raises(ValueError):
+        adc_ops.pq_adc(lut, codes)
 
 
 @pytest.mark.parametrize("bad", ["k_zero", "k_above_l", "h_mismatch",

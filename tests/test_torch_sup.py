@@ -26,12 +26,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import exec as jexec
 from repro.core import hybrid_index as jhi
 from repro.core import metrics as jmetrics
 from repro.core import term_selector as jts
 from repro.data import synthetic as jsynthetic
 from repro.launch import train as jtrain
 from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.core import exec as qexec
 from repro_torch.core import hybrid_index as hi
 from repro_torch.core import metrics
 from repro_torch.core import term_selector as ts
@@ -263,13 +265,52 @@ def test_opq_sup_index_reaches_the_reference_quality(trained):
 
 
 def test_unported_training_and_sparse_raise(trained):
+    """Training is not yet ported and raises; ``sparse=True`` is ported
+    and builds the impact plane beside the term lists."""
     for fn in (train.fit, train.train_hi2_sup):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             fn()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train.build_sup_index(trained["corpus"], trained["tparams"],
-                              trained["enc_cfg"], trained["assign"],
-                              k1_terms=2, sparse=True, device="cpu")
+    index = train.build_sup_index(trained["corpus"], trained["tparams"],
+                                  trained["enc_cfg"], trained["assign"],
+                                  k1_terms=2, sparse=True, codec="flat",
+                                  device="cpu")
+    entries = index.term_lists.entries
+    assert index.sparse_weights.shape == entries.shape
+    assert bool((index.sparse_weights[entries < 0] == 0).all())
+    assert bool((index.sparse_weights[entries >= 0] > 0).all())
+
+
+def test_build_sup_index_sparse_matches_reference_leaf_for_leaf(trained):
+    """``build_sup_index(sparse=True)``: every leaf of the dense build's
+    comparison, and the impact plane aligned with the term lists: each
+    posting's impact within TOL of the reference's score of that
+    (document, term), near-tie documents set aside as for the lists."""
+    want, got = _build_both(trained, "flat", sparse=True)
+    for name, g, w in (("doc_assign", got.doc_assign, want.doc_assign),
+                       ("cluster_lists.entries", got.cluster_lists.entries,
+                        want.cluster_lists.entries),
+                       ("doc_planes.emb", got.doc_planes["emb"],
+                        want.doc_planes["emb"])):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    _assert_term_lists_match(trained, got.term_lists, want.term_lists)
+    score_of, ties = _ref_term_scores(trained)
+    entries, weights = got.term_lists.entries.numpy(), \
+        got.sparse_weights.numpy()
+    assert weights.shape == np.asarray(want.sparse_weights).shape
+    assert (weights[entries < 0] == 0).all()
+    for t, j in zip(*np.nonzero(entries >= 0)):
+        d = entries[t, j]
+        if d not in ties:
+            assert abs(weights[t, j] - score_of[(d, t)]) <= TOL, (t, j)
+    corpus = trained["corpus"]
+    jres = jhi.search(want, jnp.asarray(corpus.query_emb),
+                      jnp.asarray(corpus.query_tokens), **WIDTHS,
+                      fusion=jexec.FusionSpec(weight=0.5))
+    res = hi.search(got, corpus.query_emb, corpus.query_tokens,
+                    device="cpu", fusion=qexec.FusionSpec(weight=0.5),
+                    **WIDTHS)
+    np.testing.assert_array_equal(res.n_candidates.numpy(),
+                                  np.asarray(jres.n_candidates))
 
 
 def test_term_mlp_scores_match_reference():
