@@ -54,7 +54,10 @@ never prints the final line.  Every phase prints its seconds.
               corpus (``sparse=True``) and is also served fused;
  11a. flash   ``flash_attention`` against its plain version at edge cases
               (f32 / bf16, d 16-128, causal, windows, GQA, ragged and
-              fully-masked rows, strided inputs; out and lse) and at
+              fully-masked rows, strided inputs; out and lse), inputs one
+              element off 16-byte alignment (the element-wise load
+              instance), 828 items (more than one wave of resident
+              blocks, ragged in Sq), one full encoder chunk in f32, and
               llama3-8b's attention shape;
  11b. assign  ``assign_argmax`` against its plain version at ragged N / L,
               h 8 / 40 / 768, the batched PQ axis, constructed ties, and
@@ -68,8 +71,12 @@ never prints the final line.  Every phase prints its seconds.
               counted run (one ``flash_attention`` launch per layer per
               4,096-doc chunk); 4 x 256 queries served and 8 checked
               against the CPU; R@100 / MRR@10 beside phase 10's;
- 13. times    ``flash_attention`` and ``assign_argmax`` at the path's shapes,
-              beside their bounds, plain versions and library yardsticks;
+ 13. times    ``flash_attention`` (at the encoder chunk's and llama3-8b's
+              shapes, with its share of the bound; at llama3-8b against
+              both its own fp32 FMA path and the card's bf16 tensor-core
+              peak) and ``assign_argmax``
+              at the path's shapes, beside their bounds, plain versions
+              and library yardsticks;
  14. bench    the port's ``kernel_bench`` at its full shapes with
               ``--check`` semantics, as a counted run; its report is
               printed as a JSON line;
@@ -166,6 +173,7 @@ LLAMA_ATTN = (1, 4096, 32, 8, 128)
 
 # H100 SXM published peaks (NVIDIA H100 datasheet)
 PEAK_FP32_FLOPS = 67e12              # fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12             # bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12                 # HBM3
 
 ADC_TOL = 1e-4                       # rtol = atol: m-reduction order
@@ -1104,11 +1112,13 @@ def build_on_card(dev, seed: int) -> dict:
 # phases 11-13: flash_attention, assign_argmax and the HI²_sup path
 # --------------------------------------------------------------------------
 
-def _bshd(gen, dev, b, s, h, d, dtype):
+def _bshd(gen, dev, b, s, h, d, dtype, offset: int = 0):
     """A (B, H, S, d) view of (B, S, H, d) memory, as the attention
-    layer's projections hand the kernel."""
-    return torch.randn((b, s, h, d), generator=gen, device=dev).to(
-        dtype).transpose(1, 2)
+    layer's projections hand the kernel, starting ``offset`` elements
+    into its storage (1: not 16-byte aligned)."""
+    n = b * s * h * d
+    flat = torch.randn(n + offset, generator=gen, device=dev).to(dtype)
+    return flat[offset:].view(b, s, h, d).transpose(1, 2)
 
 
 def check_flash(q, k, v, causal, window, what: str) -> float:
@@ -1170,12 +1180,36 @@ def flash_parity(dev, seed: int) -> float:
                        == fa_ref.NEG_INF).sum())
     if not n_dead:
         fail("flash_attention: the dead-row cases masked no row")
+    # the element-wise load instance: every input one element off 16 bytes
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _bshd(gen, dev, 2, 100, 4, 64, dtype, offset=1)
+        k, v = (_bshd(gen, dev, 2, 90, 2, 64, dtype, offset=1)
+                for _ in range(2))
+        if fa_ops.vector_loads(q, k, v):
+            fail("flash_attention: the misaligned case is 16-byte aligned")
+        err[dtype] = max(err[dtype], check_flash(
+            q, k, v, True, 0, f"{dtype} misaligned view"))
+    # 23 x 12 x 3 = 828 items, more than the 132 x 4 blocks resident at
+    # once, with a ragged last q tile
+    q, k, v = (_bshd(gen, dev, 23, 130, ENC_HEADS, 64, torch.float32)
+               for _ in range(3))
+    err[torch.float32] = max(err[torch.float32], check_flash(
+        q, k, v, False, 0, "828 items (more than one wave)"))
+    # full size: one HI²_sup encoder chunk in f32
+    d_head = HIDDEN // ENC_HEADS
+    q, k, v = (_bshd(gen, dev, ENCODE_BATCH, 64, ENC_HEADS, d_head,
+                     torch.float32) for _ in range(3))
+    err[torch.float32] = max(err[torch.float32], check_flash(
+        q, k, v, False, 0, f"encoder chunk ({ENCODE_BATCH}, {ENC_HEADS}, "
+        f"64, {d_head}) f32"))
+    del q, k, v
     # full size: llama3-8b's attention, one batch
     q, k, v = llama_qkv(gen, dev)
     err[torch.bfloat16] = max(err[torch.bfloat16], check_flash(
         q, k, v, True, 0, f"llama3-8b {LLAMA_ATTN} bf16 causal"))
     log(f"[flash] {n_cases} edge cases + 2 dead-row cases ({n_dead} dead "
-        f"rows) + llama3-8b full size: max abs out err f32 "
+        f"rows) + 2 misaligned views + 828 items + the encoder "
+        f"chunk + llama3-8b full size: max abs out err f32 "
         f"{err[torch.float32]:.3g} (tol {FLASH_TOL[torch.float32]}), bf16 "
         f"{err[torch.bfloat16]:.3g} (tol {FLASH_TOL[torch.bfloat16]}); lse "
         f"within {LSE_TOL}")
@@ -1407,17 +1441,20 @@ def time_new_kernels(flash_in: dict, emb, centroids) -> dict:
                           reps=5),
         library_ms=timer.ms(lambda: sdpa(q, k, v), reps=10),
         bound_ms=fa_bound[0], bound_by=fa_bound[1])
+    flash["bound_share"] = fa_bound[0] / flash["ms"]
     log(f"[times] flash_attention at B={b}, H={hq}, S={s_len}, d={d} f32 "
         f"(one encoder chunk): {fa_flops / 1e9:.1f} GFLOP, "
         f"{fa_bytes / 1e9:.2f} GB; kernel {flash['ms']:.3f} ms, plain "
         f"{flash['plain_ms']:.3f} ms, library (scaled_dot_product_attention)"
         f" {flash['library_ms']:.3f} ms, bound {fa_bound[0]:.3f} ms "
-        f"({fa_bound[1]})")
+        f"({fa_bound[1]}), bound / kernel {flash['bound_share']:.1%}")
     gen = torch.Generator(device=q.device).manual_seed(1)
     lq, lk, lv = llama_qkv(gen, q.device)
     lb, ls, lhq, lhkv, ld = LLAMA_ATTN
-    l_bound = bound(4.0 * lb * lhq * ls * ls * ld / 2,    # causal: half
-                    2.0 * lb * ls * ld * (2 * lhq + 2 * lhkv))
+    l_flops = 4.0 * lb * lhq * ls * ls * ld / 2           # causal: half
+    l_bytes = 2.0 * lb * ls * ld * (2 * lhq + 2 * lhkv)
+    l_bound = bound(l_flops, l_bytes)
+    l_card = max(l_flops / PEAK_BF16_FLOPS, l_bytes / PEAK_BYTES) * 1e3
     l_ms = timer.ms(lambda: fa_ops.flash_attention(lq, lk, lv, True, 0),
                     reps=10)
     l_lib = timer.ms(lambda: sdpa(lq, lk, lv, is_causal=True,
@@ -1425,7 +1462,10 @@ def time_new_kernels(flash_in: dict, emb, centroids) -> dict:
     log(f"[times] flash_attention at llama3-8b's shape {LLAMA_ATTN} (B, S, "
         f"Hq, Hkv, d; bf16, causal): kernel {l_ms:.3f} ms, library "
         f"{l_lib:.3f} ms, bound at the fp32 FMA rate {l_bound[0]:.3f} ms "
-        f"({l_bound[1]}; the kernel widens bf16 to fp32 FMAs)")
+        f"({l_bound[1]}; the kernel widens bf16 to fp32 FMAs), bound / "
+        f"kernel {l_bound[0] / l_ms:.1%} against that fp32 path; against the "
+        f"card's bf16 tensor-core peak the bound is {l_card:.3f} ms, "
+        f"{l_card / l_ms:.1%} of the kernel")
 
     def blocked(fn, x, c):
         def run():

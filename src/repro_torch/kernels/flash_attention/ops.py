@@ -6,15 +6,20 @@ plain version comes with training).
 Replaces the TPU kernel
 ``repro/kernels/flash_attention/kernel.py::_flash_kernel``.  On the H100
 it is bound by bytes at the HI²_sup term scorer's shape (S = 64: one
-score tile per head, about 8 FLOPs per byte of q, k, v and out) and by
-operations at long sequences.  ``csrc/flash_attention.cu`` gives one
-block to each (batch, q-head, 64-row q tile) and loops over 64-row kv
-tiles staged in shared memory, with the online-softmax state in
-registers, fp32 FMAs (no TF32), fully-masked kv tiles skipped, and the
-ragged edges masked from the true lengths.  It reads q, k and v through
-their strides, so the (B, H, S, d) views of (B, S, H, d) projections cost
-no copy, and writes ``out`` as a (B, H, S, d) view of (B, S, H, d)
-memory, which the attention layer reshapes back for free.
+score tile per head, about 8 FLOPs per byte of q, k, v and out, with
+the fp32 FMA floor close behind) and by operations at long sequences.
+``csrc/flash_attention.cu`` gives each (batch, q-head, 64-row q tile)
+item a 128-thread block that loops over the item's live 64-key kv
+tiles, copied into shared memory by 16-byte ``cp.async`` (four blocks
+per SM at d <= 64, so one block's loads overlap the others' FMAs); the
+online-softmax state stays in registers, the products are fp32 FMAs (no
+TF32) fed by 128-bit shared reads, fully-masked kv tiles are skipped,
+and the ragged edges are masked from the true lengths.  It reads q, k
+and v through their strides, so the (B, H, S, d) views of (B, S, H, d)
+projections cost no copy, and writes ``out`` as a (B, H, S, d) view of
+(B, S, H, d) memory, which the attention layer reshapes back for free.
+Inputs that are not 16-byte aligned (:func:`vector_loads`) take the
+same kernel's element-wise load instance.
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
 launches the kernel on the current stream, without synchronizing, or
@@ -35,9 +40,14 @@ launches = 0
 
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's template cases
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GRID_YZ = 65_535              # q heads (grid y) and batch (grid z)
+MAX_ITEMS = 2 ** 31 - 1           # B · Hq · ceil(Sq / 64) work items
+Q_TILE = 64                       # query rows per work item
 #: query rows per chunk of the plain version (bounds its score plane)
 Q_CHUNK = 512
+#: ctypes signature of ``flash_attention_fwd`` (csrc/flash_attention.cu)
+ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12
+            + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
+                                    ctypes.c_void_p])
 
 
 def _check(q, k, v, window) -> None:
@@ -63,6 +73,43 @@ def _check(q, k, v, window) -> None:
         raise ValueError(f"window={window} must be >= 0 (0: no window)")
 
 
+def vector_loads(*tensors: torch.Tensor) -> bool:
+    """Whether the kernel's 16-byte ``cp.async`` instance may read and
+    write these (B, H, S, d) tensors: every base address 16-byte aligned
+    and every batch, head and row stride a multiple of 16 bytes.  The
+    feature stride must be 1 (ValueError otherwise); a tensor that fails
+    only the alignment takes the element-wise instance."""
+    if any(t.stride(3) != 1 for t in tensors):
+        raise ValueError("flash_attention needs unit-stride features "
+                         "(last dim)")
+    return all(t.data_ptr() % 16 == 0
+               and all(s * t.element_size() % 16 == 0
+                       for s in t.stride()[:3])
+               for t in tensors)
+
+
+def outputs(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fresh (out, lse) for the kernel: out (B, Hq, Sq, d) in q's dtype
+    as a view of (B, Sq, Hq, d) memory, lse (B, Hq, Sq) f32."""
+    b, hq, sq, d = q.shape
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    return out, torch.empty((b, hq, sq), dtype=torch.float32,
+                            device=q.device)
+
+
+def kernel_args(q, k, v, out, lse, causal: bool, window: int, scale: float,
+                vec: bool, stream: int) -> list:
+    """The arguments of ``flash_attention_fwd``, in :data:`ARGTYPES`'
+    order."""
+    b, hq, sq, d = q.shape
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    return [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), *strides, b, hq, k.shape[1], sq, k.shape[2], d,
+            DTYPES[q.dtype], int(causal), int(window), float(scale),
+            int(vec), stream]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None
@@ -75,7 +122,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     _check(q, k, v, window)
     b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     if q.device.type == "cpu":
@@ -87,26 +133,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} is not one of the kernel's "
                          f"{HEAD_DIMS}")
-    if b > MAX_GRID_YZ or hq > MAX_GRID_YZ:
-        raise ValueError(f"B={b} and Hq={hq} must be <= {MAX_GRID_YZ}")
-    if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention needs unit-stride features "
-                         "(last dim)")
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if b * hq * -(-sq // Q_TILE) > MAX_ITEMS:
+        raise ValueError(f"B·Hq·ceil(Sq/{Q_TILE}) must be <= {MAX_ITEMS}")
+    out, lse = outputs(q)
+    vec = vector_loads(q, k, v, out)
     lib = _build.library("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12
-                   + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), *strides, b, hq, hkv, sq, sk, d,
-                 DTYPES[q.dtype], int(causal), int(window), float(scale),
-                 stream)
+        err = fn(*kernel_args(q, k, v, out, lse, causal, window, scale, vec,
+                              stream))
     _build.check(lib, err, "flash_attention")
     launches += 1
     return out, lse

@@ -427,25 +427,52 @@ def test_kmeans_assign_is_one_launch_over_the_batch(cuda):
 
 
 FLASH_CASES = {
-    # name: (dtype, b, hq, hkv, sq, sk, d, causal, window)
-    "f32_encoder_d64": (torch.float32, 3, 12, 12, 64, 64, 64, False, 0),
-    "f32_d16_gqa_ragged": (torch.float32, 2, 4, 2, 63, 63, 16, True, 0),
-    "f32_d128_window": (torch.float32, 1, 8, 1, 200, 200, 128, True, 32),
-    "f32_dead_rows": (torch.float32, 2, 4, 4, 384, 63, 32, False, 32),
-    "bf16_d128_gqa": (torch.bfloat16, 1, 32, 8, 384, 384, 128, True, 0),
-    "bf16_one_row": (torch.bfloat16, 2, 4, 2, 1, 200, 64, False, 0),
+    # name: (dtype, b, hq, hkv, sq, sk, d, causal, window, element offset
+    # of every input's storage: 1 misaligns it and takes the element-wise
+    # load instance)
+    "f32_encoder_d64": (torch.float32, 3, 12, 12, 64, 64, 64, False, 0, 0),
+    "f32_d16_gqa_ragged": (torch.float32, 2, 4, 2, 63, 63, 16, True, 0, 0),
+    "f32_d128_window": (torch.float32, 1, 8, 1, 200, 200, 128, True, 32, 0),
+    "f32_dead_rows": (torch.float32, 2, 4, 4, 384, 63, 32, False, 32, 0),
+    "bf16_d128_gqa": (torch.bfloat16, 1, 32, 8, 384, 384, 128, True, 0, 0),
+    "bf16_one_row": (torch.bfloat16, 2, 4, 2, 1, 200, 64, False, 0, 0),
+    # one full HI²_sup encoder chunk (4,096 docs x 12 heads x 64 tokens)
+    "f32_encoder_chunk_full": (torch.float32, 4096, 12, 12, 64, 64, 64,
+                               False, 0, 0),
+    # 828 items over 23 batches: more than one wave of the 132 x 4 blocks
+    # resident at d = 64, with a ragged last q tile
+    "f32_many_items_ragged": (torch.float32, 23, 12, 12, 130, 130, 64,
+                              False, 0, 0),
+    "f32_misaligned_view": (torch.float32, 2, 4, 2, 100, 100, 64, True, 0,
+                            1),
+    "bf16_misaligned_view": (torch.bfloat16, 2, 4, 2, 70, 90, 32, False, 0,
+                             1),
+    # a window of 300 over 1,000 causal keys: each q tile walks only the
+    # kv tiles its window reaches, and skips those below it
+    "f32_causal_window_skips": (torch.float32, 1, 4, 4, 1000, 1000, 64,
+                                True, 300, 0),
+    "bf16_d128_s1000": (torch.bfloat16, 1, 8, 2, 1000, 1000, 128, False, 0,
+                        0),
 }
+
+
+def _bshd_at(g, dev, b, s, h, d, dtype, offset):
+    """A (B, H, S, d) view of (B, S, H, d) memory that starts ``offset``
+    elements into its storage."""
+    n = b * s * h * d
+    flat = torch.randn(n + offset, generator=g, device=dev).to(dtype)
+    return flat[offset:].view(b, s, h, d).transpose(1, 2)
 
 
 @pytest.mark.parametrize("name", sorted(FLASH_CASES))
 def test_flash_attention_kernel_matches_plain(cuda, name):
-    dtype, b, hq, hkv, sq, sk, d, causal, window = FLASH_CASES[name]
+    dtype, b, hq, hkv, sq, sk, d, causal, window, offset = FLASH_CASES[name]
     g = torch.Generator(device=cuda).manual_seed(len(name))
     # q, k, v as (B, H, S, d) views of (B, S, H, d) memory
-    q = torch.randn((b, sq, hq, d), generator=g, device=cuda).to(
-        dtype).transpose(1, 2)
-    k, v = (torch.randn((b, sk, hkv, d), generator=g, device=cuda).to(
-        dtype).transpose(1, 2) for _ in range(2))
+    q = _bshd_at(g, cuda, b, sq, hq, d, dtype, offset)
+    k, v = (_bshd_at(g, cuda, b, sk, hkv, d, dtype, offset)
+            for _ in range(2))
+    assert fa_ops.vector_loads(q, k, v) is (offset == 0)
     before = fa_ops.launches
     out, lse = fa_ops.flash_attention(q, k, v, causal, window)
     want, wlse = fa_ref.flash_attention(q, k, v, causal, window)

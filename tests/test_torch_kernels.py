@@ -15,6 +15,8 @@ order), ``-inf`` lanes identical;
 assignment ids bit-identical (ties included), scores 1e-5; attention
 outputs and ``lse`` 3e-4 (the reference kernel test's own).
 """
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -368,6 +370,96 @@ def test_flash_attention_lse_and_fully_masked_rows_match_the_kernel():
     assert (out.numpy()[:, :, dead] == 0).all()
     assert (lse.numpy()[:, :, dead] == fa_ref.NEG_INF).all()
     assert np.isfinite(lse.numpy()[:, :, ~dead]).all()
+
+
+def _offset_view(shape, dtype, offset):
+    """A contiguous (B, H, S, d) tensor starting ``offset`` elements into
+    its storage."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("case, want", [
+    ("contiguous_bhsd", True),
+    ("bshd_transposed_view", True),
+    ("offset_one_element", False),
+    ("bf16_d16", True),
+    ("bf16_offset_one_element", False),
+    ("row_stride_not_16_bytes", False),
+])
+def test_flash_attention_vector_loads_eligibility(case, want):
+    """The 16-byte cp.async instance needs every base 16-byte aligned and
+    every (b, h, s) stride a multiple of 16 bytes; the attention layer's
+    (B, S, H, d) projections viewed as (B, H, S, d) qualify, a view one
+    element off does not (it takes the element-wise instance)."""
+    if case == "contiguous_bhsd":
+        ts = [torch.zeros(2, 12, 64, 64) for _ in range(3)]
+    elif case == "bshd_transposed_view":
+        ts = [torch.zeros(2, 64, 12, 64).transpose(1, 2) for _ in range(3)]
+    elif case == "offset_one_element":
+        ts = [torch.zeros(2, 12, 64, 64),
+              _offset_view((2, 12, 64, 64), torch.float32, 1),
+              torch.zeros(2, 12, 64, 64)]
+    elif case == "bf16_d16":
+        ts = [torch.zeros(2, 3, 5, 16, dtype=torch.bfloat16)
+              for _ in range(3)]
+    elif case == "bf16_offset_one_element":
+        ts = [_offset_view((2, 3, 5, 16), torch.bfloat16, 1)]
+    else:   # features sliced out of wider rows: row stride 65 floats
+        ts = [torch.zeros(2, 4, 8, 65)[..., :64]]
+    assert fa_ops.vector_loads(*ts) is want
+    # the offset views differ from an aligned one only in the base address
+    if case.endswith("offset_one_element"):
+        assert any(t.data_ptr() % 16 for t in ts)
+
+
+def test_flash_attention_vector_loads_refuses_strided_features():
+    q = torch.zeros(1, 2, 8, 32)[..., ::2]
+    assert q.stride(3) == 2
+    with pytest.raises(ValueError, match="unit-stride features"):
+        fa_ops.vector_loads(q, torch.zeros(1, 2, 8, 16))
+
+
+def test_flash_attention_kernel_args_follow_argtypes():
+    """The wrapper's argument list matches the C entry's ctypes signature
+    position by position: strides of q, k, v and the (B, S, H, d) output
+    view, then the sizes, flags, scale, ``vec`` and the stream."""
+    q = torch.zeros(2, 64, 12, 64).transpose(1, 2)
+    k = v = torch.zeros(2, 40, 4, 64).transpose(1, 2)
+    out, lse = fa_ops.outputs(q)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert out.stride() == (64 * 12 * 64, 64, 12 * 64, 1)
+    assert lse.shape == (2, 12, 64) and lse.dtype == torch.float32
+    args = fa_ops.kernel_args(q, k, v, out, lse, True, 5, 0.125, True, 7)
+    assert len(args) == len(fa_ops.ARGTYPES)
+    assert args[:5] == [t.data_ptr() for t in (q, k, v, out, lse)]
+    assert args[5:17] == [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    assert args[17:] == [2, 12, 4, 64, 40, 64, 0, 1, 5, 0.125, 1, 7]
+    for ctype, arg in zip(fa_ops.ARGTYPES, args):
+        ctype(arg)
+
+
+def test_flash_variants_arguments_and_parent_entry(tmp_path):
+    """The parent-against-change tool parses its arguments, reads from a
+    parent's source whether its C entry takes ``vec``, and needs a card."""
+    from repro_torch.benchmarks import flash_variants as fv
+    args = fv.parse_args(["--parent", "build/flash_parent.cu"])
+    assert args.parent == pathlib.Path("build/flash_parent.cu")
+    assert args.reps == 20
+    assert fv.parse_args(["--parent", "p.cu", "--reps", "3"]).reps == 3
+    with pytest.raises(SystemExit):
+        fv.parse_args([])
+    assert fv.takes_vec(_build.SOURCES["flash_attention"].read_text())
+    assert not fv.takes_vec(
+        "int flash_attention_fwd(const void* q, int d, int dtype,\n"
+        "                        float scale, void* stream) {")
+    with pytest.raises(ValueError, match="no flash_attention_fwd"):
+        fv.takes_vec("int main() { return 0; }")
+    if not torch.cuda.is_available():
+        parent = tmp_path / "flash_parent.cu"
+        parent.write_text(_build.SOURCES["flash_attention"].read_text())
+        with pytest.raises(SystemExit, match="needs an NVIDIA card"):
+            fv.main(["--parent", str(parent)])
 
 
 def test_flash_attention_chunked_equals_dense():
