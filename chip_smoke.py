@@ -15,7 +15,9 @@ never prints the final line.  Every phase prints its seconds.
               ``--seed``, with a (V, Ct) f32 BM25 impact plane, and
               moved to the card;
   4. parity   each kernel against its plain PyTorch version on the
-              card at edge shapes, and the two kernels of the ``opq``
+              card at edge shapes (for ``topk_scores`` also h = 37 and a
+              view one element off 16-byte alignment, which take its
+              element-wise copies), and the two kernels of the ``opq``
               path at its full width;
   5. serving  ``Server(ServeConfig(kc=30, k2=32, top_r=100,
               max_batch=256))`` answers ``--batches`` batches of 256
@@ -29,7 +31,8 @@ never prints the final line.  Every phase prints its seconds.
   6. check    the first 8 queries against the same search on the CPU
               (the plain path) over the same planes;
   7. times    each kernel, its plain version and the library yardstick
-              with CUDA events, beside the kernel's bound;
+              with CUDA events, beside the kernel's bound (and, for
+              ``topk_scores``, its share of that bound);
   8. profile  device time by kernel over one served batch
               (torch.profiler) and the device's busy share;
   8b-d. fused the same server with ``fusion_weight=0.5`` (hybrid
@@ -96,7 +99,6 @@ import dataclasses
 import json
 import math
 import pathlib
-import statistics
 import subprocess
 import sys
 import time
@@ -109,6 +111,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.benchmarks import kernel_bench  # noqa: E402
+from repro_torch.benchmarks.timing import Timer  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
 from repro_torch.core import exec as qexec  # noqa: E402
 from repro_torch.core import hybrid_index as hi  # noqa: E402
@@ -384,29 +387,6 @@ def topk_match(ref_ids, ref_s, got_ids, got_s, tol: float) -> bool:
 # timing
 # --------------------------------------------------------------------------
 
-class Timer:
-    """CUDA-event times of a callable, L2 flushed before every run (the
-    serving path finds the kernels' inputs cold)."""
-
-    def __init__(self):
-        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-
-    def ms(self, fn, reps: int, warm: int = 2) -> float:
-        for _ in range(warm):
-            fn()
-        times = []
-        for _ in range(reps):
-            self.flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
-
 def profile_batch(server, qe, qt, top: int = 12) -> None:
     """Device time by kernel over one served batch (torch.profiler),
     and the device's busy share of the batch's wall time."""
@@ -516,21 +496,27 @@ def parity_edges(dev, prng: np.random.Generator) -> dict:
         adc_ops.pq_adc_fused(lut, plane, ids, live),
         adc_ref.pq_adc_fused(lut, plane, ids, live), "unaligned_rows"))
 
-    topk_cases = [  # (name, n, l, h, k, duplicated centroid rows)
-        ("ties", 33, 300, 32, 12, True),
-        ("small", 5, 37, 16, 4, False),
-        ("k_equals_l", 3, 2, 16, 2, True),
-        ("ragged_tiles", 17, 129, 40, 8, True),
-        ("k_max", 2, 10_000, 768, at_ops.MAX_K, False),
+    topk_cases = [  # (name, n, l, h, k, duplicated centroid rows,
+        #                elements off 16-byte alignment)
+        ("ties", 33, 300, 32, 12, True, 0),
+        ("small", 5, 37, 16, 4, False, 0),
+        ("k_equals_l", 3, 2, 16, 2, True, 0),
+        ("ragged_tiles", 17, 129, 40, 8, True, 0),
+        ("k_max", 2, 10_000, 768, at_ops.MAX_K, False, 0),
+        # the element-wise copies: h % 4 != 0, and x off alignment
+        ("h37_elementwise", 40, 1000, 37, 30, False, 0),
+        ("misaligned_view", 64, 3000, 768, 30, False, 1),
     ]
-    for cname, n, l, h, k, ties in topk_cases:
+    for cname, n, l, h, k, ties, offset in topk_cases:
         x = prng.normal(size=(n, h))
         x = (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(
             np.float32)
         emb = prng.normal(size=(l, h)).astype(np.float32)
         if ties:
             emb = np.concatenate([emb[: (l + 1) // 2]] * 2)[:l]
-        x, emb = _cases_to(dev, x, emb)
+        x, emb = _cases_to(dev, np.concatenate(
+            [np.zeros(offset, np.float32), x.ravel()]), emb)
+        x = x[offset:].view(n, h)
         errs["topk_scores"] = max(errs["topk_scores"], check_topk(
             at_ops.topk_scores(x, emb, k), at_ref.topk_scores(x, emb, k),
             x @ emb.T, cname))
@@ -910,6 +896,16 @@ def time_kernels(inp: dict) -> dict:
         f"topk_scores at N={n}, L={l}, h={h}, k={KC}: "
         f"{topk_flops / 1e9:.3f} GFLOP; library_ms of topk_scores is "
         f"torch.topk(x @ emb.T, k), two calls")
+    topk = dict(
+        ms=timer.ms(lambda: at_ops.topk_scores(x, emb, KC), reps=20),
+        plain_ms=timer.ms(lambda: at_ref.topk_scores(x, emb, KC), reps=20),
+        library_ms=timer.ms(lambda: torch.topk(x @ emb.T, KC), reps=20),
+        bound_ms=topk_bound[0], bound_by=topk_bound[1])
+    topk["bound_share"] = topk_bound[0] / topk["ms"]
+    log(f"[times] topk_scores: kernel {topk['ms']:.4f} ms, plain "
+        f"{topk['plain_ms']:.4f} ms, library {topk['library_ms']:.4f} ms, "
+        f"bound {topk_bound[0]:.4f} ms ({topk_bound[1]}), bound / kernel "
+        f"{topk['bound_share']:.1%}")
     return {
         "pq_adc_fused": dict(
             ms=timer.ms(lambda: adc_ops.pq_adc_fused(lut, plane, rows,
@@ -917,13 +913,7 @@ def time_kernels(inp: dict) -> dict:
             plain_ms=timer.ms(plain_adc, reps=3, warm=1),
             library_ms=None, bound_ms=adc_bound[0],
             bound_by=adc_bound[1]),
-        "topk_scores": dict(
-            ms=timer.ms(lambda: at_ops.topk_scores(x, emb, KC), reps=20),
-            plain_ms=timer.ms(lambda: at_ref.topk_scores(x, emb, KC),
-                              reps=20),
-            library_ms=timer.ms(lambda: torch.topk(x @ emb.T, KC),
-                                reps=20),
-            bound_ms=topk_bound[0], bound_by=topk_bound[1]),
+        "topk_scores": topk,
     }
 
 

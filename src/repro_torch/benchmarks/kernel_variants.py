@@ -1,0 +1,408 @@
+"""A kernel change against its parent, in one process on one card.
+
+    git show HEAD:src/repro_torch/kernels/assign_topk/csrc/topk_scores.cu \\
+        > build/topk_parent.cu
+    python -m repro_torch.benchmarks.kernel_variants --kernel topk_scores \\
+        --parent build/topk_parent.cu [--gemm-only] [--variant kHC=16]
+    git show HEAD:src/repro_torch/kernels/flash_attention/csrc/\\
+flash_attention.cu > build/flash_parent.cu
+    python -m repro_torch.benchmarks.kernel_variants \\
+        --kernel flash_attention --parent build/flash_parent.cu
+
+``HEAD`` is the parent while the change is not yet committed (after
+committing it, ``HEAD~1``).  Builds the parent's source and this
+checkout's with nvcc, in parallel, and prints each instance's ``ptxas``
+registers and spills.  Both kernels are called through their wrapper's
+own argument builders (``ops.kernel_args``).  Times are CUDA-event
+medians of queued launches (all enqueued before one synchronize, so host
+time is not counted; :class:`~repro_torch.benchmarks.timing.Timer`), the
+50 MB L2 flushed before every launch, taken in the order parent, change,
+change, parent, beside the library call that computes the same function
+and the bound (the larger of bytes at 3.35 TB/s and FLOPs at 67
+TFLOP/s).  The last line is a JSON object of the times (ms).  Needs a
+card.
+
+``topk_scores``: at the served dispatch shape (N 256, L 10,000, h 768,
+k 30) and at the edge shapes of :data:`TOPK_SHAPES`, every build must
+equal the parent bit for bit and agree with the plain version within
+``TOPK_TOL``; a disagreement fails the run after the times.  Each build
+launches at its own wrapper's slice count (a parent library without
+``topk_scores_tiles`` has 16-query, 64-centroid tiles, sliced as its
+wrapper sliced them).  ``--variant kHC=16,kMinBlocks=2`` adds a copy of
+this checkout's source with those ``constexpr int`` tile constants set;
+``--gemm-only`` adds a copy of every build with its per-tile merge cut
+out (the product and the tile store only; timed, not checked), which
+splits its time into GEMM and selection.
+
+``flash_attention``: at the HI²_sup encoder chunk's shape (B 4,096, H
+12, S 64, d 64 f32, non-causal) and at llama3-8b's attention (B 1, S
+4,096, Hq 32, Hkv 8, d 128 bf16, causal): both builds against the plain
+version (f32 out within 1e-4, bf16 within 2e-2, lse within 1e-4; the
+change in both load instances), timed beside
+``scaled_dot_product_attention``.  A parent whose C entry lacks the
+``vec`` flag (before the element-wise instance) is called without it.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import re
+import subprocess
+import sys
+
+import torch
+
+from repro_torch.benchmarks.timing import Timer
+from repro_torch.kernels import _build
+from repro_torch.kernels.assign_topk import ops as at_ops
+from repro_torch.kernels.assign_topk import ref as at_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+
+ROOT = pathlib.Path(__file__).resolve().parents[3]
+OUT_DIR = ROOT / "build" / "kernel_variants"
+PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+TOPK_TOL = 1e-5          # rtol = atol: the h products' summation order
+#: tiles of a topk_scores.cu that does not export them, and the blocks
+#: an SM its wrapper sized the slices for
+PARENT_TILES = at_ops.Tiles(queries_per_block=16, centroid_tile=64,
+                            blocks_per_sm=4)
+#: name: (n, l, h, k, duplicated centroid rows, elements off alignment)
+TOPK_SHAPES = {
+    "served": (256, 10_000, 768, 30, False, 0),
+    "h37_elementwise": (40, 1000, 37, 30, False, 0),
+    "misaligned_view": (64, 3000, 768, 30, False, 1),
+    "n33_ragged": (33, 2000, 768, 30, False, 0),
+    "ties_k128": (20, 1000, 64, 128, True, 0),
+    "ragged_tiles": (17, 129, 40, 8, True, 0),
+}
+# the per-tile merge of topk_scores.cu and what --gemm-only puts in its
+# place: the tile row is still read, so the product is not optimized away
+MERGE = re.compile(r"warp_merge\(sm\.ls\[q\], sm\.li\[q\], cnt\[u\], n, k, "
+                   r"lane,.*?\}\);", re.S)
+MERGE_STAND_IN = "if (row[lane] != row[lane]) cnt[u] = 0;"
+
+
+def takes_vec(source: str) -> bool:
+    """Whether a ``flash_attention.cu``'s C entry takes the ``vec`` flag
+    (sources from before the element-wise load instance do not)."""
+    entry = re.search(r"int flash_attention_fwd\(([^)]*)\)", source)
+    if entry is None:
+        raise ValueError("no flash_attention_fwd C entry in the source")
+    return re.search(r"\bint vec\b", entry.group(1)) is not None
+
+
+def variant_source(source: str, consts: dict[str, str] | None = None,
+                   gemm_only: bool = False) -> str:
+    """A ``topk_scores.cu`` with each ``constexpr int NAME = ...;`` of
+    ``consts`` set to its value and, with ``gemm_only``, the per-tile
+    merge cut out.  ValueError where a part is not found exactly once."""
+    for name, value in (consts or {}).items():
+        source, n = re.subn(
+            rf"^(constexpr int {re.escape(name)} = )[^;]+;",
+            rf"\g<1>{value};", source, flags=re.M)
+        if n != 1:
+            raise ValueError(f"constant {name!r}: found {n} definitions, "
+                             f"want 1")
+    if gemm_only:
+        source, n = MERGE.subn(MERGE_STAND_IN, source)
+        if n != 1:
+            raise ValueError(f"per-tile merge: found {n} matches, want 1")
+    return source
+
+
+def parse_consts(spec: str) -> dict[str, str]:
+    """``"kHC=16,kMinBlocks=2"`` → ``{"kHC": "16", "kMinBlocks": "2"}``."""
+    pairs = [item.partition("=") for item in spec.split(",")]
+    if not all(eq and name.isidentifier() and value.strip()
+               for name, eq, value in pairs):
+        raise argparse.ArgumentTypeError(
+            f"want NAME=VALUE[,NAME=VALUE], got {spec!r}")
+    return {name: value.strip() for name, _, value in pairs}
+
+
+def exports_tiles(lib) -> bool:
+    """Whether a ``topk_scores`` library exports ``topk_scores_tiles``."""
+    try:
+        lib.topk_scores_tiles
+    except AttributeError:
+        return False
+    return True
+
+
+def topk_tiles(lib) -> at_ops.Tiles:
+    """The library's tiles, or :data:`PARENT_TILES` where it has no
+    ``topk_scores_tiles``."""
+    return at_ops.tiles(lib) if exports_tiles(lib) else PARENT_TILES
+
+
+def topk_slices(lib, tl: at_ops.Tiles, n: int, l: int, sms: int) -> int:
+    """The slice count ``lib``'s own wrapper launches at (n, l); for a
+    library without ``topk_scores_tiles``, its wrapper's rule: enough
+    blocks for 4 an SM, at most one slice per 64-centroid tile."""
+    if exports_tiles(lib):
+        return at_ops.n_slices(n, l, sms, tl)
+    want = -(-tl.blocks_per_sm * sms // -(-n // tl.queries_per_block))
+    return max(1, min(want, -(-l // tl.centroid_tile)))
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", required=True,
+                    choices=("flash_attention", "topk_scores"))
+    ap.add_argument("--parent", required=True, type=pathlib.Path,
+                    help="the parent's source of the kernel")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--variant", action="append", default=[],
+                    type=parse_consts, metavar="NAME=VALUE[,NAME=VALUE]",
+                    help="also build this checkout's source with these "
+                         "constexpr int tile constants (topk_scores)")
+    ap.add_argument("--gemm-only", action="store_true",
+                    help="also build every source without its per-tile "
+                         "merge (topk_scores)")
+    return ap.parse_args(argv)
+
+
+def build(sources: dict) -> dict:
+    """{name: source path} → {name: loaded library}."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+         str(OUT_DIR / f"{name}.so"), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, src in sources.items()}
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            sys.exit(f"{name} failed to build:\n{log}")
+        entry = ""
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                print(f"[ptxas {name}] {entry[-40:]}: {line.strip()}")
+        libs[name] = ctypes.CDLL(str(OUT_DIR / f"{name}.so"))
+        libs[name].kernel_error_string.argtypes = [ctypes.c_int]
+        libs[name].kernel_error_string.restype = ctypes.c_char_p
+    return libs
+
+
+def report_times(sname: str, bound: float, times: dict) -> None:
+    print(f"[times] {sname}: bound {bound:.4f} ms; " + "; ".join(
+        f"{n} {' / '.join(f'{t:.4f}' for t in ts)}"
+        for n, ts in times.items()), flush=True)
+
+
+# --------------------------------------------------------------------------
+# flash_attention
+# --------------------------------------------------------------------------
+
+def call_flash(lib, with_vec: bool, q, k, v, causal: bool,
+               vec: bool = True):
+    """One launch through ``ops``' calling convention; ``with_vec`` False
+    drops the ``vec`` argument for a C entry that lacks it."""
+    out, lse = fa_ops.outputs(q)
+    args = fa_ops.kernel_args(q, k, v, out, lse, causal, 0,
+                              q.shape[-1] ** -0.5,
+                              vec and fa_ops.vector_loads(q, k, v, out),
+                              torch.cuda.current_stream().cuda_stream)
+    argtypes = list(fa_ops.ARGTYPES)
+    if not with_vec:
+        del args[-2], argtypes[-2]
+    fn = lib.flash_attention_fwd
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    _build.check(lib, fn(*args), "flash_attention")
+    return out, lse
+
+
+def flash_shapes(gen):
+    def bshd(b, s, h, d, dtype):
+        return torch.randn((b, s, h, d), generator=gen, device="cuda").to(
+            dtype).transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    yield "encoder", dict(
+        qkv=[bshd(4096, 64, 12, 64, torch.float32) for _ in range(3)],
+        causal=False, flops=4.0 * 4096 * 12 * 64 * 64 * 64,
+        nbytes=4.0 * (4 * 4096 * 12 * 64 * 64 + 4096 * 12 * 64),
+        library=lambda q, k, v: sdpa(q, k, v))
+    yield "llama3_8b", dict(
+        qkv=[bshd(1, 4096, 32, 128, torch.bfloat16)]
+        + [bshd(1, 4096, 8, 128, torch.bfloat16) for _ in range(2)],
+        causal=True, flops=4.0 * 32 * 4096 * 4096 * 128 / 2,
+        nbytes=2.0 * 4096 * 128 * (2 * 32 + 2 * 8),
+        library=lambda q, k, v: sdpa(q, k, v, is_causal=True,
+                                     enable_gqa=True))
+
+
+def flash_main(args) -> dict:
+    with_vec = {"parent": takes_vec(args.parent.read_text()), "new": True}
+    libs = build({"parent": (args.parent, ()),
+                  "new": (_build.SOURCES["flash_attention"], ())})
+    timer = Timer(queued=True)
+    report = {}
+    for sname, sh in flash_shapes(torch.Generator(device="cuda")
+                                  .manual_seed(0)):
+        q, k, v = sh["qkv"]
+        want, wlse = fa_ref.flash_attention(q, k, v, sh["causal"], 0)
+        tol = 1e-4 if q.dtype == torch.float32 else 2e-2
+        for name, lib in libs.items():
+            for vec in (True, False)[:1 + with_vec[name]]:
+                out, lse = call_flash(lib, with_vec[name], q, k, v,
+                                      sh["causal"], vec)
+                err = float((out.float() - want.float()).abs().max())
+                ok = (torch.allclose(out.float(), want.float(), rtol=tol,
+                                     atol=tol)
+                      and torch.allclose(lse, wlse, rtol=1e-4, atol=1e-4))
+                print(f"[check] {sname} {name} vec={vec}: max abs out err "
+                      f"{err:.3g} {'ok' if ok else 'FAILED'}", flush=True)
+                if not ok:
+                    sys.exit(f"{name} disagrees with the plain version")
+        del want, wlse
+        times = {}
+        for name in ("parent", "new", "new", "parent"):
+            times.setdefault(name, []).append(timer.ms(
+                lambda: call_flash(libs[name], with_vec[name], q, k, v,
+                                   sh["causal"]), args.reps))
+        times["new_scalar"] = [timer.ms(
+            lambda: call_flash(libs["new"], True, q, k, v, sh["causal"],
+                               False), max(args.reps // 2, 3))]
+        times["library"] = [timer.ms(lambda: sh["library"](q, k, v),
+                                     args.reps) for _ in range(2)]
+        bound = 1e3 * max(sh["flops"] / PEAK_FP32_FLOPS,
+                          sh["nbytes"] / PEAK_BYTES)
+        report[sname] = dict(bound_ms=bound, **times)
+        report_times(sname, bound, times)
+    return report
+
+
+# --------------------------------------------------------------------------
+# topk_scores
+# --------------------------------------------------------------------------
+
+def topk_inputs(gen, n, l, h, ties, offset):
+    """Unit-norm queries and Gaussian centroids on the card; ``ties``
+    duplicates the first half of the centroids; ``offset`` > 0 makes x a
+    contiguous view that many elements past an aligned base."""
+    flat = torch.randn(n * h + offset, generator=gen, device="cuda")
+    x = flat[offset:].view(n, h)
+    x /= x.norm(dim=1, keepdim=True)
+    emb = torch.randn((l, h), generator=gen, device="cuda")
+    if ties:
+        emb = torch.cat([emb[: (l + 1) // 2]] * 2)[:l].contiguous()
+    return x, emb
+
+
+def call_topk(lib, tl: at_ops.Tiles, x, emb, k: int):
+    """One launch through ``ops``' argument builders, at the slice count
+    ``lib``'s own wrapper launches."""
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    slices = topk_slices(lib, tl, x.shape[0], emb.shape[0], sms)
+    bufs = at_ops.buffers(x, k, tl, slices)
+    at_ops.launch(lib, x, emb, k, slices, bufs)
+    return bufs[0], bufs[1]
+
+
+def topk_agrees(got, want, full) -> tuple[bool, float]:
+    """Scores within TOPK_TOL of the plain version, ids equal except
+    between plain scores within it, no id twice in a row."""
+    (gs, gi), (ws, wi) = got, want
+    ok = torch.allclose(gs, ws, rtol=TOPK_TOL, atol=TOPK_TOL)
+    diff = gi != wi
+    own = torch.gather(full, 1, gi.long())
+    ok &= bool(((own - ws).abs()[diff]
+                <= TOPK_TOL + TOPK_TOL * ws.abs()[diff]).all())
+    ok &= all(len(set(row)) == len(row) for row in gi.tolist())
+    return ok, float((gs - ws).abs().max())
+
+
+def topk_main(args) -> dict:
+    src = _build.SOURCES["topk_scores"]
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    sources = {"parent": args.parent, "new": src}
+    for i, consts in enumerate(args.variant):
+        sources[f"variant{i}"] = OUT_DIR / f"variant{i}.cu"
+        sources[f"variant{i}"].write_text(
+            variant_source(src.read_text(), consts))
+        print(f"[variant] variant{i}: {consts}")
+    exact = list(sources)
+    if args.gemm_only:
+        for name in exact:
+            try:
+                text = variant_source(sources[name].read_text(),
+                                      gemm_only=True)
+            except ValueError as e:         # e.g. another merge call
+                print(f"[gemm-only] {name}: left out ({e})")
+                continue
+            sources[f"{name}_gemm"] = OUT_DIR / f"{name}_gemm.cu"
+            sources[f"{name}_gemm"].write_text(text)
+    libs = build(sources)
+    tl = {name: topk_tiles(lib) for name, lib in libs.items()}
+    for name, t in tl.items():
+        print(f"[tiles] {name}: {t}", flush=True)
+    failed = []
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for sname, (n, l, h, k, ties, offset) in TOPK_SHAPES.items():
+        x, emb = topk_inputs(gen, n, l, h, ties, offset)
+        want = at_ref.topk_scores(x, emb, k)
+        base = call_topk(libs["parent"], tl["parent"], x, emb, k)
+        for name in exact:
+            got = call_topk(libs[name], tl[name], x, emb, k)
+            ok, err = topk_agrees(got, want, x @ emb.T)
+            same = all(torch.equal(a, b) for a, b in zip(got, base))
+            print(f"[check] {sname} {name}: max abs score err {err:.3g} "
+                  f"{'ok' if ok else 'FAILED'}; bitwise equal to the "
+                  f"parent: {same}", flush=True)
+            if not ok or not same:
+                failed.append(f"{name} at {sname}")
+    n, l, h, k, ties, offset = TOPK_SHAPES["served"]
+    x, emb = topk_inputs(gen, n, l, h, ties, offset)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    timer = Timer(queued=True)
+    times = {}
+
+    def run(name):
+        """One launch, its buffers allocated before the timed window and
+        its ticket counters zeroed inside it (as every call needs)."""
+        slices = topk_slices(libs[name], tl[name], n, l, sms)
+        print(f"[slices] {name}: {slices}", flush=True)
+        bufs = at_ops.buffers(x, k, tl[name], slices)
+
+        def launch():
+            bufs[4].zero_()
+            at_ops.launch(libs[name], x, emb, k, slices, bufs)
+        return launch
+    for name in ("parent", "new", "new", "parent"):
+        times.setdefault(name, []).append(timer.ms(run(name), args.reps))
+    for name in libs:
+        if name not in times:
+            times[name] = [timer.ms(run(name), args.reps)]
+    times["library"] = [timer.ms(lambda: torch.topk(x @ emb.T, k),
+                                 args.reps) for _ in range(2)]
+    times["plain"] = [timer.ms(lambda: at_ref.topk_scores(x, emb, k),
+                               args.reps) for _ in range(2)]
+    bound = 1e3 * max(2.0 * n * l * h / PEAK_FP32_FLOPS,
+                      (4.0 * (n * h + l * h) + 8.0 * n * k) / PEAK_BYTES)
+    report_times("served", bound, times)
+    if failed:      # after the times, which still tell where time goes
+        print(json.dumps({"served": dict(bound_ms=bound, **times)}))
+        sys.exit(f"disagrees: {', '.join(failed)}")
+    return {"served": dict(bound_ms=bound, **times)}
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("kernel_variants: needs an NVIDIA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(smi.stdout.strip(), flush=True)
+    report = (topk_main if args.kernel == "topk_scores" else flash_main)(args)
+    print(json.dumps(report))
+
+
+if __name__ == "__main__":
+    main()

@@ -6,11 +6,15 @@
 ``repro/kernels/assign_topk/kernel.py::_topk_kernel`` (+
 ``_select_topk``).  On the H100 it is bound by operations: 2·N·L·h
 fp32 FMAs, kept off the TF32 tensor cores so dispatch ids match the fp32
-plain path on near-ties.  ``csrc/topk_scores.cu`` tiles queries × centroids
-through shared memory with register tiles, merges each score tile into a
-running top-k in shared memory (the (N, L) plane never reaches device
-memory), splits the centroids over parallel slices to fill the card, and
-merges the slice lists in the last block of each query tile — one launch.
+plain path on near-ties.  ``csrc/topk_scores.cu`` streams queries ×
+centroids through shared memory by double-buffered ``cp.async`` copies
+into 4 × 8 register tiles fed by 128-bit shared reads, merges each score
+tile into a running top-k in shared memory (the (N, L) plane never
+reaches device memory), splits the centroids over parallel slices to
+fill the card, and merges the slice lists in the last block of each
+query tile — one launch.  The tile shape and the blocks an SM holds come
+from the library (:func:`tiles`); :func:`n_slices` sizes the slices from
+them.
 
 The reference wrapper pads L with zero rows masked through ``l_true``;
 here the kernel bounds-checks the ragged edge itself, so nothing is
@@ -37,6 +41,7 @@ raises.  :data:`launches` counts ``topk_scores`` launches and
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -48,9 +53,6 @@ launches = 0
 assign_launches = 0
 
 MAX_K = 128          # list slots per query in the kernel (kMaxK)
-QUERIES_PER_BLOCK = 16
-CENTROID_TILE = 64
-BLOCKS_PER_SM = 4    # slices are sized for about this many blocks per SM
 MAX_BATCH = 65_535   # assign_argmax's batch axis is grid z
 
 
@@ -67,13 +69,70 @@ def _check(x, emb, k) -> None:
         raise ValueError(f"k={k} must lie in [1, L={emb.shape[0]}]")
 
 
-def n_slices(n: int, l: int, device: torch.device) -> int:
-    """Centroid slices per query tile: enough blocks for
-    :data:`BLOCKS_PER_SM` per SM, at most one slice per centroid tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_tiles = -(-n // QUERIES_PER_BLOCK)
-    want = -(-BLOCKS_PER_SM * sms // q_tiles)
-    return max(1, min(want, -(-l // CENTROID_TILE)))
+class Tiles(NamedTuple):
+    """A ``topk_scores`` build's tile shape and residency."""
+    queries_per_block: int
+    centroid_tile: int
+    blocks_per_sm: int
+
+
+#: ctypes signature of ``topk_scores_launch`` (csrc/topk_scores.cu)
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_TILES: dict[int, Tiles] = {}     # device index → the built library's
+
+
+def tiles(lib: ctypes.CDLL) -> Tiles:
+    """The tile shape of a built ``topk_scores`` library and how many of
+    its blocks fit an SM of the current device."""
+    vals = [ctypes.c_int() for _ in Tiles._fields]
+    fn = lib.topk_scores_tiles
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * len(vals)
+    fn.restype = ctypes.c_int
+    _build.check(lib, fn(*map(ctypes.byref, vals)), "topk_scores_tiles")
+    return Tiles(*(v.value for v in vals))
+
+
+def n_slices(n: int, l: int, sms: int, tl: Tiles) -> int:
+    """Centroid slices per query tile: as many as one wave of
+    ``tl.blocks_per_sm`` blocks on each of ``sms`` SMs holds, at least
+    one, spread so that every slice gets the same whole number of
+    centroid tiles (the last slice may be short)."""
+    q_tiles = -(-n // tl.queries_per_block)
+    c_tiles = -(-l // tl.centroid_tile)
+    want = min(max(1, tl.blocks_per_sm * sms // q_tiles), c_tiles)
+    return -(-c_tiles // -(-c_tiles // want))
+
+
+def buffers(x: torch.Tensor, k: int, tl: Tiles, slices: int) -> list:
+    """Fresh outputs and zeroed scratch of one launch: out_s, out_i
+    (N, k), part_s, part_i (N, slices, k), counters (ceil(N / qb),)."""
+    n, dev = x.shape[0], x.device
+    return [torch.empty((n, k), dtype=torch.float32, device=dev),
+            torch.empty((n, k), dtype=torch.int32, device=dev),
+            torch.empty((n, slices, k), dtype=torch.float32, device=dev),
+            torch.empty((n, slices, k), dtype=torch.int32, device=dev),
+            torch.zeros(-(-n // tl.queries_per_block), dtype=torch.int32,
+                        device=dev)]
+
+
+def kernel_args(x, emb, bufs: list, k: int, slices: int,
+                stream: int) -> list:
+    """The arguments of ``topk_scores_launch``, in :data:`ARGTYPES`'
+    order."""
+    return [x.data_ptr(), emb.data_ptr(), *(b.data_ptr() for b in bufs),
+            x.shape[0], emb.shape[0], x.shape[1], k, slices, stream]
+
+
+def launch(lib: ctypes.CDLL, x, emb, k: int, slices: int, bufs: list
+           ) -> None:
+    """One launch of ``lib``'s kernel on the current stream; raises if
+    the launch is refused."""
+    fn = lib.topk_scores_launch
+    fn.argtypes, fn.restype = ARGTYPES, ctypes.c_int
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*kernel_args(x, emb, bufs, k, slices, stream))
+    _build.check(lib, err, "topk_scores")
 
 
 def topk_scores(x: torch.Tensor, emb: torch.Tensor, k: int
@@ -91,31 +150,22 @@ def topk_scores(x: torch.Tensor, emb: torch.Tensor, k: int
         raise ValueError(f"k={k} exceeds the kernel's {MAX_K} list slots")
     if not (x.is_contiguous() and emb.is_contiguous()):
         raise ValueError("topk_scores needs contiguous inputs")
-    n, h = x.shape
-    l = emb.shape[0]
-    out_s = torch.empty((n, k), dtype=torch.float32, device=x.device)
-    out_i = torch.empty((n, k), dtype=torch.int32, device=x.device)
+    n, l = x.shape[0], emb.shape[0]
     if n == 0:
-        return out_s, out_i
-    slices = n_slices(n, l, x.device)
-    part_s = torch.empty((n, slices, k), dtype=torch.float32,
-                         device=x.device)
-    part_i = torch.empty((n, slices, k), dtype=torch.int32, device=x.device)
-    counters = torch.zeros(-(-n // QUERIES_PER_BLOCK), dtype=torch.int32,
-                           device=x.device)
+        return (torch.empty((0, k), dtype=torch.float32, device=x.device),
+                torch.empty((0, k), dtype=torch.int32, device=x.device))
     lib = _build.library("topk_scores")
-    fn = lib.topk_scores_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), emb.data_ptr(), out_s.data_ptr(),
-                 out_i.data_ptr(), part_s.data_ptr(), part_i.data_ptr(),
-                 counters.data_ptr(), n, l, h, k, slices, stream)
-    _build.check(lib, err, "topk_scores")
+    dev = x.device.index
+    tl = _TILES.get(dev)
+    if tl is None:
+        with torch.cuda.device(dev):
+            tl = _TILES[dev] = tiles(lib)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slices = n_slices(n, l, sms, tl)
+    bufs = buffers(x, k, tl, slices)
+    launch(lib, x, emb, k, slices, bufs)
     launches += 1
-    return out_s, out_i
+    return bufs[0], bufs[1]
 
 
 def assign_argmax(x: torch.Tensor, centroids: torch.Tensor

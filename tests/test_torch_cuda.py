@@ -131,24 +131,33 @@ def test_pq_adc_kernel_equals_pq_adc_fused_on_live_lanes(cuda):
 
 
 TOPK_CASES = {
-    # name: (n, l, h, k, duplicated centroid rows)
-    "ties": (33, 300, 32, 12, True),
-    "ragged_tiles": (17, 129, 40, 8, True),
-    "k_max": (3, 2000, 96, at_ops.MAX_K, False),
-    "many_slices": (300, 5000, 64, 30, False),
+    # name: (n, l, h, k, duplicated centroid rows, elements off alignment)
+    "ties": (33, 300, 32, 12, True, 0),
+    "ragged_tiles": (17, 129, 40, 8, True, 0),
+    "k_max": (3, 2000, 96, at_ops.MAX_K, False, 0),
+    "many_slices": (300, 5000, 64, 30, False, 0),
+    "served": (256, 10_000, 768, 30, False, 0),
+    "h37_elementwise": (40, 1000, 37, 30, False, 0),
+    "misaligned_view": (64, 3000, 768, 30, False, 1),
+    "n33_ragged_query_tile": (33, 2000, 768, 30, False, 0),
+    "ties_k128": (20, 1000, 64, 128, True, 0),
 }
 
 
 @pytest.mark.parametrize("name", sorted(TOPK_CASES))
 def test_topk_scores_kernel_matches_plain(cuda, name):
-    n, l, h, k, ties = TOPK_CASES[name]
+    """h = 37 and a contiguous view one element past a 16-byte boundary
+    take the kernel's element-wise copies, the rest the 16-byte ones."""
+    n, l, h, k, ties, offset = TOPK_CASES[name]
     rng = np.random.default_rng(n + l)
     x = rng.normal(size=(n, h))
     x /= np.linalg.norm(x, axis=-1, keepdims=True)
     emb = rng.normal(size=(l, h))
     if ties:
         emb = np.concatenate([emb[: (l + 1) // 2]] * 2)[:l]
-    x = torch.tensor(x, dtype=torch.float32, device=cuda)
+    flat = torch.zeros(n * h + offset, dtype=torch.float32, device=cuda)
+    x = flat[offset:].view(n, h).copy_(torch.tensor(x))
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
     emb = torch.tensor(emb, dtype=torch.float32, device=cuda)
     before = at_ops.launches
     gs, gi = at_ops.topk_scores(x, emb, k)
@@ -161,6 +170,18 @@ def test_topk_scores_kernel_matches_plain(cuda, name):
     assert ((own - ws).abs()[diff] <= 1e-5 + 1e-5 * ws.abs()[diff]).all()
     assert all(len(set(row)) == len(row) for row in gi.tolist())
 
+
+
+def test_topk_scores_tiles_and_residency(cuda):
+    """The built kernel reports its 32 × 256 tile and one block an SM
+    (occupancy API: 146 KB of shared memory), and the served shape's
+    slices fill one wave."""
+    from repro_torch.kernels import _build
+    tl = at_ops.tiles(_build.library("topk_scores"))
+    assert tl == at_ops.Tiles(32, 256, 1)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    s = at_ops.n_slices(256, 10_000, sms, tl)
+    assert 1 <= s <= 33 and 8 * s <= tl.blocks_per_sm * sms
 
 SQ8_CASES = {
     # name: (b, c, h, duplicate ids, masked row, byte offset of the plane)

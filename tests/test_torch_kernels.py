@@ -178,6 +178,63 @@ def test_topk_scores_plain_matches_jax(name):
     assert gi.dtype == torch.int32 and gs.dtype == torch.float32
 
 
+
+# the kernel's tiles (csrc/topk_scores.cu: 32 queries × 256 centroids,
+# one block an SM), a two-blocks-an-SM build of the same tiles, and the
+# parent's (16, 64) at 4 an SM
+SLICE_TILES = {"kernel": at_ops.Tiles(32, 256, 1),
+               "two_an_sm": at_ops.Tiles(32, 256, 2),
+               "parent": at_ops.Tiles(16, 64, 4)}
+
+
+@pytest.mark.parametrize("tiles", sorted(SLICE_TILES))
+@pytest.mark.parametrize("n, l", [(256, 10_000), (1, 10_000), (257, 10_000),
+                                  (33, 129), (4096, 10_000), (5, 20)])
+def test_topk_n_slices_fill_one_wave_with_whole_tiles(tiles, n, l):
+    tl = SLICE_TILES[tiles]
+    sms = 132
+    s = at_ops.n_slices(n, l, sms, tl)
+    q_tiles = -(-n // tl.queries_per_block)
+    c_tiles = -(-l // tl.centroid_tile)
+    assert 1 <= s <= c_tiles                  # at most a slice per tile
+    # one wave where the query tiles leave room, else one slice
+    assert q_tiles * s <= max(tl.blocks_per_sm * sms, q_tiles)
+    per = -(-c_tiles // s)                    # every slice has tiles
+    assert (s - 1) * per < c_tiles
+    if (n, l) == (256, 10_000):
+        assert s <= 33                        # today's slice merge width
+    if n == 1:
+        assert s == min(c_tiles, tl.blocks_per_sm * sms)
+
+
+def test_topk_n_slices_at_the_served_shape():
+    """N 256, L 10,000 on 132 SMs: 8 query tiles × 14 slices of three
+    256-centroid tiles (112 blocks, one wave at 1 an SM); at 2 an SM,
+    20 slices of two (160 blocks); the parent's tiles give 16 × 32
+    slices of five 64-centroid tiles."""
+    assert at_ops.n_slices(256, 10_000, 132, SLICE_TILES["kernel"]) == 14
+    assert at_ops.n_slices(256, 10_000, 132, SLICE_TILES["two_an_sm"]) == 20
+    assert at_ops.n_slices(256, 10_000, 132, SLICE_TILES["parent"]) == 32
+
+
+def test_topk_scores_buffers_and_kernel_args_follow_argtypes():
+    x, emb = torch.zeros(40, 12), torch.zeros(300, 12)
+    tl = at_ops.Tiles(32, 256, 2)
+    bufs = at_ops.buffers(x, 7, tl, 3)
+    assert [tuple(b.shape) for b in bufs] == [(40, 7), (40, 7), (40, 3, 7),
+                                              (40, 3, 7), (2,)]
+    assert [b.dtype for b in bufs] == [torch.float32, torch.int32,
+                                       torch.float32, torch.int32,
+                                       torch.int32]
+    assert not bufs[4].any()
+    args = at_ops.kernel_args(x, emb, bufs, 7, 3, 9)
+    assert len(args) == len(at_ops.ARGTYPES)
+    assert args[:7] == [t.data_ptr() for t in (x, emb, *bufs)]
+    assert args[7:] == [40, 300, 12, 7, 3, 9]
+    for ctype, arg in zip(at_ops.ARGTYPES, args):
+        ctype(arg)
+
+
 # --------------------------------------------------------------------------
 # sq8_dot_fused
 # --------------------------------------------------------------------------
@@ -440,26 +497,80 @@ def test_flash_attention_kernel_args_follow_argtypes():
 
 
 def test_flash_variants_arguments_and_parent_entry(tmp_path):
-    """The parent-against-change tool parses its arguments, reads from a
-    parent's source whether its C entry takes ``vec``, and needs a card."""
-    from repro_torch.benchmarks import flash_variants as fv
-    args = fv.parse_args(["--parent", "build/flash_parent.cu"])
+    """The parent-against-change tool reads from a ``flash_attention``
+    parent's source whether its C entry takes ``vec``."""
+    from repro_torch.benchmarks import kernel_variants as kv
+    args = kv.parse_args(["--kernel", "flash_attention", "--parent",
+                          "build/flash_parent.cu"])
     assert args.parent == pathlib.Path("build/flash_parent.cu")
-    assert args.reps == 20
-    assert fv.parse_args(["--parent", "p.cu", "--reps", "3"]).reps == 3
-    with pytest.raises(SystemExit):
-        fv.parse_args([])
-    assert fv.takes_vec(_build.SOURCES["flash_attention"].read_text())
-    assert not fv.takes_vec(
+    assert kv.takes_vec(_build.SOURCES["flash_attention"].read_text())
+    assert not kv.takes_vec(
         "int flash_attention_fwd(const void* q, int d, int dtype,\n"
         "                        float scale, void* stream) {")
     with pytest.raises(ValueError, match="no flash_attention_fwd"):
-        fv.takes_vec("int main() { return 0; }")
+        kv.takes_vec("int main() { return 0; }")
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "topk_scores"])
+def test_kernel_variants_arguments_and_card(kernel, tmp_path):
+    """The tool parses its arguments for either kernel, refuses another
+    kernel, a missing parent or a malformed variant, and needs a card."""
+    from repro_torch.benchmarks import kernel_variants as kv
+    args = kv.parse_args(["--kernel", kernel, "--parent", "p.cu"])
+    assert (args.kernel, args.reps, args.variant, args.gemm_only) == (
+        kernel, 20, [], False)
+    args = kv.parse_args(["--kernel", kernel, "--parent", "p.cu", "--reps",
+                          "3", "--variant", "kHC=16,kMinBlocks=2",
+                          "--variant", "kQWarps=1", "--gemm-only"])
+    assert (args.reps, args.variant, args.gemm_only) == (
+        3, [{"kHC": "16", "kMinBlocks": "2"}, {"kQWarps": "1"}], True)
+    for bad in ([], ["--kernel", kernel], ["--parent", "p.cu"],
+                ["--kernel", "pq_adc", "--parent", "p.cu"],
+                ["--kernel", kernel, "--parent", "p.cu", "--variant",
+                 "kHC"],
+                ["--kernel", kernel, "--parent", "p.cu", "--variant",
+                 "kHC=16,=2"]):
+        with pytest.raises(SystemExit):
+            kv.parse_args(bad)
     if not torch.cuda.is_available():
-        parent = tmp_path / "flash_parent.cu"
-        parent.write_text(_build.SOURCES["flash_attention"].read_text())
+        parent = tmp_path / "parent.cu"
+        parent.write_text(_build.SOURCES[kernel].read_text())
         with pytest.raises(SystemExit, match="needs an NVIDIA card"):
-            fv.main(["--parent", str(parent)])
+            kv.main(["--kernel", kernel, "--parent", str(parent)])
+
+
+def test_kernel_variants_topk_parent_tiles_and_cuts():
+    """A parent library without ``topk_scores_tiles`` is taken to have
+    the (16, 64) tiles it was built with and is sliced as its wrapper
+    sliced it (33 slices at the served shape on 132 SMs); a variant sets
+    its tile constants and ``--gemm-only`` cuts the per-tile merge, each
+    in a copy of the source, or refuses where its part is not there
+    exactly once.  The source here is a stand-in, so the kernel's own
+    text is free to change."""
+    from repro_torch.benchmarks import kernel_variants as kv
+    assert kv.topk_tiles(object()) == at_ops.Tiles(16, 64, 4)
+    assert kv.topk_slices(object(), kv.PARENT_TILES, 256, 10_000, 132) == 33
+    assert kv.topk_slices(object(), kv.PARENT_TILES, 1, 100, 132) == 2
+    src = ("constexpr int kHC = 32;          // features per chunk\n"
+           "constexpr int kMinBlocks = 1;\n"
+           "constexpr int kRow = kHC + 4;\n"
+           "      const float* row = sm.tile[q];\n"
+           "      warp_merge(sm.ls[q], sm.li[q], cnt[u], n, k, lane,\n"
+           "                 [&](int c, float& s, int& i) { s = row[c]; "
+           "i = c0 + c; });\n"
+           "    warp_merge(sm.ls[q], sm.li[q], c, n_slices * k, k, lane,\n")
+    var = kv.variant_source(src, {"kHC": "16", "kMinBlocks": "2"})
+    assert "constexpr int kHC = 16;          // features per chunk" in var
+    assert "constexpr int kMinBlocks = 2;" in var
+    assert "constexpr int kRow = kHC + 4;" in var
+    gemm = kv.variant_source(src, gemm_only=True)
+    assert gemm.count("warp_merge(") == 1          # the slice merge stays
+    assert "n_slices * k, k, lane" in gemm
+    assert kv.MERGE_STAND_IN in gemm
+    with pytest.raises(ValueError, match="constant 'kTQ'"):
+        kv.variant_source(src, {"kTQ": "8"})
+    with pytest.raises(ValueError, match="per-tile merge: found 0"):
+        kv.variant_source(gemm, gemm_only=True)
 
 
 def test_flash_attention_chunked_equals_dense():
