@@ -63,8 +63,11 @@ never prints the final line.  Every phase prints its seconds.
               blocks, ragged in Sq), one full encoder chunk in f32, and
               llama3-8b's attention shape;
  11b. assign  ``assign_argmax`` against its plain version at ragged N / L,
-              h 8 / 40 / 768, the batched PQ axis, constructed ties, and
-              the build's full width on 65,536 corpus points;
+              h 8 / 40 / 768, h 37 and a misaligned view (the 4-byte
+              copies), PQ's strided views at d_sub 4 / 8 / 12 (the narrow
+              instances), the batched PQ axis, constructed ties, and the
+              build's full width on 65,536 corpus points, printing the
+              largest absolute and relative score errors;
  12. sup      the HI²_sup indexing path: the term-scorer encoder at the
               paper's BERT slot (768-d, 12 heads, 2 layers, V = 30,528;
               random weights from ``--seed`` carried across in the
@@ -77,9 +80,9 @@ never prints the final line.  Every phase prints its seconds.
  13. times    ``flash_attention`` (at the encoder chunk's and llama3-8b's
               shapes, with its share of the bound; at llama3-8b against
               both its own fp32 FMA path and the card's bf16 tensor-core
-              peak) and ``assign_argmax``
-              at the path's shapes, beside their bounds, plain versions
-              and library yardsticks;
+              peak) and ``assign_argmax`` at the build's KMeans and PQ
+              shapes, beside their bounds, plain versions and library
+              yardsticks;
  14. bench    the port's ``kernel_bench`` at its full shapes with
               ``--check`` semantics, as a counted run; its report is
               printed as a JSON line;
@@ -1009,7 +1012,8 @@ def build_on_card(dev, seed: int) -> dict:
     BUILD_ASSIGN_LAUNCHES times.  The ``opq`` build carries the BM25
     impact plane (``sparse=True``) and is served fused too.  Returns what phase 12 reuses: the
     corpus, its planes on the card, the KMeans selector and φ(D), the
-    ``refine:sq8:4`` quality and the builds' ``assign_argmax`` launches."""
+    ``refine:sq8:4`` quality and each build's ``assign_argmax``
+    launches."""
     with phase("build: synthetic corpus on the host"):
         corpus = synthetic.generate(seed, n_docs=BUILD_DOCS,
                                     n_queries=BUILD_QUERIES, hidden=HIDDEN,
@@ -1028,7 +1032,7 @@ def build_on_card(dev, seed: int) -> dict:
     kernels = {REFINE_CODEC: ("sq8_dot_fused", "topk_scores"),
                "opq": ("pq_adc_fused", "topk_scores"),
                "flat": ("topk_scores",)}
-    recall, mrr, base, assign_launches = {}, {}, None, 0
+    recall, mrr, base, assign_launches = {}, {}, None, {}
     for spec in (REFINE_CODEC, "opq", "flat"):
         with phase(f"build: {spec} index"):
             timings = {}
@@ -1059,7 +1063,7 @@ def build_on_card(dev, seed: int) -> dict:
                 fail(f"{spec} build launched assign_argmax "
                      f"{launches['assign_argmax']} times, expected "
                      f"{BUILD_ASSIGN_LAUNCHES[spec]}")
-            assign_launches += launches["assign_argmax"]
+            assign_launches[spec] = launches["assign_argmax"]
         with phase(f"build: serve {spec}"):
             _, results, launches = serve_batches(
                 index, dev, qe, qt, BUILD_QUERIES // BATCH, kernels[spec],
@@ -1206,12 +1210,13 @@ def flash_parity(dev, seed: int) -> float:
     return max(err.values())
 
 
-def check_assign(x, c, what: str, ties: bool = False) -> tuple[float, int]:
+def check_assign(x, c, what: str, ties: bool = False
+                 ) -> tuple[float, float, int]:
     """Kernel against the plain version: scores within ASSIGN_TOL; ids
     identical except where the plain scores of the two ids lie within
     ASSIGN_TOL (listed by count); on constructed ties (every centroid j
     of the upper half a copy of j - half) the lower twin always wins.
-    Returns (max score error, near-tie rows)."""
+    Returns (max abs and max relative score error, near-tie rows)."""
     gs, gi = at_ops.assign_argmax(x, c)
     ws, wi = at_ref.assign_argmax(x, c)
     if not torch.allclose(gs, ws, rtol=ASSIGN_TOL, atol=ASSIGN_TOL):
@@ -1233,39 +1238,58 @@ def check_assign(x, c, what: str, ties: bool = False) -> tuple[float, int]:
     if ties and bool((gi >= (c.shape[-2] + 1) // 2).any()):
         fail(f"assign_argmax {what}: a constructed tie went to the higher "
              f"index")
-    return float((gs - ws).abs().max()), near
+    err = (gs - ws).abs()
+    return (float(err.max()), float((err / ws.abs().clamp_min(1e-30)).max()),
+            near)
 
 
 def assign_parity(dev, seed: int, emb, centroids) -> float:
     """Phase 11b: ``assign_argmax`` at ragged N and L, h 8 / 40 / 768,
-    the batched PQ axis, constructed ties, and the build's full width on
-    65,536 corpus points against phase 10's centroids."""
+    h 37 and a view one element off 16-byte alignment (the 4-byte
+    copies), PQ's strided (m, n, d_sub) views at d_sub 4 / 8 / 12 (the
+    narrow instances), the batched PQ axis, constructed ties, and the
+    build's full width on 65,536 corpus points against phase 10's
+    centroids."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    err, near, n_cases = 0.0, {}, 0
+    err, rel, near, n_cases = 0.0, 0.0, {}, 0
+
+    def held(key, x, c, ties=False):
+        nonlocal err, rel
+        e, r, near[key] = check_assign(x, c, key, ties)
+        err, rel = max(err, e), max(rel, r)
+
     for n in ASSIGN_SIZES:
         for l in ASSIGN_SIZES:
             h = (8, 40, 768)[n_cases % 3]
-            x = torch.randn((n, h), generator=gen, device=dev)
-            c = torch.randn((l, h), generator=gen, device=dev)
-            e, nt = check_assign(x, c, f"n={n} l={l} h={h}")
-            err, near[f"{n}x{l}x{h}"] = max(err, e), nt
+            held(f"{n}x{l}x{h}", torch.randn((n, h), generator=gen,
+                                            device=dev),
+                 torch.randn((l, h), generator=gen, device=dev))
             n_cases += 1
     big = ASSIGN_SIZES[-1]
+    held("h37", torch.randn((1000, 37), generator=gen, device=dev),
+         torch.randn((300, 37), generator=gen, device=dev))
+    flat = torch.randn(777 * HIDDEN + 1, generator=gen, device=dev)
+    held("misaligned view", flat[1:].view(777, HIDDEN),
+         torch.randn((500, HIDDEN), generator=gen, device=dev))
+    for dsub in (4, 8, 12):
+        m = HIDDEN // dsub
+        held(f"pq view d_sub {dsub}",
+             torch.randn((big, HIDDEN), generator=gen, device=dev).view(
+                 big, m, dsub).transpose(0, 1),
+             torch.randn((m, PQ_K, dsub), generator=gen, device=dev))
     for m, n, l, h in ((PQ_M, big, PQ_K, HIDDEN // PQ_M),
                        (1, big, big, HIDDEN)):
         x = torch.randn((n, m, h), generator=gen, device=dev).transpose(0, 1)
         half = torch.randn((m, (l + 1) // 2, h), generator=gen, device=dev)
         c = torch.cat([half, half], dim=1)[:, :l].contiguous()
-        e, nt = check_assign(x, c, f"ties m={m} n={n} l={l} h={h}",
-                             ties=True)
-        err, near[f"ties {m}x{n}x{l}x{h}"] = max(err, e), nt
-    e, nt = check_assign(emb[:ASSIGN_BLOCK], centroids, "build width")
-    err, near[f"build width {ASSIGN_BLOCK}x{centroids.shape[0]}"] = (
-        max(err, e), nt)
-    log(f"[assign] {n_cases} ragged cases + 2 tie cases + build width: max "
-        f"abs score err {err:.3g} (tol {ASSIGN_TOL}); ids differing at "
-        f"near-ties (plain scores within {ASSIGN_TOL}): "
-        f"{ {k: v for k, v in near.items() if v} }")
+        held(f"ties {m}x{n}x{l}x{h}", x, c, ties=True)
+    held(f"build width {ASSIGN_BLOCK}x{centroids.shape[0]}",
+         emb[:ASSIGN_BLOCK], centroids)
+    log(f"[assign] {n_cases} ragged cases + h 37 + misaligned view + 3 PQ "
+        f"views + 2 tie cases + build width: max abs score err {err:.3g}, "
+        f"max relative {rel:.3g} (allclose with rtol = atol = "
+        f"{ASSIGN_TOL}); ids differing at near-ties (plain scores within "
+        f"{ASSIGN_TOL}): { {k: v for k, v in near.items() if v} }")
     return err
 
 
@@ -1414,7 +1438,8 @@ def sup_path(dev, seed: int, built: dict) -> tuple[dict, dict]:
 def time_new_kernels(flash_in: dict, emb, centroids) -> dict:
     """Phase 13: ``flash_attention`` at one encoder chunk's shape and
     ``assign_argmax`` at the build's KMeans and PQ shapes: kernel, plain
-    and library times beside each bound.  The plain versions and the
+    and library times beside each bound (the PQ shape's under the
+    ``assign_argmax`` entry's ``pq_shape``).  The plain versions and the
     library's assignment build an (n, L) plane, so they run in blocks of
     ASSIGN_BLOCK points (the whole plane at N = 1,048,576 is 42 GB)."""
     timer = Timer()
@@ -1491,12 +1516,16 @@ def time_new_kernels(flash_in: dict, emb, centroids) -> dict:
     cw = torch.randn((m, PQ_K, dsub), generator=gen, device=emb.device)
     pq_bound = bound(2.0 * m * n * PQ_K * dsub,
                      4.0 * (n * h + m * PQ_K * dsub + 2 * m * n))
-    pq_ms = timer.ms(lambda: at_ops.assign_argmax(frags, cw), reps=5)
-    pq_lib = timer.ms(blocked(library, frags, cw), reps=3, warm=1)
+    assign["pq_shape"] = pq = dict(
+        ms=timer.ms(lambda: at_ops.assign_argmax(frags, cw), reps=5),
+        plain_ms=timer.ms(blocked(at_ref.assign_argmax, frags, cw), reps=2,
+                          warm=1),
+        library_ms=timer.ms(blocked(library, frags, cw), reps=3, warm=1),
+        bound_ms=pq_bound[0], bound_by=pq_bound[1])
     log(f"[times] assign_argmax at the PQ shape m={m}, N={n}, k={PQ_K}, "
-        f"d_sub={dsub} (strided view): kernel {pq_ms:.1f} ms, library "
-        f"(blocked) {pq_lib:.1f} ms, bound {pq_bound[0]:.2f} ms "
-        f"({pq_bound[1]})")
+        f"d_sub={dsub} (strided view): kernel {pq['ms']:.2f} ms, plain "
+        f"{pq['plain_ms']:.2f} ms, library (blocked) {pq['library_ms']:.2f}"
+        f" ms, bound {pq_bound[0]:.2f} ms ({pq_bound[1]})")
     return {"flash_attention": flash, "assign_argmax": assign}
 
 
@@ -1654,9 +1683,12 @@ def main(argv=None) -> None:
 
     launches = dict(opq_launches,
                     sq8_dot_fused=refine_launches["sq8_dot_fused"],
-                    assign_argmax=built["assign_launches"],
+                    assign_argmax=sum(built["assign_launches"].values()),
                     flash_attention=sup_launches["flash_attention"],
                     pq_adc=bench_launches["pq_adc"])
+    # the PQ shape's launches: the opq build's (OPQ training and encode)
+    times["assign_argmax"]["pq_shape"]["launches"] = (
+        built["assign_launches"]["opq"])
     kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
                     replaces=SOURCES[k][1], launches=launches[k],
                     max_abs_err=errs[k], **times[k])

@@ -4,6 +4,11 @@
         > build/topk_parent.cu
     python -m repro_torch.benchmarks.kernel_variants --kernel topk_scores \\
         --parent build/topk_parent.cu [--gemm-only] [--variant kHC=16]
+    git show HEAD:src/repro_torch/kernels/assign_topk/csrc/\\
+assign_argmax.cu > build/assign_parent.cu
+    python -m repro_torch.benchmarks.kernel_variants \\
+        --kernel assign_argmax --parent build/assign_parent.cu --reps 5 \\
+        [--variant kHC=32]
     git show HEAD:src/repro_torch/kernels/flash_attention/csrc/\\
 flash_attention.cu > build/flash_parent.cu
     python -m repro_torch.benchmarks.kernel_variants \\
@@ -33,6 +38,17 @@ this checkout's source with those ``constexpr int`` tile constants set;
 ``--gemm-only`` adds a copy of every build with its per-tile merge cut
 out (the product and the tile store only; timed, not checked), which
 splits its time into GEMM and selection.
+
+``assign_argmax``: at the build's KMeans shape (N 1,048,576, L 10,000,
+h 768), at its PQ shape (m 96, N 1,048,576, k 256, d_sub 8 as the
+strided view of an (N, 768) matrix) and at the edge shapes of
+:data:`ASSIGN_SHAPES`, every build must equal the parent bit for bit
+(scores and ids; the change's 4-byte copies too) and agree with the
+plain version under :func:`assign_agrees`; the two build shapes are
+timed beside the library call, ``torch.argmax(x @ c.T − ½‖c‖²)`` in
+65,536-point blocks.  A parent whose C entry takes no ½‖c‖² scratch
+(before the scratch) is called without it and without ``vec``.
+``--variant`` as for ``topk_scores``.
 
 ``flash_attention``: at the HI²_sup encoder chunk's shape (B 4,096, H
 12, S 64, d 64 f32, non-causal) and at llama3-8b's attention (B 1, S
@@ -65,6 +81,24 @@ ROOT = pathlib.Path(__file__).resolve().parents[3]
 OUT_DIR = ROOT / "build" / "kernel_variants"
 PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 TOPK_TOL = 1e-5          # rtol = atol: the h products' summation order
+ASSIGN_TOL = 1e-5        # rtol = atol: the same
+ASSIGN_BLOCK = 65_536    # points per block of a plain or library plane
+#: name: (m, n, l, h, duplicated centroid rows, elements off alignment,
+#: x the (n, m·h) matrix's strided (m, n, h) view); the first two timed
+ASSIGN_SHAPES = {
+    "kmeans": (1, 1_048_576, 10_000, 768, False, 0, False),
+    "pq": (96, 1_048_576, 256, 8, False, 0, True),
+    "ragged": (1, 513, 7, 40, False, 0, False),
+    "one_point": (1, 1, 10_000, 768, False, 0, False),
+    "ties": (1, 300, 1030, 64, True, 0, False),
+    "pq_batch": (96, 700, 256, 8, True, 0, False),
+    "h37_elementwise": (1, 1000, 300, 37, False, 0, False),
+    "misaligned_view": (1, 777, 500, 768, False, 1, False),
+    "pq_dsub4": (192, 3000, 256, 4, False, 0, True),
+    "pq_dsub12": (64, 3000, 256, 12, True, 0, True),
+    "n_ragged_wide": (1, 32 * 128 + 37, 1000, 96, False, 0, False),
+    "n_ragged_pq": (96, 3 * 2048 + 77, 256, 8, False, 0, True),
+}
 #: tiles of a topk_scores.cu that does not export them, and the blocks
 #: an SM its wrapper sized the slices for
 PARENT_TILES = at_ops.Tiles(queries_per_block=16, centroid_tile=64,
@@ -113,6 +147,15 @@ def variant_source(source: str, consts: dict[str, str] | None = None,
     return source
 
 
+def takes_scratch(source: str) -> bool:
+    """Whether an ``assign_argmax.cu``'s C entry takes the ½‖c‖² scratch
+    (and ``vec``); sources from before the scratch take neither."""
+    entry = re.search(r"int assign_argmax_launch\(([^)]*)\)", source)
+    if entry is None:
+        raise ValueError("no assign_argmax_launch C entry in the source")
+    return re.search(r"\bhalf\b", entry.group(1)) is not None
+
+
 def parse_consts(spec: str) -> dict[str, str]:
     """``"kHC=16,kMinBlocks=2"`` → ``{"kHC": "16", "kMinBlocks": "2"}``."""
     pairs = [item.partition("=") for item in spec.split(",")]
@@ -151,14 +194,16 @@ def topk_slices(lib, tl: at_ops.Tiles, n: int, l: int, sms: int) -> int:
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", required=True,
-                    choices=("flash_attention", "topk_scores"))
+                    choices=("assign_argmax", "flash_attention",
+                             "topk_scores"))
     ap.add_argument("--parent", required=True, type=pathlib.Path,
                     help="the parent's source of the kernel")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--variant", action="append", default=[],
                     type=parse_consts, metavar="NAME=VALUE[,NAME=VALUE]",
                     help="also build this checkout's source with these "
-                         "constexpr int tile constants (topk_scores)")
+                         "constexpr int tile constants (topk_scores, "
+                         "assign_argmax)")
     ap.add_argument("--gemm-only", action="store_true",
                     help="also build every source without its per-tile "
                          "merge (topk_scores)")
@@ -392,6 +437,153 @@ def topk_main(args) -> dict:
     return {"served": dict(bound_ms=bound, **times)}
 
 
+# --------------------------------------------------------------------------
+# assign_argmax
+# --------------------------------------------------------------------------
+
+def assign_inputs(gen, m, n, l, h, ties, offset, view):
+    """Gaussian points and centroids on the card.  ``view``: x is the
+    (m, n, h) view of an (n, m·h) matrix; else contiguous, ``offset``
+    elements past an aligned base.  ``ties`` duplicates the first half of
+    every batch entry's centroids."""
+    flat = torch.randn(m * n * h + offset, generator=gen, device="cuda")
+    if view:
+        x = flat.view(n, m, h).transpose(0, 1)
+    else:
+        x = flat[offset:].view(m, n, h)
+    c = torch.randn((m, l, h), generator=gen, device="cuda")
+    if ties:
+        c = torch.cat([c[:, : (l + 1) // 2]] * 2, dim=1)[:, :l].contiguous()
+    return x, c
+
+
+def call_assign(lib, scratch: bool, x, c, vec: bool | None = None,
+                bufs: list | None = None):
+    """One call through ``ops``' argument builders; ``scratch`` False
+    drops the ½‖c‖² scratch and ``vec`` for a C entry without them.
+    ``vec`` None takes the wrapper's choice."""
+    bufs = at_ops.assign_buffers(x, c) if bufs is None else bufs
+    vec = at_ops.assign_vector_loads(x, c) if vec is None else vec
+    args = at_ops.assign_kernel_args(
+        x, c, bufs, vec, torch.cuda.current_stream().cuda_stream)
+    argtypes = list(at_ops.ASSIGN_ARGTYPES)
+    if not scratch:
+        del args[-2], argtypes[-2], args[4], argtypes[4]
+    fn = lib.assign_argmax_launch
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    _build.check(lib, fn(*args), "assign_argmax")
+    return bufs[0], bufs[1]
+
+
+def blocked(fn, x, c):
+    """``fn`` over ASSIGN_BLOCK-point blocks of x (m, n, h), results
+    concatenated along n: the plain and library planes in pieces."""
+    outs = [fn(x[:, i:i + ASSIGN_BLOCK], c)
+            for i in range(0, x.shape[1], ASSIGN_BLOCK)]
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
+def assign_library(x, c):
+    """The library call the kernel is timed beside."""
+    return torch.argmax(x @ c.transpose(-1, -2)
+                        - 0.5 * (c * c).sum(-1)[..., None, :], dim=-1)
+
+
+def assign_agrees(x, c, got, want, ties: bool
+                  ) -> tuple[bool, float, float, int]:
+    """``chip_smoke.check_assign``'s rule: scores within ASSIGN_TOL of
+    the plain version; ids equal except where the plain score of the
+    kernel's id lies within ASSIGN_TOL of the best (near-ties, counted);
+    on constructed ties the lower twin.  Returns (ok, max abs and max
+    relative score error, near-tie rows)."""
+    (gs, gi), (ws, wi) = got, want
+    ok = torch.allclose(gs, ws, rtol=ASSIGN_TOL, atol=ASSIGN_TOL)
+    half = 0.5 * (c * c).sum(-1)
+    near = 0
+    for i in range(0, x.shape[1], ASSIGN_BLOCK):
+        sl = slice(i, i + ASSIGN_BLOCK)
+        ids = gi[:, sl].long()
+        diff = ids != wi[:, sl]
+        if not diff.any():
+            continue
+        rows = torch.gather(c, 1, ids[..., None].expand(-1, -1, c.shape[2]))
+        own = (x[:, sl] * rows).sum(-1) - torch.gather(half, 1, ids)
+        ref_s = ws[:, sl]
+        ok &= bool(((own - ref_s).abs()[diff]
+                    <= ASSIGN_TOL + ASSIGN_TOL * ref_s.abs()[diff]).all())
+        near += int(diff.sum())
+    if ties:
+        ok &= bool((gi < (c.shape[1] + 1) // 2).all())
+    err = (gs - ws).abs()
+    return (ok, float(err.max()),
+            float((err / ws.abs().clamp_min(1e-30)).max()), near)
+
+
+def assign_main(args) -> dict:
+    src = _build.SOURCES["assign_argmax"]
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    sources = {"parent": args.parent, "new": src}
+    for i, consts in enumerate(args.variant):
+        sources[f"variant{i}"] = OUT_DIR / f"assign_variant{i}.cu"
+        sources[f"variant{i}"].write_text(
+            variant_source(src.read_text(), consts))
+        print(f"[variant] variant{i}: {consts}")
+    scratch = {name: takes_scratch(path.read_text())
+               for name, path in sources.items()}
+    libs = build(sources)
+    failed, report = [], {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timer = Timer(queued=True)
+    for sname, (m, n, l, h, ties, offset, view) in ASSIGN_SHAPES.items():
+        x, c = assign_inputs(gen, m, n, l, h, ties, offset, view)
+        want = blocked(at_ref.assign_argmax, x, c)
+        base = call_assign(libs["parent"], scratch["parent"], x, c)
+        vec = at_ops.assign_vector_loads(x, c)
+        for name, lib in libs.items():
+            for v in ((vec, False) if vec and scratch[name] else (vec,)):
+                got = call_assign(lib, scratch[name], x, c, v)
+                ok, err, rel, near = assign_agrees(x, c, got, want, ties)
+                same = all(torch.equal(a, b) for a, b in zip(got, base))
+                inst = f"vec={v}" if scratch[name] else "own copies"
+                print(f"[check] {sname} {name} {inst}: max abs score err "
+                      f"{err:.3g}, max rel {rel:.3g}, near-tie ids {near} "
+                      f"{'ok' if ok else 'FAILED'}; bitwise equal to the "
+                      f"parent: {same}", flush=True)
+                if not ok or not same:
+                    failed.append(f"{name} {inst} at {sname}")
+                del got
+        del want, base
+        if sname not in ("kmeans", "pq"):
+            continue
+        times = {}
+
+        def run(name):
+            bufs = at_ops.assign_buffers(x, c)
+            return lambda: call_assign(libs[name], scratch[name], x, c,
+                                       bufs=bufs)
+        for name in ("parent", "new", "new", "parent"):
+            times.setdefault(name, []).append(timer.ms(run(name), args.reps))
+        for name in libs:
+            if name not in times:
+                times[name] = [timer.ms(run(name), args.reps)]
+        times["library"] = [timer.ms(lambda: blocked(
+            lambda xb, cb: (assign_library(xb, cb),), x, c), 2, warm=1)
+            for _ in range(2)]
+        times["plain"] = [timer.ms(lambda: blocked(at_ref.assign_argmax, x,
+                                                   c), 2, warm=1)]
+        bound = 1e3 * max(2.0 * m * n * l * h / PEAK_FP32_FLOPS,
+                          4.0 * (m * n * h + m * l * h + 2 * m * n)
+                          / PEAK_BYTES)
+        report_times(sname, bound, times)
+        report[sname] = dict(bound_ms=bound, **times)
+        del x, c
+        torch.cuda.empty_cache()
+    if failed:      # after the times, which still tell where time goes
+        print(json.dumps(report))
+        sys.exit(f"disagrees: {', '.join(failed)}")
+    return report
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     if not torch.cuda.is_available():
@@ -400,7 +592,8 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip(), flush=True)
-    report = (topk_main if args.kernel == "topk_scores" else flash_main)(args)
+    report = {"assign_argmax": assign_main, "flash_attention": flash_main,
+              "topk_scores": topk_main}[args.kernel](args)
     print(json.dumps(report))
 
 

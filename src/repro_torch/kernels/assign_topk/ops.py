@@ -24,14 +24,21 @@ padded, and never with duplicate rows (unsafe for top-k).
 ``repro/kernels/assign_topk/kernel.py::_assign_kernel``: per point, the
 max and argmax of ⟨x, c⟩ − ½‖c‖² over the centroids, ties to the lower
 index.  Bound by operations (2·N·L·h fp32 FMAs, kept off TF32 so
-assignments match the fp32 plain version);
-``csrc/assign_argmax.cu`` tiles points × centroids through shared
-memory with 8 × 8 register tiles, sums ½‖c‖² once per centroid tile,
-and keeps a running (max, argmax) per point that only a strictly
-greater score replaces.  No (N, L) plane exists, so one launch covers a
-whole batch (m, N, h) × (m, L, h); the ragged N and L edges are masked
-in the kernel, where the reference wrapper pads L with copies of
-centroid 0.
+assignments match the fp32 plain version).  ``csrc/assign_argmax.cu``
+writes ½‖c‖² into a (m, L) scratch first (a second launch of the same
+call, counted once), then, for h > 16, streams point × centroid rows
+through shared memory by double-buffered 16-byte ``cp.async`` copies
+into 8 × 8 register tiles fed by 128-bit shared reads, and for PQ's
+narrow fragments (h ≤ 16) keeps each thread's points in registers
+against a codebook staged in shared memory.  Each thread keeps running
+(max, argmax) pairs that only a strictly greater score replaces and
+merges them at the end, every score one fmaf per feature in feature
+order, so results equal the earlier kernel's bit for bit.  No (N, L)
+plane exists, so one call covers a whole batch (m, N, h) × (m, L, h);
+the ragged N and L edges are masked in the kernel, where the reference
+wrapper pads L with copies of centroid 0.  :func:`assign_vector_loads`
+chooses the 16-byte copies (else 4-byte ones); PERF.md §6 has the
+kernel's registers and times.
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
 launches the kernel on the current stream, without synchronizing, or
@@ -168,6 +175,40 @@ def topk_scores(x: torch.Tensor, emb: torch.Tensor, k: int
     return bufs[0], bufs[1]
 
 
+#: ctypes signature of ``assign_argmax_launch`` (csrc/assign_argmax.cu)
+ASSIGN_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+def assign_vector_loads(xb: torch.Tensor, cb: torch.Tensor) -> bool:
+    """Whether ``assign_argmax``'s 16-byte copies can read x (m, N, h)
+    and centroids (m, L, h): both bases 16-byte aligned, h and x's row
+    stride (and batch stride, for m > 1) multiples of 4 floats.  The C
+    entry refuses the flag on anything else."""
+    m, _, h = xb.shape
+    return (h % 4 == 0 and xb.data_ptr() % 16 == 0
+            and cb.data_ptr() % 16 == 0 and xb.stride(1) % 4 == 0
+            and (m == 1 or xb.stride(0) % 4 == 0))
+
+
+def assign_buffers(xb: torch.Tensor, cb: torch.Tensor) -> list:
+    """Fresh outputs and scratch of one call: out_s, out_i (m, N) and
+    the ½‖c‖² scratch (m, L)."""
+    (m, n, _), dev = xb.shape, xb.device
+    return [torch.empty((m, n), dtype=torch.float32, device=dev),
+            torch.empty((m, n), dtype=torch.int32, device=dev),
+            torch.empty(cb.shape[:2], dtype=torch.float32, device=dev)]
+
+
+def assign_kernel_args(xb, cb, bufs: list, vec: bool, stream: int) -> list:
+    """The arguments of ``assign_argmax_launch``, in
+    :data:`ASSIGN_ARGTYPES`' order."""
+    m, n, h = xb.shape
+    return [xb.data_ptr(), cb.data_ptr(), *(b.data_ptr() for b in bufs),
+            xb.stride(0), xb.stride(1), m, n, cb.shape[1], h, int(vec),
+            stream]
+
+
 def assign_argmax(x: torch.Tensor, centroids: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (N, h) f32, centroids (L, h) f32 → ((N,) f32 best scores,
@@ -199,27 +240,25 @@ def assign_argmax(x: torch.Tensor, centroids: torch.Tensor
                          f"{x.device}")
     xb = x if x.dim() == 3 else x[None]
     cb = centroids if centroids.dim() == 3 else centroids[None]
-    m, n, h = xb.shape
-    if m > MAX_BATCH:
-        raise ValueError(f"batch {m} exceeds the kernel's {MAX_BATCH}")
+    if xb.shape[0] > MAX_BATCH:
+        raise ValueError(f"batch {xb.shape[0]} exceeds the kernel's "
+                         f"{MAX_BATCH}")
     if xb.stride(2) != 1 or not cb.is_contiguous():
         raise ValueError("assign_argmax needs unit-stride features in x and "
                          "contiguous centroids")
-    out_s = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    out_i = torch.empty((m, n), dtype=torch.int32, device=x.device)
-    if n:
+    bufs = assign_buffers(xb, cb)
+    if xb.shape[1]:
         lib = _build.library("assign_argmax")
         fn = lib.assign_argmax_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn.argtypes, fn.restype = ASSIGN_ARGTYPES, ctypes.c_int
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = fn(xb.data_ptr(), cb.data_ptr(), out_s.data_ptr(),
-                     out_i.data_ptr(), xb.stride(0), xb.stride(1), m, n,
-                     cb.shape[1], h, stream)
+            err = fn(*assign_kernel_args(xb, cb, bufs,
+                                         assign_vector_loads(xb, cb),
+                                         stream))
         _build.check(lib, err, "assign_argmax")
         assign_launches += 1
+    out_s, out_i = bufs[0], bufs[1]
     if x.dim() == 2:
         return out_s[0], out_i[0]
     return out_s, out_i

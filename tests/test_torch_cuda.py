@@ -394,20 +394,31 @@ def test_build_on_the_card_matches_the_cpu_where_it_is_deterministic(cuda):
 
 
 ASSIGN_CASES = {
-    # name: (m, n, l, h, duplicated centroid rows)
-    "ragged": (1, 513, 7, 40, False),
-    "one_point": (1, 1, 10_000, 768, False),
-    "ties": (1, 300, 1030, 64, True),
-    "pq_batch": (96, 700, 256, 8, True),
+    # name: (m, n, l, h, duplicated centroid rows, elements off 16-byte
+    # alignment, x the (n, m·h) matrix's strided (m, n, h) view)
+    "ragged": (1, 513, 7, 40, False, 0, False),
+    "one_point": (1, 1, 10_000, 768, False, 0, False),
+    "ties": (1, 300, 1030, 64, True, 0, False),
+    "pq_batch": (96, 700, 256, 8, True, 0, False),
+    # the 4-byte copies (h % 4 != 0; a base off alignment), and the narrow
+    # instance at d_sub 4 through PQ's strided view
+    "h37_elementwise": (1, 1000, 300, 37, False, 0, False),
+    "misaligned_view": (1, 777, 500, 768, False, 1, False),
+    "pq_dsub4": (192, 3000, 256, 4, True, 0, True),
 }
 
 
 @pytest.mark.parametrize("name", sorted(ASSIGN_CASES))
 def test_assign_argmax_kernel_matches_plain(cuda, name):
-    m, n, l, h, ties = ASSIGN_CASES[name]
+    m, n, l, h, ties, offset, view = ASSIGN_CASES[name]
     rng = np.random.default_rng(n + l)
-    x = torch.tensor(rng.normal(size=(m, n, h)), dtype=torch.float32,
-                     device=cuda)
+    flat = torch.tensor(rng.normal(size=m * n * h + offset),
+                        dtype=torch.float32, device=cuda)
+    x = (flat.view(n, m, h).transpose(0, 1) if view
+         else flat[offset:].view(m, n, h))
+    assert (x.data_ptr() % 16 != 0) == (offset != 0)
+    assert at_ops.assign_vector_loads(x, x.new_empty(1, 1, h)) == (
+        h % 4 == 0 and offset == 0)
     c = rng.normal(size=(m, l, h))
     if ties:
         c = np.concatenate([c[:, : (l + 1) // 2]] * 2, axis=1)[:, :l]

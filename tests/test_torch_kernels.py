@@ -352,6 +352,75 @@ def test_assign_argmax_batched_is_per_fragment_and_l2_argmin():
     assert 11 not in gi[1].tolist()
 
 
+def _pq_view(n, m, dsub, offset=0):
+    """PQ's (m, n, d_sub) view of an (n, m·d_sub) matrix starting
+    ``offset`` elements into its storage."""
+    flat = torch.zeros(n * m * dsub + offset)[offset:]
+    return flat.view(n, m, dsub).transpose(0, 1)
+
+
+@pytest.mark.parametrize("case, want", [
+    ("kmeans_rows", True),
+    ("pq_view_dsub8", True),
+    ("pq_view_dsub4", True),
+    ("pq_view_dsub12", True),
+    ("pq_contiguous_fragments", True),
+    ("h37", False),
+    ("pq_view_dsub6", False),
+    ("offset_one_element", False),
+    ("row_stride_not_16_bytes", False),
+    ("batch_stride_not_16_bytes", False),
+    ("one_batch_odd_batch_stride", True),
+])
+def test_assign_vector_loads_eligibility(case, want):
+    """The 16-byte cp.async copies need both bases 16-byte aligned, h
+    and x's row stride a multiple of 4 floats, and so x's batch stride
+    where there is more than one batch entry: the KMeans rows and PQ's
+    strided views qualify, h 37, d_sub 6 and views off alignment take
+    the 4-byte copies."""
+    c = torch.zeros(1, 10, 768)
+    if case == "kmeans_rows":
+        x = torch.zeros(1, 513, 768)
+    elif case.startswith("pq_view_dsub"):
+        dsub = int(case.rsplit("dsub", 1)[1])
+        x = _pq_view(50, 768 // dsub, dsub)
+        c = torch.zeros(768 // dsub, 256, dsub)
+    elif case == "pq_contiguous_fragments":
+        x, c = torch.zeros(96, 50, 8), torch.zeros(96, 256, 8)
+    elif case == "h37":
+        x, c = torch.zeros(1, 9, 37), torch.zeros(1, 4, 37)
+    elif case == "offset_one_element":
+        x = _pq_view(50, 1, 768, offset=1)
+        assert x.data_ptr() % 16
+    elif case == "row_stride_not_16_bytes":    # 8 features of 18-wide rows
+        x = torch.zeros(50, 18)[:, :8][None]
+        c = torch.zeros(1, 4, 8)
+    elif case == "batch_stride_not_16_bytes":
+        x = torch.zeros(200).as_strided((2, 9, 8), (6, 20, 1))
+        c = torch.zeros(2, 4, 8)
+    else:
+        x = torch.zeros(200).as_strided((1, 9, 8), (6, 20, 1))
+        c = torch.zeros(1, 4, 8)
+    assert at_ops.assign_vector_loads(x, c) is want
+
+
+def test_assign_argmax_buffers_and_kernel_args_follow_argtypes():
+    """The wrapper's argument list matches the C entry's ctypes signature
+    position by position: x, c, the outputs and the ½‖c‖² scratch, x's
+    batch and row strides, the sizes, ``vec`` and the stream."""
+    x, c = _pq_view(50, 96, 8), torch.zeros(96, 256, 8)
+    bufs = at_ops.assign_buffers(x, c)
+    assert [(tuple(b.shape), b.dtype) for b in bufs] == [
+        ((96, 50), torch.float32), ((96, 50), torch.int32),
+        ((96, 256), torch.float32)]
+    args = at_ops.assign_kernel_args(x, c, bufs, True, 7)
+    assert len(args) == len(at_ops.ASSIGN_ARGTYPES)
+    assert args[:5] == [t.data_ptr() for t in (x, c, *bufs)]
+    assert args[5:] == [8, 768, 96, 50, 256, 8, 1, 7]
+    for ctype, arg in zip(at_ops.ASSIGN_ARGTYPES, args):
+        ctype(arg)
+
+
 # --------------------------------------------------------------------------
 # flash_attention
 # --------------------------------------------------------------------------
@@ -511,7 +580,8 @@ def test_flash_variants_arguments_and_parent_entry(tmp_path):
         kv.takes_vec("int main() { return 0; }")
 
 
-@pytest.mark.parametrize("kernel", ["flash_attention", "topk_scores"])
+@pytest.mark.parametrize("kernel", ["assign_argmax", "flash_attention",
+                                    "topk_scores"])
 def test_kernel_variants_arguments_and_card(kernel, tmp_path):
     """The tool parses its arguments for either kernel, refuses another
     kernel, a missing parent or a malformed variant, and needs a card."""
@@ -571,6 +641,40 @@ def test_kernel_variants_topk_parent_tiles_and_cuts():
         kv.variant_source(src, {"kTQ": "8"})
     with pytest.raises(ValueError, match="per-tile merge: found 0"):
         kv.variant_source(gemm, gemm_only=True)
+
+
+def test_kernel_variants_assign_entry_and_constants():
+    """A parent ``assign_argmax.cu`` whose C entry takes no ½‖c‖² scratch
+    (before it had one) is told apart from this checkout's, and a variant
+    sets the wide and narrow instances' constants in a copy of the
+    source, or refuses a constant it does not find exactly once.  The
+    source here is a stand-in, so the kernel's own text is free to
+    change."""
+    from repro_torch.benchmarks import kernel_variants as kv
+    assert kv.takes_scratch(_build.SOURCES["assign_argmax"].read_text())
+    assert not kv.takes_scratch(
+        "int assign_argmax_launch(const void* x, const void* c, void* out_s,"
+        "\n                         void* out_i, long long x_batch,\n"
+        "                         int h, void* stream) {")
+    with pytest.raises(ValueError, match="no assign_argmax_launch"):
+        kv.takes_scratch("int main() { return 0; }")
+    src = ("constexpr int kHC = 32;          // features per chunk\n"
+           "constexpr int kStages = 2;\n"
+           "constexpr int kMinBlocks = 1;\n"
+           "constexpr int kNarrowMax = 16;\n"
+           "constexpr int kRow = kHC + 4;\n")
+    var = kv.variant_source(src, {"kHC": "64", "kStages": "3",
+                                  "kNarrowMax": "0"})
+    assert "constexpr int kHC = 64;          // features per chunk" in var
+    assert "constexpr int kStages = 3;" in var
+    assert "constexpr int kMinBlocks = 1;" in var
+    assert "constexpr int kNarrowMax = 0;" in var
+    assert "constexpr int kRow = kHC + 4;" in var
+    with pytest.raises(ValueError, match="constant 'kTP'"):
+        kv.variant_source(src, {"kTP": "4"})
+    assert set(kv.ASSIGN_SHAPES) >= {"kmeans", "pq", "h37_elementwise",
+                                     "misaligned_view", "pq_dsub4",
+                                     "pq_dsub12"}
 
 
 def test_flash_attention_chunked_equals_dense():
