@@ -98,9 +98,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import json
-import math
 import pathlib
 import subprocess
 import sys
@@ -114,6 +112,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.benchmarks import kernel_bench  # noqa: E402
+from repro_torch.benchmarks.synth_msmarco import (  # noqa: E402
+    BATCH, CLUSTER_CAP, HIDDEN, K1_TERMS, K2, KC, N_CLUSTERS, N_DOCS, PQ_K,
+    PQ_M, QUERY_LEN, REFINE_CODEC, SMOKE_BATCHES, TERM_CAP, TOP_R, VOCAB,
+    main_path_inputs, planted_docs, refine_index, synth_leaves,
+    synth_queries)
 from repro_torch.benchmarks.timing import Timer  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
 from repro_torch.core import exec as qexec  # noqa: E402
@@ -122,8 +125,6 @@ from repro_torch.core import inverted_lists  # noqa: E402
 from repro_torch.core import metrics  # noqa: E402
 from repro_torch.core import term_selector as ts_mod  # noqa: E402
 from repro_torch.core.codecs import flat as flat_codec  # noqa: E402
-from repro_torch.core.codecs import pq as pq_codec  # noqa: E402
-from repro_torch.core.codecs import sq8 as sq8_codec  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.assign_topk import ops as at_ops  # noqa: E402
@@ -137,15 +138,6 @@ from repro_torch.kernels.sq8_dot import ref as sq8_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
-
-# the serve_msmarco serving shape (configs/hi2_synth.py::HI2ServeShape)
-N_DOCS, HIDDEN, N_CLUSTERS, VOCAB = 8_841_984, 768, 10_000, 30_528
-CLUSTER_CAP = TERM_CAP = 1_024
-PQ_M, PQ_K = 96, 256
-KC, K2, TOP_R = 30, 32, 100
-BATCH, QUERY_LEN = 256, 32
-K1_TERMS = 3                         # indexed terms per document
-REFINE_CODEC = "refine:sq8:4"        # serve_msmarco_refine_sq8's codec
 
 # the on-card build (phase 10): N cut from 8.8 M, widths kept
 BUILD_DOCS, BUILD_QUERIES, BUILD_ITERS = 1_048_576, 1_024, 15
@@ -226,56 +218,9 @@ def read_counts() -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 3: the synthetic serve_msmarco index
+# phase 3: the synthetic serve_msmarco index (its leaves, queries and the
+# phase-9 planes are synth_msmarco's, shared with kernel_variants.py)
 # --------------------------------------------------------------------------
-
-def synth_leaves(rng: np.random.Generator) -> dict:
-    """Index leaves at the serve_msmarco shape: Gaussian centroids and
-    codewords, an orthogonal rotation (QR of a Gaussian), uniform codes
-    and doc→cluster assignment, K₁ᵀ=3 Zipf terms per document with
-    random impacts in [0.05, 1.05) (the (V, Ct) f32 impact plane of
-    hybrid search, descending per list, 0.0 at pads), positive average
-    term scores."""
-    zipf = 1.0 / np.arange(1, VOCAB + 1) ** 1.07
-    zipf /= zipf.sum()
-    doc_assign = rng.integers(0, N_CLUSTERS, N_DOCS).astype(np.int32)
-    cl = inverted_lists.build(np.arange(N_DOCS), doc_assign, None,
-                              N_CLUSTERS, CLUSTER_CAP, device="cpu")
-    terms = rng.choice(VOCAB, size=N_DOCS * K1_TERMS, p=zipf)
-    tl, impacts = inverted_lists.build_scored(
-        np.repeat(np.arange(N_DOCS), K1_TERMS), terms,
-        rng.random(terms.size) + 0.05, VOCAB, TERM_CAP, device="cpu")
-    rotation, _ = np.linalg.qr(rng.normal(size=(HIDDEN, HIDDEN)))
-    return {
-        ".cluster_sel.embeddings":
-            rng.normal(size=(N_CLUSTERS, HIDDEN)).astype(np.float32),
-        ".term_sel.avg_scores": (rng.random(VOCAB) + 0.1).astype(np.float32),
-        ".cluster_lists.entries": cl.entries.numpy(),
-        ".cluster_lists.lengths": cl.lengths.numpy(),
-        ".term_lists.entries": tl.entries.numpy(),
-        ".term_lists.lengths": tl.lengths.numpy(),
-        ".sparse_weights": impacts.numpy(),
-        ".codec_params.rotation": rotation.astype(np.float32),
-        ".codec_params.codebook.codewords": rng.normal(
-            size=(PQ_M, PQ_K, HIDDEN // PQ_M)).astype(np.float32),
-        ".doc_planes['codes']": rng.integers(0, PQ_K, (N_DOCS, PQ_M),
-                                             dtype=np.uint8),
-        ".doc_assign": doc_assign,
-    }
-
-
-def planted_docs(entries: np.ndarray, best: np.ndarray) -> np.ndarray:
-    """One member of each query's best cluster, a different one for
-    queries that share a cluster."""
-    taken: dict = {}
-    qrels = np.empty(len(best), np.int64)
-    for i, c in enumerate(best):
-        taken[c] = taken.get(c, -1) + 1
-        qrels[i] = entries[c, taken[c]]
-    if (qrels < 0).any():
-        fail("a best cluster has too few members to plant a positive")
-    return qrels
-
 
 def plant_positives(leaves: dict, qe: np.ndarray) -> np.ndarray:
     """Give each query one document it must rank first: a member of
@@ -290,47 +235,6 @@ def plant_positives(leaves: dict, qe: np.ndarray) -> np.ndarray:
     qrels = planted_docs(leaves[".cluster_lists.entries"], best)
     leaves[".doc_planes['codes']"][qrels] = codes.astype(np.uint8)
     return qrels
-
-
-def synth_queries(rng: np.random.Generator, n: int):
-    """Unit-norm query embeddings and Zipf query tokens."""
-    zipf = 1.0 / np.arange(1, VOCAB + 1) ** 1.07
-    zipf /= zipf.sum()
-    qe = rng.normal(size=(n, HIDDEN))
-    qe /= np.linalg.norm(qe, axis=-1, keepdims=True)
-    qt = rng.choice(VOCAB, size=(n, QUERY_LEN), p=zipf).astype(np.int32)
-    return qe.astype(np.float32), qt
-
-
-# --------------------------------------------------------------------------
-# phase 9: the serve_msmarco_refine_sq8 planes
-# --------------------------------------------------------------------------
-
-def refine_index(index, dev, seed: int, qe: np.ndarray):
-    """The ``refine:sq8:4`` index over ``index``'s lists and selectors:
-    fp16 refine rows ~ N(0, 1/h) drawn on the card in chunks from an
-    explicit generator, SQ8 ranges and codes from the codec's own train
-    and encode of those rows.  Each query's planted positive (a member
-    of its best cluster, as in phase 3) gets the query as its refine row
-    and the query's encoding as its codes.  Returns (index, qrels)."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    emb = torch.empty((N_DOCS, HIDDEN), dtype=torch.float16, device=dev)
-    for i in range(0, N_DOCS, sq8_codec.BLOCK):
-        rows = emb[i:i + sq8_codec.BLOCK]
-        rows.copy_(torch.randn(rows.shape, generator=gen, device=dev)
-                   / math.sqrt(HIDDEN))
-    codec = sq8_codec.SQ8Codec()
-    params = codec.train(gen, emb)
-    codes = codec.encode(params, emb)["codes"]
-    q = torch.from_numpy(qe).to(dev)
-    best = (q @ index.cluster_sel.embeddings.T).argmax(dim=1).cpu().numpy()
-    qrels = planted_docs(index.cluster_lists.entries.cpu().numpy(), best)
-    at = torch.from_numpy(qrels).to(dev)
-    emb[at] = q.half()
-    codes[at] = codec.encode(params, q.half())["codes"]
-    return dataclasses.replace(
-        index, codec=REFINE_CODEC, codec_params=params,
-        doc_planes={"codes": codes, "refine_emb": emb}), qrels
 
 
 # --------------------------------------------------------------------------
@@ -577,29 +481,6 @@ def parity_edges(dev, prng: np.random.Generator) -> dict:
         f"pq_adc {len(unfused_cases)} cases, topk_scores {len(topk_cases)} "
         f"cases, sq8_dot_fused {len(sq8_cases) + 1} cases")
     return errs
-
-
-def main_path_inputs(index, qe0, qt0) -> dict:
-    """What the main path hands each kernel for one full batch: the
-    dispatch inputs, the candidate rows and live mask, and the score
-    stage's LUT (opq) or pre-scaled queries and bias (sq8)."""
-    with torch.inference_mode():
-        cl_ids, tm_ids = qexec.dispatch(index.cluster_sel, index.term_sel,
-                                        qe0, qt0, KC, K2)
-        frontier = qexec.gather([hi.base_source(index)], cl_ids, tm_ids)
-        inp = dict(x=qe0, emb=index.cluster_sel.embeddings, cl_ids=cl_ids,
-                   cands=frontier.cands,
-                   rows=frontier.local[0].contiguous(),
-                   live=qexec.dedup(frontier).contiguous(),
-                   plane=index.doc_planes["codes"])
-        if index.codec == "opq":
-            inp["lut"] = pq_codec.opq_adc_lut(index.codec_params,
-                                              qe0).contiguous()
-        else:
-            inp["q_scaled"] = (qe0 * index.codec_params["scale"]
-                               ).contiguous()
-            inp["bias"] = qe0 @ index.codec_params["lo"]
-        return inp
 
 
 def check_no_extra_memory(fn, out_bytes: int, what: str) -> int:
@@ -921,9 +802,11 @@ def time_kernels(inp: dict) -> dict:
 
 
 def time_sq8(inp: dict) -> dict:
-    """Phase 9d: ``sq8_dot_fused`` and its plain version at the refine
-    path's shapes, beside its bound for this run's data.  No one
-    PyTorch call computes a gathered dot, so library_ms is null."""
+    """Phase 9e: ``sq8_dot_fused`` and its plain version at the refine
+    path's shapes, beside its bound for this run's data (each distinct
+    live row read once) and the traffic of reading each live lane's row,
+    as the per-lane kernel before the grouped one did.  No one PyTorch
+    call computes a gathered dot, so library_ms is null."""
     timer = Timer()
     q_scaled, plane, rows, live = (inp[k] for k in ("q_scaled", "plane",
                                                     "rows", "live"))
@@ -931,8 +814,13 @@ def time_sq8(inp: dict) -> dict:
     h = plane.shape[1]
     live_rows = torch.unique(rows[live]).numel()
     n_live = int(live.sum())
-    nbytes = b * c * (4 + 1 + 4) + q_scaled.numel() * 4 + live_rows * h
+    fixed = b * c * (4 + 1 + 4) + q_scaled.numel() * 4
+    nbytes = fixed + live_rows * h
+    per_lane = fixed + n_live * h
     sq8_bound = bound(2 * n_live * h, nbytes)
+    tl = sq8_ops.tiles(_build.library("sq8_dot_fused"))
+    skey, _ = sq8_ops.schedule(rows, live, plane.shape[0], tl.tile_slots)
+    groups = int(sq8_ops.lead_flags(skey, tl.group_max).sum())
 
     def plain():              # in 16-query chunks: it builds (B, C, h)
         for s in range(0, b, 16):
@@ -941,13 +829,23 @@ def time_sq8(inp: dict) -> dict:
 
     log(f"[times] sq8_dot_fused at B={b}, C={c}, h={h}: {n_live} live "
         f"slots over {live_rows} distinct rows, {nbytes / 1e6:.1f} MB to "
-        f"move, {2 * n_live * h / 1e9:.2f} GFLOP; library_ms null (no one "
-        f"PyTorch call computes a gathered dot)")
-    return {"sq8_dot_fused": dict(
+        f"move, {2 * n_live * h / 1e9:.2f} GFLOP; each live lane reading "
+        f"its row would move {per_lane / 1e6:.1f} MB "
+        f"({1e3 * per_lane / PEAK_BYTES:.3f} ms at {PEAK_BYTES / 1e12} "
+        f"TB/s); {skey.numel()} items of {tl.tile_slots} slots in {groups} "
+        f"groups of at most {tl.group_max} (mean "
+        f"{skey.numel() / groups:.2f}); library_ms null (no one PyTorch "
+        f"call computes a gathered dot)")
+    out = dict(
         ms=timer.ms(lambda: sq8_ops.sq8_dot_fused(q_scaled, plane, rows,
                                                   live), reps=10),
         plain_ms=timer.ms(plain, reps=3, warm=1), library_ms=None,
-        bound_ms=sq8_bound[0], bound_by=sq8_bound[1])}
+        bound_ms=sq8_bound[0], bound_by=sq8_bound[1])
+    out["bound_share"] = sq8_bound[0] / out["ms"]
+    log(f"[times] sq8_dot_fused: kernel {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, bound {sq8_bound[0]:.4f} ms "
+        f"({sq8_bound[1]}), bound / kernel {out['bound_share']:.1%}")
+    return {"sq8_dot_fused": out}
 
 
 def unfused_at_width(inp: dict, errs: dict) -> dict:
@@ -1578,7 +1476,7 @@ SOURCES = {   # kernel → (CUDA source, the TPU kernel's pallas_call)
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batches", type=int, default=4,
+    ap.add_argument("--batches", type=int, default=SMOKE_BATCHES,
                     help="256-query batches served in each counted run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

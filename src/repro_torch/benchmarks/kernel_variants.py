@@ -14,6 +14,12 @@ flash_attention.cu > build/flash_parent.cu
     python -m repro_torch.benchmarks.kernel_variants \\
         --kernel flash_attention --parent build/flash_parent.cu
 
+    git show HEAD:src/repro_torch/kernels/sq8_dot/csrc/\\
+sq8_dot_fused.cu > build/sq8_parent.cu
+    python -m repro_torch.benchmarks.kernel_variants \\
+        --kernel sq8_dot_fused --parent build/sq8_parent.cu \\
+        [--variant kGroupMax=4,kMinBlocks=1] [--sass DIR]
+
 ``HEAD`` is the parent while the change is not yet committed (after
 committing it, ``HEAD~1``).  Builds the parent's source and this
 checkout's with nvcc, in parallel, and prints each instance's ``ptxas``
@@ -57,6 +63,23 @@ version (f32 out within 1e-4, bf16 within 2e-2, lse within 1e-4; the
 change in both load instances), timed beside
 ``scaled_dot_product_attention``.  A parent whose C entry lacks the
 ``vec`` flag (before the element-wise instance) is called without it.
+
+``sq8_dot_fused``: at the ``serve_msmarco_refine_sq8`` candidate plane of
+``chip_smoke.py``'s phase 9 from the same ``--seed`` (B 256, C 63,488, h
+768; :mod:`repro_torch.benchmarks.synth_msmarco`), at a no-reuse shape
+(the same plane and live lanes, ids drawn at random) and at the edge
+shapes of :data:`SQ8_SHAPES`: every build in each row-load instance must
+equal the parent bit for bit (the parent's scalar instance read through
+a misaligned copy of the plane) and agree with the plain version within
+``SQ8_TOL``.  Prints the live slots, distinct rows, the bytes if each
+live lane reads its row (the parent's traffic), the schedule's groups
+and mean group size and the rows a group's slots hold; times the two
+full shapes (the change's schedule included) beside the bound, and both
+builds' scalar instances on a misaligned copy of the plane.  A parent
+whose C entry is ``sq8_dot_fused`` (before the grouped schedule) is
+called without a schedule and picks its own instance.
+``--sass DIR`` writes each build's SASS there and prints its counts of
+conversion, load, FMA and shuffle instructions.
 """
 from __future__ import annotations
 
@@ -68,14 +91,19 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
+from repro_torch.benchmarks import synth_msmarco as sm
 from repro_torch.benchmarks.timing import Timer
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.kernels import _build
 from repro_torch.kernels.assign_topk import ops as at_ops
 from repro_torch.kernels.assign_topk import ref as at_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.sq8_dot import ops as sq8_ops
+from repro_torch.kernels.sq8_dot import ref as sq8_ref
 
 ROOT = pathlib.Path(__file__).resolve().parents[3]
 OUT_DIR = ROOT / "build" / "kernel_variants"
@@ -112,6 +140,28 @@ TOPK_SHAPES = {
     "ties_k128": (20, 1000, 64, 128, True, 0),
     "ragged_tiles": (17, 129, 40, 8, True, 0),
 }
+SQ8_TOL = (1e-4, 1e-2)   # rtol, atol: the JAX kernel test's own
+SQ8_PLAIN_CHUNK = 16     # queries a plain call: it builds (B, C, h) f32
+SQ8_ROWS = 700           # plane rows of the edge shapes
+#: name: (b, c, h, duplicated ids, masked row, byte offset of the plane,
+#: id layout (:func:`sq8_layout`)), as tests/test_torch_cuda.py::SQ8_CASES
+SQ8_SHAPES = {
+    "c_below_tile": (3, 5, 768, False, 1, 0, "random"),
+    "c_ragged": (2, 3 * 512 + 77, 768, True, None, 0, "random"),
+    "h16_masked": (4, 700, 16, False, 3, 0, "random"),
+    "h40_scalar": (2, 333, 40, True, 0, 0, "random"),
+    "unaligned_view": (2, 600, 768, False, None, 3, "random"),
+    "all_masked": (2, 100, 64, False, "all", 0, "random"),
+    "shared_lists": (20, 3 * 1024, 768, False, None, 0, "lists"),
+    "same_key_differs": (12, 2 * 512 + 40, 768, False, None, 0,
+                         "same_key_differs"),
+    "dedup_across_lists": (6, 2 * 1024, 64, False, None, 0, "dedup"),
+    "served_ragged": (12, 2 * 1024 + 300, 768, False, None, 0, "lists"),
+    "shared_lists_h40": (10, 2 * 1024, 40, False, 2, 0, "lists"),
+}
+#: SASS opcodes counted per kernel function by --sass
+SASS_OPS = ("I2F", "PRMT", "FADD", "FFMA", "LDS", "LDG", "STS", "STG",
+            "SHFL")
 # the per-tile merge of topk_scores.cu and what --gemm-only puts in its
 # place: the tile row is still read, so the product is not optimized away
 MERGE = re.compile(r"warp_merge\(sm\.ls\[q\], sm\.li\[q\], cnt\[u\], n, k, "
@@ -195,7 +245,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", required=True,
                     choices=("assign_argmax", "flash_attention",
-                             "topk_scores"))
+                             "sq8_dot_fused", "topk_scores"))
     ap.add_argument("--parent", required=True, type=pathlib.Path,
                     help="the parent's source of the kernel")
     ap.add_argument("--reps", type=int, default=20)
@@ -203,10 +253,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     type=parse_consts, metavar="NAME=VALUE[,NAME=VALUE]",
                     help="also build this checkout's source with these "
                          "constexpr int tile constants (topk_scores, "
-                         "assign_argmax)")
+                         "assign_argmax, sq8_dot_fused)")
     ap.add_argument("--gemm-only", action="store_true",
                     help="also build every source without its per-tile "
                          "merge (topk_scores)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="chip_smoke.py's seed of the served plane "
+                         "(sq8_dot_fused)")
+    ap.add_argument("--sass", type=pathlib.Path, default=None,
+                    metavar="DIR", help="write each build's SASS into DIR "
+                    "and print its instruction counts (sq8_dot_fused)")
     return ap.parse_args(argv)
 
 
@@ -584,6 +640,313 @@ def assign_main(args) -> dict:
     return report
 
 
+# --------------------------------------------------------------------------
+# sq8_dot_fused
+# --------------------------------------------------------------------------
+
+def sq8_layout(rng: np.random.Generator, b: int, c: int, n_rows: int,
+               layout: str, cap: int = 1024
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """(B, C) int32 ids and bool live lanes of a candidate plane shaped
+    like the served one.  ``lists`` and ``dedup``: each query holds
+    ceil(C / cap) inverted lists of capacity ``cap`` (PAD tails clipped
+    to row 0 and dead, as in the served plane; one list shorter than half
+    its capacity) drawn without repeats from a small set (4 lists for
+    ``lists``, 2 for ``dedup``), so many queries hold one list, in
+    another order each; lanes die at random (5%; 50% for ``dedup``, so
+    one row is live for one query and dead for another of the same
+    group).  ``same_key_differs``: random ids with the same live row at
+    every 512th slot, so every item (of 512 or 1,024 slots) has one key
+    while the ids between differ."""
+    if layout == "same_key_differs":
+        ids = rng.integers(0, n_rows, (b, c))
+        live = rng.random((b, c)) < 0.8
+        ids[:, ::512], live[:, ::512] = 7, True
+        return ids.astype(np.int32), live
+    if layout not in ("lists", "dedup"):
+        raise ValueError(f"unknown id layout {layout!r}")
+    n_lists, kill = (4, 0.05) if layout == "lists" else (2, 0.5)
+    per_query = -(-c // cap)
+    n_lists = max(n_lists, per_query)
+    entries = np.full((n_lists, cap), -1, np.int64)
+    for i in range(n_lists):
+        n = cap // 2 - 100 if i == 0 else rng.integers(cap // 2, cap + 1)
+        entries[i, :n] = rng.integers(0, n_rows, n)
+    picks = np.stack([rng.permutation(n_lists)[:per_query]
+                      for _ in range(b)])
+    plane = entries[picks].reshape(b, -1)[:, :c]
+    live = (plane >= 0) & (rng.random((b, c)) >= kill)
+    return np.maximum(plane, 0).astype(np.int32), live
+
+
+def sq8_case(name: str, dev):
+    """The inputs of edge shape ``name`` on ``dev``: q (b, h) f32, a
+    (SQ8_ROWS, h) uint8 plane (a view ``offset`` bytes into its buffer),
+    ids and live."""
+    b, c, h, dup, mask, offset, layout = SQ8_SHAPES[name]
+    rng = np.random.default_rng(len(name) + 100)
+    q = torch.tensor(rng.normal(size=(b, h)), dtype=torch.float32,
+                     device=dev)
+    flat = torch.tensor(rng.integers(0, 256, SQ8_ROWS * h + offset),
+                        dtype=torch.uint8, device=dev)
+    plane = flat[offset:].view(SQ8_ROWS, h)
+    if layout == "random":
+        ids = rng.integers(-3, SQ8_ROWS + 3, (b, c)).astype(np.int32)
+        if dup:
+            ids = np.concatenate([ids[:, : (c + 1) // 2]] * 2, -1)[:, :c]
+        live = rng.random((b, c)) < 0.8
+    else:
+        ids, live = sq8_layout(rng, b, c, SQ8_ROWS, layout)
+    if mask == "all":
+        live[:] = False
+    elif mask is not None:
+        live[mask] = False
+    return (q, plane, torch.tensor(ids, device=dev),
+            torch.tensor(live, device=dev))
+
+
+def grouped_entry(source: str) -> bool:
+    """Whether a ``sq8_dot_fused.cu``'s C entry is the grouped
+    ``sq8_dot_fused_launch`` (else the per-lane ``sq8_dot_fused`` of the
+    kernel before it)."""
+    if re.search(r"int sq8_dot_fused_launch\(", source):
+        return True
+    if re.search(r"int sq8_dot_fused\(", source):
+        return False
+    raise ValueError("no sq8_dot_fused C entry in the source")
+
+
+#: ctypes signature of the per-lane kernel's C entry ``sq8_dot_fused``
+SQ8_PARENT_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong, ctypes.c_void_p])
+
+
+def call_sq8(lib, grouped: bool, q, plane, ids, live,
+             vec: bool | None = None):
+    """One call of a build: a grouped one through ``ops.launch`` (its
+    schedule included; ``vec`` None takes the wrapper's choice), a
+    per-lane one through its own C entry (it picks its instance)."""
+    if grouped:
+        return sq8_ops.launch(lib, q, plane, ids, live, vec)
+    out = torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
+    fn = lib.sq8_dot_fused
+    fn.argtypes, fn.restype = SQ8_PARENT_ARGTYPES, ctypes.c_int
+    err = fn(q.data_ptr(), plane.data_ptr(), ids.data_ptr(), live.data_ptr(),
+             out.data_ptr(), q.shape[0], ids.shape[1], q.shape[1],
+             plane.shape[0], torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "sq8_dot_fused")
+    return out
+
+
+def misaligned_copy(plane: torch.Tensor) -> torch.Tensor:
+    """``plane``'s rows in a view 3 bytes into a fresh buffer: every
+    build reads it with its scalar instance."""
+    flat = torch.empty(plane.numel() + 16, dtype=torch.uint8,
+                       device=plane.device)
+    view = flat[3:3 + plane.numel()].view(plane.shape)
+    view.copy_(plane)
+    return view
+
+
+def sq8_plain(q, plane, ids, live):
+    """The plain version in SQ8_PLAIN_CHUNK-query pieces."""
+    return torch.cat([sq8_ref.sq8_dot_fused(
+        q[s:s + SQ8_PLAIN_CHUNK], plane, ids[s:s + SQ8_PLAIN_CHUNK],
+        live[s:s + SQ8_PLAIN_CHUNK])
+        for s in range(0, q.shape[0], SQ8_PLAIN_CHUNK)])
+
+
+def sq8_agrees(got, want) -> tuple[bool, float]:
+    """``-inf`` lanes identical, finite scores within SQ8_TOL."""
+    fin = torch.isfinite(want)
+    ok = torch.equal(torch.isneginf(got), torch.isneginf(want))
+    rtol, atol = SQ8_TOL
+    ok = ok and torch.allclose(got[fin], want[fin], rtol=rtol, atol=atol)
+    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    return ok, err
+
+
+def sq8_check(libs: dict, grouped: dict, sname: str, q, plane, ids, live,
+              failed: list) -> None:
+    """Every build in each instance the plane allows against the plain
+    version and bit for bit against the parent in the same instance."""
+    want = sq8_plain(q, plane, ids, live)
+    vec_ok = sq8_ops.sq8_vector_loads(plane)
+    base = {False: call_sq8(libs["parent"], grouped["parent"], q,
+                            misaligned_copy(plane), ids, live, False)}
+    if vec_ok:
+        base[True] = call_sq8(libs["parent"], grouped["parent"], q, plane,
+                              ids, live, True)
+    for name, lib in libs.items():
+        for vec in ((True, False) if vec_ok else (False,)):
+            if grouped[name]:
+                got = call_sq8(lib, True, q, plane, ids, live, vec)
+            elif vec:
+                got = base[True]
+            else:
+                got = base[False]
+            ok, err = sq8_agrees(got, want)
+            same = torch.equal(got, base[vec])
+            print(f"[check] {sname} {name} vec={vec}: max abs err {err:.3g} "
+                  f"{'ok' if ok else 'FAILED'}; bitwise equal to the parent: "
+                  f"{same}", flush=True)
+            if not ok or not same:
+                failed.append(f"{name} vec={vec} at {sname}")
+
+
+def sq8_traffic(ids, live, n_rows: int, h: int, tl: sq8_ops.Tiles) -> dict:
+    """What the plane asks of the card: live slots, distinct live rows,
+    the schedule's items and groups, and the rows device memory serves
+    when each group's repeats hit on chip (each distinct live row of a
+    group's slot once)."""
+    b, c = ids.shape
+    dev, tile = ids.device, tl.tile_slots
+    rows = ids.long().clamp(0, n_rows - 1)
+    skey, order = sq8_ops.schedule(ids, live, n_rows, tile)
+    lead = sq8_ops.lead_flags(skey, tl.group_max)
+    n_items, groups = order.numel(), int(lead.sum())
+    gid = torch.empty(n_items, dtype=torch.long, device=dev)
+    gid[order.long()] = torch.cumsum(lead.long(), 0) - 1
+    pos = torch.empty(n_items, dtype=torch.long, device=dev)
+    pos[order.long()] = torch.arange(n_items, device=dev)
+    col = torch.arange(c, device=dev)
+    item = (torch.arange(b, device=dev)[:, None] * -(-c // tile)
+            + col // tile)
+    lane_key = (gid[item] * tile + col % tile)[live]
+    lane_pos, lane_row = pos[item][live], rows[live]
+    first = torch.full((groups * tile,), n_items, dtype=torch.long,
+                       device=dev).scatter_reduce(0, lane_key, lane_pos,
+                                                  "amin")
+    is_first = lane_pos == first[lane_key]
+    lead_row = torch.zeros(groups * tile, dtype=torch.long, device=dev)
+    lead_row[lane_key[is_first]] = lane_row[is_first]
+    reads = (torch.unique(lane_key).numel()
+             + int((lane_row != lead_row[lane_key]).sum()))
+    return dict(live=int(live.sum()), distinct=torch.unique(lane_row).numel(),
+                items=n_items, groups=groups, reads=reads)
+
+
+def sq8_full_shapes(seed: int, dev):
+    """The phase-9 candidate plane of chip_smoke.py from ``seed`` (its
+    first batch), then the same plane and live lanes with random ids."""
+    rng = np.random.default_rng(seed)
+    leaves = sm.synth_leaves(rng)
+    qe, qt = sm.synth_queries(rng, sm.BATCH * sm.SMOKE_BATCHES)
+    index = ckpt.index_from_numpy(leaves, "opq", device=dev)
+    del leaves
+    rindex, _ = sm.refine_index(index, dev, seed, qe)
+    del index
+    inp = sm.main_path_inputs(
+        rindex, torch.from_numpy(qe[:sm.BATCH]).to(dev),
+        torch.from_numpy(qt[:sm.BATCH]).to(dev).long())
+    q, plane, ids, live = (inp[k] for k in ("q_scaled", "plane", "rows",
+                                            "live"))
+    del rindex, inp
+    torch.cuda.empty_cache()
+    yield "served", (q, plane, ids, live)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    yield "no_reuse", (q, plane, torch.randint(
+        0, plane.shape[0], ids.shape, generator=gen, device=dev,
+        dtype=torch.int32), live)
+
+
+def sass_counts(lib_path: pathlib.Path, out: pathlib.Path) -> dict:
+    """Write the library's SASS to ``out``; return {function: {opcode:
+    count}} for :data:`SASS_OPS` (opcode prefixes: I2F counts I2F.U32 and
+    the rest)."""
+    tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    out.write_text(text)
+    counts, fn = {}, None
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z0-9]+)", line)
+        if ins and fn:
+            for op in SASS_OPS:
+                if ins.group(1) == op or ins.group(1).startswith(op):
+                    counts[fn][op] += 1
+    return counts
+
+
+def sq8_main(args) -> dict:
+    src = _build.SOURCES["sq8_dot_fused"]
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    sources = {"parent": args.parent, "new": src}
+    for i, consts in enumerate(args.variant):
+        sources[f"variant{i}"] = OUT_DIR / f"sq8_variant{i}.cu"
+        sources[f"variant{i}"].write_text(
+            variant_source(src.read_text(), consts))
+        print(f"[variant] variant{i}: {consts}")
+    grouped = {name: grouped_entry(path.read_text())
+               for name, path in sources.items()}
+    libs = build(sources)
+    for name, lib in libs.items():
+        if grouped[name]:
+            print(f"[tiles] {name}: {sq8_ops.tiles(lib)}", flush=True)
+    if args.sass:
+        args.sass.mkdir(parents=True, exist_ok=True)
+        for name in libs:
+            counts = sass_counts(OUT_DIR / f"{name}.so",
+                                 args.sass / f"sq8_{name}.sass")
+            for fn, ops in counts.items():
+                print(f"[sass] {name} {fn[-60:]}: " + ", ".join(
+                    f"{op} {n}" for op, n in ops.items()), flush=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    failed, report = [], {}
+    for sname in SQ8_SHAPES:
+        sq8_check(libs, grouped, sname, *sq8_case(sname, dev), failed)
+    timer = Timer(queued=True)
+    tl = sq8_ops.tiles(libs["new"])
+    for sname, (q, plane, ids, live) in sq8_full_shapes(args.seed, dev):
+        b, c = ids.shape
+        n, h = plane.shape
+        sq8_check(libs, grouped, sname, q, plane, ids, live, failed)
+        tr = sq8_traffic(ids, live, n, h, tl)
+        fixed = 9.0 * b * c + 4.0 * q.numel()     # ids, live, out, q
+        per_lane = fixed + tr["live"] * h
+        grouped_bytes = fixed + tr["reads"] * h
+        bound = 1e3 * max(2.0 * tr["live"] * h / PEAK_FP32_FLOPS,
+                          (fixed + tr["distinct"] * h) / PEAK_BYTES)
+        print(f"[traffic] {sname} B={b} C={c} h={h}: {tr['live']} live "
+              f"slots over {tr['distinct']} distinct rows; each live lane "
+              f"reading its row moves {per_lane / 1e9:.3f} GB "
+              f"({1e3 * per_lane / PEAK_BYTES:.3f} ms at peak); "
+              f"{tr['items']} items in {tr['groups']} groups (mean "
+              f"{tr['items'] / tr['groups']:.2f}, at most {tl.group_max}); "
+              f"a group's distinct rows a slot: {tr['reads']} rows, "
+              f"{grouped_bytes / 1e9:.3f} GB "
+              f"({1e3 * grouped_bytes / PEAK_BYTES:.3f} ms at peak)",
+              flush=True)
+
+        def run(name, vec=None):
+            return lambda: call_sq8(libs[name], grouped[name], q, plane,
+                                    ids, live, vec)
+        times = {}
+        for name in ("parent", "new", "new", "parent"):
+            times.setdefault(name, []).append(timer.ms(run(name), args.reps))
+        for name in libs:
+            if name not in times:
+                times[name] = [timer.ms(run(name), args.reps)]
+        mis = misaligned_copy(plane)          # both builds' scalar instance
+        for name in ("parent", "new"):
+            times[f"{name}_scalar"] = [timer.ms(
+                lambda: call_sq8(libs[name], grouped[name], q, mis, ids, live,
+                                 False), max(args.reps // 4, 3))]
+        del mis
+        report_times(sname, bound, times)
+        report[sname] = dict(bound_ms=bound, **tr, **times)
+    if failed:      # after the times, which still tell where time goes
+        print(json.dumps(report))
+        sys.exit(f"disagrees: {', '.join(failed)}")
+    return report
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     if not torch.cuda.is_available():
@@ -593,6 +956,7 @@ def main(argv=None) -> None:
                          text=True)
     print(smi.stdout.strip(), flush=True)
     report = {"assign_argmax": assign_main, "flash_attention": flash_main,
+              "sq8_dot_fused": sq8_main,
               "topk_scores": topk_main}[args.kernel](args)
     print(json.dumps(report))
 

@@ -184,29 +184,48 @@ def test_topk_scores_tiles_and_residency(cuda):
     assert 1 <= s <= 33 and 8 * s <= tl.blocks_per_sm * sms
 
 SQ8_CASES = {
-    # name: (b, c, h, duplicate ids, masked row, byte offset of the plane)
-    "c_below_tile": (3, 5, 768, False, 1, 0),
-    "c_ragged": (2, 3 * 512 + 77, 768, True, None, 0),
-    "h16_masked": (4, 700, 16, False, 3, 0),
-    "h40_scalar": (2, 333, 40, True, 0, 0),
-    "unaligned_view": (2, 600, 768, False, None, 3),
-    "all_masked": (2, 100, 64, False, "all", 0),
+    # name: (b, c, h, duplicate ids, masked row, byte offset of the plane,
+    # id layout, 16-byte row copies).  Layouts other than random ids
+    # (kernel_variants.sq8_layout): queries holding whole inverted lists of
+    # 1,024 slots, many of them sharing one list, more than a group holds
+    # ("lists"); every 512th id one live row and the ids between differing
+    # ("same_key_differs"); two lists held by every query, half the lanes
+    # dead, so one row is live for one query and dead for another of a
+    # group ("dedup")
+    "c_below_tile": (3, 5, 768, False, 1, 0, "random", True),
+    "c_ragged": (2, 3 * 512 + 77, 768, True, None, 0, "random", True),
+    "h16_masked": (4, 700, 16, False, 3, 0, "random", True),
+    "h40_scalar": (2, 333, 40, True, 0, 0, "random", False),
+    "unaligned_view": (2, 600, 768, False, None, 3, "random", False),
+    "all_masked": (2, 100, 64, False, "all", 0, "random", True),
+    "shared_lists": (20, 3 * 1024, 768, False, None, 0, "lists", True),
+    "same_key_differs": (12, 2 * 512 + 40, 768, False, None, 0,
+                         "same_key_differs", True),
+    "dedup_across_lists": (6, 2 * 1024, 64, False, None, 0, "dedup", True),
+    "served_ragged": (12, 2 * 1024 + 300, 768, False, None, 0, "lists",
+                      True),
+    "shared_lists_h40": (10, 2 * 1024, 40, False, 2, 0, "lists", False),
 }
 
 
 @pytest.mark.parametrize("name", sorted(SQ8_CASES))
 def test_sq8_dot_fused_kernel_matches_plain(cuda, name):
-    b, c, h, dup, mask, offset = SQ8_CASES[name]
+    from repro_torch.benchmarks import kernel_variants as kv
+    b, c, h, dup, mask, offset, layout, vec = SQ8_CASES[name]
     rng = np.random.default_rng(len(name) + 100)
     q = torch.tensor(rng.normal(size=(b, h)), dtype=torch.float32,
                      device=cuda)
     flat = torch.tensor(rng.integers(0, 256, 700 * h + offset),
                         dtype=torch.uint8, device=cuda)
     plane = flat[offset:].view(700, h)
-    ids = rng.integers(-3, 703, (b, c)).astype(np.int32)    # clipped
-    if dup:
-        ids = np.concatenate([ids[:, : (c + 1) // 2]] * 2, -1)[:, :c]
-    live = rng.random((b, c)) < 0.8
+    if layout == "random":
+        ids = rng.integers(-3, 703, (b, c)).astype(np.int32)    # clipped
+        if dup:
+            ids = np.concatenate([ids[:, : (c + 1) // 2]] * 2, -1)[:, :c]
+        live = rng.random((b, c)) < 0.8
+    else:
+        ids, live = kv.sq8_layout(rng, b, c, 700, layout)
+    assert sq8_ops.sq8_vector_loads(plane) is vec
     if mask == "all":
         live[:] = False
     elif mask is not None:

@@ -291,6 +291,131 @@ def test_sq8_dot_fused_plain_matches_jax_edges(name):
     _check_sq8(_sq8_case(len(name), b, c, h, 500, mask_row, dup), mask_row)
 
 
+def _schedule_case(name):
+    """A tool edge shape's ids and live lanes (CPU)."""
+    from repro_torch.benchmarks import kernel_variants as kv
+    _, plane, ids, live = kv.sq8_case(name, "cpu")
+    return ids, live, plane.shape[0]
+
+
+@pytest.mark.parametrize("group_max", [1, 3, 8])
+@pytest.mark.parametrize("name", ["c_below_tile", "c_ragged", "all_masked",
+                                  "shared_lists", "same_key_differs",
+                                  "dedup_across_lists", "served_ragged"])
+def test_sq8_schedule_groups_equal_keys(name, group_max):
+    """The kernel's work order: a permutation of all B·T items with their
+    keys sorted (equal keys adjacent, query order kept among them); a
+    group starts at each run of equal keys, every ``group_max`` positions
+    after it and at every window of 32·``group_max``, so no group is
+    longer than ``group_max``, crosses a window or holds two keys; items
+    whose first lane is dead (PAD tails, all-dead tiles) have negative
+    keys of their own, so each is a group alone, and a live first lane
+    keys by its id."""
+    ids, live, n_rows = _schedule_case(name)
+    tile = 512
+    skey, order = sq8_ops.schedule(ids, live, n_rows, tile)
+    key = sq8_ops.tile_keys(ids, live, n_rows, tile).flatten()
+    b, c = ids.shape
+    n_items = b * -(-c // tile)
+    assert skey.dtype == torch.int32 and order.dtype == torch.int64
+    assert sorted(order.tolist()) == list(range(n_items))
+    assert torch.equal(skey, key[order])
+    assert bool((skey[1:] >= skey[:-1]).all())
+    same = skey[1:] == skey[:-1]
+    assert bool((order[1:][same] > order[:-1][same]).all())    # stable
+    lead = sq8_ops.lead_flags(skey, group_max)
+    assert bool(lead[0]) and bool(lead[1:][~same].all())
+    starts = torch.nonzero(lead).flatten().tolist() + [n_items]
+    for a, z in zip(starts, starts[1:]):
+        assert 1 <= z - a <= group_max
+        assert len(set(skey[a:z].tolist())) == 1
+        assert a // (32 * group_max) == (z - 1) // (32 * group_max)
+        if z < n_items and skey[z] == skey[a] and z % (32 * group_max):
+            assert z - a == group_max        # runs are cut in full groups
+    dead_head = ~live[:, ::tile].flatten()
+    assert len(set(key[dead_head].tolist())) == int(dead_head.sum())
+    assert bool((key[dead_head] < 0).all())
+    heads = ids[:, ::tile].flatten()[~dead_head].long()
+    assert torch.equal(key[~dead_head].long(), heads.clamp(0, n_rows - 1))
+
+
+def test_sq8_schedule_shares_list_tiles():
+    """Queries that hold the same inverted list share its tiles' keys:
+    at ``shared_lists`` (20 queries over 4 lists of which each holds 3)
+    more than 8 items hold one key, so groups of 8 split the run."""
+    ids, live, n_rows = _schedule_case("shared_lists")
+    key = sq8_ops.tile_keys(ids, live, n_rows, 512).flatten()
+    assert int(torch.unique(key, return_counts=True)[1].max()) > 8
+    skey, _ = sq8_ops.schedule(ids, live, n_rows, 512)
+    assert int(sq8_ops.lead_flags(skey, 8).sum()) < key.numel() // 2
+
+
+def test_sq8_schedule_keys_and_windows():
+    """A live first slot keys by its clipped id (-3 and 0 read row 0, 99
+    the last row), a dead one by -1 - the item's index, below every row;
+    a run is cut into groups of ``group_max`` from its first position,
+    and at windows of 32·``group_max``."""
+    ids = torch.tensor([[-3, 5, 1, 1], [0, 2, 99, 4], [7, 7, 7, 7]],
+                       dtype=torch.int32)
+    live = torch.tensor([[True, True, True, True],
+                         [True, True, True, False],
+                         [False, True, True, True]])
+    key = sq8_ops.tile_keys(ids, live, 10, 2)
+    assert key.tolist() == [[0, 1], [0, 9], [-5, 7]]
+    skey, order = sq8_ops.schedule(ids, live, 10, 2)
+    assert order.tolist() == [4, 0, 2, 1, 5, 3]
+    assert skey.tolist() == [-5, 0, 0, 1, 7, 9]
+    assert sq8_ops.lead_flags(skey, 8).tolist() == [True, True, False, True,
+                                                    True, True]
+    assert sq8_ops.lead_flags(skey, 1).all()
+    runs = torch.tensor([1, 2, 2, 2, 2, 2, 5, 5, 5, 5], dtype=torch.int32)
+    assert sq8_ops.lead_flags(runs, 4).tolist() == [
+        True, True, False, False, False, True, True, False, False, False]
+    same = torch.full((70,), 3, dtype=torch.int32)    # windows of 64
+    assert torch.nonzero(sq8_ops.lead_flags(same, 2)).flatten().tolist() == (
+        list(range(0, 64, 2)) + [64, 66, 68])
+
+
+@pytest.mark.parametrize("case, want", [
+    ("h768", True),
+    ("h16", True),
+    ("h40", False),
+    ("h8", False),
+    ("offset_3_bytes", False),
+    ("offset_16_bytes", True),
+])
+def test_sq8_vector_loads_eligibility(case, want):
+    """16-byte row loads need h a multiple of 16 and a 16-byte aligned
+    plane (every row then starts aligned); anything else takes the byte
+    loads."""
+    h = {"h16": 16, "h40": 40, "h8": 8}.get(case, 768)
+    offset = {"offset_3_bytes": 3, "offset_16_bytes": 16}.get(case, 0)
+    flat = torch.zeros(10 * h + 32, dtype=torch.uint8)
+    assert flat.data_ptr() % 16 == 0
+    plane = flat[offset:offset + 10 * h].view(10, h)
+    assert sq8_ops.sq8_vector_loads(plane) is want
+
+
+def test_sq8_kernel_args_follow_argtypes():
+    """The wrapper's argument list matches the C entry's ctypes signature
+    position by position: q, plane, ids, live, the sorted keys and item
+    order, out, B, C, h, N, ``vec`` and the stream."""
+    q = torch.zeros(3, 32)
+    plane = torch.zeros(50, 32, dtype=torch.uint8)
+    ids = torch.zeros(3, 700, dtype=torch.int32)
+    live = torch.ones(3, 700, dtype=torch.bool)
+    skey, order = sq8_ops.schedule(ids, live, 50, 512)
+    out = torch.empty(3, 700)
+    args = sq8_ops.kernel_args(q, plane, ids, live, skey, order, out, True,
+                               11)
+    assert len(args) == len(sq8_ops.ARGTYPES)
+    assert args[:7] == [t.data_ptr() for t in (q, plane, ids, live, skey,
+                                               order, out)]
+    assert args[7:] == [3, 700, 32, 50, 1, 11]
+    for ctype, arg in zip(sq8_ops.ARGTYPES, args):
+        ctype(arg)
+
+
 # --------------------------------------------------------------------------
 # assign_argmax
 # --------------------------------------------------------------------------
@@ -581,7 +706,7 @@ def test_flash_variants_arguments_and_parent_entry(tmp_path):
 
 
 @pytest.mark.parametrize("kernel", ["assign_argmax", "flash_attention",
-                                    "topk_scores"])
+                                    "sq8_dot_fused", "topk_scores"])
 def test_kernel_variants_arguments_and_card(kernel, tmp_path):
     """The tool parses its arguments for either kernel, refuses another
     kernel, a missing parent or a malformed variant, and needs a card."""
@@ -675,6 +800,60 @@ def test_kernel_variants_assign_entry_and_constants():
     assert set(kv.ASSIGN_SHAPES) >= {"kmeans", "pq", "h37_elementwise",
                                      "misaligned_view", "pq_dsub4",
                                      "pq_dsub12"}
+
+
+def test_kernel_variants_sq8_entry_shapes_and_constants():
+    """The tool tells a grouped ``sq8_dot_fused.cu`` (C entry
+    ``sq8_dot_fused_launch``) from the per-lane one before it, parses
+    ``--seed`` and ``--sass``, sets the schedule's constants in a copy of
+    the source, and builds its edge shapes as the on-card test does."""
+    from repro_torch.benchmarks import kernel_variants as kv
+    args = kv.parse_args(["--kernel", "sq8_dot_fused", "--parent", "p.cu",
+                          "--seed", "3", "--sass", "out",
+                          "--variant", "kGroupMax=16,kRowVecs=2"])
+    assert (args.kernel, args.seed, args.sass, args.variant) == (
+        "sq8_dot_fused", 3, pathlib.Path("out"),
+        [{"kGroupMax": "16", "kRowVecs": "2"}])
+    assert kv.parse_args(["--kernel", "sq8_dot_fused", "--parent",
+                          "p.cu"]).sass is None
+    source = _build.SOURCES["sq8_dot_fused"].read_text()
+    assert kv.grouped_entry(source)
+    assert not kv.grouped_entry(
+        "int sq8_dot_fused(const void* q_scaled, const void* plane,\n"
+        "                  long long n_rows, void* stream) {")
+    with pytest.raises(ValueError, match="no sq8_dot_fused"):
+        kv.grouped_entry("int main() { return 0; }")
+    var = kv.variant_source(source, {"kGroupMax": "16", "kTileSlots": "256",
+                                     "kChunk": "64", "kStages": "3",
+                                     "kMinBlocks": "2", "kThreads": "64"})
+    for line in ("constexpr int kGroupMax = 16;",
+                 "constexpr int kTileSlots = 256;",
+                 "constexpr int kChunk = 64;",
+                 "constexpr int kStages = 3;",
+                 "constexpr int kMinBlocks = 2;",
+                 "constexpr int kThreads = 64;",
+                 "constexpr int kSums = 16;"):
+        assert line in var
+    assert set(kv.SQ8_SHAPES) >= {"h40_scalar", "unaligned_view",
+                                  "shared_lists", "same_key_differs",
+                                  "dedup_across_lists", "served_ragged"}
+    with pytest.raises(ValueError, match="unknown id layout"):
+        kv.sq8_layout(np.random.default_rng(0), 2, 10, 5, "zipf")
+
+
+def test_sq8_layouts_shape_the_served_plane():
+    """``lists`` gives each query whole inverted lists, PAD tails clipped
+    to row 0 and dead; ``same_key_differs`` one live first row for every
+    tile and other rows after it."""
+    from repro_torch.benchmarks import kernel_variants as kv
+    rng = np.random.default_rng(0)
+    ids, live = kv.sq8_layout(rng, 6, 2 * 1024 + 300, 700, "lists")
+    assert ids.shape == live.shape == (6, 2348) and ids.dtype == np.int32
+    assert ids.min() >= 0 and ids.max() < 700
+    assert (ids[~live] >= 0).all() and not live.all()
+    ids, live = kv.sq8_layout(rng, 4, 1064, 700, "same_key_differs")
+    assert (ids[:, ::512] == 7).all() and live[:, ::512].all()
+    assert len(np.unique(ids[:, 1:512])) > 100
 
 
 def test_flash_attention_chunked_equals_dense():
