@@ -790,15 +790,23 @@ def time_kernels(inp: dict) -> dict:
         f"{topk['plain_ms']:.4f} ms, library {topk['library_ms']:.4f} ms, "
         f"bound {topk_bound[0]:.4f} ms ({topk_bound[1]}), bound / kernel "
         f"{topk['bound_share']:.1%}")
-    return {
-        "pq_adc_fused": dict(
-            ms=timer.ms(lambda: adc_ops.pq_adc_fused(lut, plane, rows,
-                                                     live), reps=10),
-            plain_ms=timer.ms(plain_adc, reps=3, warm=1),
-            library_ms=None, bound_ms=adc_bound[0],
-            bound_by=adc_bound[1]),
-        "topk_scores": topk,
-    }
+    _, plan = adc_ops.choose(_build.library("pq_adc_fused"), lut, plane)
+    grid = adc_ops.grid_size(b * c, plan)
+    staged = adc_ops.lut_stagings(b, c, grid) * lut[0].numel() * 4
+    adc = dict(
+        ms=timer.ms(lambda: adc_ops.pq_adc_fused(lut, plane, rows, live),
+                    reps=10),
+        plain_ms=timer.ms(plain_adc, reps=3, warm=1), library_ms=None,
+        bound_ms=adc_bound[0], bound_by=adc_bound[1])
+    adc["bound_share"] = adc_bound[0] / adc["ms"]
+    log(f"[times] pq_adc_fused: kernel {adc['ms']:.4f} ms, plain "
+        f"{adc['plain_ms']:.4f} ms, bound {adc_bound[0]:.4f} ms "
+        f"({adc_bound[1]}), bound / kernel {adc['bound_share']:.1%}; "
+        f"{adc_ops.INSTANCES[plan.instance]} instance, {grid} blocks "
+        f"staging {staged / 1e6:.1f} MB of LUTs (a copy per 8,192 slots "
+        f"would stage {b * -(-c // 8192) * lut[0].numel() * 4 / 1e6:.1f} "
+        f"MB)")
+    return {"pq_adc_fused": adc, "topk_scores": topk}
 
 
 def time_sq8(inp: dict) -> dict:
@@ -887,16 +895,19 @@ def unfused_at_width(inp: dict, errs: dict) -> dict:
                         reps=10),
             plain_ms=timer.ms(plain, reps=3, warm=1), library_ms=None,
             bound_ms=t_bound[0], bound_by=t_bound[1])
+        out[name]["bound_share"] = t_bound[0] / out[name]["ms"]
         del codes, got
     fused_ms = timer.ms(lambda: adc_ops.pq_adc_fused(lut, plane, rows, live),
                         reps=10)
     log(f"[times] pq_adc at B={b}, C={c}, m={PQ_M}, k={PQ_K}: uint8 codes "
         f"{gb['u8']:.3f} GB to move: kernel {out['u8']['ms']:.3f} ms, plain "
         f"{out['u8']['plain_ms']:.3f} ms, bound {out['u8']['bound_ms']:.3f} "
-        f"ms ({out['u8']['bound_by']}); int32 codes {gb['i32']:.3f} GB: "
+        f"ms ({out['u8']['bound_by']}), bound / kernel "
+        f"{out['u8']['bound_share']:.1%}; int32 codes {gb['i32']:.3f} GB: "
         f"kernel {out['i32']['ms']:.3f} ms, plain "
         f"{out['i32']['plain_ms']:.3f} ms, bound {out['i32']['bound_ms']:.3f}"
-        f" ms; pq_adc_fused on the same slots {fused_ms:.3f} ms; "
+        f" ms, bound / kernel {out['i32']['bound_share']:.1%}; "
+        f"pq_adc_fused on the same slots {fused_ms:.3f} ms; "
         f"bitwise equal to pq_adc_fused on all {int(live.sum())} live lanes "
         f"(uint8 and int32); max abs err vs plain {errs['pq_adc']:.3g} "
         f"(tol {ADC_TOL})")

@@ -19,6 +19,11 @@ sq8_dot_fused.cu > build/sq8_parent.cu
     python -m repro_torch.benchmarks.kernel_variants \\
         --kernel sq8_dot_fused --parent build/sq8_parent.cu \\
         [--variant kGroupMax=4,kMinBlocks=1] [--sass DIR]
+    git show HEAD:src/repro_torch/kernels/pq_adc/csrc/\\
+pq_adc_fused.cu > build/adc_parent.cu
+    python -m repro_torch.benchmarks.kernel_variants \\
+        --kernel pq_adc_fused --parent build/adc_parent.cu \\
+        [--variant kStages=3] [--seed S] [--sass DIR]
 
 ``HEAD`` is the parent while the change is not yet committed (after
 committing it, ``HEAD~1``).  Builds the parent's source and this
@@ -80,6 +85,30 @@ whose C entry is ``sq8_dot_fused`` (before the grouped schedule) is
 called without a schedule and picks its own instance.
 ``--sass DIR`` writes each build's SASS there and prints its counts of
 conversion, load, FMA and shuffle instructions.
+
+``pq_adc_fused``: at the ``serve_msmarco`` opq candidate plane of
+``chip_smoke.py``'s phase 5 from the same ``--seed`` (B 256, C 63,488,
+m 96, k 256; :mod:`repro_torch.benchmarks.synth_msmarco`), at a
+no-reuse shape (the same LUT, plane and live lanes, ids drawn at
+random), at ``kernel_bench``'s full ``pq_adc`` shape (B 64, m 8, k 256,
+N 100,000, C 2,048) and at the edge shapes of :data:`ADC_SHAPES`: every
+build in each instance the plane allows (the change's scalar one
+forced, the parent's reached through a misaligned copy of the plane)
+must equal the parent bit for bit, ``-inf`` lanes included, and agree
+with the plain version within ``ADC_TOL``; at the served plane the
+change must also equal this checkout's unfused ``pq_adc`` on live lanes
+bit for bit.  Prints live lanes, distinct rows, the row bytes requested
+and the LUT bytes each build stages; times the three full shapes beside
+the bound (phase 7's: ids, live flags, scores, LUT and each distinct
+live row once), both builds' scalar instances, and at the
+``kernel_bench`` shape its unfused path (gather, ``pq_adc``, mask), and
+each build's device time alone (``*_device``: torch.profiler's kernel
+time, which no host time enters).  A
+parent whose C entries are ``pq_adc_fused_u8``/``_i32`` (before the
+persistent kernel) is called through them.  ``--cut`` adds two copies of
+this checkout's source, timed and not checked: ``cut_memory`` without
+its lookups (the gathers alone) and ``cut_lookups`` without its row
+copies (the lookups alone).  ``--sass`` as for ``sq8_dot_fused``.
 """
 from __future__ import annotations
 
@@ -102,6 +131,8 @@ from repro_torch.kernels.assign_topk import ops as at_ops
 from repro_torch.kernels.assign_topk import ref as at_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.pq_adc import ops as adc_ops
+from repro_torch.kernels.pq_adc import ref as adc_ref
 from repro_torch.kernels.sq8_dot import ops as sq8_ops
 from repro_torch.kernels.sq8_dot import ref as sq8_ref
 
@@ -159,14 +190,47 @@ SQ8_SHAPES = {
     "served_ragged": (12, 2 * 1024 + 300, 768, False, None, 0, "lists"),
     "shared_lists_h40": (10, 2 * 1024, 40, False, 2, 0, "lists"),
 }
+ADC_TOL = 1e-4           # rtol = atol: the plain version's summation order
+ADC_ROWS = 700           # plane rows of the edge shapes
+ADC_PLAIN_CHUNK = 32     # queries a plain call: it builds (B, C, m)
+#: kernel_bench's full pq_adc shape: b, m, k, n, c
+ADC_BENCH = (64, 8, 256, 100_000, 2048)
+#: name: (b, c, m, k, code dtype, duplicated ids, masked row, byte offset
+#: of the plane, id layout (:func:`sq8_layout`)); the first four are
+#: tests/test_torch_cuda.py::ADC_CASES' first four
+ADC_SHAPES = {
+    "c_ragged": (2, 8192 + 77, 96, 256, "uint8", False, None, 0, "random"),
+    "c_below_tile": (3, 5, 8, 128, "uint8", False, 1, 0, "random"),
+    "int32_dup_masked": (2, 600, 8, 512, "int32", True, 0, 0, "random"),
+    "scalar_rows": (2, 333, 3, 64, "uint8", True, 1, 0, "random"),
+    "served_lists": (24, 3 * 1024 + 100, 96, 256, "uint8", False, None, 0,
+                     "lists"),
+    "one_slot_dead": (1, 1, 96, 256, "uint8", False, "all", 0, "random"),
+    "m_one": (3, 700, 1, 64, "uint8", False, None, 0, "random"),
+    "int32_k300": (4, 3000, 96, 300, "int32", True, 2, 0, "random"),
+    "b_above_wave": (600, 200, 96, 256, "uint8", False, 7, 0, "lists"),
+    "misaligned_u8": (3, 2000, 96, 256, "uint8", False, None, 1, "random"),
+    "misaligned_i32": (2, 900, 8, 512, "int32", False, None, 4, "random"),
+    "lut_fills_smem": (2, 500, 96, 600, "int32", False, 1, 0, "random"),
+}
 #: SASS opcodes counted per kernel function by --sass
 SASS_OPS = ("I2F", "PRMT", "FADD", "FFMA", "LDS", "LDG", "STS", "STG",
-            "SHFL")
+            "SHFL", "VIMNMX", "LEA")
 # the per-tile merge of topk_scores.cu and what --gemm-only puts in its
 # place: the tile row is still read, so the product is not optimized away
 MERGE = re.compile(r"warp_merge\(sm\.ls\[q\], sm\.li\[q\], cnt\[u\], n, k, "
                    r"lane,.*?\}\);", re.S)
 MERGE_STAND_IN = "if (row[lane] != row[lane]) cnt[u] = 0;"
+#: --cut's copies of pq_adc_fused.cu: "memory" scores a slot from its staged
+#: row's first word without looking anything up; "lookups" copies no row
+#: (the lookups read whatever the ring holds).  Timed, not checked.
+ADC_CUTS = {
+    "memory": (re.compile(r"adc_vec<T, kK>\(s_lut, row, m, k\)"),
+               "__uint_as_float(row[0].x & 0x3fffffu)"),
+    "lookups": (re.compile(r"cp_async16\(stage \+ r \* pitch \+ 16 \* q,"
+                           r"\s*plane_b \+ rid \* row_bytes \+ 16 \* q\);"),
+                "(void)rid;"),
+}
 
 
 def takes_vec(source: str) -> bool:
@@ -245,7 +309,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", required=True,
                     choices=("assign_argmax", "flash_attention",
-                             "sq8_dot_fused", "topk_scores"))
+                             "pq_adc_fused", "sq8_dot_fused", "topk_scores"))
     ap.add_argument("--parent", required=True, type=pathlib.Path,
                     help="the parent's source of the kernel")
     ap.add_argument("--reps", type=int, default=20)
@@ -253,16 +317,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                     type=parse_consts, metavar="NAME=VALUE[,NAME=VALUE]",
                     help="also build this checkout's source with these "
                          "constexpr int tile constants (topk_scores, "
-                         "assign_argmax, sq8_dot_fused)")
+                         "assign_argmax, sq8_dot_fused, pq_adc_fused)")
     ap.add_argument("--gemm-only", action="store_true",
                     help="also build every source without its per-tile "
                          "merge (topk_scores)")
     ap.add_argument("--seed", type=int, default=0,
                     help="chip_smoke.py's seed of the served plane "
-                         "(sq8_dot_fused)")
+                         "(sq8_dot_fused, pq_adc_fused)")
+    ap.add_argument("--cut", action="store_true",
+                    help="also time this checkout's source without its "
+                         "lookups and without its row copies, unchecked "
+                         "(pq_adc_fused)")
     ap.add_argument("--sass", type=pathlib.Path, default=None,
                     metavar="DIR", help="write each build's SASS into DIR "
-                    "and print its instruction counts (sq8_dot_fused)")
+                    "and print its instruction counts (sq8_dot_fused, "
+                    "pq_adc_fused)")
     return ap.parse_args(argv)
 
 
@@ -340,8 +409,8 @@ def flash_shapes(gen):
 
 def flash_main(args) -> dict:
     with_vec = {"parent": takes_vec(args.parent.read_text()), "new": True}
-    libs = build({"parent": (args.parent, ()),
-                  "new": (_build.SOURCES["flash_attention"], ())})
+    libs = build({"parent": args.parent,
+                  "new": _build.SOURCES["flash_attention"]})
     timer = Timer(queued=True)
     report = {}
     for sname, sh in flash_shapes(torch.Generator(device="cuda")
@@ -738,12 +807,14 @@ def call_sq8(lib, grouped: bool, q, plane, ids, live,
     return out
 
 
-def misaligned_copy(plane: torch.Tensor) -> torch.Tensor:
-    """``plane``'s rows in a view 3 bytes into a fresh buffer: every
-    build reads it with its scalar instance."""
-    flat = torch.empty(plane.numel() + 16, dtype=torch.uint8,
+def misaligned_copy(plane: torch.Tensor, offset: int = 3) -> torch.Tensor:
+    """``plane``'s rows in a view ``offset`` bytes (a whole number of
+    codes) into a fresh buffer: every build reads it with its scalar
+    instance."""
+    per = offset // plane.element_size()
+    flat = torch.empty(plane.numel() + per + 16, dtype=plane.dtype,
                        device=plane.device)
-    view = flat[3:3 + plane.numel()].view(plane.shape)
+    view = flat[per:per + plane.numel()].view(plane.shape)
     view.copy_(plane)
     return view
 
@@ -947,6 +1018,286 @@ def sq8_main(args) -> dict:
     return report
 
 
+# --------------------------------------------------------------------------
+# pq_adc_fused
+# --------------------------------------------------------------------------
+
+def persistent_entry(source: str) -> bool:
+    """Whether a ``pq_adc_fused.cu``'s C entry is ``pq_adc_fused_launch``
+    (else the per-dtype ``pq_adc_fused_u8``/``_i32`` of the kernel before
+    it, which picked its own instance)."""
+    if re.search(r"int pq_adc_fused_launch\(", source):
+        return True
+    if re.search(r"int pq_adc_fused_u8\(", source):
+        return False
+    raise ValueError("no pq_adc_fused C entry in the source")
+
+
+#: ctypes signature of the earlier kernel's ``pq_adc_fused_u8``/``_i32``
+ADC_PARENT_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong, ctypes.c_void_p])
+
+
+def call_adc(lib, persistent: bool, lut, plane, ids, live,
+             vec: bool | None = None):
+    """One call of a build: a persistent one through ``ops.launch``
+    (``vec`` None takes the wrapper's choice), an earlier one through its
+    own C entry (it picks its instance)."""
+    if persistent:
+        return adc_ops.launch(lib, lut, plane, ids, live, vec)
+    out = torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
+    fn = getattr(lib, "pq_adc_fused_u8" if plane.dtype == torch.uint8
+                 else "pq_adc_fused_i32")
+    fn.argtypes, fn.restype = ADC_PARENT_ARGTYPES, ctypes.c_int
+    b, m, k = lut.shape
+    err = fn(lut.data_ptr(), plane.data_ptr(), ids.data_ptr(),
+             live.data_ptr(), out.data_ptr(), b, ids.shape[1], m, k,
+             plane.shape[0], torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "pq_adc_fused")
+    return out
+
+
+def adc_case(name: str, dev):
+    """The inputs of edge shape ``name`` on ``dev``: lut (b, m, k) f32, an
+    (ADC_ROWS, m) plane (a view ``offset`` bytes into its buffer), ids and
+    live."""
+    b, c, m, k, dtype, dup, mask, offset, layout = ADC_SHAPES[name]
+    rng = np.random.default_rng(len(name) + 200)
+    lut = torch.tensor(rng.normal(size=(b, m, k)), dtype=torch.float32,
+                       device=dev)
+    codes = torch.tensor(rng.integers(0, k, (ADC_ROWS, m)).astype(dtype),
+                         device=dev)
+    plane = misaligned_copy(codes, offset) if offset else codes
+    if layout == "random":
+        ids = rng.integers(-3, ADC_ROWS + 3, (b, c)).astype(np.int32)
+        if dup:
+            ids = np.concatenate([ids[:, : (c + 1) // 2]] * 2, -1)[:, :c]
+        live = rng.random((b, c)) < 0.8
+    else:
+        ids, live = sq8_layout(rng, b, c, ADC_ROWS, layout)
+    if mask == "all":
+        live[:] = False
+    elif mask is not None:
+        live[mask] = False
+    return (lut, plane, torch.tensor(ids, device=dev),
+            torch.tensor(live, device=dev))
+
+
+def adc_bench_shape(dev):
+    """kernel_bench's full pq_adc inputs, made as it makes them."""
+    b, m, k, n, c = ADC_BENCH
+    rng = np.random.default_rng(0)
+    lut = torch.from_numpy(rng.normal(size=(b, m, k)).astype(
+        np.float32)).to(dev)
+    plane = torch.from_numpy(rng.integers(0, k, (n, m)).astype(
+        np.uint8)).to(dev)
+    ids = torch.from_numpy(rng.integers(0, n, (b, c)).astype(np.int32))
+    live = torch.from_numpy(rng.random((b, c)) < 0.9)
+    return lut, plane, ids.to(dev), live.to(dev)
+
+
+def adc_plain(lut, plane, ids, live):
+    """The plain version in ADC_PLAIN_CHUNK-query pieces."""
+    return torch.cat([adc_ref.pq_adc_fused(
+        lut[s:s + ADC_PLAIN_CHUNK], plane, ids[s:s + ADC_PLAIN_CHUNK],
+        live[s:s + ADC_PLAIN_CHUNK])
+        for s in range(0, lut.shape[0], ADC_PLAIN_CHUNK)])
+
+
+def adc_instances(lib, lut, plane) -> list:
+    """The ``vec`` flags a persistent build runs at: the wrapper's choice
+    first, then the scalar instance where that was the vector one."""
+    vec, _ = adc_ops.choose(lib, lut, plane)
+    return [True, False] if vec else [False]
+
+
+def adc_check(libs: dict, persistent: dict, sname: str, lut, plane, ids,
+              live, failed: list) -> None:
+    """Every build in each instance the plane allows against the parent
+    bit for bit and the plain version within ADC_TOL (``--cut``'s builds
+    are left out: they compute something else)."""
+    want = adc_plain(lut, plane, ids, live)
+    base = call_adc(libs["parent"], persistent["parent"], lut, plane, ids,
+                    live)
+    runs = [("parent", "misaligned copy", lambda: call_adc(
+        libs["parent"], persistent["parent"], lut,
+        misaligned_copy(plane, plane.element_size()), ids, live))]
+    for name, lib in libs.items():
+        if not persistent[name] or name.startswith("cut_"):
+            continue
+        for vec in adc_instances(lib, lut, plane):
+            inst = adc_ops.INSTANCES[adc_ops.plan(
+                lib, lut.shape[1], lut.shape[2], plane.element_size(),
+                vec).instance]
+            runs.append((name, inst, lambda lib=lib, vec=vec: call_adc(
+                lib, True, lut, plane, ids, live, vec)))
+    for name, inst, run in runs:
+        got = run()
+        fin = torch.isfinite(want)
+        ok = (torch.equal(torch.isneginf(got), torch.isneginf(want))
+              and torch.allclose(got[fin], want[fin], rtol=ADC_TOL,
+                                 atol=ADC_TOL))
+        err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.
+        same = torch.equal(got, base)
+        print(f"[check] {sname} {name} {inst}: max abs err {err:.3g} "
+              f"{'ok' if ok else 'FAILED'}; bitwise equal to the parent: "
+              f"{same}", flush=True)
+        if not ok or not same:
+            failed.append(f"{name} {inst} at {sname}")
+
+
+def adc_full_shapes(seed: int, dev):
+    """The phase-5 opq candidate plane of chip_smoke.py from ``seed`` (its
+    first batch), the same plane and live lanes with random ids, and
+    kernel_bench's full shape."""
+    rng = np.random.default_rng(seed)
+    leaves = sm.synth_leaves(rng)
+    qe, qt = sm.synth_queries(rng, sm.BATCH * sm.SMOKE_BATCHES)
+    index = ckpt.index_from_numpy(leaves, "opq", device=dev)
+    del leaves
+    inp = sm.main_path_inputs(
+        index, torch.from_numpy(qe[:sm.BATCH]).to(dev),
+        torch.from_numpy(qt[:sm.BATCH]).to(dev).long())
+    lut, plane, ids, live = (inp[k] for k in ("lut", "plane", "rows",
+                                              "live"))
+    del index, inp
+    torch.cuda.empty_cache()
+    yield "served", (lut, plane, ids, live)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    yield "no_reuse", (lut, plane, torch.randint(
+        0, plane.shape[0], ids.shape, generator=gen, device=dev,
+        dtype=torch.int32), live)
+    del lut, plane, ids, live
+    torch.cuda.empty_cache()
+    yield "kernel_bench", adc_bench_shape(dev)
+
+
+def adc_traffic(libs: dict, persistent: dict, lut, plane, ids,
+                live) -> dict:
+    """What a call asks of the card: live lanes, distinct live rows, the
+    row bytes each live lane's read requests, and each build's LUT bytes
+    staged (the earlier kernel: a copy per 8,192-slot block)."""
+    b, m, k = lut.shape
+    c = ids.shape[1]
+    rows = ids.long().clamp(0, plane.shape[0] - 1)
+    n_live = int(live.sum())
+    out = dict(live=n_live, distinct=torch.unique(rows[live]).numel(),
+               row_bytes=n_live * m * plane.element_size())
+    for name, lib in libs.items():
+        if persistent[name]:
+            vec, p = adc_ops.choose(lib, lut, plane)
+            n = adc_ops.lut_stagings(b, c, adc_ops.grid_size(b * c, p))
+        else:
+            n = b * -(-c // 8192)
+        out[f"lut_bytes_{name}"] = n * m * k * 4
+    return out
+
+
+def profiled_ms(fn, reps: int, flush: torch.Tensor) -> float:
+    """Mean device time (ms) a call spends in kernels whose name holds
+    ``adc_fused`` (both builds' kernels), by torch.profiler over ``reps``
+    calls, L2 flushed before each: the card's time alone, whatever the
+    host's."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "adc_fused" in e.key)
+    return us / reps / 1e3
+
+
+def adc_main(args) -> dict:
+    src = _build.SOURCES["pq_adc_fused"]
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    sources = {"parent": args.parent, "new": src}
+    for i, consts in enumerate(args.variant):
+        sources[f"variant{i}"] = OUT_DIR / f"adc_variant{i}.cu"
+        sources[f"variant{i}"].write_text(
+            variant_source(src.read_text(), consts))
+        print(f"[variant] variant{i}: {consts}")
+    for cut, (pattern, stand_in) in (ADC_CUTS.items() if args.cut else ()):
+        text, n = pattern.subn(stand_in, src.read_text())
+        if n != 1:
+            sys.exit(f"--cut {cut}: found {n} matches in the source, want 1")
+        sources[f"cut_{cut}"] = OUT_DIR / f"adc_cut_{cut}.cu"
+        sources[f"cut_{cut}"].write_text(text)
+    persistent = {name: persistent_entry(path.read_text())
+                  for name, path in sources.items()}
+    libs = build(sources)
+    if args.sass:
+        args.sass.mkdir(parents=True, exist_ok=True)
+        for name in libs:
+            counts = sass_counts(OUT_DIR / f"{name}.so",
+                                 args.sass / f"adc_{name}.sass")
+            for fn, ops in counts.items():
+                print(f"[sass] {name} {fn[-60:]}: " + ", ".join(
+                    f"{op} {n}" for op, n in ops.items()), flush=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    failed, report = [], {}
+    for sname in ADC_SHAPES:
+        adc_check(libs, persistent, sname, *adc_case(sname, dev), failed)
+    timer = Timer(queued=True)
+    for sname, (lut, plane, ids, live) in adc_full_shapes(args.seed, dev):
+        b, m, k = lut.shape
+        c = ids.shape[1]
+        adc_check(libs, persistent, sname, lut, plane, ids, live, failed)
+        if sname == "served":
+            fused = call_adc(libs["new"], True, lut, plane, ids, live)
+            unfused = adc_ops.pq_adc(lut, plane[ids.long()])
+            same = torch.equal(fused[live], unfused[live])
+            print(f"[check] served new: bitwise equal to pq_adc on "
+                  f"{int(live.sum())} live lanes: {same}", flush=True)
+            if not same:
+                failed.append("new against pq_adc at served")
+            del fused, unfused
+        tr = adc_traffic(libs, persistent, lut, plane, ids, live)
+        nbytes = (9.0 * b * c + 4.0 * lut.numel()
+                  + tr["distinct"] * m * plane.element_size())
+        bound = 1e3 * max(tr["live"] * m / PEAK_FP32_FLOPS,
+                          nbytes / PEAK_BYTES)
+        print(f"[traffic] {sname} B={b} C={c} m={m} k={k}: {tr['live']} "
+              f"live lanes over {tr['distinct']} distinct rows; row bytes "
+              f"requested {tr['row_bytes'] / 1e9:.3f} GB; bound bytes "
+              f"{nbytes / 1e9:.3f} GB; LUT bytes staged " + ", ".join(
+                  f"{n[10:]} {v / 1e6:.1f} MB" for n, v in tr.items()
+                  if n.startswith("lut_bytes_")), flush=True)
+
+        def run(name, vec=None, plane=plane):
+            return lambda: call_adc(libs[name], persistent[name], lut, plane,
+                                    ids, live, vec)
+        times = {}
+        for name in ("parent", "new", "new", "parent"):
+            times.setdefault(name, []).append(timer.ms(run(name), args.reps))
+        for name in libs:
+            if name not in times:
+                times[name] = [timer.ms(run(name), args.reps)]
+        mis = misaligned_copy(plane, plane.element_size())
+        times["parent_scalar"] = [timer.ms(run("parent", plane=mis),
+                                           max(args.reps // 4, 3))]
+        times["new_scalar"] = [timer.ms(run("new", False),
+                                        max(args.reps // 4, 3))]
+        del mis
+        for name in libs:
+            times[f"{name}_device"] = [profiled_ms(run(name), args.reps,
+                                                   timer.flush)]
+        if sname == "kernel_bench":
+            times["unfused"] = [timer.ms(lambda: torch.where(
+                live, adc_ops.pq_adc(lut, plane[ids.long()]), -torch.inf),
+                args.reps) for _ in range(2)]
+        report_times(sname, bound, times)
+        report[sname] = dict(bound_ms=bound, **tr, **times)
+    if failed:      # after the times, which still tell where time goes
+        print(json.dumps(report))
+        sys.exit(f"disagrees: {', '.join(failed)}")
+    return report
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     if not torch.cuda.is_available():
@@ -956,7 +1307,7 @@ def main(argv=None) -> None:
                          text=True)
     print(smi.stdout.strip(), flush=True)
     report = {"assign_argmax": assign_main, "flash_attention": flash_main,
-              "sq8_dot_fused": sq8_main,
+              "pq_adc_fused": adc_main, "sq8_dot_fused": sq8_main,
               "topk_scores": topk_main}[args.kernel](args)
     print(json.dumps(report))
 

@@ -17,6 +17,8 @@ constructed ties (duplicate centroids), scores rtol=atol=1e-5; attention
 outputs and ``lse`` rtol=atol=1e-4 in f32 (exp and the sum order) and
 2e-2 in bf16 (one bf16 rounding of the output).
 """
+from typing import NamedTuple
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ import torch
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core import hybrid_index as hi
 from repro_torch.core import inverted_lists as il
+from repro_torch.kernels import _build
 from repro_torch.kernels.assign_topk import ops as at_ops
 from repro_torch.kernels.assign_topk import ref as at_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -44,31 +47,80 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+class AdcCase(NamedTuple):
+    b: int
+    c: int
+    m: int
+    k: int
+    dtype: type
+    dup: bool                   # every id at least twice a row
+    mask_row: object            # a fully masked row, "all", or None
+    instance: str               # the instance the wrapper must choose
+    offset: int = 0             # bytes the plane lies past 16-byte alignment
+    layout: str = "random"      # ids: random, or kernel_variants' "lists"
+    rows: int = 700             # plane rows
+
+
 ADC_CASES = {
-    # name: (b, c, m, k, code dtype, duplicate ids, masked row)
-    "c_ragged": (2, 8192 + 77, 96, 256, np.uint8, False, None),
-    "c_below_tile": (3, 5, 8, 128, np.uint8, False, 1),
-    "int32_dup_masked": (2, 600, 8, 512, np.int32, True, 0),
-    "scalar_rows": (2, 333, 3, 64, np.uint8, True, 1),
+    "c_ragged": AdcCase(2, 8192 + 77, 96, 256, np.uint8, False, None,
+                        "served"),
+    "c_below_tile": AdcCase(3, 5, 8, 128, np.uint8, False, 1, "scalar"),
+    "int32_dup_masked": AdcCase(2, 600, 8, 512, np.int32, True, 0, "vector"),
+    "scalar_rows": AdcCase(2, 333, 3, 64, np.uint8, True, 1, "scalar"),
+    # inverted lists shared across queries, as the served plane holds them
+    "served_lists": AdcCase(24, 3 * 1024 + 100, 96, 256, np.uint8, False,
+                            None, "served", layout="lists"),
+    "b_above_wave": AdcCase(600, 200, 96, 256, np.uint8, False, 7, "served",
+                            layout="lists"),
+    "all_dead_query": AdcCase(1, 1, 96, 256, np.uint8, False, "all",
+                              "served"),
+    "m_one": AdcCase(3, 700, 1, 64, np.uint8, False, None, "scalar"),
+    "misaligned_plane": AdcCase(3, 2000, 96, 256, np.uint8, False, None,
+                                "scalar", offset=1),
+    "u8_m16_k128": AdcCase(4, 700, 16, 128, np.uint8, True, 3, "vector"),
+    "int32_k300_no_ring": AdcCase(4, 3000, 96, 300, np.int32, True, 2,
+                                  "scalar"),
+    "kernel_bench": AdcCase(64, 2048, 8, 256, np.uint8, False, None,
+                            "scalar", rows=100_000),
 }
+
+
+def _adc_inputs(cuda, name):
+    cs = ADC_CASES[name]
+    rng = np.random.default_rng(len(name))
+    lut = torch.tensor(rng.normal(size=(cs.b, cs.m, cs.k)),
+                       dtype=torch.float32, device=cuda)
+    codes = rng.integers(0, cs.k, (cs.rows, cs.m)).astype(cs.dtype)
+    per = cs.offset // codes.itemsize
+    flat = torch.zeros(codes.size + per + 16, dtype=torch.from_numpy(
+        codes).dtype, device=cuda)
+    plane = flat[per:per + codes.size].view(codes.shape)
+    plane.copy_(torch.from_numpy(codes))
+    if cs.layout == "lists":
+        from repro_torch.benchmarks import kernel_variants as kv
+        ids, live = kv.sq8_layout(rng, cs.b, cs.c, cs.rows, "lists")
+    else:
+        ids = rng.integers(-3, cs.rows + 3, (cs.b, cs.c)).astype(np.int32)
+        live = rng.random((cs.b, cs.c)) < 0.8
+    if cs.dup:
+        ids = np.concatenate([ids[:, : (cs.c + 1) // 2]] * 2, -1)[:, :cs.c]
+    if cs.mask_row == "all":
+        live[:] = False
+    elif cs.mask_row is not None:
+        live[cs.mask_row] = False
+    return (lut, plane, torch.tensor(ids, device=cuda),
+            torch.tensor(live, device=cuda))
 
 
 @pytest.mark.parametrize("name", sorted(ADC_CASES))
 def test_pq_adc_fused_kernel_matches_plain(cuda, name):
-    b, c, m, k, dtype, dup, mask_row = ADC_CASES[name]
-    rng = np.random.default_rng(len(name))
-    lut = torch.tensor(rng.normal(size=(b, m, k)), dtype=torch.float32,
-                       device=cuda)
-    plane = torch.tensor(rng.integers(0, k, (700, m)).astype(dtype),
-                         device=cuda)
-    ids = rng.integers(-3, 703, (b, c)).astype(np.int32)    # clipped
-    if dup:
-        ids = np.concatenate([ids[:, : (c + 1) // 2]] * 2, -1)[:, :c]
-    live = rng.random((b, c)) < 0.8
-    if mask_row is not None:
-        live[mask_row] = False
-    ids, live = torch.tensor(ids, device=cuda), torch.tensor(live,
-                                                            device=cuda)
+    """Each case against the plain version, launched through the
+    instance the case names (the wrapper's choice, held here)."""
+    lut, plane, ids, live = _adc_inputs(cuda, name)
+    lib = _build.library("pq_adc_fused")
+    vec, plan = adc_ops.choose(lib, lut, plane)
+    assert adc_ops.INSTANCES[plan.instance] == ADC_CASES[name].instance
+    assert vec == (ADC_CASES[name].instance != "scalar")
     before = adc_ops.launches
     got = adc_ops.pq_adc_fused(lut, plane, ids, live)
     want = adc_ref.pq_adc_fused(lut, plane, ids, live)
@@ -77,6 +129,26 @@ def test_pq_adc_fused_kernel_matches_plain(cuda, name):
     assert torch.equal(torch.isneginf(got), torch.isneginf(want))
     fin = torch.isfinite(want)
     torch.testing.assert_close(got[fin], want[fin], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", sorted(n for n, cs in ADC_CASES.items()
+                                        if cs.instance != "scalar"))
+def test_pq_adc_fused_instances_agree_bit_for_bit(cuda, name):
+    """The scalar instance, forced where the wrapper takes a vector one,
+    adds the same fragments in the same order: equal scores bit for bit,
+    ``-inf`` lanes included.  The C entry refuses ``vec`` on a
+    misaligned plane."""
+    lut, plane, ids, live = _adc_inputs(cuda, name)
+    lib = _build.library("pq_adc_fused")
+    vec_out = adc_ops.launch(lib, lut, plane, ids, live, True)
+    scalar_out = adc_ops.launch(lib, lut, plane, ids, live, False)
+    torch.cuda.synchronize()
+    assert torch.equal(vec_out, scalar_out)
+    flat = torch.empty(plane.numel() + 16, dtype=plane.dtype, device=cuda)
+    skip = (-flat.data_ptr() % 16) // plane.element_size() + 1
+    shifted = flat[skip:skip + plane.numel()].view(plane.shape)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        adc_ops.launch(lib, lut, shifted, ids, live, True)
 
 
 UNFUSED_CASES = {

@@ -95,6 +95,85 @@ def test_pq_adc_fused_plain_matches_jax(name):
         assert np.isneginf(got[mask_row % b]).all()
 
 
+@pytest.mark.parametrize("b, c, grid", [
+    (3, 1000, 7),            # ragged C: ranges cut queries mid-way
+    (1, 5, 1),               # B = 1, one block
+    (1, 5, 8),               # more blocks than slots: some ranges empty
+    (600, 200, 132),         # B above one wave: ranges span queries
+    (256, 63_488, 132),      # the served plane
+])
+def test_pq_adc_fused_block_ranges_cover_every_slot_once(b, c, grid):
+    """The kernel's cut of the flattened (B, C) plane into ``grid``
+    ranges covers every (query, slot) exactly once, in order, with
+    sizes within one; the LUT copies it makes are one per block per
+    query its range touches."""
+    ranges = adc_ops.block_ranges(b * c, grid)
+    assert len(ranges) == grid
+    assert ranges[0][0] == 0 and ranges[-1][1] == b * c
+    assert all(hi == lo for (_, hi), (lo, _) in zip(ranges, ranges[1:]))
+    sizes = {hi - lo for lo, hi in ranges}
+    assert max(sizes) - min(sizes) <= 1
+    seen = np.zeros(b * c, dtype=np.int64)
+    stagings = 0
+    for lo, hi in ranges:
+        seen[lo:hi] += 1
+        stagings += len({s // c for s in range(lo, hi)})
+    assert (seen == 1).all()
+    assert adc_ops.lut_stagings(b, c, grid) == stagings
+    assert stagings <= grid + b - 1
+
+
+def test_pq_adc_fused_grid_is_one_wave_or_fewer():
+    """One wave of resident blocks, fewer where a block would take less
+    than ``min_slots``, never none; at the served plane 132 blocks stage
+    at most 50 MB of LUTs (m 96, k 256)."""
+    p = adc_ops.Plan(instance=0, resident=132, min_slots=512)
+    assert adc_ops.grid_size(256 * 63_488, p) == 132
+    assert adc_ops.grid_size(64 * 2048, p) == 132
+    assert adc_ops.grid_size(20 * 512, p) == 20
+    assert adc_ops.grid_size(1, p) == 1
+    assert adc_ops.lut_stagings(256, 63_488, 132) * 96 * 256 * 4 <= 50e6
+
+
+@pytest.mark.parametrize("case, want", [
+    ("u8_m96", True), ("u8_m16", True), ("u8_m8", False), ("u8_m3", False),
+    ("u8_m96_offset1", False), ("u8_m96_offset16", True), ("i32_m4", True),
+    ("i32_m3", False), ("i32_m8_offset4", False)])
+def test_pq_adc_fused_rows_vectorizable(case, want):
+    """16-byte row pieces need whole pieces a row and an aligned base:
+    m · code bytes a multiple of 16 and the plane's address too."""
+    dtype, m, offset = {
+        "u8_m96": (torch.uint8, 96, 0), "u8_m16": (torch.uint8, 16, 0),
+        "u8_m8": (torch.uint8, 8, 0), "u8_m3": (torch.uint8, 3, 0),
+        "u8_m96_offset1": (torch.uint8, 96, 1),
+        "u8_m96_offset16": (torch.uint8, 96, 16),
+        "i32_m4": (torch.int32, 4, 0), "i32_m3": (torch.int32, 3, 0),
+        "i32_m8_offset4": (torch.int32, 8, 1)}[case]
+    flat = torch.zeros(10 * m + 64, dtype=dtype)
+    skip = (-flat.data_ptr() % 16) // flat.element_size() + offset
+    plane = flat[skip:skip + 10 * m].view(10, m)
+    assert plane.data_ptr() % 16 == (offset * flat.element_size()) % 16
+    assert adc_ops.rows_vectorizable(plane) is want
+
+
+def test_pq_adc_fused_kernel_args_follow_argtypes():
+    """The wrapper's argument list matches the C entry's ctypes signature
+    position by position: lut, plane, ids, live, out, B, C, m, k, N, the
+    code bytes, ``vec``, the grid and the stream."""
+    lut = torch.zeros(3, 8, 256)
+    plane = torch.zeros(50, 8, dtype=torch.int32)
+    ids = torch.zeros(3, 700, dtype=torch.int32)
+    live = torch.ones(3, 700, dtype=torch.bool)
+    out = torch.empty(3, 700)
+    args = adc_ops.kernel_args(lut, plane, ids, live, out, True, 64, 11)
+    assert len(args) == len(adc_ops.ARGTYPES)
+    assert args[:5] == [t.data_ptr() for t in (lut, plane, ids, live, out)]
+    assert args[5:] == [3, 700, 8, 256, 50, 4, 1, 64, 11]
+    for ctype, arg in zip(adc_ops.ARGTYPES, args):
+        ctype(arg)
+    assert len(adc_ops.PLAN_ARGTYPES) == 4 + len(adc_ops.Plan._fields)
+
+
 # --------------------------------------------------------------------------
 # pq_adc (the unfused ADC over gathered codes)
 # --------------------------------------------------------------------------
@@ -706,7 +785,8 @@ def test_flash_variants_arguments_and_parent_entry(tmp_path):
 
 
 @pytest.mark.parametrize("kernel", ["assign_argmax", "flash_attention",
-                                    "sq8_dot_fused", "topk_scores"])
+                                    "pq_adc_fused", "sq8_dot_fused",
+                                    "topk_scores"])
 def test_kernel_variants_arguments_and_card(kernel, tmp_path):
     """The tool parses its arguments for either kernel, refuses another
     kernel, a missing parent or a malformed variant, and needs a card."""
@@ -839,6 +919,88 @@ def test_kernel_variants_sq8_entry_shapes_and_constants():
                                   "dedup_across_lists", "served_ragged"}
     with pytest.raises(ValueError, match="unknown id layout"):
         kv.sq8_layout(np.random.default_rng(0), 2, 10, 5, "zipf")
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "pq_adc_fused"])
+def test_variants_tools_hand_build_source_paths(kernel, tmp_path,
+                                                monkeypatch):
+    """``flash_main`` and ``adc_main`` hand ``build`` a path to an
+    existing source file for each build (``flash_main`` once handed it
+    (path, ()) tuples, which nvcc took for a file name)."""
+    from repro_torch.benchmarks import kernel_variants as kv
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def record(sources):
+        seen.update(sources)
+        raise Stop
+
+    monkeypatch.setattr(kv, "build", record)
+    parent = tmp_path / "parent.cu"
+    parent.write_text(_build.SOURCES[kernel].read_text())
+    args = kv.parse_args(["--kernel", kernel, "--parent", str(parent)])
+    main = {"flash_attention": kv.flash_main,
+            "pq_adc_fused": kv.adc_main}[kernel]
+    with pytest.raises(Stop):
+        main(args)
+    assert set(seen) == {"parent", "new"}
+    for src in seen.values():
+        assert isinstance(src, pathlib.Path) and src.is_file()
+    assert seen["new"] == _build.SOURCES[kernel]
+
+
+def test_kernel_variants_adc_entry_shapes_and_constants():
+    """The tool tells a persistent ``pq_adc_fused.cu`` (C entry
+    ``pq_adc_fused_launch``) from the per-dtype entries before it, sets
+    the kernel's constants in a copy of the source, and builds its edge
+    shapes: the old on-card cases, a served-like plane with shared
+    lists, B above one wave, an all-dead query, m = 1, int32 at k = 300,
+    misaligned planes and a LUT that leaves no room for the ring."""
+    from repro_torch.benchmarks import kernel_variants as kv
+    args = kv.parse_args(["--kernel", "pq_adc_fused", "--parent", "p.cu",
+                          "--seed", "3", "--sass", "out",
+                          "--variant", "kStages=3,kMinSlots=4096"])
+    assert (args.kernel, args.seed, args.sass, args.variant) == (
+        "pq_adc_fused", 3, pathlib.Path("out"),
+        [{"kStages": "3", "kMinSlots": "4096"}])
+    source = _build.SOURCES["pq_adc_fused"].read_text()
+    assert kv.persistent_entry(source)
+    assert not kv.persistent_entry(
+        "int pq_adc_fused_u8(const void* lut, const void* plane,\n"
+        "                    long long n_rows, void* stream) {")
+    with pytest.raises(ValueError, match="no pq_adc_fused"):
+        kv.persistent_entry("int main() { return 0; }")
+    var = kv.variant_source(source, {"kStages": "3", "kMinSlots": "4096",
+                                     "kThreads": "256", "kMinBlocks": "2"})
+    for line in ("constexpr int kStages = 3;",
+                 "constexpr int kMinSlots = 4096;",
+                 "constexpr int kThreads = 256;",
+                 "constexpr int kMinBlocks = 2;",
+                 "constexpr int kWarps = kThreads / 32;"):
+        assert line in var
+    for pattern, _ in kv.ADC_CUTS.values():     # --cut finds its parts
+        assert len(pattern.findall(source)) == 1
+    assert kv.parse_args(["--kernel", "pq_adc_fused", "--parent", "p.cu",
+                          "--cut"]).cut
+    assert set(kv.ADC_SHAPES) >= {"c_ragged", "c_below_tile",
+                                  "int32_dup_masked", "scalar_rows",
+                                  "served_lists", "one_slot_dead", "m_one",
+                                  "int32_k300", "b_above_wave",
+                                  "misaligned_u8", "lut_fills_smem"}
+    assert kv.ADC_SHAPES["b_above_wave"][0] > 132
+    lut, plane, ids, live = kv.adc_case("misaligned_u8", "cpu")
+    assert not adc_ops.rows_vectorizable(plane)
+    assert plane.shape == (kv.ADC_ROWS, 96) and lut.shape == (3, 96, 256)
+    lut, plane, ids, live = kv.adc_case("one_slot_dead", "cpu")
+    assert ids.shape == (1, 1) and not live.any()
+    lut, plane, ids, live = kv.adc_case("served_lists", "cpu")
+    assert adc_ops.rows_vectorizable(plane) and live.any()
+    assert int(ids.max()) < kv.ADC_ROWS and int(ids.min()) >= 0
+    b, m, k, n, c = kv.ADC_BENCH
+    lut, plane, ids, live = kv.adc_bench_shape("cpu")
+    assert (lut.shape, plane.shape, ids.shape) == ((b, m, k), (n, m), (b, c))
 
 
 def test_sq8_layouts_shape_the_served_plane():
