@@ -86,13 +86,30 @@ never prints the final line.  Every phase prints its seconds.
  14. bench    the port's ``kernel_bench`` at its full shapes with
               ``--check`` semantics, as a counted run; its report is
               printed as a JSON line;
+ 15. mutable  the mutable index (DESIGN.md §8) over phase 10's corpus at
+              full widths: a base over its first 983,040 documents and a
+              65,536-slot delta (28-slot delta lists), the last 65,536
+              streamed in at fills 0.25, 0.5 and 1.0.  15a ``opq`` with
+              the impact plane: serves 4 x 256 queries dense and fused at
+              fill 0 and after each ``add_docs`` (each a counted run:
+              ``topk_scores`` once a batch, ``pq_adc_fused`` twice, base
+              and delta; each ``add_docs`` one ``assign_argmax``); deletes
+              the top 10 of the last dense batch and a quarter of the
+              streamed ids, which no later result may hold; 8 queries
+              against the CPU plain path over the same base, delta and
+              tombstones; a profiled dense and fused batch; ``compact()``
+              against ``hi.build`` over the survivors with the same seed,
+              leaf for leaf and on the first batch bit for bit.  15b
+              ``refine:sq8:4``: the same stream, deletes and CPU check
+              (``sq8_dot_fused`` twice a batch, the two-family refine);
 
 then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
 kernel's ``launches`` is read from the counted run of the path that runs
 it: ``pq_adc_fused`` and ``topk_scores`` from phase 5, ``sq8_dot_fused``
 from 9c, ``assign_argmax`` from phase 10's builds, ``flash_attention``
-from phase 12, ``pq_adc`` from phase 14.  It imports only the port, never jax or the reference
-package, and exits non-zero without a card.
+from phase 12, ``pq_adc`` from phase 14; phase 15's counted runs are
+checked in the phase and printed.  It imports only the port, never jax
+or the reference package, and exits non-zero without a card.
 """
 from __future__ import annotations
 
@@ -123,6 +140,7 @@ from repro_torch.core import exec as qexec  # noqa: E402
 from repro_torch.core import hybrid_index as hi  # noqa: E402
 from repro_torch.core import inverted_lists  # noqa: E402
 from repro_torch.core import metrics  # noqa: E402
+from repro_torch.core import segments  # noqa: E402
 from repro_torch.core import term_selector as ts_mod  # noqa: E402
 from repro_torch.core.codecs import flat as flat_codec  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
@@ -151,6 +169,14 @@ PQ_FITS, PQ_ITERS, OPQ_OUTER = 5, 10, 4
 BUILD_ASSIGN_LAUNCHES = {REFINE_CODEC: BUILD_ITERS + 1,
                          "opq": PQ_FITS * (PQ_ITERS + 1) + OPQ_OUTER + 1,
                          "flat": 0}
+# the mutable index (phase 15): a base over the first MUT_BASE documents
+# of phase 10's corpus, the last MUT_STREAM streamed in at MUT_FILLS of
+# the delta; its lists then hold 4·⌈65,536/10,000⌉ = 28 cluster and
+# 4·⌈65,536·3/30,528⌉ = 28 term slots (the reference's default formula)
+MUT_STREAM = 65_536
+MUT_BASE = BUILD_DOCS - MUT_STREAM
+MUT_FILLS = (0.25, 0.5, 1.0)
+MUT_DELTA_CAP = 28
 # stage seconds of the cuBLAS + argmax assignment route that
 # assign_argmax replaced, on an H100 80GB HBM3 at 700 W (PERF.md §5)
 CUBLAS_ROUTE_STAGES = {"clusters": 6.65, "codec_train": 13.13}
@@ -1438,6 +1464,266 @@ def time_new_kernels(flash_in: dict, emb, centroids) -> dict:
     return {"flash_attention": flash, "assign_argmax": assign}
 
 
+# --------------------------------------------------------------------------
+# phase 15: the mutable index (base + delta segment + tombstones)
+# --------------------------------------------------------------------------
+
+def serve_mutable(mut, dev, qe_all, qt_all, batches: int, score_kernel: str,
+                  what: str, fusion_weight=None):
+    """A counted run over a MutableServer: every count set to 0 just
+    before the batches and read just after; ``topk_scores`` must launch
+    once a batch and ``score_kernel`` twice (the base and the delta
+    source).  Returns (server, results, launches, q/s)."""
+    server = serve.make_mutable_server(mut, serve.ServeConfig(
+        kc=KC, k2=K2, top_r=TOP_R, max_batch=BATCH, mutable=True,
+        fusion_weight=fusion_weight), device=dev)
+    server.warmup(qe_all.shape[1], qt_all.shape[1])
+    reset_counts()
+    results, batch_s = [], []
+    for i in range(batches):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        t0 = time.perf_counter()
+        results.append(server.query(qe_all[sl], qt_all[sl]))
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+    launches = read_counts()
+    qps = server.n_served / sum(batch_s)
+    log(f"[mutable] {what}: {server.n_served} queries in {sum(batch_s):.3f}"
+        f" s ({qps:.1f} q/s; batch ms {[round(s * 1e3, 2) for s in batch_s]}"
+        f"); launches {launches}")
+    want = {"topk_scores": batches, score_kernel: 2 * batches}
+    for kname, n in want.items():
+        if launches[kname] != n:
+            fail(f"{what}: {kname} launched {launches[kname]} times, "
+                 f"expected {n}")
+    for res in results:
+        if res.doc_ids.shape != (BATCH, TOP_R):
+            fail(f"{what}: result shape {tuple(res.doc_ids.shape)}")
+        if not torch.isfinite(res.scores).all():
+            fail(f"{what}: non-finite result scores")
+    return server, results, launches, qps
+
+
+def mutable_on_cpu(mut):
+    """The same base, delta planes, eviction scores and tombstones as a
+    mutable index on the CPU (the plain path)."""
+    tree = dict(mut.state_tree(), base=mut.base.to("cpu"))
+    return segments.MutableHybridIndex.from_state(tree, mut.state_extra(),
+                                                  seed=mut.seed)
+
+
+def check_mutable_cpu(mut, qe8, qt8, first, tol: float, what: str) -> None:
+    """The first N_CHECK queries of a served batch against the CPU plain
+    path over the same base, delta and tombstones: n_candidates exact,
+    top-R within ``tol`` (phase 6's rule).  A query whose K^C-th and
+    next cluster scores lie within TOPK_TOL may dispatch other clusters:
+    it is listed, not checked."""
+    t0 = time.perf_counter()
+    cpu = mutable_on_cpu(mut)
+    ref = cpu.search(qe8, qt8, kc=KC, k2=K2, top_r=TOP_R)
+    cpu_s = time.perf_counter() - t0
+    full = torch.from_numpy(qe8) @ cpu.base.cluster_sel.embeddings.T
+    top = torch.sort(full, dim=-1, descending=True).values[:, : KC + 1]
+    boundary = (top[:, KC - 1] - top[:, KC]) <= TOPK_TOL
+    skipped = [b for b in range(N_CHECK) if bool(boundary[b])]
+    for b in range(N_CHECK):
+        if b in skipped:
+            continue
+        if int(first.n_candidates[b]) != int(ref.n_candidates[b]):
+            fail(f"{what} query {b}: n_candidates differs from the CPU")
+        if not topk_match(ref.doc_ids[b].numpy(), ref.scores[b].numpy(),
+                          first.doc_ids[b].cpu().numpy(),
+                          first.scores[b].cpu().numpy(), tol):
+            fail(f"{what} query {b}: top-R differs from the CPU path")
+    log(f"[mutable] {what}: {N_CHECK - len(skipped)} of {N_CHECK} queries "
+        f"match the CPU plain path over the same base, delta and "
+        f"tombstones (state copied and searched on the CPU in {cpu_s:.1f} "
+        f"s); near-ties at the K^C boundary, skipped: {skipped}")
+
+
+def mutable_stream(mut, dev, corpus, batches: int, score_kernel: str,
+                   spec: str, fused: bool) -> tuple:
+    """Stream the corpus's last MUT_STREAM documents in MUT_FILLS steps,
+    each ``add_docs`` a counted run (one ``assign_argmax`` launch: the
+    codec encode, for ``opq``), serving dense (and fused) batches before
+    the first step and after each.  Returns (the streamed ids, the last
+    dense batch's results)."""
+    qe, qt = corpus.query_emb, corpus.query_tokens
+    stream_emb = corpus.doc_emb[MUT_BASE:MUT_BASE + MUT_STREAM]
+    stream_tok = corpus.doc_tokens[MUT_BASE:MUT_BASE + MUT_STREAM]
+    added, done, last = [], 0, None
+    want_assign = 1 if spec == "opq" else 0
+    for frac in (0.0,) + MUT_FILLS:
+        upto = int(frac * MUT_STREAM)
+        if upto > done:
+            timings = {}
+            reset_counts()
+            t0 = time.perf_counter()
+            added.append(mut.add_docs(stream_emb[done:upto],
+                                      stream_tok[done:upto],
+                                      timings=timings))
+            add_s = time.perf_counter() - t0
+            launches = read_counts()
+            log(f"[mutable] {spec} add_docs of {upto - done} docs: "
+                f"{add_s:.2f} s (device part {timings['device']:.2f} s, "
+                f"host list inserts {timings['inserts']:.2f} s); "
+                f"launches {launches}; dropped postings so far "
+                f"{mut.dropped_postings}")
+            if launches["assign_argmax"] != want_assign:
+                fail(f"{spec} add_docs launched assign_argmax "
+                     f"{launches['assign_argmax']} times, expected "
+                     f"{want_assign}")
+            done = upto
+        modes = ((None, "dense"), (FUSION_WEIGHT, "fused")) if fused else (
+            (None, "dense"),)
+        for weight, name in modes:
+            _, results, _, qps = serve_mutable(
+                mut, dev, qe, qt, batches, score_kernel,
+                f"{spec} fill {frac} {name}", fusion_weight=weight)
+            ids = torch.cat([r.doc_ids for r in results]).cpu()
+            log(f"[mutable] {spec} fill {frac} ({mut.delta_count} delta "
+                f"docs) {name}: R@100 "
+                f"{metrics.recall_at_k(ids, corpus.qrels[:len(ids)], 100):.4f}"
+                f", {qps:.1f} q/s")
+            if weight is None:
+                last = results
+    return np.concatenate(added), last
+
+
+def mutable_delete(mut, dev, corpus, batches: int, score_kernel: str,
+                   spec: str, added, last, fused: bool):
+    """Delete every id in the top 10 of the last dense batch (base and
+    delta alike) plus a quarter of the streamed ids, then serve again:
+    no deleted id may appear in any result.  Returns the first dense
+    batch after the deletes."""
+    top10 = last[-1].doc_ids[:, :10].cpu().numpy().ravel()
+    doomed = np.unique(np.concatenate([top10[top10 >= 0],
+                                       added[: MUT_STREAM // 4]]))
+    t0 = time.perf_counter()
+    mut.delete_docs(doomed)
+    log(f"[mutable] {spec} delete_docs of {doomed.size} ids "
+        f"({int((doomed < mut.n_base).sum())} base, "
+        f"{int((doomed >= mut.n_base).sum())} delta): "
+        f"{time.perf_counter() - t0:.3f} s; tombstone ratio "
+        f"{mut.tombstone_ratio:.4f}")
+    qe, qt = corpus.query_emb, corpus.query_tokens
+    first = None
+    for weight in ((None, FUSION_WEIGHT) if fused else (None,)):
+        _, results, _, _ = serve_mutable(
+            mut, dev, qe, qt, batches, score_kernel,
+            f"{spec} after deletes {'dense' if weight is None else 'fused'}",
+            fusion_weight=weight)
+        ids = torch.cat([r.doc_ids for r in results]).cpu().numpy()
+        if np.isin(ids, doomed).any():
+            fail(f"{spec}: a deleted id appeared in a result")
+        first = results[0] if first is None else first
+    log(f"[mutable] {spec}: no deleted id in any result")
+    return first
+
+
+def mutable_phase(dev, built: dict, seed: int, batches: int) -> None:
+    """Phase 15: the mutable index on the card at full widths over phase
+    10's corpus: 15a ``opq`` with the impact plane (create, stream, serve
+    dense and fused at each fill, delete, check against the CPU,
+    compact against a rebuild), 15b ``refine:sq8:4`` (create, stream,
+    delete, check against the CPU)."""
+    corpus = built["corpus"]
+    kw = dict(n_clusters=N_CLUSTERS, k1_terms=K1_TERMS, pq_m=PQ_M,
+              pq_k=PQ_K, cluster_capacity=CLUSTER_CAP,
+              term_capacity=TERM_CAP, kmeans_iters=BUILD_ITERS)
+    for spec, kernel, fused in (("opq", "pq_adc_fused", True),
+                                (REFINE_CODEC, "sq8_dot_fused", False)):
+        tag = "15a" if spec == "opq" else "15b"
+        with phase(f"{tag} mutable {spec}: create"):
+            mut = segments.MutableHybridIndex.create(
+                seed, corpus.doc_emb[:MUT_BASE],
+                corpus.doc_tokens[:MUT_BASE], VOCAB,
+                delta_capacity=MUT_STREAM, codec=spec, sparse=fused,
+                device=dev, **kw)
+            caps = (mut.delta_cluster_capacity, mut.delta_term_capacity)
+            log(f"[mutable] {spec}: base {mut.n_base} docs, delta "
+                f"{MUT_STREAM} slots, delta list capacities {caps}; "
+                f"candidate budget {mut.candidate_budget(KC, K2)} slots "
+                f"({hi.candidate_budget(mut.base, KC, K2)} in the base)")
+            if caps != (MUT_DELTA_CAP, MUT_DELTA_CAP):
+                fail(f"{spec}: delta capacities {caps}, expected "
+                     f"{MUT_DELTA_CAP}")
+        with phase(f"{tag} mutable {spec}: stream and serve (counted)"):
+            added, last = mutable_stream(mut, dev, corpus, batches, kernel,
+                                         spec, fused)
+        with phase(f"{tag} mutable {spec}: delete and serve"):
+            first = mutable_delete(mut, dev, corpus, batches, kernel, spec,
+                                   added, last, fused)
+        if fused:
+            with phase(f"{tag} mutable {spec}: profile"):
+                for weight in (None, FUSION_WEIGHT):
+                    server = serve.make_mutable_server(
+                        mut, serve.ServeConfig(
+                            kc=KC, k2=K2, top_r=TOP_R, max_batch=BATCH,
+                            mutable=True, fusion_weight=weight), device=dev)
+                    log(f"[mutable] profiled batch, fusion weight {weight}")
+                    profile_batch(server, corpus.query_emb[:BATCH],
+                                  corpus.query_tokens[:BATCH])
+        with phase(f"{tag} mutable {spec}: check against the CPU"):
+            check_mutable_cpu(mut, corpus.query_emb[:N_CHECK],
+                              corpus.query_tokens[:N_CHECK], first,
+                              ADC_TOL if spec == "opq" else SQ8_TOL, spec)
+        if spec == "opq":
+            compact_vs_rebuild(mut, dev, corpus, kw)
+        del mut
+        torch.cuda.empty_cache()
+
+
+def compact_vs_rebuild(mut, dev, corpus, kw: dict) -> None:
+    """15a: ``compact()`` and a fresh ``hi.build`` over
+    ``surviving_corpus()`` with the same seed agree bit for bit, leaf for
+    leaf and in ids, scores and n_candidates on the first batch."""
+    with phase("15a mutable opq: compact"):
+        t0 = time.perf_counter()
+        compacted = mut.compact()
+        torch.cuda.synchronize()
+        log(f"[mutable] compact to {compacted.n_base} docs: "
+            f"{time.perf_counter() - t0:.2f} s")
+    with phase("15a mutable opq: rebuild and compare"):
+        emb, tok = mut.surviving_corpus()
+        t0 = time.perf_counter()
+        rebuilt = hi.build(mut.seed, emb, tok, VOCAB, codec="opq",
+                           sparse=True, device=dev, **kw)
+        torch.cuda.synchronize()
+        log(f"[mutable] hi.build over the {emb.shape[0]} survivors: "
+            f"{time.perf_counter() - t0:.2f} s")
+        la, lb = hi.index_leaves(compacted.base), hi.index_leaves(rebuilt)
+        if [p for p, _ in la] != [p for p, _ in lb]:
+            fail("compact: leaf paths differ from the rebuild's")
+        differ = [p for (p, x), (_, y) in zip(la, lb)
+                  if x.dtype != y.dtype or not torch.equal(x, y)]
+        if differ:
+            fail(f"compact: leaves differ from the rebuild: {differ}")
+        qe = corpus.query_emb[:BATCH]
+        qt = corpus.query_tokens[:BATCH]
+        a = compacted.search(qe, qt, kc=KC, k2=K2, top_r=TOP_R)
+        b = hi.search(rebuilt, qe, qt, kc=KC, k2=K2, top_r=TOP_R,
+                      device=dev)
+        for name, x, y in (("ids", a.doc_ids, b.doc_ids),
+                           ("scores", a.scores, b.scores),
+                           ("n_candidates", a.n_candidates,
+                            b.n_candidates)):
+            if not torch.equal(x, y):
+                fail(f"compact: {name} of the first batch differ from the "
+                     f"rebuild's")
+        old_to_new = np.full(mut.n_docs, -2, np.int64)
+        old_to_new[mut.survivors()] = np.arange(compacted.n_base)
+        all_qe, all_qt = corpus.query_emb, corpus.query_tokens
+        ids = torch.cat([compacted.search(all_qe[i:i + BATCH],
+                                          all_qt[i:i + BATCH], kc=KC, k2=K2,
+                                          top_r=TOP_R).doc_ids.cpu()
+                         for i in range(0, len(all_qe), BATCH)])
+        log(f"[mutable] compact equals the rebuild: {len(la)} of {len(la)} "
+            f"leaves bit for bit; first batch ids, scores and n_candidates "
+            f"equal; compacted R@100 "
+            f"{metrics.recall_at_k(ids, old_to_new[corpus.qrels], 100):.4f}")
+
+
 def run_kernel_bench() -> dict:
     """Phase 14: the port's ``kernel_bench`` at its full shapes with
     ``--check`` semantics, as a counted run: the main path of ``pq_adc``
@@ -1589,6 +1875,8 @@ def main(argv=None) -> None:
                                       built["cluster_sel"].embeddings))
     with phase("14 kernel_bench (counted)"):
         bench_launches = run_kernel_bench()
+    with phase("15 mutable index"):
+        mutable_phase(dev, built, args.seed, BUILD_QUERIES // BATCH)
 
     launches = dict(opq_launches,
                     sq8_dot_fused=refine_launches["sq8_dot_fused"],

@@ -3,7 +3,8 @@ serving path for one NVIDIA H100, beside the JAX reference package in
 ``src/repro/``.
 
 The layout mirrors the reference (``core/``, ``core/codecs/``,
-``core/exec/``, ``kernels/``, ``checkpoint/``, ``launch/``, ``data/``);
+``core/exec/``, ``core/segments.py``, ``kernels/``, ``checkpoint/``,
+``launch/``, ``data/``, ``benchmarks/``);
 each module names the reference file it answers to.  The package
 imports torch and numpy only — never jax, never the reference package.
 

@@ -1,5 +1,6 @@
 """Index checkpoints, read side (port of
-``repro/checkpoint/checkpoint.py``: what ``restore_index`` reads).
+``repro/checkpoint/checkpoint.py``: what ``restore_index`` and
+``restore_mutable`` read).
 
 A reference ``save_index`` directory holds ``manifest.json`` (leaf
 paths, shapes, dtypes, ``extra.codec``) and ``arrays.npz`` (leaf i under
@@ -14,6 +15,12 @@ no JAX tree structure:
 
 A ``refine:<base>:<mult>`` index carries its base codec's params and,
 beside the base planes, ``.doc_planes['refine_emb']`` (fp16).
+
+A ``save_mutable`` directory (:func:`load_mutable`) holds the same index
+leaves under a ``['base']`` prefix, the delta state under
+``['delta']['cluster_entries']``, ``['delta']['planes']['codes']`` and so
+on, ``['tombstones']``, the retained corpus under ``['corpus']`` and the
+build key under ``['key']``; ``extra.mutable`` holds the counters.
 
 HI²_sup parameters (``repro/core/distill.py::DistillParams``) map the
 same way: ``.cluster_embeddings``, ``.term_mlp.{w1,b1,w2,b2}`` and the
@@ -30,6 +37,7 @@ import glob
 import json
 import os
 import re
+from typing import Optional
 
 import numpy as np
 import torch
@@ -122,10 +130,73 @@ def load_index(path: str,
         raise NotImplementedError(
             f"checkpoint at {path} carries tuned widths, which are not yet "
             "ported; serving it would use other widths than the reference")
+    return index_from_numpy(_read_leaves(path, manifest), codec,
+                            device=device)
+
+
+def _read_leaves(path: str, manifest: dict) -> dict:
+    """Manifest leaf path → numpy array of one checkpoint directory."""
     with np.load(os.path.join(path, "arrays.npz")) as z:
-        leaves = {leaf["path"]: z[f"leaf_{leaf['index']}"]
-                  for leaf in manifest["leaves"]}
-    return index_from_numpy(leaves, codec, device=device)
+        return {leaf["path"]: z[f"leaf_{leaf['index']}"]
+                for leaf in manifest["leaves"]}
+
+
+def _nest(leaves: dict) -> dict:
+    """``['a']['b']`` leaf paths → nested dicts of numpy arrays."""
+    out: dict = {}
+    for path, arr in leaves.items():
+        keys = [m.group(2) for m in _KEY.finditer(path)]
+        if None in keys or "".join(f"['{k}']" for k in keys) != path:
+            raise ValueError(f"unreadable leaf path {path!r}")
+        node = out
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = arr
+    return out
+
+
+def load_mutable(path: str, *, seed: int, codec: Optional[str] = None,
+                 selectors=None, device: dev_mod.DeviceLike = "cuda"):
+    """Read a reference ``save_mutable`` checkpoint directory into a
+    :class:`repro_torch.core.segments.MutableHybridIndex` on ``device``:
+    base, delta planes, eviction scores, tombstones, the retained corpus
+    and the counters, so it searches and mutates as the saved index.
+
+    The reference's ``['key']`` leaf is JAX key data, which the port
+    cannot replay: ``compact()`` on the loaded index rebuilds with
+    ``seed`` (the port's builds are not the reference's draws anyway).
+    Refuses a checkpoint without a ``mutable`` entry, one whose codec is
+    not ``codec`` (when given: the reference's check against its restore
+    target), and one written from a supervised index unless
+    ``selectors=`` (a :class:`repro_torch.launch.train.SupSelectors`) is
+    given."""
+    from repro_torch.core import segments
+
+    dev = dev_mod.resolve(device)
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    extra = manifest.get("extra", {})
+    if "mutable" not in extra:
+        raise ValueError(
+            f"checkpoint at {path} is not a mutable-index checkpoint (no "
+            "'mutable' manifest entry); use load_index")
+    saved = extra.get("codec")
+    if saved is None:
+        raise ValueError(f"checkpoint at {path} records no codec: it was "
+                         "not written by save_mutable")
+    if codec is not None and saved != codec:
+        raise ValueError(
+            f"checkpoint at {path} was built with codec {saved!r} but "
+            f"{codec!r} was asked for")
+    leaves = _read_leaves(path, manifest)
+    prefix = "['base']"
+    tree = _nest({p: a for p, a in leaves.items()
+                  if not p.startswith(prefix) and p != "['key']"})
+    tree["base"] = index_from_numpy(
+        {p[len(prefix):]: a for p, a in leaves.items()
+         if p.startswith(prefix)}, saved, device=dev)
+    return segments.MutableHybridIndex.from_state(
+        tree, extra, seed=seed, selectors=selectors)
 
 
 # --------------------------------------------------------------------------

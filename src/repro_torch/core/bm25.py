@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import kmeans
+
 PAD_ID = -1
 
 #: documents per chunk of the per-row sorts (bounds the transient memory)
@@ -108,10 +110,8 @@ def average_term_scores(tokens: torch.Tensor, scores: torch.Tensor,
     """s̄_v (Eq. 8): mean score of term v across the documents that
     contain it → (V,) f32."""
     first = first_occurrence_mask(tokens)
-    flat_ids = torch.where(first, tokens, vocab_size).reshape(-1).long()
-    flat_scores = torch.where(first, scores, 0.0).reshape(-1)
-    sums = torch.zeros(vocab_size + 1, dtype=torch.float32,
-                       device=tokens.device).index_add_(0, flat_ids,
-                                                        flat_scores)
-    counts = torch.bincount(flat_ids, minlength=vocab_size + 1).float()
-    return (sums / torch.clamp(counts, min=1.0))[:vocab_size]
+    # each term's first occurrences, summed in document order on every
+    # device (no atomics on the card)
+    sums, counts = kmeans.segment_sum(scores[first].float(), tokens[first],
+                                      vocab_size)
+    return sums / torch.clamp(counts.float(), min=1.0)

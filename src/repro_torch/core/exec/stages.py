@@ -3,9 +3,11 @@
 
     dispatch → gather → dedup → filter → score → topk → refine
 
-over a list of :class:`Source`s, on one Source on one device: several
-sources (the mutable index) and ``execute(shard=...)`` raise
-``NotImplementedError`` until the mutable and sharding slices land.
+over a list of :class:`Source`s on one device: one for an immutable
+index, the (base, delta) pair of the mutable one
+(:mod:`repro_torch.core.segments`, DESIGN.md §8), whose tombstones the
+filter stage masks before selection.  ``execute(shard=...)`` raises
+``NotImplementedError`` until the sharding slice lands.
 ``execute(fusion=...)`` adds the sparse BM25 path and the RRF fusion of
 DESIGN.md §13 (:func:`sparse_topk`, :func:`fuse`) after refine.
 
@@ -40,19 +42,30 @@ class SearchResult(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class Source:
     """One gather+score source: a (cluster, term) list family over one
-    set of codec doc planes, with the global id of local row 0, the
-    optional namespace plane the filter stage reads and the optional
-    BM25 impact plane aligned with ``term_lists.entries`` that the sparse
-    path of ``execute(fusion=...)`` reads (DESIGN.md §13).  (The
-    reference's tombstone and family-range planes come with the mutable
-    slice.)"""
+    set of codec doc planes, with the global id of local row 0.
+    ``family_lo``/``family_hi`` bound the global id range of the whole
+    family this source belongs to (base docs or delta slots), which
+    routes refine-stage gathers when several families coexist.
+    ``tombstones``/``doc_ns`` are optional per-row planes the filter
+    stage reads; ``sparse_weights`` is the BM25 impact plane aligned with
+    ``term_lists.entries`` that the sparse path of
+    ``execute(fusion=...)`` reads (DESIGN.md §13)."""
     cluster_lists: PaddedLists
     term_lists: PaddedLists
     doc_planes: dict
     size: int                                    # local rows per plane
     offset: int = 0
+    family_lo: int = 0
+    family_hi: Optional[int] = None              # default offset + size
+    tombstones: Optional[torch.Tensor] = None    # (size,) bool
     doc_ns: Optional[torch.Tensor] = None        # (size,) i32 namespaces
     sparse_weights: Optional[torch.Tensor] = None  # (V, Ct) f32 impacts
+
+    @property
+    def hi_bound(self) -> int:
+        """Upper bound on the global ids this source may own."""
+        return (self.offset + self.size if self.family_hi is None
+                else self.family_hi)
 
 
 @dataclasses.dataclass
@@ -137,19 +150,27 @@ def dedup(frontier: Frontier) -> torch.Tensor:
 def filter_stage(frontier: Frontier, sources: Sequence[Source],
                  keep: torch.Tensor, ns_filter: Optional[torch.Tensor]
                  ) -> torch.Tensor:
-    """keep ∧ namespace-allowed, per candidate slot: a filtered doc
-    carries ``-inf`` into selection (DESIGN.md §9)."""
+    """keep ∧ ¬tombstoned ∧ namespace-allowed, per candidate slot: a
+    filtered doc carries ``-inf`` into selection, so it can never take a
+    top-R′ slot or come back through refine (DESIGN.md §9)."""
+    live = keep
+    if any(s.tombstones is not None for s in sources):
+        dead = torch.cat([
+            s.tombstones[loc.long()] if s.tombstones is not None
+            else torch.zeros(loc.shape, dtype=torch.bool, device=loc.device)
+            for s, loc in zip(sources, frontier.local)], -1)
+        live = live & ~dead
     if ns_filter is None:
-        return keep
+        return live
     missing = [i for i, s in enumerate(sources) if s.doc_ns is None]
     if missing:
         raise ValueError(
             "search(filter=...) needs namespace planes on every source, "
             f"but source(s) {missing} have none — load an index built "
-            "with doc_namespaces=")
+            "with doc_namespaces= / pass namespaces= to add_docs")
     ns = torch.cat([s.doc_ns[loc.long()]
                     for s, loc in zip(sources, frontier.local)], -1)
-    return keep & filters.allowed_mask(ns_filter, ns)
+    return live & filters.allowed_mask(ns_filter, ns)
 
 
 def score(codec_impl: codecs_base.Codec, codec_params: Any,
@@ -177,28 +198,32 @@ def sparse_topk(sources: Sequence[Source], term_ids: torch.Tensor, r: int,
                 ns_filter: Optional[torch.Tensor]
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The sparse (BM25) query path (DESIGN.md §13): top-r documents by
-    summed term impact over the ≤K₂ᵀ dispatched term lists, which the
-    dense path probes too.  Namespace-filtered postings mask to
-    (PAD_DOC, 0), as in the dense filter stage; documents whose impacts
-    sum to 0 rank as non-matches.  Returns ``(scores, ids, n_sparse)``:
-    (B, r) planes (``-inf``/PAD_DOC padded) and the unique matched-doc
-    count per query."""
-    if len(sources) != 1:
-        raise NotImplementedError("multi-source (mutable) sparse search is "
-                                  "not yet ported")
-    s = sources[0]
+    summed term impact over the ≤K₂ᵀ dispatched term lists of every
+    source, which the dense path probes too.  Tombstoned and
+    namespace-filtered postings mask to (PAD_DOC, 0) per source, as in
+    the dense filter stage; documents whose impacts sum to 0 rank as
+    non-matches.  Returns ``(scores, ids, n_sparse)``: (B, r) planes
+    (``-inf``/PAD_DOC padded) and the unique matched-doc count per
+    query."""
     b = term_ids.shape[0]
     safe = term_ids.clamp(min=0).long()
     probed = (term_ids >= 0)[:, :, None]
-    ids = torch.where(probed, s.term_lists.entries[safe],
-                      PAD_DOC).reshape(b, -1)
-    w = torch.where(probed, s.sparse_weights[safe], 0.0).reshape(b, -1)
-    live = ids != PAD_DOC
-    if ns_filter is not None:
-        loc = (ids - s.offset).clamp(0, s.size - 1).long()
-        live = live & filters.allowed_mask(ns_filter, s.doc_ns[loc])
-    sid, totals, first = fusion_mod.sum_by_doc(
-        torch.where(live, ids, PAD_DOC), torch.where(live, w, 0.0))
+    ids_parts, w_parts = [], []
+    for s in sources:
+        ids = torch.where(probed, s.term_lists.entries[safe],
+                          PAD_DOC).reshape(b, -1)
+        w = torch.where(probed, s.sparse_weights[safe], 0.0).reshape(b, -1)
+        live = ids != PAD_DOC
+        if s.tombstones is not None or ns_filter is not None:
+            loc = (ids - s.offset).clamp(0, s.size - 1).long()
+            if s.tombstones is not None:
+                live = live & ~s.tombstones[loc]
+            if ns_filter is not None:
+                live = live & filters.allowed_mask(ns_filter, s.doc_ns[loc])
+        ids_parts.append(torch.where(live, ids, PAD_DOC))
+        w_parts.append(torch.where(live, w, 0.0))
+    sid, totals, first = fusion_mod.sum_by_doc(torch.cat(ids_parts, -1),
+                                               torch.cat(w_parts, -1))
     rep = first & (sid != PAD_DOC) & (totals > 0.0)
     scores = torch.where(rep, totals, -torch.inf)
     top_s, top_ids = _topk_of_id_sorted(scores, sid, r)
@@ -231,18 +256,55 @@ def fuse(dense_scores: torch.Tensor, dense_ids: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# refine plumbing (one source; multi-source routing comes with the
-# mutable slice)
+# refine plumbing: route frontier ids back to the owning source
 # --------------------------------------------------------------------------
 
-def make_refine_ctx(source: Source) -> codecs_base.RefineCtx:
-    """RefineCtx over one source: gathers map global ids to its rows,
-    ``owned`` is its id range, ``psum`` the identity."""
-    def gather_fn(plane, ids):
-        return plane[(ids - source.offset).clamp(0, source.size - 1).long()]
+def _route_gather(sources: Sequence[Source], plane_group,
+                  ids: torch.Tensor) -> torch.Tensor:
+    """Rows for global ``ids`` from per-source planes (one plane for one
+    source, else a tuple in source order), each id routed to the family
+    that stores it: ids at or above a later source's ``family_lo`` take
+    its rows.  Out-of-source rows are clipped garbage that callers mask
+    through ``owned`` or finite scores."""
+    if len(sources) == 1:
+        s = sources[0]
+        return plane_group[(ids - s.offset).clamp(0, s.size - 1).long()]
+    rows = None
+    for s, plane in zip(sources, plane_group):
+        mine = plane[(ids - s.offset).clamp(0, s.size - 1).long()]
+        if rows is None:
+            rows = mine
+            continue
+        here = (ids >= s.family_lo).reshape(
+            ids.shape + (1,) * (mine.dim() - ids.dim()))
+        rows = torch.where(here, mine, rows)
+    return rows
+
+
+def refine_planes(sources: Sequence[Source]) -> dict:
+    """The doc planes handed to ``codec.refine``: one source's own, else
+    per-key tuples of every source's planes (``ctx.gather`` routes
+    them)."""
+    if len(sources) == 1:
+        return sources[0].doc_planes
+    return {k: tuple(s.doc_planes[k] for s in sources)
+            for k in sources[0].doc_planes}
+
+
+def make_refine_ctx(sources: Sequence[Source]) -> codecs_base.RefineCtx:
+    """RefineCtx over a source list: gathers route by family range,
+    ``owned`` is the union of the sources' id ranges, ``psum`` the
+    identity (one device)."""
+    def gather_fn(plane_group, ids):
+        return _route_gather(sources, plane_group, ids)
 
     def owned(ids):
-        return (ids >= source.offset) & (ids < source.offset + source.size)
+        mask = None
+        for s in sources:
+            m = ((ids >= s.offset) & (ids < s.offset + s.size)
+                 & (ids < s.hi_bound))
+            mask = m if mask is None else mask | m
+        return mask
 
     return codecs_base.RefineCtx(gather=gather_fn, owned=owned,
                                  psum=lambda x: x)
@@ -272,9 +334,6 @@ def execute(codec_impl: codecs_base.Codec, codec_params: Any,
     in each)."""
     if shard is not None:
         raise NotImplementedError("sharded execution is not yet ported")
-    if len(sources) != 1:
-        raise NotImplementedError("multi-source (mutable) execution is not "
-                                  "yet ported")
     cluster_ids, term_ids = dispatch(cluster_sel, term_sel,
                                      query_embeddings, query_tokens, kc, k2)
     frontier = gather(sources, cluster_ids, term_ids)
@@ -284,8 +343,8 @@ def execute(codec_impl: codecs_base.Codec, codec_params: Any,
                             frontier.live, query_embeddings)
     top_s, top_ids = topk(frontier, codec_impl.refine_width(top_r))
     top_s, top_ids = codec_impl.refine(
-        codec_params, sources[0].doc_planes, query_embeddings,
-        top_s, top_ids, top_r, make_refine_ctx(sources[0]))
+        codec_params, refine_planes(sources), query_embeddings,
+        top_s, top_ids, top_r, make_refine_ctx(sources))
     # the reference's §13 contract: an index without the impact plane
     # serves the dense-only result, unchanged to the bit
     if fusion is not None and all(s.sparse_weights is not None

@@ -2,7 +2,8 @@
 ``repro/core/hybrid_index.py``: ``HybridIndex``, ``build``,
 ``build_ivf``, ``build_term_only``, ``base_source``, ``search``,
 ``search_ivf``, ``search_term_only``, ``candidate_budget``,
-``candidate_cost``).
+``candidate_cost``; ``index_leaves`` stands in for the reference's
+``jax.tree.leaves`` of an index).
 
 Each document is referenced from the inverted lists of exactly one
 embedding cluster and K₁ᵀ salient terms.  :func:`build` computes them
@@ -71,6 +72,24 @@ class HybridIndex:
             doc_ns=opt(self.doc_ns), sparse_weights=opt(self.sparse_weights))
 
 
+def index_leaves(obj, path: str = "") -> list:
+    """(path, tensor) of every tensor in an index (or any part of one:
+    dataclass fields, NamedTuple fields and dict values, in order): the
+    leaves two builds are compared by."""
+    if isinstance(obj, torch.Tensor):
+        return [(path, obj)]
+    if dataclasses.is_dataclass(obj):
+        return [leaf for f in dataclasses.fields(obj) for leaf in
+                index_leaves(getattr(obj, f.name), f"{path}.{f.name}")]
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return [leaf for k in obj._fields
+                for leaf in index_leaves(getattr(obj, k), f"{path}.{k}")]
+    if isinstance(obj, dict):
+        return [leaf for k in sorted(obj)
+                for leaf in index_leaves(obj[k], f"{path}[{k!r}]")]
+    return []
+
+
 def _params_to(params, device):
     if params is None:
         return None
@@ -98,7 +117,7 @@ def _pad_lists(n_lists: int, dev: torch.device) -> PaddedLists:
         lengths=torch.zeros((n_lists,), dtype=torch.int32, device=dev))
 
 
-def _assigned_scores(cluster_sel: cs_mod.ClusterSelector, x: torch.Tensor,
+def assigned_scores(cluster_sel: cs_mod.ClusterSelector, x: torch.Tensor,
                      assign: torch.Tensor) -> torch.Tensor:
     """⟨e_D, e_φ(D)⟩ per document, read off the same score matmul as
     :func:`cluster_selector.select_for_doc`, one block at a time."""
@@ -184,7 +203,7 @@ def build(seed: int,
     if use_clusters:
         cluster_lists = il.build(
             np.arange(n_docs), doc_assign.cpu().numpy(),
-            _assigned_scores(cluster_sel, emb, doc_assign).cpu().numpy(),
+            assigned_scores(cluster_sel, emb, doc_assign).cpu().numpy(),
             n_lists=n_clusters, capacity=cluster_capacity, device=dev)
     else:
         cluster_lists = _pad_lists(n_clusters, dev)

@@ -32,16 +32,64 @@ def _assign(x: torch.Tensor, c: torch.Tensor, block: int) -> torch.Tensor:
                       for xb in x.split(block, dim=1)], dim=1)
 
 
+#: rows narrower than this many elements are summed column by column
+NARROW = 32
+
+
+def segment_sum(values: torch.Tensor, segments: torch.Tensor,
+                n_segments: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sums of the rows of ``values`` (n, ...) per segment id
+    (``segments``, (n,) in [0, n_segments)) → ((n_segments, ...) sums,
+    (n_segments,) i64 row counts), each segment's rows added in row
+    order, ((0 + v₀) + v₁) + …, on every device.
+
+    CUDA's float ``index_add_`` adds with atomics, in an order that
+    changes from run to run, so two builds with one seed would differ
+    (KMeans centroids, then every list).  Here a stable sort groups each
+    segment's rows in row order and ``segment_reduce`` adds each run, one
+    thread per segment and column on the card: the CPU ``index_add_``'s
+    own order, so the CPU's bits are unchanged and the card's equal them
+    on equal inputs.  A long segment is one long serial add on the card,
+    so callers drop the rows they do not need summed."""
+    # the narrowest key type that holds every id and n_segments: the
+    # card's radix sort takes one pass per key byte, and a stable sort's
+    # order is the same whatever the type
+    key = segments.long()
+    for t in (torch.int16, torch.int32):
+        if n_segments < torch.iinfo(t).max:
+            key = segments.to(t)
+            break
+    sorted_key, order = torch.sort(key, stable=True)
+    # exact row counts from the sorted ids (no histogram atomics)
+    counts = torch.searchsorted(sorted_key, torch.arange(
+        n_segments + 1, dtype=key.dtype, device=key.device)).diff()
+    rows = values.reshape(values.shape[0], -1)
+    w = rows.shape[1]
+    if w < NARROW:
+        # narrow rows (PQ's 32-byte fragments) gathered in sorted order
+        # are random 32-byte reads: on an H100 a (w, n) copy, a gather
+        # inside each column and a sum along it take a third of their
+        # time (benchmarks/build_repeat.py --parts).  2-D, since the
+        # card's segment_reduce sums a 1-D input with a tree
+        cols = torch.gather(rows.T.contiguous(), 1, order.expand(w, -1))
+        sums = torch.segment_reduce(
+            cols, "sum", lengths=counts.expand(w, -1).contiguous(),
+            axis=1).T.contiguous()
+    else:
+        sums = torch.segment_reduce(torch.index_select(rows, 0, order),
+                                    "sum", lengths=counts, axis=0)
+    return sums.reshape((n_segments,) + tuple(values.shape[1:])), counts
+
+
 def _sums(x: torch.Tensor, assign: torch.Tensor, n_clusters: int
           ) -> tuple[torch.Tensor, torch.Tensor]:
     m, _, h = x.shape
     flat = (assign.long() + n_clusters * torch.arange(
         m, device=x.device)[:, None]).reshape(-1)
-    sums = torch.zeros(m * n_clusters, h, dtype=torch.float32,
-                       device=x.device).index_add_(0, flat,
-                                                   x.reshape(-1, h).float())
-    counts = torch.bincount(flat, minlength=m * n_clusters).float()
-    return sums.reshape(m, n_clusters, h), counts.reshape(m, n_clusters)
+    sums, counts = segment_sum(x.reshape(-1, h).float(), flat,
+                               m * n_clusters)
+    return (sums.reshape(m, n_clusters, h),
+            counts.float().reshape(m, n_clusters))
 
 
 def _reseed(generator: torch.Generator, c: torch.Tensor,

@@ -492,10 +492,19 @@ def test_serve_cli_builds_and_serves_with_tenant_isolation(capsys):
     assert out[0].endswith(" q/s, 1 device)")
     assert out[1].startswith("filtered: 32 queries x 1/4 namespaces")
     assert out[1].endswith("tenant isolation OK")
-    for flag in (["--shards", "2"], ["--data-parallel", "2"], ["--mutable"],
+    for flag in (["--shards", "2"], ["--data-parallel", "2"],
                  ["--runtime"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             serve.main(["--device", "cpu", *flag])
+    # --mutable is ported: stream the last eighth in, delete, compact
+    serve.main(["--device", "cpu", "--docs", "1000", "--queries", "64",
+                "--batch", "32", "--mutable", "--delta-capacity", "256",
+                "--namespaces", "4"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("served 64 queries in ")
+    assert out[1].endswith("tenant isolation OK")
+    assert out[2].startswith("mutable: added 125, deleted 31, compacted "
+                             "to 969 docs in ")
     # --fusion-weight is ported: build the impact plane, serve fused
     serve.main(["--device", "cpu", "--docs", "1000", "--queries", "64",
                 "--batch", "32", "--fusion-weight", "0.5"])

@@ -15,7 +15,9 @@ identical ``-inf`` lanes; assignment ids identical except where the
 plain scores of the two ids lie within 1e-5, and identical on
 constructed ties (duplicate centroids), scores rtol=atol=1e-5; attention
 outputs and ``lse`` rtol=atol=1e-4 in f32 (exp and the sum order) and
-2e-2 in bf16 (one bf16 rounding of the output).
+2e-2 in bf16 (one bf16 rounding of the output).  Two builds on the card
+with one seed are equal leaf for leaf, as are ``compact()`` and a
+rebuild; mutable search on the card is held to the CPU as search is.
 """
 from typing import NamedTuple
 
@@ -651,3 +653,162 @@ def test_sup_position_scores_on_the_card_match_the_cpu(cuda):
     torch.cuda.synchronize()
     assert fa_ops.launches == before + 2 * 2      # 2 chunks x 2 layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# the mutable index on the card (DESIGN.md §8) and a repeatable build
+# --------------------------------------------------------------------------
+
+def _assert_same_index(a, b):
+    la, lb = hi.index_leaves(a), hi.index_leaves(b)
+    assert [p for p, _ in la] == [p for p, _ in lb] and la
+    for (p, x), (_, y) in zip(la, lb):
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()), p
+
+
+def _build_corpus():
+    from repro_torch.data import synthetic
+    return synthetic.generate(seed=1, n_docs=3000, n_queries=16, hidden=64,
+                              vocab_size=1024)
+
+
+BUILD_KW = dict(n_clusters=32, k1_terms=4, pq_m=8, cluster_capacity=256,
+                term_capacity=64, kmeans_iters=4, sparse=True)
+
+
+@pytest.mark.parametrize("codec", ["opq", "sq8", "refine:sq8:4", "flat"])
+def test_two_builds_on_the_card_are_equal_leaf_for_leaf(cuda, codec):
+    """hybrid_index.build is a function of (seed, corpus) on the card too:
+    KMeans' centroid sums and the term selector's s̄ are summed in an
+    order fixed by the data, not by the atomics of index_add_."""
+    c = _build_corpus()
+    a, b = (hi.build(0, c.doc_emb, c.doc_tokens, c.vocab_size, codec=codec,
+                     device=cuda, **BUILD_KW) for _ in range(2))
+    _assert_same_index(a, b)
+
+
+def _mutable_kw():
+    return dict(delta_capacity=256, delta_cluster_capacity=8,
+                delta_term_capacity=8, codec="opq", **BUILD_KW)
+
+
+def test_compact_on_the_card_equals_a_rebuild(cuda):
+    from repro_torch.core import exec as qexec
+    from repro_torch.core import segments as seg
+    c = _build_corpus()
+    mut = seg.MutableHybridIndex.create(0, c.doc_emb[:-200],
+                                        c.doc_tokens[:-200], c.vocab_size,
+                                        device=cuda, **_mutable_kw())
+    ids = mut.add_docs(c.doc_emb[-200:], c.doc_tokens[-200:])
+    mut.delete_docs(np.r_[ids[:50], 3, 4, 7])
+    compacted = mut.compact()
+    emb, tok = mut.surviving_corpus()
+    rebuilt = hi.build(0, emb, tok, c.vocab_size, codec="opq", device=cuda,
+                       **BUILD_KW)
+    _assert_same_index(compacted.base, rebuilt)
+    for f in (None, qexec.FusionSpec(weight=0.5)):
+        a = compacted.search(c.query_emb, c.query_tokens, kc=6, k2=8,
+                             top_r=50, fusion=f)
+        b = hi.search(rebuilt, c.query_emb, c.query_tokens, kc=6, k2=8,
+                      top_r=50, fusion=f, device=cuda)
+        for x, y in ((a.doc_ids, b.doc_ids), (a.scores, b.scores),
+                     (a.n_candidates, b.n_candidates)):
+            assert torch.equal(x, y), f
+
+
+def test_mutable_search_on_the_card_matches_the_cpu(cuda):
+    """The same base + delta + tombstones on both devices (the CPU
+    index's state moved to the card) at fills 0, partial and full: the
+    card's dense and fused searches against the CPU plain path, and the
+    card's own add_docs gives the CPU's delta planes."""
+    from repro_torch.core import exec as qexec
+    from repro_torch.core import segments as seg
+    c = _build_corpus()
+    cpu = seg.MutableHybridIndex.create(0, c.doc_emb[:-256],
+                                        c.doc_tokens[:-256], c.vocab_size,
+                                        device="cpu", **_mutable_kw())
+
+    def on_card(mut):
+        tree = dict(mut.state_tree(), base=mut.base.to(cuda))
+        return seg.MutableHybridIndex.from_state(tree, mut.state_extra(),
+                                                 seed=mut.seed)
+
+    card = on_card(cpu)
+    for lo, hi_ in ((0, 0), (0, 100), (100, 256)):
+        if hi_ > lo:
+            tail = slice(len(c.doc_emb) - 256 + lo, len(c.doc_emb) - 256 + hi_)
+            want_ids = cpu.add_docs(c.doc_emb[tail], c.doc_tokens[tail])
+            got_ids = card.add_docs(c.doc_emb[tail], c.doc_tokens[tail])
+            np.testing.assert_array_equal(got_ids, want_ids)
+            dw, dg = cpu.state_tree()["delta"], card.state_tree()["delta"]
+            for k in ("cluster_entries", "term_entries", "assign"):
+                np.testing.assert_array_equal(dg[k], dw[k], k)
+            np.testing.assert_array_equal(dg["planes"]["codes"],
+                                          dw["planes"]["codes"])
+            cpu.delete_docs(want_ids[::5])
+            card = on_card(cpu)                  # identical planes
+        assert card.delta_fill == hi_ / 256
+        for f in (None, qexec.FusionSpec(weight=0.5)):
+            kw = dict(kc=6, k2=8, top_r=100, fusion=f)
+            want = cpu.search(c.query_emb, c.query_tokens, **kw)
+            before = adc_ops.launches
+            got = card.search(c.query_emb, c.query_tokens, **kw)
+            torch.cuda.synchronize()
+            assert adc_ops.launches == before + 2   # base and delta
+            assert not cpu.is_deleted(
+                got.doc_ids.cpu()[got.doc_ids.cpu() >= 0]).any()
+            assert torch.equal(got.n_candidates.cpu(), want.n_candidates)
+            torch.testing.assert_close(got.scores.cpu(), want.scores,
+                                       rtol=1e-4, atol=1e-4)
+            gi, wi, ws = got.doc_ids.cpu(), want.doc_ids, want.scores
+            for b, p in torch.nonzero(gi != wi).tolist():
+                where = torch.nonzero(wi[b] == gi[b, p]).flatten()
+                ref = ws[b, where[0]] if where.numel() else ws[b, -1]
+                assert abs(float(ref - got.scores[b, p])) <= (
+                    1e-4 + 1e-4 * abs(float(ref)))
+
+
+@pytest.mark.parametrize("live_lanes", [0, 5])
+@pytest.mark.parametrize("kernel", ["pq_adc_fused", "sq8_dot_fused"])
+def test_score_kernels_over_a_delta_plane(cuda, kernel, live_lanes):
+    """The delta source's plane at the served widths: (256, 1,736)
+    candidate slots (K^C 30 × 28 + K₂ᵀ 32 × 28) over a 65,536-row delta,
+    PAD ids (row 0) and dead everywhere but ``live_lanes`` lanes a
+    query."""
+    rng = np.random.default_rng(11 + live_lanes)
+    b, c, rows = 256, 30 * 28 + 32 * 28, 65_536
+    ids = np.zeros((b, c), np.int32)
+    live = np.zeros((b, c), bool)
+    for q in range(b):
+        pos = rng.choice(c, live_lanes, replace=False)
+        ids[q, pos] = rng.integers(0, 4096, live_lanes)
+        live[q, pos] = True
+    ids, live = torch.tensor(ids, device=cuda), torch.tensor(live,
+                                                            device=cuda)
+    if kernel == "pq_adc_fused":
+        lut = torch.tensor(rng.normal(size=(b, 96, 256)),
+                           dtype=torch.float32, device=cuda)
+        plane = torch.tensor(rng.integers(0, 256, (rows, 96)),
+                             dtype=torch.uint8, device=cuda)
+        before = adc_ops.launches
+        got = adc_ops.pq_adc_fused(lut, plane, ids, live)
+        want = adc_ref.pq_adc_fused(lut, plane, ids, live)
+        count = adc_ops.launches - before
+        tol = dict(rtol=1e-4, atol=1e-4)
+    else:
+        q = torch.tensor(rng.normal(size=(b, 768)), dtype=torch.float32,
+                         device=cuda)
+        plane = torch.tensor(rng.integers(0, 256, (rows, 768)),
+                             dtype=torch.uint8, device=cuda)
+        before = sq8_ops.launches
+        got = sq8_ops.sq8_dot_fused(q, plane, ids, live)
+        want = sq8_ref.sq8_dot_fused(q, plane, ids, live)
+        count = sq8_ops.launches - before
+        tol = dict(rtol=1e-4, atol=1e-2)
+    torch.cuda.synchronize()
+    assert count == 1
+    assert torch.equal(torch.isneginf(got), ~live)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    assert int(fin.sum()) == b * live_lanes
+    torch.testing.assert_close(got[fin], want[fin], **tol)

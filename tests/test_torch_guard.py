@@ -15,6 +15,7 @@ import torch
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core import exec as qexec
 from repro_torch.core import hybrid_index as hi
+from repro_torch.core import segments
 from repro_torch.kernels import _build
 from repro_torch.kernels.assign_topk import ops as at_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -58,7 +59,8 @@ def test_port_sources_import_neither_jax_nor_the_reference():
             "models/transformer.py", "core/distill.py", "launch/train.py",
             "kernels/flash_attention/ops.py",
             "kernels/flash_attention/ref.py",
-            "kernels/assign_topk/ops.py"} <= walked
+            "kernels/assign_topk/ops.py", "core/segments.py",
+            "benchmarks/streaming_updates.py"} <= walked
     offenders = [(f.relative_to(_ROOT).as_posix(), m) for f in files
                  for m in _imported_modules(f) if _FORBIDDEN.search(m)]
     assert not offenders, offenders
@@ -80,7 +82,9 @@ def test_importing_every_port_module_loads_no_jax():
         "assert {'repro_torch.data.synthetic',"
         " 'repro_torch.kernels.sq8_dot.ops', 'repro_torch.launch.train',"
         " 'repro_torch.models.transformer',"
-        " 'repro_torch.kernels.flash_attention.ops'} <= set(mods), mods\n"
+        " 'repro_torch.kernels.flash_attention.ops',"
+        " 'repro_torch.core.segments',"
+        " 'repro_torch.benchmarks.streaming_updates'} <= set(mods), mods\n"
         "assert not bad, bad\n")
     env = {"PYTHONPATH": str(_ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -122,13 +126,39 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     assert res.doc_ids.shape == (2, 5)
 
 
+def test_mutable_entry_points_without_device_raise_when_cuda_is_absent(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(2)
+    emb = rng.normal(size=(40, 8)).astype(np.float32)
+    tok = rng.integers(0, 16, (40, 3)).astype(np.int32)
+    kw = dict(n_clusters=4, k1_terms=1, delta_capacity=4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        segments.MutableHybridIndex.create(0, emb, tok, 16, **kw)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ckpt.load_mutable("no-such-dir", seed=0)
+    mut = segments.MutableHybridIndex.create(0, emb, tok, 16, device="cpu",
+                                             **kw)
+    cfg = serve.ServeConfig(kc=2, k2=1, top_r=5, max_batch=4, mutable=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.make_mutable_server(mut, cfg)
+    # the same calls run when the caller asks for the CPU
+    server = serve.make_mutable_server(mut, cfg, device="cpu")
+    server.add(emb[:2], tok[:2])
+    assert server.query(emb[:3], tok[:3]).doc_ids.shape == (3, 5)
+
+
 def test_unported_layouts_and_codecs_raise(tmp_path):
     leaves, index = _tiny_index()
-    for field in (dict(n_shards=2), dict(data_parallel=2),
-                  dict(mutable=True)):
+    for field in (dict(n_shards=2), dict(data_parallel=2)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             serve.make_server(index, serve.ServeConfig(**field),
                               device="cpu")
+    # the mutable layout is ported: make_server refuses it as the
+    # reference does, pointing at make_mutable_server
+    with pytest.raises(ValueError, match="make_mutable_server"):
+        serve.make_server(index, serve.ServeConfig(mutable=True),
+                          device="cpu")
     # every reference codec is ported: an unknown spec names them all
     with pytest.raises(ValueError, match="flat, opq, pq, refine, sq8"):
         ckpt.index_from_numpy(leaves, "sq9", device="cpu")

@@ -11,6 +11,7 @@ order for the bitwise ``flat`` codec; scores within rtol=atol=1e-4.
 The framework tie traps (top-k tie order, the two-key total order,
 stable dedup, C < R padding) each have a pinned case below.
 """
+import dataclasses
 import re
 
 import jax
@@ -36,6 +37,7 @@ from repro_torch.core import exec as qexec
 from repro_torch.core import hybrid_index as hi
 from repro_torch.core import inverted_lists as il
 from repro_torch.core import metrics
+from repro_torch.core import segments
 from repro_torch.core import term_selector as ts
 from repro_torch.core.exec import filters
 from repro_torch.launch import serve
@@ -355,3 +357,84 @@ def test_allowed_mask_matches_reference_on_uint32_words():
     for words in (got_f, filters.as_words(np.asarray(want_f), "cpu")):
         got = filters.allowed_mask(words, torch.from_numpy(ns_ids)).numpy()
         np.testing.assert_array_equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# the multi-source engine leaves one source as it was
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["opq", "flat", "opq_filtered",
+                                  "refine_sq8"])
+def test_one_source_search_is_unchanged_by_an_empty_delta(indexes, corpus,
+                                                          name):
+    """``execute`` over the index's one source, bit for bit: the same as
+    the source with explicit all-live tombstones and family bounds, and
+    as the mutable (base, empty delta) pair, whose delta lanes are all
+    PAD."""
+    _, tidx = indexes[name]
+    qe, qt = corpus.query_emb, corpus.query_tokens
+    flt = _filter(len(qe)) if name.endswith("filtered") else None
+    want = hi.search(tidx, qe, qt, filter=flt, device="cpu", **WIDTHS)
+    src = dataclasses.replace(
+        hi.base_source(tidx), family_hi=tidx.n_docs,
+        tombstones=torch.zeros(tidx.n_docs, dtype=torch.bool))
+    with torch.inference_mode():
+        got = qexec.execute(
+            codecs.get(tidx.codec), tidx.codec_params, tidx.cluster_sel,
+            tidx.term_sel, [src], torch.from_numpy(qe),
+            torch.from_numpy(qt).long(), ns_filter=None if flt is None
+            else filters.as_words(flt, "cpu"), **WIDTHS)
+    ns = (np.arange(1500) % N_NS).astype(np.int32)
+    mut = segments.MutableHybridIndex(
+        tidx, vocab_size=corpus.vocab_size, seed=0,
+        build_kwargs=dict(k1_terms=4), delta_capacity=8,
+        delta_cluster_capacity=8, delta_term_capacity=8,
+        corpus_emb=corpus.doc_emb, corpus_tokens=corpus.doc_tokens,
+        corpus_ns=ns if flt is not None else None)
+    pair = mut.search(qe, qt, filter=flt, **WIDTHS)
+    for res in (got, pair):
+        for a, b in ((want.doc_ids, res.doc_ids), (want.scores, res.scores),
+                     (want.n_candidates, res.n_candidates)):
+            assert torch.equal(a, b)
+
+
+def test_route_gather_and_owned_match_reference():
+    """Refine routing over a (base, delta) pair: each id's row comes from
+    the family that stores it and ``owned`` is the union of the id
+    ranges, as the reference computes them, for 1-D and 2-D planes and
+    ids below, inside and past both families."""
+    rng = np.random.default_rng(6)
+    n0, n1, h = 50, 12, 5
+    planes = [(rng.normal(size=(n0, h)).astype(np.float32),
+               rng.normal(size=(n1, h)).astype(np.float32)),
+              (rng.normal(size=n0).astype(np.float32),
+               rng.normal(size=n1).astype(np.float32))]
+    ids = rng.integers(-3, n0 + n1 + 4, size=(4, 30)).astype(np.int32)
+    empty = dict(entries=np.full((2, 1), -1, np.int32),
+                 lengths=np.zeros(2, np.int32))
+    spans = [dict(size=n0), dict(size=n1, offset=n0, family_lo=n0,
+                                 family_hi=n0 + n1 - 2)]
+
+    def sources(mod, lists, arr):
+        return [mod.Source(cluster_lists=lists(**{k: arr(v) for k, v in
+                                                  empty.items()}),
+                           term_lists=lists(**{k: arr(v) for k, v in
+                                               empty.items()}),
+                           doc_planes={}, **span) for span in spans]
+
+    jsrc = sources(jexec, jil.PaddedLists, jnp.asarray)
+    tsrc = sources(qexec, il.PaddedLists, torch.from_numpy)
+    jctx = jexec.make_refine_ctx(jsrc, None)
+    tctx = qexec.make_refine_ctx(tsrc)
+    np.testing.assert_array_equal(tctx.owned(torch.from_numpy(ids)).numpy(),
+                                  np.asarray(jctx.owned(jnp.asarray(ids))))
+    for pair in planes:
+        want = jctx.gather(tuple(jnp.asarray(p) for p in pair),
+                           jnp.asarray(ids))
+        got = tctx.gather(tuple(torch.from_numpy(p) for p in pair),
+                          torch.from_numpy(ids))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    planes_of = qexec.refine_planes(
+        [dataclasses.replace(s, doc_planes={"emb": torch.from_numpy(p)})
+         for s, p in zip(tsrc, planes[0])])
+    assert [t.shape[0] for t in planes_of["emb"]] == [n0, n1]
