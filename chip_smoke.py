@@ -102,6 +102,21 @@ never prints the final line.  Every phase prints its seconds.
               leaf for leaf and on the first batch bit for bit.  15b
               ``refine:sq8:4``: the same stream, deletes and CPU check
               (``sq8_dot_fused`` twice a batch, the two-family refine);
+ 16. runtime  the serving runtime (``launch/runtime.py``, one CUDA graph
+              captured per bucket 1, 2, 4, …, 256), in three parts, each
+              where its index is on the card: 16a after 8d on phase 3's
+              ``opq`` index, dense and fused at 0.5 — warmup as a
+              counted run (one capture a bucket, its seconds and the
+              pool's bytes), every bucket bit for bit against
+              ``Server.query``'s 256-row pad, a replayed 256-query batch
+              against an eager one (and its profile), ``qps_serial``
+              against ``qps_runtime`` over 1,024 one-query submissions,
+              then Poisson arrivals at a quarter of the burst rate
+              (p50/p95/p99); 16b after 9f, the same checks on the
+              ``refine:sq8:4`` index; 16c after 15a on its compacted
+              mutable index: ``add``/``delete`` between batches capture
+              nothing and the rows equal ``MutableServer.query``'s, and
+              ``compact()`` captures once a bucket;
 
 then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
 kernel's ``launches`` is read from the counted run of the path that runs
@@ -129,6 +144,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.benchmarks import kernel_bench  # noqa: E402
+from repro_torch.benchmarks import serving_load  # noqa: E402
 from repro_torch.benchmarks.synth_msmarco import (  # noqa: E402
     BATCH, CLUSTER_CAP, HIDDEN, K1_TERMS, K2, KC, N_CLUSTERS, N_DOCS, PQ_K,
     PQ_M, QUERY_LEN, REFINE_CODEC, SMOKE_BATCHES, TERM_CAP, TOP_R, VOCAB,
@@ -153,6 +169,7 @@ from repro_torch.kernels.pq_adc import ops as adc_ops  # noqa: E402
 from repro_torch.kernels.pq_adc import ref as adc_ref  # noqa: E402
 from repro_torch.kernels.sq8_dot import ops as sq8_ops  # noqa: E402
 from repro_torch.kernels.sq8_dot import ref as sq8_ref  # noqa: E402
+from repro_torch.launch import runtime  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -206,6 +223,12 @@ SQ8_EDGE_RTOL, SQ8_EDGE_ATOL = 1e-4, 1e-2   # the JAX kernel test's own
 SQ8_TOL = 1e-4                       # rtol = atol after the bias
 N_CHECK = 8                          # queries held against the CPU path
 FUSION_WEIGHT = 0.5                  # the fused serving phases' RRF weight
+# phase 16: the runtime's checks hold a bucket's submissions together for
+# up to RT_CHECK_LINGER_MS; its throughput run submits RT_REQUESTS single
+# queries; 16c streams RT_MUT_ADD documents into the compacted index
+RT_CHECK_LINGER_MS = 50.0
+RT_REQUESTS = 1_024
+RT_MUT_ADD = 16_384
 
 #: kernel → (its wrapper module, the name of its launch count there)
 COUNTERS = {"pq_adc_fused": (adc_ops, "launches"),
@@ -323,13 +346,19 @@ def topk_match(ref_ids, ref_s, got_ids, got_s, tol: float) -> bool:
 def profile_batch(server, qe, qt, top: int = 12) -> None:
     """Device time by kernel over one served batch (torch.profiler),
     and the device's busy share of the batch's wall time."""
+    profile_call(lambda: server.query(qe, qt),
+                 f"one batch ({server.index.codec})", top)
+
+
+def profile_call(fn, what: str, top: int = 12) -> None:
+    """:func:`profile_batch` of any call that serves one batch."""
     from torch.profiler import ProfilerActivity, profile
-    server.query(qe, qt)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.query(qe, qt)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only: an operator's row repeats its kernels' time
@@ -341,7 +370,7 @@ def profile_batch(server, qe, qt, top: int = 12) -> None:
     if not rows:
         log("[profile] the profiler saw no device time")
         return
-    log(f"[profile] one batch ({server.index.codec}): wall "
+    log(f"[profile] {what}: wall "
         f"{wall_us / 1e3:.3f} ms (profiled), device busy "
         f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%}); top {top} by "
         f"device time:")
@@ -1669,7 +1698,10 @@ def mutable_phase(dev, built: dict, seed: int, batches: int) -> None:
                               corpus.query_tokens[:N_CHECK], first,
                               ADC_TOL if spec == "opq" else SQ8_TOL, spec)
         if spec == "opq":
-            compact_vs_rebuild(mut, dev, corpus, kw)
+            compacted = compact_vs_rebuild(mut, dev, corpus, kw)
+            with phase("16c runtime (mutable opq)"):
+                runtime_mutable(compacted, dev, corpus)
+            del compacted
         del mut
         torch.cuda.empty_cache()
 
@@ -1722,6 +1754,191 @@ def compact_vs_rebuild(mut, dev, corpus, kw: dict) -> None:
             f"leaves bit for bit; first batch ids, scores and n_candidates "
             f"equal; compacted R@100 "
             f"{metrics.recall_at_k(ids, old_to_new[corpus.qrels], 100):.4f}")
+    return compacted
+
+
+# --------------------------------------------------------------------------
+# phase 16: the serving runtime, one captured CUDA graph per bucket
+# --------------------------------------------------------------------------
+
+def runtime_for(server, linger_ms: float = RT_CHECK_LINGER_MS):
+    return runtime.ServingRuntime(server, runtime.RuntimeConfig(
+        linger_ms=linger_ms, queue_depth=4 * RT_REQUESTS))
+
+
+def warm_runtime(server, what: str, kernels) -> "runtime.ServingRuntime":
+    """A counted run of the runtime's warmup: every count set to 0 just
+    before it and read just after; exactly one capture per bucket, each
+    kernel of ``kernels`` launched (its eager warm and its capture: the
+    replays run the captured launches without the wrappers)."""
+    rt = runtime_for(server)
+    reset_counts()
+    before = qexec.trace_count()
+    t0 = time.perf_counter()
+    rt.warmup(HIDDEN, QUERY_LEN)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = read_counts()
+    captures = qexec.trace_count() - before
+    log(f"[runtime] {what}: warmup {warm_s:.2f} s, {captures} captures "
+        f"over buckets {list(rt.buckets)}; capture ms "
+        f"{ {b: round(s * 1e3, 2) for b, s in rt.capture_seconds.items()} }"
+        f"; graph pool {rt.pool_bytes / 1e9:.3f} GB; launches {launches}")
+    if captures != len(rt.buckets) or set(rt.warm_traces.values()) != {1}:
+        fail(f"runtime {what}: {captures} captures for {len(rt.buckets)} "
+             f"buckets ({rt.warm_traces})")
+    missing = [k for k in kernels if launches[k] < 2 * len(rt.buckets)]
+    if missing:
+        fail(f"runtime {what}: kernel(s) of the path not captured in every "
+             f"bucket: {missing}")
+    return rt
+
+
+def _host_rows(res) -> tuple:
+    return tuple(torch.as_tensor(x).cpu().numpy()
+                 for x in (res.doc_ids, res.scores, res.n_candidates))
+
+
+def check_buckets(rt, server, qe, qt, what: str) -> None:
+    """Every bucket's rows bit for bit against ``Server.query``'s
+    max_batch rows of the same queries; each bucket served once (the
+    linger holds a bucket's b submissions together), none captured."""
+    direct = _host_rows(server.query(qe[:BATCH], qt[:BATCH]))
+    for b in rt.buckets:
+        got = _host_rows(rt.query(qe[:b], qt[:b], timeout=120))
+        for name, g, w in zip(("ids", "scores", "n_candidates"), got,
+                              direct):
+            if not np.array_equal(g, w[:b]):
+                fail(f"runtime {what}: bucket {b} {name} differ from "
+                     f"Server.query's rows")
+    if rt.bucket_counts != {b: 1 for b in rt.buckets} or rt.serve_traces:
+        fail(f"runtime {what}: batches {rt.bucket_counts}, "
+             f"{rt.serve_traces} captures while serving")
+    log(f"[runtime] {what}: every bucket {list(rt.buckets)} bit for bit "
+        f"equal to Server.query's {BATCH}-row pad (ids, scores, "
+        f"n_candidates); no capture while serving")
+
+
+def replay_vs_eager(rt, server, qe, qt, what: str) -> None:
+    """At bucket BATCH: the replayed program (rows in, one replay, one
+    packed copy out) against an eager ``Server.query`` batch with its
+    rows copied to the host, synchronized CUDA-event medians with host
+    time; the device span of a replay alone; one profiled replay."""
+    timer = Timer()
+    prog = rt._programs[BATCH]
+    rows = [qe[:BATCH], qt[:BATCH].astype(np.int64)]
+    eager = timer.ms(lambda: _host_rows(server.query(qe[:BATCH],
+                                                     qt[:BATCH])), reps=10)
+    replay = timer.ms(lambda: prog(rows), reps=10)
+    span = Timer(queued=True).ms(prog.graph.replay, reps=10)
+    log(f"[runtime] {what}: a {BATCH}-query batch eager {eager:.3f} ms, "
+        f"replayed {replay:.3f} ms ({eager / replay:.2f}x); the replay's "
+        f"device span {span:.3f} ms")
+    profile_call(lambda: prog(rows), f"one replayed batch ({what})")
+
+
+def runtime_throughput(server, qe_all, qt_all) -> None:
+    """``qps_serial`` (one ``Server.query`` per query, rows to the host)
+    against ``qps_runtime`` (RT_REQUESTS one-query submissions through a
+    runtime at the reference's 2 ms linger), then open-loop Poisson
+    arrivals at a quarter of the burst rate (serving_load.py's)."""
+    req = [(qe_all[i % len(qe_all)], qt_all[i % len(qt_all)])
+           for i in range(RT_REQUESTS)]
+    t0 = time.perf_counter()
+    for e, t in req:
+        _host_rows(server.query(e[None], t[None]))
+    qps_serial = len(req) / (time.perf_counter() - t0)
+    rt = runtime_for(server, runtime.RuntimeConfig.linger_ms)
+    rt.warmup(HIDDEN, QUERY_LEN)
+    with rt:
+        t0 = time.perf_counter()
+        for f in [rt.submit(e, t) for e, t in req]:
+            f.result(timeout=120)
+        qps_runtime = len(req) / (time.perf_counter() - t0)
+        burst = dict(rt.bucket_counts)
+        pois = serving_load.poisson(rt, req, qps_runtime / 4.0)
+    log(f"[runtime] {len(req)} one-query requests: qps_serial "
+        f"{qps_serial:.1f}, qps_runtime {qps_runtime:.1f} "
+        f"({qps_runtime / qps_serial:.1f}x; batches by bucket {burst}); "
+        f"Poisson {json.dumps(pois)}; batches by bucket after it "
+        f"{rt.bucket_counts}")
+    if qps_runtime < 2 * qps_serial:
+        fail("runtime: micro-batched throughput under 2x the serial rate")
+
+
+def runtime_phase(index, dev, qe_all, qt_all, kernels,
+                  throughput: bool) -> None:
+    """16a / 16b: the runtime over ``index`` dense and fused at
+    FUSION_WEIGHT: warmup as a counted run, every bucket bit for bit,
+    replay against eager at BATCH; ``throughput`` adds the request
+    rates and the Poisson latencies (dense)."""
+    for weight in (None, FUSION_WEIGHT):
+        what = (f"{index.codec} "
+                f"{'dense' if weight is None else f'fused {weight}'}")
+        server = serve.Server(index, serve.ServeConfig(
+            kc=KC, k2=K2, top_r=TOP_R, max_batch=BATCH,
+            fusion_weight=weight), device=dev)
+        server.warmup(HIDDEN, QUERY_LEN)
+        with warm_runtime(server, what, kernels) as rt:
+            check_buckets(rt, server, qe_all, qt_all, what)
+            replay_vs_eager(rt, server, qe_all, qt_all, what)
+        if throughput and weight is None:
+            runtime_throughput(server, qe_all, qt_all)
+        del rt, server
+        torch.cuda.empty_cache()
+
+
+def runtime_mutable(mut, dev, corpus) -> None:
+    """16c: the runtime over phase 15a's compacted mutable index (an
+    empty RT_MUT_ADD-slot delta ahead): ``add``/``delete`` between
+    batches capture nothing and the replayed rows equal
+    ``MutableServer.query``'s; ``compact()`` captures once per bucket."""
+    server = serve.make_mutable_server(mut, serve.ServeConfig(
+        kc=KC, k2=K2, top_r=TOP_R, max_batch=BATCH, mutable=True),
+        device=dev)
+    qe, qt = corpus.query_emb, corpus.query_tokens
+    rt = warm_runtime(server, "mutable opq", ("pq_adc_fused", "topk_scores"))
+
+    def check(n: int):
+        got = rt.query(qe[:n], qt[:n], timeout=120)
+        want = _host_rows(server.query(qe[:n], qt[:n]))
+        if not all(np.array_equal(g, w) for g, w in
+                   zip(_host_rows(got), want)):
+            fail(f"runtime mutable: {n} rows differ from "
+                 f"MutableServer.query's at epoch {server.epoch}")
+        return got
+
+    with rt:
+        check(BATCH)
+        before = qexec.trace_count()
+        t0 = time.perf_counter()
+        ids = rt.add(corpus.doc_emb[:RT_MUT_ADD],
+                     corpus.doc_tokens[:RT_MUT_ADD])
+        add_s = time.perf_counter() - t0
+        check(7)
+        top10 = check(BATCH).doc_ids[:, :10].ravel()
+        doomed = np.unique(np.r_[top10[top10 >= 0], ids[::4]])
+        rt.delete(doomed)
+        last = check(BATCH)
+        if np.isin(last.doc_ids, doomed).any():
+            fail("runtime mutable: a deleted id was served")
+        check(1)
+        if qexec.trace_count() != before:
+            fail("runtime mutable: add/delete captured a graph")
+        t0 = time.perf_counter()
+        rt.compact()
+        compact_s = time.perf_counter() - t0
+        captures = qexec.trace_count() - before
+        if captures != len(rt.buckets):
+            fail(f"runtime mutable: compact() made {captures} captures for "
+                 f"{len(rt.buckets)} buckets")
+        check(BATCH)
+    log(f"[runtime] mutable opq: add of {RT_MUT_ADD} docs {add_s:.2f} s and "
+        f"delete of {doomed.size} ids between batches with no capture, "
+        f"rows equal to MutableServer.query's at 1, 7 and {BATCH} queries; "
+        f"compact() {compact_s:.2f} s with {captures} captures (one a "
+        f"bucket), then equal again; epoch {server.epoch}")
+    del rt, server
 
 
 def run_kernel_bench() -> dict:
@@ -1829,6 +2046,9 @@ def main(argv=None) -> None:
     with phase("8d profile (fused)"):
         fserver.set_fusion(FUSION_WEIGHT)
         profile_batch(fserver, qe_all[:BATCH], qt_all[:BATCH])
+    with phase("16a runtime (opq, dense and fused)"):
+        runtime_phase(index, dev, qe_all, qt_all,
+                      ("pq_adc_fused", "topk_scores"), throughput=True)
     del server, fserver, results, leaves, inp, cpu_index
 
     with phase("9a refine index (refine:sq8:4)"):
@@ -1858,6 +2078,9 @@ def main(argv=None) -> None:
         times.update(time_sq8(rinp))
     with phase("9f profile (refine:sq8:4)"):
         profile_batch(server, qe_all[:BATCH], qt_all[:BATCH])
+    with phase("16b runtime (refine:sq8:4, dense and fused)"):
+        runtime_phase(rindex, dev, qe_all, qt_all,
+                      ("sq8_dot_fused", "topk_scores"), throughput=False)
     del server, results, rindex, rinp
     torch.cuda.empty_cache()
 

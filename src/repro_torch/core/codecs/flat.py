@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import rowwise
 from repro_torch.core.codecs import base
 
 #: bytes of gathered candidate rows the scorer holds at once
@@ -55,12 +56,15 @@ class FlatCodec(base.Codec):
 
         def score(ids: torch.Tensor, live: torch.Tensor = None
                   ) -> torch.Tensor:
-            # the gathered (b, C, h) rows, a few queries at a time
-            step = max(1, GATHER_BYTES // max(
-                1, ids.shape[1] * emb.shape[1] * emb.element_size()))
-            s = torch.cat([
-                torch.einsum("bh,bch->bc", qb, base.gather_rows(emb, ib))
-                for qb, ib in zip(q.split(step), ids.split(step))])
+            # the gathered (b, C, h) rows, a fixed number of queries at a
+            # time (at most ROWS, at most GATHER_BYTES of rows), so that
+            # each row's dots do not depend on B (repro_torch.rowwise)
+            step = max(1, min(rowwise.ROWS, GATHER_BYTES // max(
+                1, ids.shape[1] * emb.shape[1] * emb.element_size())))
+            s = rowwise.fixed_rows(
+                lambda qb, ib: torch.einsum("bh,bch->bc", qb,
+                                            base.gather_rows(emb, ib)),
+                q, ids, rows=step)
             return s if live is None else torch.where(
                 live, s, torch.full_like(s, -torch.inf))
 

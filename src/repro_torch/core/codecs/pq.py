@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import rowwise
 from repro_torch.core import kmeans
 from repro_torch.core.codecs import base
 from repro_torch.kernels.pq_adc import ops as adc_ops
@@ -139,15 +140,19 @@ def opq_reconstruction_mse(opq: OPQCodebook, x: torch.Tensor
 
 
 def adc_lut(codebook: PQCodebook, queries: torch.Tensor) -> torch.Tensor:
-    """(B, h) → (B, m, k): lut[b, j, i] = <e_Q^j, v_{j,i}>."""
-    b, h = queries.shape
-    qf = queries.float().reshape(b, codebook.m, h // codebook.m)
-    return torch.einsum("bmd,mkd->bmk", qf, codebook.codewords.float())
+    """(B, h) → (B, m, k): lut[b, j, i] = <e_Q^j, v_{j,i}>, each row's
+    bits independent of B (:func:`repro_torch.rowwise.fixed_rows`)."""
+    m, cw = codebook.m, codebook.codewords.float()
+    return rowwise.fixed_rows(
+        lambda q: torch.einsum("bmd,mkd->bmk",
+                               q.reshape(q.shape[0], m, -1), cw),
+        queries.float())
 
 
 def opq_adc_lut(opq: OPQCodebook, queries: torch.Tensor) -> torch.Tensor:
     """Rotate the query into codebook space; the LUT is then plain PQ."""
-    return adc_lut(opq.codebook, queries.float() @ opq.rotation)
+    return adc_lut(opq.codebook, rowwise.fixed_rows(
+        lambda q: q @ opq.rotation, queries.float()))
 
 
 #: plain ADC over gathered (B, C, m) codes — the kernel's yardstick

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import rowwise
 from repro_torch.core.codecs import base
 
 DEFAULT_BASE = "pq"
@@ -55,8 +56,13 @@ class RefineCodec(base.Codec):
                scores: torch.Tensor, ids: torch.Tensor, top_r: int,
                ctx: base.RefineCtx) -> tuple[torch.Tensor, torch.Tensor]:
         from repro_torch.core.exec import stages
-        emb = ctx.gather(doc_planes["refine_emb"], ids)      # (B, R′, h)
-        exact = torch.einsum("bh,brh->br", queries.float(), emb.float())
+        # (B, R′, h) rows, a fixed number of queries at a time so that
+        # each row's dots do not depend on B (repro_torch.rowwise)
+        exact = rowwise.fixed_rows(
+            lambda q, i: torch.einsum(
+                "bh,brh->br", q,
+                ctx.gather(doc_planes["refine_emb"], i).float()),
+            queries.float(), ids)
         exact = ctx.psum(torch.where(ctx.owned(ids), exact, 0.0))
         # slots beyond the valid frontier stay -inf and sort last
         exact = torch.where(torch.isfinite(scores), exact, -torch.inf)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import rowwise
 from repro_torch.core.codecs import base
 from repro_torch.kernels.sq8_dot import ops as sq8_ops
 
@@ -58,7 +59,7 @@ class SQ8Codec(base.Codec):
                     queries: torch.Tensor):
         q = queries.float()
         q_scaled = (q * params["scale"]).contiguous()           # (B, h)
-        bias = q @ params["lo"]                                  # (B,)
+        bias = rowwise.fixed_rows(lambda x: x @ params["lo"], q)  # (B,)
         codes_plane = doc_planes["codes"]
 
         def score(ids: torch.Tensor, live: torch.Tensor = None

@@ -44,6 +44,11 @@ def make_filter(allowed: Sequence, n_namespaces: int, *,
     """(B, W) int64 bitmap: ``allowed`` holds, per query, the namespace
     ids it may see (an int is one namespace).  Out-of-range ids raise."""
     dev = dev_mod.resolve(device)
+    return torch.from_numpy(filter_words(allowed, n_namespaces)).to(dev)
+
+
+def filter_words(allowed: Sequence, n_namespaces: int) -> np.ndarray:
+    """:func:`make_filter`'s bitmap as a host (B, W) int64 array."""
     out = np.zeros((len(allowed), n_words(n_namespaces)), np.int64)
     for b, spec in enumerate(allowed):
         ids = [spec] if np.isscalar(spec) else list(spec)
@@ -54,7 +59,7 @@ def make_filter(allowed: Sequence, n_namespaces: int, *,
                     f"namespace id {ns} out of range [0, {n_namespaces}) "
                     f"in filter row {b}")
             out[b, ns // WORD] |= 1 << (ns % WORD)
-    return torch.from_numpy(out).to(dev)
+    return out
 
 
 def allowed_mask(ns_filter: torch.Tensor, ns_ids: torch.Tensor

@@ -16,11 +16,14 @@ takes two choices that plain torch idiom would get wrong:
     ``index_add_``/``scatter_add_`` on the card add with atomics, in an
     order that changes from run to run, so :func:`sum_by_doc` adds the
     slots of each run in order with one masked add per run offset, as
-    many as the longest run of the data.
+    many as a bound on the longest run that the caller knows from the
+    plane's structure (no read back to the host, so a CUDA graph can
+    hold it).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -44,20 +47,24 @@ class FusionSpec:
             raise ValueError(f"rrf_k must be >= 0, got {self.rrf_k}")
 
 
-def sum_by_doc(ids: torch.Tensor, vals: torch.Tensor
+def sum_by_doc(ids: torch.Tensor, vals: torch.Tensor,
+               longest: Optional[int] = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-row, per-unique-id sums: ``ids``/``vals`` (B, C), dead slots
-    ``PAD_DOC`` with value 0 → ``(sorted_ids, totals, first)``, all
-    (B, C): ids stably sorted ascending per row, each slot's total over
-    its id's run, and the first-occurrence mask.
+    ``PAD_DOC`` with value 0, live values ≥ 0 → ``(sorted_ids, totals,
+    first)``, all (B, C): ids stably sorted ascending per row, each
+    slot's total over its id's run, and the first-occurrence mask.
 
     Each run is summed in slot order, ``((0 + v₀) + v₁) + …``, as the
-    reference's ``segment_sum``: one masked add per run offset, for as
-    many offsets as the longest run of a real id, read from the data
-    (one device→host sync).  A document sits in few probed lists, so
-    that is a few passes over the plane, not one per slot.  The PAD run
-    (PAD_DOC = −1 sorts first) may be longer; its values are 0, so its
-    partial sum is its sum."""
+    reference's ``segment_sum``: one masked add per run offset, for
+    ``longest`` offsets, a bound on the longest run of a real id that
+    the caller knows (the search path always passes one).  A pass beyond
+    the true longest run adds a masked +0.0 to a non-negative sum, so
+    any bound at or above it gives the same bits.  Without one the count
+    is read from the data (one device→host sync).  A document sits in
+    few probed lists, so that is a few passes over the plane, not one
+    per slot.  The PAD run (PAD_DOC = −1 sorts first) may be longer; its
+    values are 0, so its partial sum is its sum."""
     b, c = ids.shape
     sid, order = torch.sort(ids, dim=-1, stable=True)
     sval = torch.gather(vals, -1, order)
@@ -65,11 +72,12 @@ def sum_by_doc(ids: torch.Tensor, vals: torch.Tensor
     first[:, 1:] = sid[:, 1:] != sid[:, :-1]
     pos = torch.arange(c, device=ids.device).expand(b, c)
     start = torch.where(first, pos, 0).cummax(-1).values
-    longest = int(torch.where(sid != PAD_DOC, pos - start + 1, 0).max())
+    if longest is None:
+        longest = int(torch.where(sid != PAD_DOC, pos - start + 1, 0).max())
     # run_sum[p] = ((0 + sval[p]) + sval[p+1]) + … over the slots of p's
     # run: exact at every run start, which is where totals are read
     run_sum = torch.zeros_like(sval)
-    for t in range(longest):
+    for t in range(min(longest, c)):
         same = sid[:, t:] == sid[:, :c - t]
         run_sum[:, :c - t] += torch.where(same, sval[:, t:], 0.0)
     return sid, torch.gather(run_sum, -1, start), first

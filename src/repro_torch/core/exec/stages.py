@@ -49,7 +49,9 @@ class Source:
     ``tombstones``/``doc_ns`` are optional per-row planes the filter
     stage reads; ``sparse_weights`` is the BM25 impact plane aligned with
     ``term_lists.entries`` that the sparse path of
-    ``execute(fusion=...)`` reads (DESIGN.md §13)."""
+    ``execute(fusion=...)`` reads (DESIGN.md §13).  ``max_postings``
+    bounds the term-list postings of any one document of the source
+    (None: unknown), which bounds the sparse path's per-document runs."""
     cluster_lists: PaddedLists
     term_lists: PaddedLists
     doc_planes: dict
@@ -60,6 +62,7 @@ class Source:
     tombstones: Optional[torch.Tensor] = None    # (size,) bool
     doc_ns: Optional[torch.Tensor] = None        # (size,) i32 namespaces
     sparse_weights: Optional[torch.Tensor] = None  # (V, Ct) f32 impacts
+    max_postings: Optional[int] = None           # most postings of a doc
 
     @property
     def hi_bound(self) -> int:
@@ -204,8 +207,17 @@ def sparse_topk(sources: Sequence[Source], term_ids: torch.Tensor, r: int,
     the dense filter stage; documents whose impacts sum to 0 rank as
     non-matches.  Returns ``(scores, ids, n_sparse)``: (B, r) planes
     (``-inf``/PAD_DOC padded) and the unique matched-doc count per
-    query."""
-    b = term_ids.shape[0]
+    query.
+
+    A document's run in the summed plane is bounded by the number of
+    probed lists (each list holds a document once, and ``query_terms``
+    probes a list at most once) and by the most postings any document of
+    a source has: that bound goes to :func:`fusion.sum_by_doc`, so
+    nothing is read back to the host."""
+    b, k2 = term_ids.shape
+    known = [s.max_postings for s in sources]
+    longest = (k2 if any(n is None for n in known)
+               else min(k2, max(known)))
     safe = term_ids.clamp(min=0).long()
     probed = (term_ids >= 0)[:, :, None]
     ids_parts, w_parts = [], []
@@ -223,7 +235,8 @@ def sparse_topk(sources: Sequence[Source], term_ids: torch.Tensor, r: int,
         ids_parts.append(torch.where(live, ids, PAD_DOC))
         w_parts.append(torch.where(live, w, 0.0))
     sid, totals, first = fusion_mod.sum_by_doc(torch.cat(ids_parts, -1),
-                                               torch.cat(w_parts, -1))
+                                               torch.cat(w_parts, -1),
+                                               longest)
     rep = first & (sid != PAD_DOC) & (totals > 0.0)
     scores = torch.where(rep, totals, -torch.inf)
     top_s, top_ids = _topk_of_id_sorted(scores, sid, r)
@@ -240,7 +253,8 @@ def fuse(dense_scores: torch.Tensor, dense_ids: torch.Tensor,
     document and selected under :func:`topk_by_score`'s total order.
     At ``weight=1.0`` sparse contributions are exactly 0.0 and
     sparse-only documents mask out, so the fused ids equal the
-    dense-only ones bit for bit."""
+    dense-only ones bit for bit.  Each list holds a document once, so
+    its run in the summed plane is at most 2 long."""
     d = fusion_mod.rrf_contributions(dense_scores, fusion.weight,
                                      fusion.rrf_k)
     sp = fusion_mod.rrf_contributions(sparse_scores, 1.0 - fusion.weight,
@@ -249,7 +263,8 @@ def fuse(dense_scores: torch.Tensor, dense_ids: torch.Tensor,
         [torch.where(torch.isfinite(dense_scores), dense_ids, PAD_DOC),
          torch.where(torch.isfinite(sparse_scores), sparse_ids.to(
              dense_ids.dtype), PAD_DOC)], -1)
-    sid, totals, first = fusion_mod.sum_by_doc(ids, torch.cat([d, sp], -1))
+    sid, totals, first = fusion_mod.sum_by_doc(ids, torch.cat([d, sp], -1),
+                                               longest=2)
     live = first & (sid != PAD_DOC) & (totals > 0.0)
     return _topk_of_id_sorted(torch.where(live, totals, -torch.inf), sid,
                               top_r)
@@ -313,6 +328,23 @@ def make_refine_ctx(sources: Sequence[Source]) -> codecs_base.RefineCtx:
 # --------------------------------------------------------------------------
 # the engine
 # --------------------------------------------------------------------------
+
+_TRACES = 0
+
+
+def trace_count() -> int:
+    """Search programs built so far in this process (the reference
+    counts jit traces of ``execute``): one per CUDA graph captured over
+    a search, one per program object built over one on the CPU
+    (:mod:`repro_torch.launch.runtime`).  Eager searches build none."""
+    return _TRACES
+
+
+def record_trace() -> None:
+    """Count one search program built (see :func:`trace_count`)."""
+    global _TRACES
+    _TRACES += 1
+
 
 def execute(codec_impl: codecs_base.Codec, codec_params: Any,
             cluster_sel: cs_mod.ClusterSelector,

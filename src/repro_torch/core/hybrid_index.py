@@ -49,6 +49,16 @@ class HybridIndex:
     doc_ns: Optional[torch.Tensor] = None          # (n_docs,) i32
     sparse_weights: Optional[torch.Tensor] = None  # (V, Ct) f32
     codec: str = codecs.DEFAULT
+    # the most term-list postings of any one document (≤ K₁ᵀ), counted
+    # from term_lists.entries when the index is built or loaded; it
+    # bounds the sparse path's runs (stages.sparse_topk) and is never
+    # stored in a checkpoint
+    max_postings: Optional[int] = None
+
+    def __post_init__(self):
+        if self.max_postings is None:
+            object.__setattr__(self, "max_postings",
+                               count_max_postings(self.term_lists))
 
     @property
     def n_docs(self) -> int:
@@ -70,6 +80,14 @@ class HybridIndex:
             doc_planes={k: v.to(device) for k, v in self.doc_planes.items()},
             doc_assign=self.doc_assign.to(device),
             doc_ns=opt(self.doc_ns), sparse_weights=opt(self.sparse_weights))
+
+
+def count_max_postings(lists: PaddedLists) -> int:
+    """The most entries any one document has in ``lists`` (0 when the
+    lists are empty); one device→host read."""
+    ids = lists.entries.reshape(-1)
+    ids = ids[ids != PAD_DOC].long()
+    return int(torch.bincount(ids).max()) if ids.numel() else 0
 
 
 def index_leaves(obj, path: str = "") -> list:
@@ -284,7 +302,8 @@ def base_source(index: HybridIndex) -> qexec.Source:
                         term_lists=index.term_lists,
                         doc_planes=index.doc_planes, size=index.n_docs,
                         doc_ns=index.doc_ns,
-                        sparse_weights=index.sparse_weights)
+                        sparse_weights=index.sparse_weights,
+                        max_postings=index.max_postings)
 
 
 def search(index: HybridIndex, query_embeddings, query_tokens, *,

@@ -23,9 +23,12 @@ the base planes and the delta planes, so every codec and the namespace
 filter work unchanged on streamed documents.  Assignment, term scoring
 and encoding of new documents run on the index's device; the list
 inserts and the tombstones are host numpy, as in the reference.
-:meth:`MutableHybridIndex.search` moves the delta planes and the
+:meth:`MutableHybridIndex.sync_device` copies the delta planes and the
 tombstones to the device once per mutation epoch, so repeated searches
-between mutations copy nothing.
+between mutations copy nothing, into tensors allocated once per index:
+their addresses stay fixed between compactions, so a CUDA graph captured
+over a search reads every later epoch's state
+(:mod:`repro_torch.launch.runtime`).
 """
 from __future__ import annotations
 
@@ -73,22 +76,27 @@ class DeltaSegment:
 
 
 def _pair_sources(base: hi.HybridIndex, delta: DeltaSegment,
-                  tombstones: torch.Tensor) -> list:
+                  tombstones: torch.Tensor,
+                  delta_postings: Optional[int] = None) -> list:
     """The (base, delta) source pair: the base as the immutable index
     serves it, plus the delta planes owning global ids
-    [n_base, n_base + capacity)."""
+    [n_base, n_base + capacity).  ``delta_postings`` bounds a streamed
+    document's postings (K₁ᵀ: ``add_docs`` inserts each into at most
+    that many term lists)."""
     n_base, cap = base.n_docs, delta.capacity
     return [
         qexec.Source(cluster_lists=base.cluster_lists,
                      term_lists=base.term_lists, doc_planes=base.doc_planes,
                      size=n_base, tombstones=tombstones[:n_base],
-                     doc_ns=base.doc_ns, sparse_weights=base.sparse_weights),
+                     doc_ns=base.doc_ns, sparse_weights=base.sparse_weights,
+                     max_postings=base.max_postings),
         qexec.Source(cluster_lists=delta.cluster_lists,
                      term_lists=delta.term_lists,
                      doc_planes=delta.doc_planes, size=cap, offset=n_base,
                      family_lo=n_base, family_hi=n_base + cap,
                      tombstones=tombstones[n_base:], doc_ns=delta.doc_ns,
-                     sparse_weights=delta.sparse_weights),
+                     sparse_weights=delta.sparse_weights,
+                     max_postings=delta_postings),
     ]
 
 
@@ -96,17 +104,20 @@ def search(base: hi.HybridIndex, delta: DeltaSegment,
            tombstones: torch.Tensor, query_embeddings: torch.Tensor,
            query_tokens: torch.Tensor, *, kc: int, k2: int, top_r: int,
            filter: Optional[torch.Tensor] = None,
-           fusion: Optional[qexec.FusionSpec] = None) -> hi.SearchResult:
+           fusion: Optional[qexec.FusionSpec] = None,
+           delta_postings: Optional[int] = None) -> hi.SearchResult:
     """Eq. 5 over base ∪ delta minus tombstones (DESIGN.md §8): one
     dispatch on the shared selectors, candidates gathered from both list
     families, deduplicated, tombstone- and namespace-masked together,
     scored against their own doc planes and selected under the total
     order *before* refine, so refine cannot resurrect a masked doc.
-    Every tensor must already be on one device."""
+    Every tensor must already be on one device; ``delta_postings``
+    bounds a streamed document's term-list postings (None: unknown)."""
     with torch.inference_mode():
         return qexec.execute(
             codecs.get(base.codec), base.codec_params, base.cluster_sel,
-            base.term_sel, _pair_sources(base, delta, tombstones),
+            base.term_sel,
+            _pair_sources(base, delta, tombstones, delta_postings),
             query_embeddings, query_tokens, kc=kc, k2=k2, top_r=top_r,
             ns_filter=filter, fusion=fusion)
 
@@ -114,6 +125,14 @@ def search(base: hi.HybridIndex, delta: DeltaSegment,
 # --------------------------------------------------------------------------
 # host-side mutable state
 # --------------------------------------------------------------------------
+
+def _state_arrays(delta: DeltaSegment, tombstones) -> list:
+    """The planes of a delta segment and its tombstones (host arrays or
+    device tensors) in one fixed order, None where a plane is absent."""
+    return [*delta.cluster_lists, *delta.term_lists,
+            *(delta.doc_planes[k] for k in sorted(delta.doc_planes)),
+            delta.doc_assign, delta.doc_ns, delta.sparse_weights, tombstones]
+
 
 def _insert_posting(entries: np.ndarray, scores: np.ndarray,
                     lengths: np.ndarray, list_id: int, doc_id: int,
@@ -207,7 +226,10 @@ class MutableHybridIndex:
         self._tomb = np.zeros((self.n_base + cap,), bool)
         self._count = 0
         self.dropped_postings = 0
-        self._cache: Optional[tuple[DeltaSegment, torch.Tensor]] = None
+        # the device state (delta segment, tombstones), allocated at the
+        # first sync and rewritten in place; stale after every mutation
+        self._device: Optional[tuple[DeltaSegment, torch.Tensor]] = None
+        self._stale = True
         self._epoch = 0
 
     # --- construction ----------------------------------------------------
@@ -430,7 +452,7 @@ class MutableHybridIndex:
                                        float(t_scores[i, j])):
                     self.dropped_postings += 1
         self._count += n_new
-        self._cache = None
+        self._stale = True
         self._epoch += 1
         if timings is not None:
             timings["device"] = t1 - t0
@@ -446,39 +468,62 @@ class MutableHybridIndex:
                 f"doc id out of range [0, {self.n_docs}): "
                 f"{ids[(ids < 0) | (ids >= self.n_docs)][:8]}")
         self._tomb[ids] = True
-        self._cache = None
+        self._stale = True
         self._epoch += 1
 
     # --- search ----------------------------------------------------------
     def delta_segment(self) -> DeltaSegment:
-        self._materialize()
-        return self._cache[0]
+        self.sync_device()
+        return self._device[0]
 
-    def _materialize(self) -> None:
-        """Move the delta planes and the tombstones to the device, once
-        per epoch."""
-        if self._cache is not None:
-            return
-        dev = self.device
-
-        def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-        delta = DeltaSegment(
-            cluster_lists=PaddedLists(put(self._dc_entries),
-                                      put(self._dc_lengths)),
-            term_lists=PaddedLists(put(self._dt_entries),
-                                   put(self._dt_lengths)),
-            doc_planes={k: put(v) for k, v in self._delta_planes.items()},
-            doc_assign=put(self._delta_assign),
-            doc_ns=None if self._delta_ns is None else put(self._delta_ns),
+    def _host_state(self) -> tuple[DeltaSegment, np.ndarray]:
+        """The delta segment's planes and the tombstones as host arrays,
+        in the layout of the device state."""
+        return (DeltaSegment(
+            cluster_lists=PaddedLists(self._dc_entries, self._dc_lengths),
+            term_lists=PaddedLists(self._dt_entries, self._dt_lengths),
+            doc_planes=self._delta_planes,
+            doc_assign=self._delta_assign,
+            doc_ns=self._delta_ns,
             # the eviction score plane is the impact plane: -inf at empty
             # slots becomes 0.0, build_scored's pad fill
             sparse_weights=(
                 None if self.base.sparse_weights is None else
-                put(np.where(self._dt_entries == PAD_DOC, np.float32(0.0),
-                             self._dt_scores))))
-        self._cache = (delta, put(self._tomb))
+                np.where(self._dt_entries == PAD_DOC, np.float32(0.0),
+                         self._dt_scores))), self._tomb)
+
+    def sync_device(self) -> None:
+        """Bring the device state up to the host state, once per epoch:
+        the first call allocates the delta planes and the tombstones on
+        the device, later calls copy into those same tensors in place,
+        on the current stream (their shapes are fixed until
+        ``compact()``, which makes a new index).  Each epoch gets its
+        own :class:`DeltaSegment` object over those tensors."""
+        if not self._stale:
+            return
+        if self._device is None:
+            dev = self.device
+
+            def put(a):
+                return (None if a is None else
+                        torch.from_numpy(np.ascontiguousarray(a)).to(dev))
+
+            delta, tomb = self._host_state()
+            self._device = (DeltaSegment(
+                cluster_lists=PaddedLists(*map(put, delta.cluster_lists)),
+                term_lists=PaddedLists(*map(put, delta.term_lists)),
+                doc_planes={k: put(v) for k, v in delta.doc_planes.items()},
+                doc_assign=put(delta.doc_assign), doc_ns=put(delta.doc_ns),
+                sparse_weights=put(delta.sparse_weights)), put(tomb))
+        else:
+            for t, a in zip(_state_arrays(*self._device),
+                            _state_arrays(*self._host_state())):
+                if t is not None:
+                    t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+            # a new view object per epoch over the same tensors
+            self._device = (dataclasses.replace(self._device[0]),
+                            self._device[1])
+        self._stale = False
 
     def search(self, query_embeddings, query_tokens, *, kc: int, k2: int,
                top_r: int, filter=None,
@@ -488,8 +533,8 @@ class MutableHybridIndex:
         arrays or tensors, ``filter`` a (B, W) namespace bitmap (uint32
         numpy from the reference, or the int64 tensor of
         :func:`repro_torch.core.exec.filters.make_filter`)."""
-        self._materialize()
-        delta, tomb = self._cache
+        self.sync_device()
+        delta, tomb = self._device
         return search(
             self.base, delta, tomb,
             dev_mod.as_tensor(query_embeddings, self.device, torch.float32),
@@ -497,7 +542,8 @@ class MutableHybridIndex:
             kc=kc, k2=k2, top_r=top_r,
             filter=(None if filter is None
                     else filters.as_words(filter, self.device)),
-            fusion=fusion)
+            fusion=fusion,
+            delta_postings=int(self.build_kwargs["k1_terms"]))
 
     # --- compaction ------------------------------------------------------
     def survivors(self) -> np.ndarray:
@@ -646,5 +692,5 @@ class MutableHybridIndex:
         # the epoch travels with the state: a restored index goes on
         # invalidating epoch-keyed caches where the saved one left off
         out._epoch = int(m.get("epoch", 0))
-        out._cache = None
+        out._stale = True
         return out

@@ -6,14 +6,19 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import rowwise
+
 
 def topk_scores(x: torch.Tensor, emb: torch.Tensor, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k plain inner products per row of ``x`` against ``emb``:
     ((N, k) f32 scores, (N, k) i32 ids) in ``lax.top_k`` order, score
     descending and lowest index first on ties.  ``torch.topk`` promises
-    no tie order, so this is a stable descending sort cut at k."""
-    s = x.float() @ emb.float().T
+    no tie order, so this is a stable descending sort cut at k.  The
+    product runs at a fixed row count, so a row's scores do not depend
+    on N (:func:`repro_torch.rowwise.fixed_rows`), as the kernel's do."""
+    e = emb.float()
+    s = rowwise.fixed_rows(lambda r: r @ e.T, x.float())
     vals, idx = torch.sort(s, dim=-1, descending=True, stable=True)
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32)
 

@@ -7,20 +7,23 @@ batch to ``max_batch``, so each search runs at one shape.  It serves
 hybrid dense∥sparse fusion (DESIGN.md §13) when ``fusion_weight`` is
 set: :meth:`Server.set_fusion` re-weights live.  :class:`MutableServer`
 serves a :class:`repro_torch.core.segments.MutableHybridIndex` with live
-``add``/``delete``/``compact`` (DESIGN.md §8).  The sharded, 2-D mesh
-and micro-batching layouts of the reference are not yet ported: asking
-for them raises.
+``add``/``delete``/``compact`` (DESIGN.md §8).  Either serves behind the
+micro-batching runtime of :mod:`repro_torch.launch.runtime` (one CUDA
+graph per bucket on the card).  The sharded and 2-D mesh layouts of the
+reference are not yet ported: asking for them raises.
 
     python -m repro_torch.launch.serve --device cpu --codec refine:sq8
     python -m repro_torch.launch.serve --device cpu --fusion-weight 0.5
     python -m repro_torch.launch.serve --device cpu --mutable --docs 3000
+    python -m repro_torch.launch.serve --device cpu --runtime --cache 64
 
 builds an index over the synthetic corpus and serves its queries, as
 ``python -m repro.launch.serve`` does; ``--fusion-weight W`` builds the
 BM25 impact plane and fuses by RRF with dense weight W; ``--mutable``
 streams the corpus's last eighth in, deletes a quarter of it and
-compacts.  ``--device`` defaults to ``cuda``, and the device chooses the
-kernels (no ``--use-kernel``).
+compacts; ``--runtime`` serves through the runtime and prints its
+bucket stats.  ``--device`` defaults to ``cuda``, and the device chooses
+the kernels (no ``--use-kernel``).
 """
 from __future__ import annotations
 
@@ -102,6 +105,17 @@ class Server:
         """Index mutation counter (DESIGN.md §10): always 0, an immutable
         index never invalidates cached results."""
         return 0
+
+    @property
+    def rungs(self) -> tuple:
+        """The (kc, k2) width ladder: one rung (adaptive rungs come with
+        the tuner)."""
+        return ((self.kc, self.k2),)
+
+    def sync_device(self) -> None:
+        """Bring the index's device planes up to date before a captured
+        search replays (:mod:`repro_torch.launch.runtime`); an immutable
+        index has nothing to copy."""
 
     @property
     def fusion(self) -> Optional[qexec.FusionSpec]:
@@ -215,6 +229,11 @@ class MutableServer(Server):
         ``add``/``delete`` and across ``compact`` (DESIGN.md §10)."""
         return self.mut.epoch
 
+    def sync_device(self) -> None:
+        """Copy the delta planes and the tombstones of the current epoch
+        into their device tensors, in place."""
+        self.mut.sync_device()
+
     def add(self, doc_emb, doc_tokens, namespaces=None) -> np.ndarray:
         """Index new documents; returns their global doc ids.  On a
         namespaced server ``namespaces`` (one id or (n,) ids) is
@@ -272,7 +291,7 @@ def make_mutable_server(mut: seg.MutableHybridIndex, cfg: ServeConfig, *,
 
 
 #: reference flags whose layouts are not yet ported (flag → its default)
-_UNPORTED_FLAGS = {"shards": 1, "data_parallel": 1, "runtime": False}
+_UNPORTED_FLAGS = {"shards": 1, "data_parallel": 1}
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -296,7 +315,19 @@ def main(argv: Optional[list] = None) -> None:
                          "(their plain PyTorch versions)")
     for flag in ("--shards", "--data-parallel"):
         ap.add_argument(flag, type=int, default=1, help="not yet ported")
-    ap.add_argument("--runtime", action="store_true", help="not yet ported")
+    ap.add_argument("--runtime", action="store_true",
+                    help="serve through the micro-batching runtime "
+                         "(DESIGN.md §10; one CUDA graph per bucket on the "
+                         "card) instead of direct batched calls")
+    ap.add_argument("--linger-ms", type=float, default=2.0,
+                    help="max wait of the oldest queued request for "
+                         "co-riders before its bucket executes (--runtime)")
+    ap.add_argument("--cache", type=int, default=0,
+                    help="LRU query-result cache entries, 0 = off "
+                         "(--runtime)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="with --runtime: serve plaintext metrics on "
+                         "http://127.0.0.1:PORT/metrics (0 = ephemeral)")
     ap.add_argument("--mutable", action="store_true",
                     help="serve a mutable index and demo live "
                          "add/delete/compact (DESIGN.md §8)")
@@ -353,11 +384,26 @@ def main(argv: Optional[list] = None) -> None:
                          corpus.vocab_size, doc_namespaces=doc_ns,
                          device=dev, **build_kwargs)
         server = make_server(index, cfg, device=dev)
-    server.warmup(64, corpus.query_tokens.shape[1])
+    metrics = None
+    if args.runtime:
+        from repro_torch.launch import runtime as rt_mod
+        front = rt_mod.ServingRuntime(
+            server, rt_mod.RuntimeConfig(
+                linger_ms=args.linger_ms, cache_size=args.cache,
+                # the demo submits whole batches back-to-back; admission
+                # control must not reject the demo's own requests
+                queue_depth=max(256, 2 * args.batch)))
+        front.warmup(64, corpus.query_tokens.shape[1])
+        if args.metrics_port is not None:
+            metrics = front.serve_metrics(args.metrics_port)
+            print(f"metrics: http://127.0.0.1:{metrics.port}/metrics")
+    else:
+        front = server
+        server.warmup(64, corpus.query_tokens.shape[1])
     t0 = time.perf_counter()
     for i in range(0, args.queries, args.batch):
-        server.query(corpus.query_emb[i:i + args.batch],
-                     corpus.query_tokens[i:i + args.batch])
+        front.query(corpus.query_emb[i:i + args.batch],
+                    corpus.query_tokens[i:i + args.batch])
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -367,31 +413,44 @@ def main(argv: Optional[list] = None) -> None:
         # each query restricted to one tenant; results must honor it
         b = min(args.batch, args.queries)
         want = [i % args.namespaces for i in range(b)]
-        res = server.query(corpus.query_emb[:b], corpus.query_tokens[:b],
-                           namespaces=want)
-        ids = res.doc_ids.cpu().numpy()
+        res = front.query(corpus.query_emb[:b], corpus.query_tokens[:b],
+                          namespaces=want)
+        ids = np.asarray(torch.as_tensor(res.doc_ids).cpu())
+        n_cand = torch.as_tensor(res.n_candidates).float()
         ok = all((ids[i][ids[i] >= 0] % args.namespaces == want[i]).all()
                  for i in range(b))
         print(f"filtered: {b} queries x 1/{args.namespaces} namespaces, "
-              f"mean candidates "
-              f"{float(res.n_candidates.float().mean()):.0f}, "
+              f"mean candidates {float(n_cand.mean()):.0f}, "
               f"tenant isolation {'OK' if ok else 'VIOLATED'}")
         if not ok:
             sys.exit("namespace filter violated tenant isolation")
     if args.mutable:
-        ids = server.add(corpus.doc_emb[-held:], corpus.doc_tokens[-held:],
-                         namespaces=(None if not args.namespaces else
-                                     doc_ns[-held:]))
-        server.query(corpus.query_emb[:args.batch],
-                     corpus.query_tokens[:args.batch])
-        server.delete(ids[: held // 4])
+        ids = front.add(corpus.doc_emb[-held:], corpus.doc_tokens[-held:],
+                        namespaces=(None if not args.namespaces else
+                                    doc_ns[-held:]))
+        front.query(corpus.query_emb[:args.batch],
+                    corpus.query_tokens[:args.batch])
+        front.delete(ids[: held // 4])
         t0 = time.perf_counter()
-        server.compact()
+        front.compact()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt_c = time.perf_counter() - t0
         print(f"mutable: added {held}, deleted {held // 4}, "
               f"compacted to {server.mut.n_base} docs in {dt_c:.2f}s")
+    if args.runtime:
+        if metrics is not None:
+            metrics.close()
+        front.close(drain=True)
+        s = front.stats()
+        cache = s["cache"]
+        print(f"runtime: {s['n_batches']} batches over buckets "
+              f"{s['buckets']} (counts {s['bucket_counts']}), "
+              f"programs/bucket {s['warm_traces']}, "
+              f"{s['post_warmup_traces']} post-warmup programs"
+              + ("" if cache is None else
+                 f", cache {cache['hits']} hits / {cache['misses']} "
+                 f"misses"))
 
 
 if __name__ == "__main__":

@@ -492,10 +492,20 @@ def test_serve_cli_builds_and_serves_with_tenant_isolation(capsys):
     assert out[0].endswith(" q/s, 1 device)")
     assert out[1].startswith("filtered: 32 queries x 1/4 namespaces")
     assert out[1].endswith("tenant isolation OK")
-    for flag in (["--shards", "2"], ["--data-parallel", "2"],
-                 ["--runtime"]):
+    for flag in (["--shards", "2"], ["--data-parallel", "2"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             serve.main(["--device", "cpu", *flag])
+    # --runtime is ported: serve through the micro-batching runtime
+    serve.main(["--device", "cpu", "--docs", "1000", "--queries", "64",
+                "--batch", "32", "--runtime", "--cache", "64",
+                "--namespaces", "4"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("served 64 queries in ")
+    assert out[1].endswith("tenant isolation OK")
+    assert out[2].startswith("runtime: 3 batches over buckets "
+                             "[1, 2, 4, 8, 16, 32]")
+    assert "programs/bucket {1: 1, 2: 1, 4: 1, 8: 1, 16: 1, 32: 1}" \
+        in out[2] and "0 post-warmup programs" in out[2]
     # --mutable is ported: stream the last eighth in, delete, compact
     serve.main(["--device", "cpu", "--docs", "1000", "--queries", "64",
                 "--batch", "32", "--mutable", "--delta-capacity", "256",

@@ -18,6 +18,10 @@ outputs and ``lse`` rtol=atol=1e-4 in f32 (exp and the sum order) and
 2e-2 in bf16 (one bf16 rounding of the output).  Two builds on the card
 with one seed are equal leaf for leaf, as are ``compact()`` and a
 rebuild; mutable search on the card is held to the CPU as search is.
+The serving runtime captures one CUDA graph per bucket, and each bucket's
+replayed rows equal ``Server.query``'s bit for bit for every codec, dense
+and fused; mutations between batches capture nothing, ``compact()`` and
+``set_fusion_weight`` capture every bucket again.
 """
 from typing import NamedTuple
 
@@ -812,3 +816,121 @@ def test_score_kernels_over_a_delta_plane(cuda, kernel, live_lanes):
     fin = torch.isfinite(want)
     assert int(fin.sum()) == b * live_lanes
     torch.testing.assert_close(got[fin], want[fin], **tol)
+
+
+# --------------------------------------------------------------------------
+# the serving runtime: one captured CUDA graph per bucket
+# --------------------------------------------------------------------------
+
+RT_CODECS = ("opq", "pq", "sq8", "refine:sq8:4", "flat")
+RT_WAIT = 120                     # seconds any one future may take
+
+
+@pytest.fixture(scope="module")
+def rt_indexes():
+    """One sparse index per codec on the card, over one KMeans."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    c = _build_corpus()
+    base = hi.build(0, c.doc_emb, c.doc_tokens, c.vocab_size, codec="opq",
+                    device=dev, **BUILD_KW)
+    out = {"opq": base}
+    for codec in RT_CODECS[1:]:
+        out[codec] = hi.build(0, c.doc_emb, c.doc_tokens, c.vocab_size,
+                              codec=codec, cluster_sel=base.cluster_sel,
+                              doc_assign=base.doc_assign, device=dev,
+                              **BUILD_KW)
+    return c, out
+
+
+def _rt_rows_equal(rows, direct):
+    """Runtime rows (numpy) against ``Server.query`` rows (card), bit for
+    bit."""
+    ids, scores, n_cand = (x.cpu().numpy() for x in
+                           (direct.doc_ids, direct.scores,
+                            direct.n_candidates))
+    for i, row in enumerate(rows):
+        np.testing.assert_array_equal(row.doc_ids, ids[i])
+        np.testing.assert_array_equal(row.scores, scores[i])
+        assert int(row.n_candidates) == int(n_cand[i])
+
+
+def _rt_bucket(rt, c, n):
+    """n queries submitted together (the linger holds them) → their rows
+    from one batch."""
+    futures = [rt.submit(c.query_emb[i], c.query_tokens[i])
+               for i in range(n)]
+    return [f.result(timeout=RT_WAIT) for f in futures]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("codec", RT_CODECS)
+def test_runtime_captures_one_graph_per_bucket_bit_identical(
+        rt_indexes, codec, fused):
+    """One capture per bucket at warmup and none while serving; every
+    bucket's rows equal ``Server.query``'s max_batch rows bit for bit."""
+    from repro_torch.core import exec as qexec
+    from repro_torch.launch import runtime as rt_mod
+    from repro_torch.launch import serve
+    c, indexes = rt_indexes
+    server = serve.make_server(indexes[codec], serve.ServeConfig(
+        kc=6, k2=8, top_r=100, max_batch=16,
+        fusion_weight=0.5 if fused else None), device=indexes[codec].device)
+    rt = rt_mod.ServingRuntime(server, rt_mod.RuntimeConfig(linger_ms=100.0))
+    before = qexec.trace_count()
+    rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+    assert qexec.trace_count() - before == len(rt.buckets) == 5
+    assert all(p.graph is not None for p in rt._programs.values())
+    direct = server.query(c.query_emb[:16], c.query_tokens[:16])
+    with rt:
+        for b in rt.buckets:
+            _rt_rows_equal(_rt_bucket(rt, c, b), direct)
+        assert rt.bucket_counts == {b: 1 for b in rt.buckets}
+        assert rt.serve_traces == 0
+        rt.assert_one_compile_per_bucket()
+    assert rt.pool_bytes > 0
+
+
+def test_runtime_graphs_follow_mutations_and_recapture_on_compact(cuda):
+    """On a mutable index: add_docs / delete_docs between batches capture
+    nothing and the replayed rows equal ``MutableServer.query``'s;
+    ``compact()`` and ``set_fusion_weight`` capture once per bucket."""
+    from repro_torch.core import exec as qexec
+    from repro_torch.core import segments as seg
+    from repro_torch.launch import runtime as rt_mod
+    from repro_torch.launch import serve
+    c = _build_corpus()
+    mut = seg.MutableHybridIndex.create(0, c.doc_emb[:-256],
+                                        c.doc_tokens[:-256], c.vocab_size,
+                                        device=cuda, **_mutable_kw())
+    server = serve.make_mutable_server(mut, serve.ServeConfig(
+        kc=6, k2=8, top_r=100, max_batch=8, mutable=True,
+        fusion_weight=0.5), device=cuda)
+    rt = rt_mod.ServingRuntime(server, rt_mod.RuntimeConfig(linger_ms=50.0))
+    rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+    n_buckets = len(rt.buckets)
+
+    def check(n):
+        _rt_rows_equal(_rt_bucket(rt, c, n),
+                       server.query(c.query_emb[:n], c.query_tokens[:n]))
+
+    with rt:
+        check(8)
+        before = qexec.trace_count()
+        ids = rt.add(c.doc_emb[-256:-128], c.doc_tokens[-256:-128])
+        check(8)
+        rt.delete(np.r_[ids[:20], 0, 1, 2])
+        check(3)
+        rt.add(c.doc_emb[-128:], c.doc_tokens[-128:])
+        check(1)
+        assert qexec.trace_count() == before      # no new capture
+        rt.compact()
+        assert qexec.trace_count() - before == n_buckets
+        check(5)
+        rt.set_fusion_weight(0.25)
+        assert qexec.trace_count() - before == 2 * n_buckets
+        check(8)
+        assert rt.serve_traces == 0
+        rt.assert_one_compile_per_bucket()

@@ -60,7 +60,8 @@ def test_port_sources_import_neither_jax_nor_the_reference():
             "kernels/flash_attention/ops.py",
             "kernels/flash_attention/ref.py",
             "kernels/assign_topk/ops.py", "core/segments.py",
-            "benchmarks/streaming_updates.py"} <= walked
+            "benchmarks/streaming_updates.py", "launch/runtime.py",
+            "benchmarks/serving_load.py", "rowwise.py"} <= walked
     offenders = [(f.relative_to(_ROOT).as_posix(), m) for f in files
                  for m in _imported_modules(f) if _FORBIDDEN.search(m)]
     assert not offenders, offenders
@@ -84,7 +85,9 @@ def test_importing_every_port_module_loads_no_jax():
         " 'repro_torch.models.transformer',"
         " 'repro_torch.kernels.flash_attention.ops',"
         " 'repro_torch.core.segments',"
-        " 'repro_torch.benchmarks.streaming_updates'} <= set(mods), mods\n"
+        " 'repro_torch.benchmarks.streaming_updates',"
+        " 'repro_torch.launch.runtime', 'repro_torch.rowwise',"
+        " 'repro_torch.benchmarks.serving_load'} <= set(mods), mods\n"
         "assert not bad, bad\n")
     env = {"PYTHONPATH": str(_ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], env=env,

@@ -1,0 +1,680 @@
+"""The port's serving runtime (``repro_torch.launch.runtime``, DESIGN.md
+§10) on the CPU: the single-rung contracts of ``tests/test_runtime.py``
+on port-built indexes, every bucket bit-identical to ``Server.query``
+for every codec dense and fused, and two parity tests on an index the
+JAX package built and saved with ``save_index``: the reference runtime's
+rows against the port runtime's (DESIGN.md §11: ids exact apart from
+near-tie swaps, scores within rtol=atol=1e-4) and the port runtime's
+against the port's own ``Server.query`` bit for bit.
+
+Every wait on a future has a timeout, so a hang fails one test.  The
+indexes are built once per module; mutable servers are restored from one
+built state, so each test mutates its own copy.
+"""
+import inspect
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import exec as qexec
+from repro_torch.core import hybrid_index as hi
+from repro_torch.core import segments as seg
+from repro_torch.data import synthetic
+from repro_torch.launch import runtime as rt_mod
+from repro_torch.launch import serve
+
+torch.set_num_threads(2)
+
+WAIT = 120            # seconds any one future may take
+TOL = 1e-4            # DESIGN.md §11
+_KW = dict(n_clusters=16, k1_terms=4, codec="pq", pq_m=4, pq_k=64,
+           cluster_capacity=64, term_capacity=32, kmeans_iters=3)
+HOLD = 64
+
+
+@pytest.fixture(scope="module")
+def c():
+    return synthetic.generate(seed=0, n_docs=1400, n_queries=24, hidden=32,
+                              vocab_size=512, n_topics=8)
+
+
+@pytest.fixture(scope="module")
+def built(c):
+    """The plain, namespaced and mutable indexes, built once."""
+    ns = np.arange(c.doc_emb.shape[0]) % 4
+    plain = hi.build(0, c.doc_emb, c.doc_tokens, c.vocab_size,
+                     device="cpu", **_KW)
+    filtered = hi.build(0, c.doc_emb, c.doc_tokens, c.vocab_size,
+                        doc_namespaces=ns, device="cpu", **_KW)
+    mut = seg.MutableHybridIndex.create(
+        0, c.doc_emb[:-HOLD], c.doc_tokens[:-HOLD], c.vocab_size,
+        delta_capacity=HOLD, device="cpu", **_KW)
+    return {"plain": plain, "filtered": filtered, "mut": mut}
+
+
+def _plain_server(built, max_batch=16, n_namespaces=0):
+    idx = built["filtered" if n_namespaces else "plain"]
+    return serve.make_server(idx, serve.ServeConfig(
+        max_batch=max_batch, n_namespaces=n_namespaces), device="cpu")
+
+
+def _fresh_mut(built):
+    m = built["mut"]
+    return seg.MutableHybridIndex.from_state(m.state_tree(), m.state_extra(),
+                                             seed=m.seed)
+
+
+def _mutable_server(built, max_batch=16, **cfg):
+    return serve.make_mutable_server(_fresh_mut(built), serve.ServeConfig(
+        max_batch=max_batch, mutable=True, **cfg), device="cpu")
+
+
+def _runtime(server, c, **cfg):
+    rt = rt_mod.ServingRuntime(server, rt_mod.RuntimeConfig(**cfg))
+    rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+    return rt
+
+
+def _rows_equal(row, batch_res, i):
+    np.testing.assert_array_equal(np.asarray(row.doc_ids),
+                                  np.asarray(batch_res.doc_ids)[i])
+    np.testing.assert_array_equal(np.asarray(row.scores),
+                                  np.asarray(batch_res.scores)[i])
+    assert int(row.n_candidates) == int(
+        np.asarray(batch_res.n_candidates)[i])
+
+
+def _batch_equal(a, b, n=None):
+    for name in ("doc_ids", "scores", "n_candidates"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, name))[:n],
+                                      np.asarray(getattr(b, name))[:n])
+
+
+# --------------------------------------------------------------------------
+# bit-identity: runtime rows == Server.query rows, cached and uncached
+# --------------------------------------------------------------------------
+
+def test_runtime_rows_bit_identical_to_server_query(built, c):
+    server = _plain_server(built)
+    direct = server.query(c.query_emb[:8], c.query_tokens[:8])
+    with _runtime(server, c) as rt:
+        futures = [rt.submit(c.query_emb[i], c.query_tokens[i])
+                   for i in range(8)]
+        for i, f in enumerate(futures):
+            _rows_equal(f.result(timeout=WAIT), direct, i)
+        # the batched convenience wrapper reassembles the same rows
+        again = rt.query(c.query_emb[:8], c.query_tokens[:8], timeout=WAIT)
+        _batch_equal(again, direct)
+
+
+def test_runtime_filtered_rows_bit_identical(built, c):
+    server = _plain_server(built, n_namespaces=4)
+    want = [i % 4 for i in range(8)]
+    direct = server.query(c.query_emb[:8], c.query_tokens[:8],
+                          namespaces=want)
+    with _runtime(server, c) as rt:
+        got = rt.query(c.query_emb[:8], c.query_tokens[:8],
+                       namespaces=want, timeout=WAIT)
+        _batch_equal(got, direct)
+        # unfiltered requests on a namespaced server ride an allow-all
+        # bitmap row, a bitwise no-op against Server.query's filter=None
+        plain = server.query(c.query_emb[:8], c.query_tokens[:8])
+        _batch_equal(rt.query(c.query_emb[:8], c.query_tokens[:8],
+                              timeout=WAIT), plain)
+
+
+def test_cache_hit_is_bit_identical_and_epoch_bump_invalidates(built, c):
+    server = _mutable_server(built)
+    with _runtime(server, c, cache_size=64) as rt:
+        first = rt.query(c.query_emb[:4], c.query_tokens[:4], timeout=WAIT)
+        hits0 = rt.cache.hits
+        again = rt.query(c.query_emb[:4], c.query_tokens[:4], timeout=WAIT)
+        assert rt.cache.hits == hits0 + 4
+        _batch_equal(first, again)
+        # cached rows equal a fresh direct query
+        direct = server.query(c.query_emb[:4], c.query_tokens[:4])
+        _batch_equal(again, direct)
+        # a mutation bumps the epoch: the same queries miss and run
+        # against the mutated index
+        epoch0 = server.epoch
+        rt.add(c.doc_emb[-16:], c.doc_tokens[-16:])
+        assert server.epoch == epoch0 + 1
+        hits1, misses1 = rt.cache.hits, rt.cache.misses
+        post = rt.query(c.query_emb[:4], c.query_tokens[:4], timeout=WAIT)
+        assert rt.cache.hits == hits1         # no stale replay
+        assert rt.cache.misses == misses1 + 4
+        _batch_equal(post, server.query(c.query_emb[:4],
+                                        c.query_tokens[:4]))
+
+
+def test_compaction_through_runtime_rewarms_off_the_request_path(built, c):
+    """compact() makes a new index: its one new program per bucket lands
+    in the runtime's re-warm, never on the next request of a bucket."""
+    server = _mutable_server(built)
+    with _runtime(server, c, cache_size=16) as rt:
+        rt.query(c.query_emb[:4], c.query_tokens[:4], timeout=WAIT)
+        rt.add(c.doc_emb[-8:], c.doc_tokens[-8:])
+        before = qexec.trace_count()
+        rt.compact()
+        assert qexec.trace_count() - before == len(rt.buckets)
+        post = rt.query(c.query_emb[:4], c.query_tokens[:4], timeout=WAIT)
+        assert rt.serve_traces == 0            # requests never build
+        rt.assert_one_compile_per_bucket()
+        _batch_equal(post, server.query(c.query_emb[:4],
+                                        c.query_tokens[:4]))
+
+
+def test_warmup_revives_a_closed_runtime(built, c):
+    server = _plain_server(built)
+    rt = _runtime(server, c)
+    first = rt.query(c.query_emb[:2], c.query_tokens[:2], timeout=WAIT)
+    rt.close(drain=True)
+    with pytest.raises(rt_mod.RuntimeClosed):
+        rt.submit(c.query_emb[0], c.query_tokens[0])
+    rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+    again = rt.query(c.query_emb[:2], c.query_tokens[:2], timeout=WAIT)
+    np.testing.assert_array_equal(first.doc_ids, again.doc_ids)
+    rt.close()
+
+
+def test_done_callback_may_reenter_submit(built, c):
+    """A done-callback (run on the resolving thread, possibly the
+    scheduler) that submits a follow-up query must not deadlock."""
+    server = _plain_server(built)
+    with _runtime(server, c, cache_size=8) as rt:
+        chained, attached = [], threading.Event()
+
+        def follow_up(_):
+            chained.append(rt.submit(c.query_emb[1], c.query_tokens[1]))
+            attached.set()
+
+        f = rt.submit(c.query_emb[0], c.query_tokens[0])
+        f.add_done_callback(follow_up)
+        f.result(timeout=WAIT)
+        assert attached.wait(timeout=WAIT)
+        direct = server.query(c.query_emb[:2], c.query_tokens[:2])
+        _rows_equal(chained[0].result(timeout=WAIT), direct, 1)
+
+
+def test_epoch_counter_semantics(built, c):
+    server = _mutable_server(built)
+    assert server.epoch == 0
+    ids = server.add(c.doc_emb[-8:], c.doc_tokens[-8:])
+    assert server.epoch == 1
+    server.delete(ids[:2])
+    assert server.epoch == 2
+    server.compact()
+    assert server.epoch == 3     # compaction renumbers -> must invalidate
+    assert _plain_server(built).epoch == 0   # immutable: never invalidates
+    # the counter travels with the state: a restored index keeps
+    # invalidating epoch-keyed caches where the saved one left off
+    mut = server.mut
+    back = seg.MutableHybridIndex.from_state(mut.state_tree(),
+                                             mut.state_extra(), seed=0)
+    assert back.epoch == mut.epoch == 3
+
+
+def test_cancelled_future_does_not_poison_the_batch(built, c):
+    """A client that cancel()s while queued neither receives a result
+    nor breaks its co-riders."""
+    server = _plain_server(built, max_batch=4)
+    rt = rt_mod.ServingRuntime(server, rt_mod.RuntimeConfig(linger_ms=300.0))
+    rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+    futures = [rt.submit(c.query_emb[i], c.query_tokens[i])
+               for i in range(3)]
+    cancelled = futures[1].cancel()    # still queued (300 ms linger)
+    rt.close(drain=True)
+    direct = server.query(c.query_emb[:4], c.query_tokens[:4])
+    for i in (0, 2):
+        _rows_equal(futures[i].result(timeout=WAIT), direct, i)
+    if cancelled:                      # raced the scheduler: either way,
+        assert futures[1].cancelled()  # the future is terminal
+    else:
+        _rows_equal(futures[1].result(timeout=WAIT), direct, 1)
+
+
+def test_concurrent_clients_each_get_their_own_rows(built, c):
+    """More client threads than cores submit at once, with the switch
+    interval cut to force interleavings: every future resolves to its own
+    query's rows, and the counters lose no update (each request counted
+    once, as served or as a cache hit)."""
+    import sys
+    server = _plain_server(built)
+    direct = server.query(c.query_emb[:16], c.query_tokens[:16])
+    n_threads, per_thread = 16, 12
+    got, errors = {}, []
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with _runtime(server, c, cache_size=8, queue_depth=1024) as rt:
+            def client(t):
+                try:
+                    for k in range(per_thread):
+                        i = (t + k) % 16
+                        row = rt.submit(c.query_emb[i], c.query_tokens[i]
+                                        ).result(timeout=WAIT)
+                        got[(t, k)] = (i, row)
+                except BaseException as e:      # noqa: BLE001 — reported
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=WAIT)
+            assert not any(t.is_alive() for t in threads)
+            assert not errors, errors
+            assert rt.n_served + rt.cache.hits == n_threads * per_thread
+            assert rt.n_rejected == 0
+    finally:
+        sys.setswitchinterval(old)
+    assert len(got) == n_threads * per_thread
+    for i, row in got.values():
+        _rows_equal(row, direct, i)
+
+
+# --------------------------------------------------------------------------
+# program accounting: one program per bucket, none after warmup
+# --------------------------------------------------------------------------
+
+def test_one_compile_per_bucket_and_none_while_serving(built, c):
+    # odd max_batch: the ladder must top out at max_batch itself
+    server = _plain_server(built, max_batch=12)
+    rt = rt_mod.ServingRuntime(server, rt_mod.RuntimeConfig())
+    assert rt.buckets == (1, 2, 4, 8, 12)
+    before = qexec.trace_count()
+    rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+    # exactly one program per bucket (the port builds each one, always)
+    assert rt.warm_traces == {b: 1 for b in rt.buckets}
+    assert qexec.trace_count() - before == len(rt.buckets)
+    with rt:
+        for n in (1, 3, 5, 12, 7, 2):
+            rt.query(c.query_emb[:n], c.query_tokens[:n], timeout=WAIT)
+        assert rt.serve_traces == 0
+        rt.assert_one_compile_per_bucket()
+        # every request landed in a warmed bucket
+        assert sum(rt.bucket_counts.values()) == rt.n_batches
+
+
+def test_bucket_ladder_shapes():
+    assert rt_mod.MIN_BUCKET == 1
+    assert rt_mod.bucket_sizes(64) == (1, 2, 4, 8, 16, 32, 64)
+    assert rt_mod.bucket_sizes(48) == (1, 2, 4, 8, 16, 32, 48)
+    assert rt_mod.bucket_sizes(2) == (1, 2)
+    assert rt_mod.bucket_sizes(1) == (1,)
+    assert rt_mod.bucket_sizes(64, min_bucket=2) == (2, 4, 8, 16, 32, 64)
+    assert rt_mod.bucket_sizes(8, min_bucket=4) == (4, 8)
+    with pytest.raises(ValueError):
+        rt_mod.bucket_sizes(0)
+
+
+# --------------------------------------------------------------------------
+# admission control: FIFO under backpressure, fail-fast rejection
+# --------------------------------------------------------------------------
+
+def test_fifo_completion_under_backpressure(built, c):
+    server = _plain_server(built, max_batch=4)
+    rt = rt_mod.ServingRuntime(
+        server, rt_mod.RuntimeConfig(queue_depth=6, linger_ms=50.0))
+    rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+    done_order = []
+    lock = threading.Lock()
+
+    def _track(i):
+        def cb(_):
+            with lock:
+                done_order.append(i)
+        return cb
+
+    accepted, rejected = [], 0
+    for i in range(24):
+        try:
+            f = rt.submit(c.query_emb[i % 24], c.query_tokens[i % 24])
+        except rt_mod.RuntimeOverloaded as e:
+            rejected += 1
+            assert e.retry_after_ms > 0
+            continue
+        f.add_done_callback(_track(i))
+        accepted.append((i, f))
+    for _, f in accepted:
+        f.result(timeout=WAIT)
+    assert rejected > 0                    # depth 6 must push back on 24
+    assert rt.n_rejected == rejected
+    # accepted requests complete in submission order
+    assert done_order == [i for i, _ in accepted]
+    rt.close()
+
+
+def test_graceful_drain_leaves_no_dropped_requests(built, c):
+    server = _plain_server(built, max_batch=4)
+    rt = rt_mod.ServingRuntime(
+        server, rt_mod.RuntimeConfig(queue_depth=64, linger_ms=200.0))
+    rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+    # long linger: the queue still holds requests when close() lands
+    futures = [rt.submit(c.query_emb[i], c.query_tokens[i])
+               for i in range(16)]
+    rt.close(drain=True)
+    direct = [server.query(c.query_emb[i:i + 4], c.query_tokens[i:i + 4])
+              for i in range(0, 16, 4)]
+    for i, f in enumerate(futures):
+        assert f.done()
+        _rows_equal(f.result(timeout=WAIT), direct[i // 4], i % 4)
+    with pytest.raises(rt_mod.RuntimeClosed):
+        rt.submit(c.query_emb[0], c.query_tokens[0])
+
+
+def test_close_without_drain_fails_pending_futures(built, c):
+    server = _plain_server(built, max_batch=4)
+    rt = rt_mod.ServingRuntime(server, rt_mod.RuntimeConfig(linger_ms=500.0))
+    rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+    futures = [rt.submit(c.query_emb[i], c.query_tokens[i])
+               for i in range(6)]
+    rt.close(drain=False)
+    outcomes = []
+    for f in futures:
+        assert f.done()
+        try:
+            f.result(timeout=WAIT)
+            outcomes.append("ok")
+        except rt_mod.RuntimeClosed:
+            outcomes.append("closed")
+    # every future resolved one way or the other; a 500 ms linger keeps
+    # at least the tail pending
+    assert "closed" in outcomes
+
+
+def test_submit_validation(built, c):
+    server = _plain_server(built)                    # unfiltered
+    rt = rt_mod.ServingRuntime(server, rt_mod.RuntimeConfig())
+    with pytest.raises(rt_mod.RuntimeClosed, match="warmup"):
+        rt.submit(c.query_emb[0], c.query_tokens[0])
+    rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+    with rt:
+        with pytest.raises(ValueError, match="namespaces"):
+            rt.submit(c.query_emb[0], c.query_tokens[0], namespaces=1)
+        with pytest.raises(ValueError, match="shapes"):
+            rt.submit(c.query_emb[0][:8], c.query_tokens[0])
+    # an out-of-range tenant id fails ITS request at submit, never a
+    # whole batch in the scheduler
+    server_ns = _plain_server(built, n_namespaces=4)
+    with _runtime(server_ns, c) as rt:
+        good = rt.submit(c.query_emb[0], c.query_tokens[0], namespaces=2)
+        with pytest.raises(ValueError, match="out of range"):
+            rt.submit(c.query_emb[1], c.query_tokens[1], namespaces=99)
+        assert good.result(timeout=WAIT).doc_ids.shape[0] > 0
+
+
+# --------------------------------------------------------------------------
+# normalized cache keys: scale-invariant hits, tenant/epoch safety
+# --------------------------------------------------------------------------
+
+def test_cache_key_normalization_scaled_query_hits(built, c):
+    server = _plain_server(built)
+    with _runtime(server, c, cache_size=32) as rt:
+        row = rt.submit(c.query_emb[0], c.query_tokens[0]).result(
+            timeout=WAIT)
+        hits0 = rt.cache.hits
+        scaled = rt.submit(np.float32(3.7) * c.query_emb[0],
+                           c.query_tokens[0]).result(timeout=WAIT)
+        assert rt.cache.hits == hits0 + 1
+        np.testing.assert_array_equal(row.doc_ids, scaled.doc_ids)
+        np.testing.assert_array_equal(row.scores, scaled.scores)
+    # distinct queries map to distinct keys at the documented quantum
+    keys = {rt_mod._canon_qe(np.asarray(c.query_emb[i], np.float32))
+            for i in range(c.query_emb.shape[0])}
+    assert len(keys) == c.query_emb.shape[0]
+    assert rt_mod._canon_qe(np.zeros(32, np.float32)) is not None
+
+
+def test_cache_no_false_hits_across_tenants_or_mutations(built, c):
+    server = _plain_server(built, n_namespaces=4)
+    with _runtime(server, c, cache_size=64) as rt:
+        a = rt.submit(c.query_emb[0], c.query_tokens[0],
+                      namespaces=0).result(timeout=WAIT)
+        hits0 = rt.cache.hits
+        b = rt.submit(c.query_emb[0], c.query_tokens[0],
+                      namespaces=1).result(timeout=WAIT)
+        assert rt.cache.hits == hits0          # different tenant: no hit
+        assert (a.doc_ids[a.doc_ids >= 0] % 4 == 0).all()
+        assert (b.doc_ids[b.doc_ids >= 0] % 4 == 1).all()
+        again = rt.submit(np.float32(2.0) * c.query_emb[0],
+                          c.query_tokens[0], namespaces=0).result(
+                              timeout=WAIT)
+        assert rt.cache.hits == hits0 + 1
+        np.testing.assert_array_equal(a.doc_ids, again.doc_ids)
+    with _runtime(_mutable_server(built), c, cache_size=64) as rt:
+        rt.submit(c.query_emb[0], c.query_tokens[0]).result(timeout=WAIT)
+        rt.add(c.doc_emb[-8:], c.doc_tokens[-8:])
+        hits0 = rt.cache.hits
+        rt.submit(np.float32(2.0) * c.query_emb[0],
+                  c.query_tokens[0]).result(timeout=WAIT)
+        assert rt.cache.hits == hits0          # epoch bumped: no replay
+
+
+# --------------------------------------------------------------------------
+# metrics endpoint: stats() scrape-able as plaintext over HTTP
+# --------------------------------------------------------------------------
+
+def test_metrics_endpoint_serves_runtime_stats(built, c):
+    import urllib.error
+    import urllib.request
+
+    server = _plain_server(built)
+    with _runtime(server, c, cache_size=8) as rt:
+        rt.query(c.query_emb[:4], c.query_tokens[:4], timeout=WAIT)
+        rt.query(c.query_emb[:4], c.query_tokens[:4], timeout=WAIT)
+        with rt.serve_metrics(port=0) as metrics:
+            url = f"http://127.0.0.1:{metrics.port}/metrics"
+            body = urllib.request.urlopen(url, timeout=10).read().decode()
+            assert "hi2_runtime_served_total 4" in body
+            assert "hi2_runtime_queue_depth 0" in body
+            assert "hi2_runtime_replicas 1" in body
+            assert 'hi2_runtime_bucket_compiles{bucket="4"} 1' in body
+            assert "hi2_runtime_cache_hits_total 4" in body
+            assert "hi2_runtime_cache_hit_rate 0.5" in body
+            assert 'hi2_runtime_replica_dispatch_total{replica="0"} 4' \
+                in body
+            with pytest.raises(urllib.error.HTTPError):
+                urllib.request.urlopen(
+                    f"http://127.0.0.1:{metrics.port}/other", timeout=10)
+        text = rt_mod.render_metrics(rt.stats())
+        assert text.endswith("\n") and "hi2_runtime_batches_total" in text
+    with _runtime(_plain_server(built), c) as rt2:
+        s = rt2.stats()
+        assert s["cache"] is None and s["queue_depth"] == 0
+        assert s["graph_pool_bytes"] is None        # no graphs on the CPU
+        assert "hi2_runtime_cache_hits_total" not in rt_mod.render_metrics(s)
+
+
+# --------------------------------------------------------------------------
+# auto-compaction watermarks (DESIGN.md §8): off by default, bit-identical
+# --------------------------------------------------------------------------
+
+def test_auto_compaction_is_off_by_default(built, c):
+    server = _mutable_server(built)
+    server.add(c.doc_emb[-HOLD:], c.doc_tokens[-HOLD:])  # delta 100% full
+    assert server.mut.delta_count == HOLD                # never compacted
+
+
+def test_auto_compaction_fill_watermark_bit_identical(built, c):
+    auto = _mutable_server(built, compact_fill_watermark=0.5)
+    manual = _mutable_server(built)                    # watermarks off
+    for lo in (64, 48, 32, 16):                        # 4 adds of 16
+        auto.add(c.doc_emb[-lo:][:16], c.doc_tokens[-lo:][:16])
+        manual.add(c.doc_emb[-lo:][:16], c.doc_tokens[-lo:][:16])
+        if manual.mut.needs_compact(fill_watermark=0.5):
+            manual.compact()
+    assert auto.mut.delta_count < HOLD                 # it did compact
+    _batch_equal(auto.query(c.query_emb[:8], c.query_tokens[:8]),
+                 manual.query(c.query_emb[:8], c.query_tokens[:8]))
+
+
+def test_auto_compaction_tombstone_watermark(built, c):
+    server = _mutable_server(built, compact_tombstone_watermark=0.02)
+    n0 = server.mut.n_base
+    assert server.mut.tombstone_ratio == 0.0
+    server.delete(np.arange(40))                       # ~3% of 1336 docs
+    # the delete crossed the watermark and compacted the survivors away
+    assert server.mut.n_deleted == 0
+    assert server.mut.n_base == n0 - 40
+    ids = server.query(c.query_emb[:8], c.query_tokens[:8]).doc_ids.numpy()
+    assert (ids[ids >= 0] < server.mut.n_base).all()
+
+
+def test_single_rung_ledger_and_metrics_keep_baseline_shape(built, c):
+    """One rung: the warm ledger keys stay plain bucket ints and the
+    bucket_compiles metric keeps the reference's single-rung labels."""
+    server = _plain_server(built, max_batch=8)
+    with _runtime(server, c) as rt:
+        assert rt.rungs == ((server.kc, server.k2),) == server.rungs
+        assert all(isinstance(k, int) for k in rt.warm_traces)
+        body = rt_mod.render_metrics(rt.stats())
+        assert 'hi2_runtime_bucket_compiles{bucket="2"} ' in body
+        assert 'rung=' not in body.split("rung_dispatch")[0].split(
+            "width_info")[0]
+
+
+def test_auto_compaction_through_runtime_rewarms(built, c):
+    """A watermark compaction fired by a runtime add() swaps the base
+    index; the runtime builds its buckets again, off the request path."""
+    server = _mutable_server(built, compact_fill_watermark=0.25)
+    with _runtime(server, c, cache_size=16) as rt:
+        rt.query(c.query_emb[:4], c.query_tokens[:4], timeout=WAIT)
+        base0 = server.index
+        rt.add(c.doc_emb[-32:], c.doc_tokens[-32:])    # fill 0.5 >= 0.25
+        assert server.index is not base0               # auto-compacted
+        post = rt.query(c.query_emb[:4], c.query_tokens[:4], timeout=WAIT)
+        assert rt.serve_traces == 0
+        rt.assert_one_compile_per_bucket()
+        _batch_equal(post, server.query(c.query_emb[:4],
+                                        c.query_tokens[:4]))
+
+
+# --------------------------------------------------------------------------
+# the port's own: every bucket against max_batch, fixed device planes
+# --------------------------------------------------------------------------
+
+CODECS = ("opq", "pq", "sq8", "refine:sq8:4", "flat")
+
+
+@pytest.fixture(scope="module")
+def codec_indexes(c):
+    """One sparse (impact-plane) index per codec over one KMeans."""
+    base = hi.build(0, c.doc_emb, c.doc_tokens, c.vocab_size, device="cpu",
+                    sparse=True, **dict(_KW, codec="opq"))
+    out = {"opq": base}
+    for codec in CODECS[1:]:
+        out[codec] = hi.build(0, c.doc_emb, c.doc_tokens, c.vocab_size,
+                              device="cpu", sparse=True,
+                              cluster_sel=base.cluster_sel,
+                              doc_assign=base.doc_assign,
+                              **dict(_KW, codec=codec))
+    return out
+
+
+def _bucket_rows(rt, c, n):
+    """n queries submitted together (the linger holds the batch) → the
+    rows of one batch of bucket ≥ n."""
+    futures = [rt.submit(c.query_emb[i], c.query_tokens[i])
+               for i in range(n)]
+    return [f.result(timeout=WAIT) for f in futures]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("codec", CODECS)
+def test_every_bucket_bit_identical_to_max_batch_rows(codec_indexes, c,
+                                                      codec, fused):
+    """A query's rows from a bucket of b equal its rows from
+    ``Server.query``'s max_batch pad, for b = 1 .. max_batch: every
+    query-side product runs at a fixed row count."""
+    server = serve.make_server(codec_indexes[codec], serve.ServeConfig(
+        max_batch=16, fusion_weight=0.5 if fused else None), device="cpu")
+    direct = server.query(c.query_emb[:16], c.query_tokens[:16])
+    with _runtime(server, c, linger_ms=100.0) as rt:
+        for b in rt.buckets:
+            for i, row in enumerate(_bucket_rows(rt, c, b)):
+                _rows_equal(row, direct, i)
+        assert rt.bucket_counts == {b: 1 for b in rt.buckets}
+
+
+def test_mutable_device_planes_keep_their_addresses(built, c):
+    """add_docs / delete_docs copy each epoch into the tensors of the
+    first sync; compact() makes a new index with its own."""
+    mut = _fresh_mut(built)
+    mut.sync_device()
+    delta, tomb = mut._device
+    ptrs = [t.data_ptr() for t in seg._state_arrays(delta, tomb)
+            if t is not None]
+    ids = mut.add_docs(c.doc_emb[-8:], c.doc_tokens[-8:])
+    mut.delete_docs(ids[:2])
+    mut.sync_device()
+    assert [t.data_ptr() for t in seg._state_arrays(*mut._device)
+            if t is not None] == ptrs
+    assert mut._device[1][ids[:2]].all()
+    assert int(mut._device[0].cluster_lists.lengths.sum()) == 8
+
+
+# --------------------------------------------------------------------------
+# parity with the JAX package on a reference-built index
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_pair(c, tmp_path_factory):
+    """(reference server, port server) over one JAX-built index saved with
+    save_index and loaded into the port."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.checkpoint import checkpoint as jckpt
+    from repro.core import hybrid_index as jhi
+    from repro.launch import serve as jserve
+    from repro_torch.checkpoint import checkpoint as ckpt
+
+    idx = jhi.build(jax.random.key(0), jnp.asarray(c.doc_emb),
+                    jnp.asarray(c.doc_tokens), c.vocab_size, **_KW)
+    path = jckpt.save_index(str(tmp_path_factory.mktemp("rt")), 0, idx)
+    widths = dict(kc=6, k2=8, top_r=100, max_batch=16)
+    return (jserve.make_server(idx, jserve.ServeConfig(**widths)),
+            serve.make_server(ckpt.load_index(path, device="cpu"),
+                              serve.ServeConfig(**widths), device="cpu"))
+
+
+def test_runtime_rows_match_the_reference_runtime(jax_pair, c):
+    from repro.launch import runtime as jrt
+
+    jserver, server = jax_pair
+    jr = jrt.ServingRuntime(jserver, jrt.RuntimeConfig())
+    jr.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+    with jr, _runtime(server, c) as rt:
+        for lo, hi_ in ((0, 1), (1, 4), (4, 16)):
+            want = jr.query(c.query_emb[lo:hi_], c.query_tokens[lo:hi_])
+            got = rt.query(c.query_emb[lo:hi_], c.query_tokens[lo:hi_],
+                           timeout=WAIT)
+            np.testing.assert_array_equal(got.n_candidates,
+                                          np.asarray(want.n_candidates))
+            w_ids, w_s = np.asarray(want.doc_ids), np.asarray(want.scores)
+            np.testing.assert_allclose(got.scores, w_s, rtol=TOL, atol=TOL)
+            for b, p in zip(*np.nonzero(got.doc_ids != w_ids)):
+                # a near-tie swap: the port's doc sits in the reference
+                # list within TOL, or fell off its end within TOL
+                where = np.flatnonzero(w_ids[b] == got.doc_ids[b, p])
+                ref = w_s[b, where[0]] if where.size else w_s[b, -1]
+                assert abs(ref - got.scores[b, p]) <= TOL + TOL * abs(ref)
+
+
+def test_runtime_rows_equal_server_query_on_a_reference_index(jax_pair, c):
+    _, server = jax_pair
+    direct = server.query(c.query_emb[:16], c.query_tokens[:16])
+    with _runtime(server, c, linger_ms=100.0) as rt:
+        for b in rt.buckets:
+            for i, row in enumerate(_bucket_rows(rt, c, b)):
+                _rows_equal(row, direct, i)
+
+
+def test_serve_cli_runs_the_runtime():
+    src = inspect.getsource(serve.main)
+    assert "--runtime" in src and "ServingRuntime" in src
+    assert "runtime" not in serve._UNPORTED_FLAGS
