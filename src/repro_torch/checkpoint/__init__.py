@@ -1,2 +1,3 @@
-"""Checkpoints (port of ``repro/checkpoint``: the read side of index
-checkpoints)."""
+"""Checkpoints (port of ``repro/checkpoint``: index and mutable-index
+checkpoints written and read in the reference's layout, and
+``CheckpointManager``'s rotation)."""

@@ -1,11 +1,20 @@
-"""Index checkpoints, read side (port of
-``repro/checkpoint/checkpoint.py``: what ``restore_index`` and
-``restore_mutable`` read).
+"""Index checkpoints (port of ``repro/checkpoint/checkpoint.py``:
+``save``, ``load_manifest``, ``restore``, ``save_index``,
+``restore_index``, ``save_mutable``, and the read side of
+``restore_mutable`` as :func:`load_mutable`).
 
-A reference ``save_index`` directory holds ``manifest.json`` (leaf
-paths, shapes, dtypes, ``extra.codec``) and ``arrays.npz`` (leaf i under
-``leaf_i``).  The port maps leaves by their manifest path, so it needs
-no JAX tree structure:
+A ``save_index`` directory holds ``manifest.json`` (leaf paths, shapes,
+dtypes, ``extra.codec``, ``extra.filtered`` and, on a tuned index,
+``extra.tuned``) and ``arrays.npz`` (leaf i under ``leaf_i``).  Writes
+are atomic: everything goes into ``<dir>/.tmp_step_X``, which
+``os.replace`` moves into place.  The port writes the reference's leaf
+paths in the order ``jax.tree_util.tree_flatten_with_path`` gives for
+the reference's structures (dataclass and NamedTuple fields in their
+declared order, dict keys sorted, ``None`` dropped;
+:func:`repro_torch.core.hybrid_index.index_leaves`),
+because the reference's ``restore`` matches leaves by index.  Reading,
+the port maps leaves by their manifest path, so it needs no JAX tree
+structure:
 
     .cluster_sel.embeddings            .term_sel.avg_scores
     .cluster_lists.entries / .lengths  .term_lists.entries / .lengths
@@ -20,7 +29,9 @@ A ``save_mutable`` directory (:func:`load_mutable`) holds the same index
 leaves under a ``['base']`` prefix, the delta state under
 ``['delta']['cluster_entries']``, ``['delta']['planes']['codes']`` and so
 on, ``['tombstones']``, the retained corpus under ``['corpus']`` and the
-build key under ``['key']``; ``extra.mutable`` holds the counters.
+build key under ``['key']``; ``extra.mutable`` holds the counters.  The
+port writes its seed s there as ``[0, s]`` (uint32), the key data of the
+reference's ``jax.random.key(s)``.
 
 HI²_sup parameters (``repro/core/distill.py::DistillParams``) map the
 same way: ``.cluster_embeddings``, ``.term_mlp.{w1,b1,w2,b2}`` and the
@@ -37,6 +48,7 @@ import glob
 import json
 import os
 import re
+import shutil
 from typing import Optional
 
 import numpy as np
@@ -50,6 +62,8 @@ from repro_torch.core.codecs.pq import (OPQCodebook, OPQCodec, PQCodebook,
                                         PQCodec)
 from repro_torch.core.codecs.sq8 import SQ8Codec
 from repro_torch.core.distill import DistillParams
+from repro_torch.core import hybrid_index as hi
+from repro_torch.core.exec import frontier
 from repro_torch.core.hybrid_index import HybridIndex
 from repro_torch.core.inverted_lists import PaddedLists
 from repro_torch.core.term_selector import TermMLP, TermSelector
@@ -115,23 +129,168 @@ def index_from_numpy(leaves: dict, codec: str,
         codec=codec)
 
 
+def _attach_tuned(index: HybridIndex, extra: dict) -> HybridIndex:
+    """The index with the manifest's tuned-width record, when it has
+    one (a malformed record raises)."""
+    tuned = extra.get("tuned")
+    if tuned is None:
+        return index
+    return dataclasses.replace(index, tuned=frontier.from_json(tuned))
+
+
 def load_index(path: str,
                device: dev_mod.DeviceLike = "cuda") -> HybridIndex:
-    """Read a reference ``save_index`` checkpoint directory onto
-    ``device``, checking the recorded codec spec."""
-    with open(os.path.join(path, "manifest.json")) as f:
-        manifest = json.load(f)
+    """Read a ``save_index`` checkpoint directory (the reference's or
+    the port's) onto ``device``, checking the recorded codec spec and
+    attaching the tuned widths it records."""
+    manifest = load_manifest(path)
     extra = manifest.get("extra", {})
     codec = extra.get("codec")
     if codec is None:
         raise ValueError(f"checkpoint at {path} records no codec: it was "
                          "not written by save_index")
-    if extra.get("tuned") is not None:
-        raise NotImplementedError(
-            f"checkpoint at {path} carries tuned widths, which are not yet "
-            "ported; serving it would use other widths than the reference")
-    return index_from_numpy(_read_leaves(path, manifest), codec,
-                            device=device)
+    index = index_from_numpy(_read_leaves(path, manifest), codec,
+                             device=device)
+    return _attach_tuned(index, extra)
+
+
+# --------------------------------------------------------------------------
+# the write half: save, save_index, save_mutable; restore by leaf index
+# --------------------------------------------------------------------------
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save(directory: str, step: int, tree, extra: Optional[dict] = None
+         ) -> str:
+    """Atomically write one checkpoint of ``tree`` (leaves copied to the
+    host) under ``directory/step_XXXXXXXX``; returns its final path."""
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = os.path.join(directory, f".tmp_step_{step:08d}")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp, exist_ok=True)
+    leaves = [(p, _host(leaf)) for p, leaf in hi.index_leaves(tree)]
+    np.savez(os.path.join(tmp, "arrays.npz"),
+             **{f"leaf_{i}": a for i, (_, a) in enumerate(leaves)})
+    manifest = {
+        "step": step,
+        # the reference records str(treedef), a JAX structure the port
+        # does not have; no reader parses it
+        "treedef": f"{type(tree).__name__} with {len(leaves)} leaves",
+        "leaves": [{"path": p, "index": i, "shape": list(a.shape),
+                    "dtype": str(a.dtype)}
+                   for i, (p, a) in enumerate(leaves)],
+        "extra": extra or {},
+    }
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    return final
+
+
+def load_manifest(path: str) -> dict:
+    with open(os.path.join(path, "manifest.json")) as f:
+        return json.load(f)
+
+
+def _read_by_index(path: str, like) -> list:
+    """The checkpoint's arrays in leaf-index order, checked against the
+    leaves of ``like`` (count and shapes), as the reference's
+    ``restore`` checks them."""
+    manifest = load_manifest(path)
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        arrays = [z[f"leaf_{i}"] for i in range(len(manifest["leaves"]))]
+    flat = hi.index_leaves(like)
+    if len(flat) != len(arrays):
+        raise ValueError(f"leaf count mismatch: checkpoint has "
+                         f"{len(arrays)}, target has {len(flat)}")
+    for a, (_, leaf) in zip(arrays, flat):
+        if tuple(a.shape) != tuple(leaf.shape):
+            raise ValueError(f"shape mismatch {a.shape} vs "
+                             f"{tuple(leaf.shape)}")
+    return arrays
+
+
+def _rebuild(like, arrays: list):
+    """``like`` with its leaves replaced, in ``index_leaves`` order, by
+    ``arrays`` (consumed from the front): a tensor leaf becomes a tensor
+    on its device, a numpy leaf a numpy array."""
+    if isinstance(like, torch.Tensor):
+        return _to_tensor(arrays.pop(0), like.device)
+    if isinstance(like, np.ndarray):
+        return np.array(arrays.pop(0))
+    if dataclasses.is_dataclass(like):
+        new = {f.name: _rebuild(getattr(like, f.name), arrays)
+               for f in dataclasses.fields(like)}
+        if isinstance(like, HybridIndex):
+            new["max_postings"] = None     # counted again from the lists
+        return dataclasses.replace(like, **new)
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_rebuild(getattr(like, k), arrays)
+                            for k in like._fields))
+    if isinstance(like, dict):
+        return {k: _rebuild(like[k], arrays) for k in sorted(like)}
+    return like
+
+
+def restore(path: str, like):
+    """Restore into the structure of ``like`` by leaf index (shapes
+    validated), as the reference's ``restore``: tensors land on the
+    device of the leaf they replace."""
+    return _rebuild(like, _read_by_index(path, like))
+
+
+def save_index(directory: str, step: int, index: HybridIndex,
+               extra: Optional[dict] = None) -> str:
+    """Checkpoint a built index, recording its codec spec, whether it is
+    filtered, and its tuned widths (DESIGN.md §7, §9, §14) in the
+    manifest as the reference does."""
+    extra = dict(extra or {})
+    extra["codec"] = index.codec
+    extra["filtered"] = index.doc_ns is not None
+    if index.tuned is not None:
+        extra["tuned"] = frontier.to_json(index.tuned)
+    return save(directory, step, index, extra=extra)
+
+
+def restore_index(path: str, like: HybridIndex) -> HybridIndex:
+    """Restore an index checkpoint into the structure of ``like`` (leaves
+    by index, on ``like``'s device), checking the recorded codec spec
+    when one was saved and attaching the tuned widths it records."""
+    extra = load_manifest(path).get("extra", {})
+    saved = extra.get("codec")
+    if saved is not None and saved != like.codec:
+        raise ValueError(
+            f"checkpoint at {path} was built with codec {saved!r} but "
+            f"the restore target uses {like.codec!r}; rebuild the "
+            f"target index with codec={saved!r}")
+    return _attach_tuned(restore(path, like), extra)
+
+
+def key_data(seed: int) -> np.ndarray:
+    """The reference's ``jax.random.key_data(jax.random.key(seed))``
+    (threefry): ``[0, seed]`` as uint32."""
+    return np.array([0, seed], np.uint32)
+
+
+def save_mutable(directory: str, step: int, mut,
+                 extra: Optional[dict] = None) -> str:
+    """Checkpoint a :class:`repro_torch.core.segments.MutableHybridIndex`
+    in the reference's layout (base index, delta segment, tombstones,
+    the retained corpus and the build key, with the codec spec and the
+    counters in the manifest), so the reference's ``restore_mutable``
+    and :func:`load_mutable` both read it."""
+    extra = dict(extra or {})
+    extra["codec"] = mut.base.codec
+    extra["mutable"] = mut.state_extra()
+    tree = dict(mut.state_tree(), key=key_data(mut.seed))
+    return save(directory, step, tree, extra=extra)
 
 
 def _read_leaves(path: str, manifest: dict) -> dict:
@@ -173,8 +332,7 @@ def load_mutable(path: str, *, seed: int, codec: Optional[str] = None,
     from repro_torch.core import segments
 
     dev = dev_mod.resolve(device)
-    with open(os.path.join(path, "manifest.json")) as f:
-        manifest = json.load(f)
+    manifest = load_manifest(path)
     extra = manifest.get("extra", {})
     if "mutable" not in extra:
         raise ValueError(
@@ -287,11 +445,7 @@ def load_distill(path: str, enc_cfg: TransformerConfig,
         if not steps:
             raise FileNotFoundError(f"no checkpoint under {path}")
         path = os.path.dirname(steps[-1])
-    with open(os.path.join(path, "manifest.json")) as f:
-        manifest = json.load(f)
-    with np.load(os.path.join(path, "arrays.npz")) as z:
-        leaves = {leaf["path"]: z[f"leaf_{leaf['index']}"]
-                  for leaf in manifest["leaves"]}
+    leaves = _read_leaves(path, load_manifest(path))
     if any(p.startswith(_PARAMS_PREFIX) for p in leaves):
         leaves = {p[len(_PARAMS_PREFIX):]: a for p, a in leaves.items()
                   if p.startswith(_PARAMS_PREFIX)}

@@ -2,8 +2,8 @@
 ``repro/core/hybrid_index.py``: ``HybridIndex``, ``build``,
 ``build_ivf``, ``build_term_only``, ``base_source``, ``search``,
 ``search_ivf``, ``search_term_only``, ``candidate_budget``,
-``candidate_cost``; ``index_leaves`` stands in for the reference's
-``jax.tree.leaves`` of an index).
+``candidate_cost``, ``with_tuned``; ``index_leaves`` stands in for the
+reference's ``jax.tree.leaves`` of an index).
 
 Each document is referenced from the inverted lists of exactly one
 embedding cluster and K₁ᵀ salient terms.  :func:`build` computes them
@@ -49,6 +49,9 @@ class HybridIndex:
     doc_ns: Optional[torch.Tensor] = None          # (n_docs,) i32
     sparse_weights: Optional[torch.Tensor] = None  # (V, Ct) f32
     codec: str = codecs.DEFAULT
+    # autotuned widths (DESIGN.md §14): metadata like the codec spec,
+    # carried by checkpoints in the manifest and honoured by serving
+    tuned: Optional[qexec.TunedWidths] = None
     # the most term-list postings of any one document (≤ K₁ᵀ), counted
     # from term_lists.entries when the index is built or loaded; it
     # bounds the sparse path's runs (stages.sparse_topk) and is never
@@ -91,10 +94,14 @@ def count_max_postings(lists: PaddedLists) -> int:
 
 
 def index_leaves(obj, path: str = "") -> list:
-    """(path, tensor) of every tensor in an index (or any part of one:
-    dataclass fields, NamedTuple fields and dict values, in order): the
-    leaves two builds are compared by."""
-    if isinstance(obj, torch.Tensor):
+    """(path, leaf) of every tensor or numpy array in an index (or any
+    tree of dataclasses, NamedTuples and dicts): the leaves two builds
+    are compared by, and the leaves a checkpoint holds.  The order and
+    the paths are those ``jax.tree_util.tree_flatten_with_path`` gives
+    for the reference's structure: fields in declared order (``.name``),
+    dict values by sorted key (``['key']``); ``None`` and metadata that
+    is not an array (the codec spec, the tuned record) hold no leaf."""
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
         return [(path, obj)]
     if dataclasses.is_dataclass(obj):
         return [leaf for f in dataclasses.fields(obj) for leaf in
@@ -345,6 +352,13 @@ def candidate_cost(index: HybridIndex, kc: int, k2: int, top_r: int) -> int:
     return qexec.candidate_cost(
         index.codec, kc, k2, top_r,
         [(index.cluster_lists.capacity, index.term_lists.capacity)])
+
+
+def with_tuned(index: HybridIndex,
+               tuned: Optional[qexec.TunedWidths]) -> HybridIndex:
+    """The index with ``tuned`` width metadata attached (DESIGN.md §14):
+    the same planes, only the record changes."""
+    return dataclasses.replace(index, tuned=tuned)
 
 
 def search_ivf(index: HybridIndex, query_embeddings, query_tokens, *,

@@ -1,1 +1,2 @@
-"""Launchers (port of ``repro/launch``: single-device serving)."""
+"""Launchers (port of ``repro/launch``: single-device serving, its
+runtime, and the width tuner)."""

@@ -27,9 +27,18 @@ the search programs:
     the same buffers.  The oldest request waits at most ``linger_ms``
     for co-riders.
   · An LRU cache keyed on (index epoch, namespace filter, fusion spec,
-    query bytes) returns bit-identical rows for repeated queries.
-    Mutations bump the index epoch and re-weighting fusion changes the
-    key's fusion component, so no stale row is replayed.
+    width rung, query bytes) returns bit-identical rows for repeated
+    queries.  Mutations bump the index epoch and re-weighting fusion
+    changes the key's fusion component, so no stale row is replayed.
+  · Adaptive widths (DESIGN.md §14): over a server whose ``rungs`` hold
+    a multi-rung tuned ladder, :meth:`ServingRuntime.submit` resolves
+    each query's rung from its dispatch margin
+    (:func:`repro_torch.core.exec.frontier.margins`, on the host in
+    float64 against a float64 copy of the cluster embeddings taken once
+    per ladder refresh), a batch carries requests of one rung only, and
+    each (bucket, rung) is its own program: on the card one captured
+    graph each, all in the one memory pool.  A single-rung runtime keys
+    its programs and its ledger by bucket alone, as before.
   · Admission control bounds the queue: past ``queue_depth`` pending
     requests :meth:`submit` fails fast with :class:`RuntimeOverloaded`;
     :meth:`close` drains gracefully.
@@ -73,6 +82,7 @@ import torch
 from repro_torch.core import exec as qexec
 from repro_torch.core import hybrid_index as hi
 from repro_torch.core.exec import filters as ns_filters
+from repro_torch.core.exec import frontier
 
 #: Smallest micro-batch bucket.  Every query-side product runs at a fixed
 #: row count and the kernels are per-lane, so a bucket of 1 gives the
@@ -163,12 +173,14 @@ class QueryCache:
 
 
 class _Request:
-    __slots__ = ("qe", "qt", "ns", "future", "t_submit")
+    __slots__ = ("qe", "qt", "ns", "rung", "future", "t_submit")
 
-    def __init__(self, qe: np.ndarray, qt: np.ndarray, ns, future: Future):
+    def __init__(self, qe: np.ndarray, qt: np.ndarray, ns, rung: int,
+                 future: Future):
         self.qe = qe
         self.qt = qt
         self.ns = ns
+        self.rung = rung
         self.future = future
         self.t_submit = time.monotonic()
 
@@ -217,9 +229,11 @@ def _unpack(packed: np.ndarray, r: int) -> tuple:
 
 
 class _Program:
-    """One bucket's search program over a server: static input buffers
-    (``qe`` (b, h) f32, ``qt`` (b, L) int64 and, on a namespaced server,
-    the (b, W) int64 bitmap) and ``server._search`` over them.  On the
+    """One bucket's search program over a server, at one width rung
+    (``widths`` (kc, k2), or None for the server's own): static input
+    buffers (``qe`` (b, h) f32, ``qt`` (b, L) int64 and, on a namespaced
+    server, the (b, W) int64 bitmap) and ``server._search`` over them.
+    On the
     card it is warmed eagerly on a side stream (the kernels build and
     set their attributes there, once) and captured as one CUDA graph
     into ``pool``; a call copies the rows in through pinned buffers,
@@ -227,10 +241,11 @@ class _Program:
     call runs the search on the buffers."""
 
     def __init__(self, server, bucket: int, hidden: int, query_len: int,
-                 pool=None):
+                 pool=None, widths: Optional[tuple] = None):
         dev = server.device
         n_ns = server.cfg.n_namespaces
         self.server = server
+        self.widths = widths
         self.inputs = [
             torch.zeros((bucket, hidden), dtype=torch.float32, device=dev),
             torch.full((bucket, query_len), -1, dtype=torch.int64,
@@ -263,7 +278,8 @@ class _Program:
     def _run(self) -> torch.Tensor:
         qe, qt, *ns = self.inputs
         return _pack(self.server._search(qe, qt,
-                                         filter=ns[0] if ns else None))
+                                         filter=ns[0] if ns else None,
+                                         widths=self.widths))
 
     def __call__(self, rows: Sequence[np.ndarray]) -> np.ndarray:
         """The program on one bucket of host rows (qe, qt[, bitmap],
@@ -328,7 +344,12 @@ class ServingRuntime:
         self.n_rejected = 0
         self.n_batches = 0
         self.bucket_counts = {b: 0 for b in self.buckets}
-        self.rungs = ((server.kc, server.k2),)   # one rung (no tuner yet)
+        # width rungs (DESIGN.md §14): the server's static (kc, k2)
+        # ladder; single-rung on every non-adaptive server, which then
+        # keys its programs and ledger by bucket as before
+        self.rung_dispatch: dict = {}
+        self._cluster_emb: Optional[np.ndarray] = None
+        self._refresh_rungs()
         self.warm_traces: dict = {}
         self.capture_seconds: dict = {}
         self.pool_bytes: Optional[int] = None
@@ -369,22 +390,47 @@ class ServingRuntime:
         return (torch.cuda.device(dev) if dev.type == "cuda"
                 else contextlib.nullcontext())
 
+    def _refresh_rungs(self) -> None:
+        """Snapshot the server's width ladder (DESIGN.md §14).  On a
+        multi-rung ladder the dispatch margin needs the cluster
+        embeddings on the host: a float64 copy is taken here, once per
+        (re)warm, so a request pays the margin's product alone, and
+        compaction's fresh base swaps its embeddings in with the new
+        programs."""
+        self.rungs = tuple(self.server.rungs)
+        self.margin_cuts = tuple(self.server.margin_cuts)
+        for r in range(len(self.rungs)):
+            self.rung_dispatch.setdefault(r, 0)
+        self._cluster_emb = (frontier.host64(
+            self.server.index.cluster_sel.embeddings).copy()
+            if len(self.rungs) > 1 else None)
+
+    def _program_key(self, bucket: int, rung: int):
+        """A program's (and its ledger entry's) key: the bucket on a
+        single-rung ladder, (bucket, rung) on a multi-rung one."""
+        return (bucket, rung) if len(self.rungs) > 1 else bucket
+
     def _warm_buckets(self) -> None:
         """Build the ladder at the current index and fusion spec (caller
         holds the serve lock; :meth:`warmup` recorded the query dims):
-        one program per bucket, all graphs in one memory pool (replays
-        are serialized)."""
+        one program per (bucket, rung), all graphs in one memory pool
+        (replays are serialized)."""
         self._programs = {}
+        self._refresh_rungs()
+        multi = len(self.rungs) > 1
         self.server.sync_device()
         with self._device_ctx():
             cuda = self.server.device.type == "cuda"
             self.pool = torch.cuda.graph_pool_handle() if cuda else None
             for b in self.buckets:
-                before = qexec.trace_count()
-                self._programs[b] = _Program(self.server, b, self._hidden,
-                                             self._query_len, self.pool)
-                self.warm_traces[b] = qexec.trace_count() - before
-                self.capture_seconds[b] = self._programs[b].capture_s
+                for r, widths in enumerate(self.rungs):
+                    key = self._program_key(b, r)
+                    before = qexec.trace_count()
+                    self._programs[key] = _Program(
+                        self.server, b, self._hidden, self._query_len,
+                        self.pool, widths if multi else None)
+                    self.warm_traces[key] = qexec.trace_count() - before
+                    self.capture_seconds[key] = self._programs[key].capture_s
             self.pool_bytes = graph_pool_bytes(self.pool) if cuda else None
         self._built_for = (self.server.index, self.server.fusion)
 
@@ -444,14 +490,15 @@ class ServingRuntime:
             if bad:
                 raise ValueError(
                     f"namespace id(s) {bad} out of range [0, {n_ns})")
+        rung = self._rung_for(qe)
         future: Future = Future()
         if self.cache is not None:
             # lock-free pre-check; the scheduler re-checks under the lock
-            hit = self.cache.get(self._key(qe, qt, ns))
+            hit = self.cache.get(self._key(qe, qt, ns, rung))
             if hit is not None:
                 future.set_result(hit)
                 return future
-        req = _Request(qe, qt, ns, future)
+        req = _Request(qe, qt, ns, rung, future)
         with self._cond:
             if self._closing:
                 raise RuntimeClosed("runtime closed")
@@ -547,7 +594,7 @@ class ServingRuntime:
             "n_replicas": 1,
             "replica_dispatch": {0: self.n_served},
             "rungs": [list(r) for r in self.rungs],
-            "rung_dispatch": {0: self.n_served},
+            "rung_dispatch": dict(self.rung_dispatch),
             "widths": [self.server.kc, self.server.k2],
             "width_source": self.server.width_source,
             "cache": cache,
@@ -562,8 +609,9 @@ class ServingRuntime:
         return MetricsServer(self, port)
 
     def assert_one_compile_per_bucket(self) -> None:
-        """The warmup contract (DESIGN.md §10): every bucket built at
-        most once during warmup and nothing built since."""
+        """The warmup contract (DESIGN.md §10): every bucket (every
+        (bucket, rung) on a multi-rung ladder) built at most once during
+        warmup and nothing built since."""
         bad = {b: n for b, n in self.warm_traces.items() if n > 1}
         if bad:
             raise AssertionError(
@@ -578,12 +626,26 @@ class ServingRuntime:
     def _epoch(self) -> int:
         return self.server.epoch
 
-    def _key(self, qe: np.ndarray, qt: np.ndarray, ns,
+    def _rung_for(self, qe: np.ndarray) -> int:
+        """One query's width rung from its dispatch margin (DESIGN.md
+        §14), computed on the L2-normalized embedding — the canonical
+        form the cache key hashes — so positive scalings of one query
+        resolve one rung.  Constant 0 on a single-rung ladder."""
+        if len(self.rungs) <= 1:
+            return 0
+        m = frontier.margins(self._cluster_emb, qe[None])
+        return int(frontier.resolve_rung(m, self.margin_cuts)[0])
+
+    def _key(self, qe: np.ndarray, qt: np.ndarray, ns, rung: int,
              epoch: Optional[int] = None) -> tuple:
-        """The one cache-key schema (the reference's, with its single
-        rung 0); the scheduler passes its lock-pinned ``epoch``."""
+        """The one cache-key schema (the reference's); the scheduler
+        passes its lock-pinned ``epoch``.  The resolved rung joins the
+        key, so a row computed at one rung never replays for a query
+        resolved to another, even on an ulp-level margin flip at a
+        cut."""
         e = self._epoch() if epoch is None else epoch
-        return (e, ns, self.server.fusion, 0, _canon_qe(qe), qt.tobytes())
+        return (e, ns, self.server.fusion, rung, _canon_qe(qe),
+                qt.tobytes())
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -632,8 +694,20 @@ class ServingRuntime:
                     self._queue.clear()
                 else:
                     dropped = None
-                    batch = [self._queue.popleft() for _ in range(
-                        min(len(self._queue), self.max_batch))]
+                    # co-rung micro-batching (DESIGN.md §14): a batch
+                    # runs one program, so it carries requests of one
+                    # width rung.  Take the oldest request's rung, sweep
+                    # the queue for co-rung riders (never past
+                    # max_batch) and put the others back in arrival
+                    # order: FIFO within each rung, and the oldest
+                    # request always runs now.  A single-rung ladder
+                    # sweeps everything, as before.
+                    rung = self._queue[0].rung
+                    batch, keep = [], []
+                    while self._queue and len(batch) < self.max_batch:
+                        req = self._queue.popleft()
+                        (batch if req.rung == rung else keep).append(req)
+                    self._queue.extendleft(reversed(keep))
             if dropped is not None:
                 # futures resolve outside the locks: a done-callback may
                 # re-enter submit()/close()
@@ -657,20 +731,21 @@ class ServingRuntime:
     def _execute(self, batch: list) -> None:
         rows = {}          # id(req) -> row; futures resolve outside the
         err = None         # serve lock, in batch order
+        rung = batch[0].rung     # co-rung by construction (_run_scheduler)
         with self._serve_lock:
             epoch = self._epoch()
             misses = []
             for req in batch:
                 hit = (None if self.cache is None else
                        self.cache.get(self._key(req.qe, req.qt, req.ns,
-                                                epoch)))
+                                                req.rung, epoch)))
                 if hit is not None:
                     rows[id(req)] = hit
                 else:
                     misses.append(req)
             if misses:
                 try:
-                    self._run_batch(misses, epoch, rows)
+                    self._run_batch(misses, rung, epoch, rows)
                 except BaseException as e:   # noqa: BLE001 — the cache
                     err = e                  # hits still resolve below
         for req in batch:
@@ -680,8 +755,9 @@ class ServingRuntime:
             else:
                 req.future.set_exception(err)
 
-    def _run_batch(self, misses: list, epoch: int, rows: dict) -> None:
-        """One bucket's program over the cache misses (serve lock
+    def _run_batch(self, misses: list, rung: int, epoch: int,
+                   rows: dict) -> None:
+        """One (bucket, rung) program over the cache misses (serve lock
         held): rows copied in with the pad rows rewritten, one replay,
         one packed copy out."""
         bucket = self._bucket_for(len(misses))
@@ -697,7 +773,7 @@ class ServingRuntime:
                     or fusion != self.server.fusion):
                 self._warm_buckets()     # counted in serve_traces
             self.server.sync_device()
-            packed = self._programs[bucket](
+            packed = self._programs[self._program_key(bucket, rung)](
                 [qe, qt] + ([] if ns is None else [ns]))
         self.serve_traces += qexec.trace_count() - before
         ids, scores, n_cand = _unpack(packed, self.server.cfg.top_r)
@@ -705,14 +781,15 @@ class ServingRuntime:
             row = hi.SearchResult(doc_ids=ids[i], scores=scores[i],
                                   n_candidates=n_cand[i], partial=False)
             if self.cache is not None:
-                self.cache.put(self._key(req.qe, req.qt, req.ns, epoch),
-                               row)
+                self.cache.put(self._key(req.qe, req.qt, req.ns, req.rung,
+                                         epoch), row)
             rows[id(req)] = row
         if self.cache is not None:
             self.cache.misses += len(misses)
         self.n_served += len(misses)
         self.n_batches += 1
         self.bucket_counts[bucket] += 1
+        self.rung_dispatch[rung] += len(misses)
         self.server.n_served += len(misses)
 
 
@@ -731,7 +808,11 @@ def render_metrics(stats: dict) -> str:
         lines.append(f'hi2_runtime_bucket_batches_total{{bucket="{b}"}} '
                      f"{stats['bucket_counts'][b]}")
     for b, n in sorted(stats["warm_traces"].items()):
-        lines.append(f'hi2_runtime_bucket_compiles{{bucket="{b}"}} {n}')
+        if isinstance(b, tuple):     # multi-rung ledger: (bucket, rung)
+            lines.append(f'hi2_runtime_bucket_compiles{{bucket="{b[0]}",'
+                         f'rung="{b[1]}"}} {n}')
+        else:
+            lines.append(f'hi2_runtime_bucket_compiles{{bucket="{b}"}} {n}')
     for r, n in sorted(stats["replica_dispatch"].items()):
         lines.append(f'hi2_runtime_replica_dispatch_total{{replica="{r}"}} '
                      f"{n}")

@@ -2,6 +2,13 @@
 ``ServeConfig``, ``resolve_widths``, ``Server``, ``MutableServer``,
 ``make_server``, ``make_mutable_server`` and the ``main`` demo loop).
 
+The dispatch widths resolve once per server (DESIGN.md §14): an
+explicit ``ServeConfig`` value, else the index's tuned record
+(:mod:`repro_torch.launch.tune`), else :data:`DEFAULT_KC` /
+:data:`DEFAULT_K2`.  With ``ServeConfig(adaptive=True)`` over a
+multi-rung tuned record the server exposes the record's width ladder
+(``rungs``, ``margin_cuts``), which the runtime serves per query.
+
 :class:`Server` holds one index on one device and pads every request
 batch to ``max_batch``, so each search runs at one shape.  It serves
 hybrid dense∥sparse fusion (DESIGN.md §13) when ``fusion_weight`` is
@@ -16,6 +23,7 @@ reference are not yet ported: asking for them raises.
     python -m repro_torch.launch.serve --device cpu --fusion-weight 0.5
     python -m repro_torch.launch.serve --device cpu --mutable --docs 3000
     python -m repro_torch.launch.serve --device cpu --runtime --cache 64
+    python -m repro_torch.launch.serve --device cpu --runtime --adaptive
 
 builds an index over the synthetic corpus and serves its queries, as
 ``python -m repro.launch.serve`` does; ``--fusion-weight W`` builds the
@@ -43,14 +51,18 @@ from repro_torch.core import hybrid_index as hi
 from repro_torch.core import segments as seg
 from repro_torch.core.exec import filters as ns_filters
 
-#: the hand-picked width defaults when no explicit width is set
+#: the hand-picked width defaults serving falls back to when neither an
+#: explicit ServeConfig override nor a tuned index record is present
 DEFAULT_KC, DEFAULT_K2 = 6, 8
 
 
 @dataclasses.dataclass
 class ServeConfig:
-    kc: Optional[int] = None     # None → DEFAULT_KC
-    k2: Optional[int] = None     # None → DEFAULT_K2
+    # dispatch widths (DESIGN.md §14): None = resolve at server
+    # construction — the index's TunedWidths record when present, else
+    # DEFAULT_KC/DEFAULT_K2; an explicit value always wins
+    kc: Optional[int] = None
+    k2: Optional[int] = None
     top_r: int = 100
     max_batch: int = 64
     n_namespaces: int = 0        # >0 → filtered search over N namespaces
@@ -62,6 +74,11 @@ class ServeConfig:
     # dense weight in [0, 1] (sparse gets 1-w).  Needs an index built
     # with sparse=True, otherwise the dense-only result is served.
     fusion_weight: Optional[float] = None
+    # per-query adaptive widths (§14): route each query to a rung of
+    # the tuned ladder by its dispatch-margin difficulty signal.  Only
+    # takes effect when the index carries a multi-rung TunedWidths
+    # record and no explicit kc/k2 override is set.
+    adaptive: bool = False
     # auto-compaction watermarks (§8): compact when the delta fill or
     # the tombstone ratio crosses its threshold; 0 disables (the default)
     compact_fill_watermark: float = 0.0
@@ -69,14 +86,19 @@ class ServeConfig:
 
 
 def resolve_widths(cfg: ServeConfig, index) -> tuple:
-    """``(kc, k2, source)``: an explicit ``ServeConfig`` value wins,
-    else the defaults.  (Tuned widths are not yet ported, and
-    :func:`repro_torch.checkpoint.checkpoint.load_index` refuses an
-    index that carries them.)"""
+    """``(kc, k2, source)``, per field: an explicit ``ServeConfig``
+    value wins, else the index's :class:`repro_torch.core.exec.
+    TunedWidths` record, else :data:`DEFAULT_KC`/:data:`DEFAULT_K2`.
+    ``source`` is ``"explicit"`` (any field overridden), ``"tuned"`` or
+    ``"default"``; adaptive serving engages only on ``"tuned"``."""
+    tuned = getattr(index, "tuned", None)
+    fb_kc = tuned.kc if tuned is not None else DEFAULT_KC
+    fb_k2 = tuned.k2 if tuned is not None else DEFAULT_K2
     if cfg.kc is not None or cfg.k2 is not None:
-        return (int(cfg.kc if cfg.kc is not None else DEFAULT_KC),
-                int(cfg.k2 if cfg.k2 is not None else DEFAULT_K2),
-                "explicit")
+        return (int(cfg.kc if cfg.kc is not None else fb_kc),
+                int(cfg.k2 if cfg.k2 is not None else fb_k2), "explicit")
+    if tuned is not None:
+        return int(tuned.kc), int(tuned.k2), "tuned"
     return DEFAULT_KC, DEFAULT_K2, "default"
 
 
@@ -96,9 +118,29 @@ class Server:
         self.device = dev_mod.resolve(device)
         self.index = index.to(self.device)
         self.cfg = cfg
-        self.kc, self.k2, self.width_source = resolve_widths(cfg, index)
+        self._resolve_widths(index)
         self.set_fusion(cfg.fusion_weight)
         self.n_served = 0
+
+    def _resolve_widths(self, index) -> None:
+        """Resolve (kc, k2) once at construction (DESIGN.md §14): stable
+        across mutations and compactions, like the codec spec."""
+        self.tuned = getattr(index, "tuned", None)
+        self.kc, self.k2, self.width_source = resolve_widths(self.cfg,
+                                                             index)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, like: Optional[hi.HybridIndex] = None,
+                        cfg: Optional[ServeConfig] = None, *,
+                        device: dev_mod.DeviceLike = "cuda") -> "Server":
+        """A server over a ``save_index`` checkpoint (tuned widths
+        included): restored into ``like``'s structure by leaf index when
+        it is given (as the reference does), else read by leaf path onto
+        ``device``."""
+        from repro_torch.checkpoint import checkpoint as ckpt
+        index = (ckpt.load_index(path, device=device) if like is None
+                 else ckpt.restore_index(path, like))
+        return cls(index, cfg, device=device)
 
     @property
     def epoch(self) -> int:
@@ -107,10 +149,28 @@ class Server:
         return 0
 
     @property
+    def _adaptive_ladder(self) -> bool:
+        t = self.tuned
+        return (self.cfg.adaptive and t is not None and len(t.rungs) > 1
+                and self.width_source != "explicit")
+
+    @property
     def rungs(self) -> tuple:
-        """The (kc, k2) width ladder: one rung (adaptive rungs come with
-        the tuner)."""
+        """The static width ladder adaptive serving runs, narrow → wide
+        (DESIGN.md §14).  A single rung — the resolved (kc, k2) — unless
+        adaptivity is on, the index carries a multi-rung tuned record,
+        and no explicit override pinned the widths."""
+        if self._adaptive_ladder:
+            return tuple((int(kc), int(k2)) for kc, k2 in self.tuned.rungs)
         return ((self.kc, self.k2),)
+
+    @property
+    def margin_cuts(self) -> tuple:
+        """Descending margin thresholds between the rungs (one fewer
+        than :attr:`rungs`); empty in the single-rung case."""
+        if self._adaptive_ladder:
+            return tuple(float(c) for c in self.tuned.margin_cuts)
+        return ()
 
     def sync_device(self) -> None:
         """Bring the index's device planes up to date before a captured
@@ -131,8 +191,9 @@ class Server:
             qexec.FusionSpec(weight=float(weight))  # validate eagerly
         self.cfg.fusion_weight = weight
 
-    def _search(self, qe, qt, filter=None) -> hi.SearchResult:
-        return hi.search(self.index, qe, qt, kc=self.kc, k2=self.k2,
+    def _search(self, qe, qt, filter=None, widths=None) -> hi.SearchResult:
+        kc, k2 = widths if widths is not None else (self.kc, self.k2)
+        return hi.search(self.index, qe, qt, kc=kc, k2=k2,
                          top_r=self.cfg.top_r, filter=filter,
                          fusion=self.fusion, device=self.device)
 
@@ -214,12 +275,15 @@ class MutableServer(Server):
         self.device = mut.device
         self.index = mut.base    # the padded-query plumbing reads it
         self.cfg = cfg
-        self.kc, self.k2, self.width_source = resolve_widths(cfg, mut.base)
+        # resolved from the base once: compaction's fresh base carries
+        # no tuned record, and the widths must not move under it
+        self._resolve_widths(mut.base)
         self.set_fusion(cfg.fusion_weight)
         self.n_served = 0
 
-    def _search(self, qe, qt, filter=None) -> hi.SearchResult:
-        return self.mut.search(qe, qt, kc=self.kc, k2=self.k2,
+    def _search(self, qe, qt, filter=None, widths=None) -> hi.SearchResult:
+        kc, k2 = widths if widths is not None else (self.kc, self.k2)
+        return self.mut.search(qe, qt, kc=kc, k2=k2,
                                top_r=self.cfg.top_r, filter=filter,
                                fusion=self.fusion)
 
@@ -303,10 +367,17 @@ def main(argv: Optional[list] = None) -> None:
                     help="any registered codec spec, e.g. sq8 or refine:pq:4")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--kc", type=int, default=None,
-                    help=f"clusters probed per query (default {DEFAULT_KC})")
+                    help="clusters probed per query; default = the "
+                         "index's tuned record if present, else "
+                         f"{DEFAULT_KC} (DESIGN.md §14)")
     ap.add_argument("--k2", type=int, default=None,
-                    help=f"term lists probed per query (default "
-                         f"{DEFAULT_K2})")
+                    help="term lists probed per query; default = the "
+                         "index's tuned record if present, else "
+                         f"{DEFAULT_K2}")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="per-query adaptive widths over the tuned rung "
+                         "ladder (needs an index tuned by "
+                         "repro_torch.launch.tune; DESIGN.md §14)")
     ap.add_argument("--namespaces", type=int, default=0,
                     help="partition the corpus into N namespaces and demo "
                          "per-query filtered search (DESIGN.md §9)")
@@ -359,7 +430,8 @@ def main(argv: Optional[list] = None) -> None:
                         pq_m=8, pq_k=256, cluster_capacity=192,
                         term_capacity=96, kmeans_iters=8,
                         sparse=args.fusion_weight is not None)
-    cfg = ServeConfig(kc=args.kc, k2=args.k2, max_batch=args.batch,
+    cfg = ServeConfig(kc=args.kc, k2=args.k2, adaptive=args.adaptive,
+                      max_batch=args.batch,
                       mutable=args.mutable,
                       delta_capacity=args.delta_capacity,
                       n_namespaces=args.namespaces,

@@ -21,7 +21,11 @@ rebuild; mutable search on the card is held to the CPU as search is.
 The serving runtime captures one CUDA graph per bucket, and each bucket's
 replayed rows equal ``Server.query``'s bit for bit for every codec, dense
 and fused; mutations between batches capture nothing, ``compact()`` and
-``set_fusion_weight`` capture every bucket again.
+``set_fusion_weight`` capture every bucket again.  Over a two-rung tuned
+ladder (DESIGN.md §14) it captures one graph per (bucket, rung) in one
+pool, each row equals the direct search at its resolved rung's widths,
+and no row replays across rungs; a tuned index saved from the card loads
+back onto it leaf for leaf, and serves the same rows.
 """
 from typing import NamedTuple
 
@@ -88,6 +92,10 @@ ADC_CASES = {
                                   "scalar"),
     "kernel_bench": AdcCase(64, 2048, 8, 256, np.uint8, False, None,
                             "scalar", rows=100_000),
+    # the width tuner's narrowest sweep point (kc 1, k2 2) at the served
+    # capacities: 3,072 candidate slots a query
+    "sweep_narrowest": AdcCase(256, 3 * 1024, 96, 256, np.uint8, False,
+                               None, "served", layout="lists"),
 }
 
 
@@ -219,6 +227,10 @@ TOPK_CASES = {
     "misaligned_view": (64, 3000, 768, 30, False, 1),
     "n33_ragged_query_tile": (33, 2000, 768, 30, False, 0),
     "ties_k128": (20, 1000, 64, 128, True, 0),
+    # the width tuner's sweep dispatches k = kc = 1 .. 12 (WIDTH_GRID)
+    "sweep_k1": (256, 10_000, 768, 1, False, 0),
+    "sweep_k1_ties": (33, 300, 32, 1, True, 0),
+    "sweep_k2_misaligned": (64, 3000, 768, 2, False, 1),
 }
 
 
@@ -283,6 +295,8 @@ SQ8_CASES = {
     "served_ragged": (12, 2 * 1024 + 300, 768, False, None, 0, "lists",
                       True),
     "shared_lists_h40": (10, 2 * 1024, 40, False, 2, 0, "lists", False),
+    # the width tuner's narrowest sweep point (kc 1, k2 2)
+    "sweep_narrowest": (256, 3 * 1024, 768, False, None, 0, "lists", True),
 }
 
 
@@ -934,3 +948,95 @@ def test_runtime_graphs_follow_mutations_and_recapture_on_compact(cuda):
         check(8)
         assert rt.serve_traces == 0
         rt.assert_one_compile_per_bucket()
+
+
+# --------------------------------------------------------------------------
+# the width tuner on the card: adaptive graphs, tuned checkpoints
+# --------------------------------------------------------------------------
+
+def _two_rung(index, c):
+    from repro_torch.core.exec import frontier
+    m = frontier.margins(index.cluster_sel.embeddings, c.query_emb)
+    return frontier.TunedWidths(
+        kc=6, k2=8, refine_mult=None, recall_target=0.9, recall=0.9,
+        cost=int(hi.candidate_budget(index, 6, 8)),
+        rungs=((2, 4), (6, 8)), margin_cuts=(float(np.median(m)),))
+
+
+@pytest.mark.parametrize("codec", ["opq", "refine:sq8:4"])
+def test_runtime_captures_one_graph_per_bucket_and_rung(rt_indexes, codec):
+    """Adaptive serving: one capture per (bucket, rung) at warmup, all in
+    the runtime's one pool, none while serving; each row equals the
+    direct search at its resolved rung's widths bit for bit; both rungs
+    dispatched, and a row cached at one rung never serves the other."""
+    from repro_torch.core import exec as qexec
+    from repro_torch.core.exec import frontier
+    from repro_torch.launch import runtime as rt_mod
+    from repro_torch.launch import serve
+    c, indexes = rt_indexes
+    index = hi.with_tuned(indexes[codec], _two_rung(indexes[codec], c))
+    server = serve.make_server(index, serve.ServeConfig(
+        top_r=100, max_batch=16, adaptive=True), device=index.device)
+    assert server.width_source == "tuned" and len(server.rungs) == 2
+    rt = rt_mod.ServingRuntime(server, rt_mod.RuntimeConfig(
+        linger_ms=50.0, cache_size=64))
+    before = qexec.trace_count()
+    rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+    assert qexec.trace_count() - before == 2 * len(rt.buckets) == 10
+    assert set(rt._programs) == {(b, r) for b in rt.buckets
+                                 for r in range(2)}
+    assert all(p.graph is not None for p in rt._programs.values())
+    n = len(c.query_emb)
+    rung = frontier.resolve_rung(
+        frontier.margins(index.cluster_sel.embeddings, c.query_emb[:n]),
+        server.margin_cuts)
+    with rt:
+        rows = _rt_bucket(rt, c, n)
+        assert rt.serve_traces == 0
+        assert all(v > 0 for v in rt.rung_dispatch.values())
+        for r, (kc, k2) in enumerate(server.rungs):
+            direct = hi.search(index, c.query_emb[:n], c.query_tokens[:n],
+                               kc=kc, k2=k2, top_r=100, device=index.device)
+            sel = np.nonzero(rung == r)[0]
+            _rt_rows_equal([rows[i] for i in sel],
+                           hi.SearchResult(direct.doc_ids[sel],
+                                           direct.scores[sel],
+                                           direct.n_candidates[sel],
+                                           False))
+        q0, t0 = c.query_emb[0], c.query_tokens[0].astype(np.int64)
+        assert rt._key(q0, t0, None, 0) != rt._key(q0, t0, None, 1)
+        hits = rt.cache.hits
+        again = rt.submit(q0, t0).result(timeout=RT_WAIT)
+        assert rt.cache.hits == hits + 1
+        np.testing.assert_array_equal(again.doc_ids, rows[0].doc_ids)
+        rt.assert_one_compile_per_bucket()
+    assert rt.pool_bytes > 0
+
+
+def test_tuned_index_saved_from_the_card_loads_back_onto_it(rt_indexes,
+                                                            tmp_path):
+    """save_index from the card, load_index and restore_index onto it:
+    every leaf equal, the tuned record attached, a default-config server
+    serving the tuned widths with the rows of the saved index."""
+    from repro_torch.launch import serve, tune
+    c, indexes = rt_indexes
+    index = tune.apply_tuned(indexes["refine:sq8:4"],
+                             _two_rung(indexes["refine:sq8:4"], c)
+                             ._replace(refine_mult=2))
+    assert index.codec == "refine:sq8:2"
+    path = ckpt.save_index(str(tmp_path), 0, index)
+    for back in (ckpt.load_index(path, device=index.device),
+                 ckpt.restore_index(path, index)):
+        assert back.tuned == index.tuned and back.codec == index.codec
+        for (p, x), (q, y) in zip(hi.index_leaves(back),
+                                  hi.index_leaves(index)):
+            assert p == q and x.device == y.device and torch.equal(x, y), p
+        server = serve.make_server(back, serve.ServeConfig(
+            top_r=100, max_batch=16), device=index.device)
+        assert (server.kc, server.k2, server.width_source) == (6, 8,
+                                                               "tuned")
+        got = server.query(c.query_emb[:16], c.query_tokens[:16])
+        want = hi.search(index, c.query_emb[:16], c.query_tokens[:16],
+                         kc=6, k2=8, top_r=100, device=index.device)
+        assert torch.equal(got.doc_ids, want.doc_ids)
+        assert torch.equal(got.scores, want.scores)

@@ -61,7 +61,9 @@ def test_port_sources_import_neither_jax_nor_the_reference():
             "kernels/flash_attention/ref.py",
             "kernels/assign_topk/ops.py", "core/segments.py",
             "benchmarks/streaming_updates.py", "launch/runtime.py",
-            "benchmarks/serving_load.py", "rowwise.py"} <= walked
+            "benchmarks/serving_load.py", "rowwise.py",
+            "core/exec/frontier.py", "launch/tune.py",
+            "checkpoint/manager.py", "benchmarks/autotune.py"} <= walked
     offenders = [(f.relative_to(_ROOT).as_posix(), m) for f in files
                  for m in _imported_modules(f) if _FORBIDDEN.search(m)]
     assert not offenders, offenders
@@ -87,7 +89,10 @@ def test_importing_every_port_module_loads_no_jax():
         " 'repro_torch.core.segments',"
         " 'repro_torch.benchmarks.streaming_updates',"
         " 'repro_torch.launch.runtime', 'repro_torch.rowwise',"
-        " 'repro_torch.benchmarks.serving_load'} <= set(mods), mods\n"
+        " 'repro_torch.benchmarks.serving_load',"
+        " 'repro_torch.core.exec.frontier', 'repro_torch.launch.tune',"
+        " 'repro_torch.checkpoint.manager',"
+        " 'repro_torch.benchmarks.autotune'} <= set(mods), mods\n"
         "assert not bad, bad\n")
     env = {"PYTHONPATH": str(_ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -124,9 +129,16 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
         serve.Server(index, serve.ServeConfig(max_batch=4))
     with pytest.raises(RuntimeError, match="cuda"):
         ckpt.index_from_numpy(leaves, "pq")
+    from repro_torch.launch import tune
+    oracle = np.zeros((2, 1), np.int64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tune.tune_index(index, qe, qt, oracle, top_r=5, grid=((1, 1),))
     # the same calls run when the caller asks for the CPU
     res = hi.search(index, qe, qt, kc=2, k2=2, top_r=5, device="cpu")
     assert res.doc_ids.shape == (2, 5)
+    tuned, points = tune.tune_index(index, qe, qt, oracle, top_r=5,
+                                    grid=((1, 1), (2, 2)), device="cpu")
+    assert len(points) == 2 and tuned.rungs[-1] == (tuned.kc, tuned.k2)
 
 
 def test_mutable_entry_points_without_device_raise_when_cuda_is_absent(
@@ -183,6 +195,9 @@ def test_unported_layouts_and_codecs_raise(tmp_path):
 
 
 def test_load_index_refuses_tuned_widths(tmp_path):
+    """Tuned widths are ported: a full record is attached to the loaded
+    index; a malformed one (fields missing) is refused, not served with
+    other widths."""
     import json
     leaves, _ = _tiny_index()
     paths = list(leaves)
@@ -192,10 +207,19 @@ def test_load_index_refuses_tuned_widths(tmp_path):
                            for i, p in enumerate(paths)],
                 "extra": {"codec": "pq"}}
     (tmp_path / "manifest.json").write_text(json.dumps(manifest))
-    assert ckpt.load_index(str(tmp_path), device="cpu").codec == "pq"
+    loaded = ckpt.load_index(str(tmp_path), device="cpu")
+    assert loaded.codec == "pq" and loaded.tuned is None
+    record = {"kc": 3, "k2": 4, "refine_mult": None, "recall_target": 0.9,
+              "recall": 0.92, "cost": 40, "rungs": [[1, 2], [3, 4]],
+              "margin_cuts": [0.25]}
+    manifest["extra"]["tuned"] = record
+    (tmp_path / "manifest.json").write_text(json.dumps(manifest))
+    tuned = ckpt.load_index(str(tmp_path), device="cpu").tuned
+    assert (tuned.kc, tuned.k2, tuned.rungs, tuned.margin_cuts) == (
+        3, 4, ((1, 2), (3, 4)), (0.25,))
     manifest["extra"]["tuned"] = {"kc": 3, "k2": 4}
     (tmp_path / "manifest.json").write_text(json.dumps(manifest))
-    with pytest.raises(NotImplementedError, match="tuned widths"):
+    with pytest.raises(KeyError):
         ckpt.load_index(str(tmp_path), device="cpu")
 
 

@@ -1,6 +1,8 @@
 """The port's serving runtime (``repro_torch.launch.runtime``, DESIGN.md
 §10) on the CPU: the single-rung contracts of ``tests/test_runtime.py``
-on port-built indexes, every bucket bit-identical to ``Server.query``
+on port-built indexes, its adaptive cases (DESIGN.md §14: one program
+per (bucket, rung), rows bitwise at the resolved rung, no cross-rung
+cache replay, the metrics lines), every bucket bit-identical to ``Server.query``
 for every codec dense and fused, and two parity tests on an index the
 JAX package built and saved with ``save_index``: the reference runtime's
 rows against the port runtime's (DESIGN.md §11: ids exact apart from
@@ -21,6 +23,7 @@ import torch
 from repro_torch.core import exec as qexec
 from repro_torch.core import hybrid_index as hi
 from repro_torch.core import segments as seg
+from repro_torch.core.exec import frontier
 from repro_torch.data import synthetic
 from repro_torch.launch import runtime as rt_mod
 from repro_torch.launch import serve
@@ -551,6 +554,219 @@ def test_auto_compaction_through_runtime_rewarms(built, c):
         rt.assert_one_compile_per_bucket()
         _batch_equal(post, server.query(c.query_emb[:4],
                                         c.query_tokens[:4]))
+
+
+# --------------------------------------------------------------------------
+# adaptive width rungs (DESIGN.md §14): programs, cache keys, metrics
+# --------------------------------------------------------------------------
+
+def _ladder(index, c):
+    """A hand-calibrated 2-rung record over ``index``: the median margin
+    of the sample as the cut, so both rungs see traffic."""
+    m = frontier.margins(index.cluster_sel.embeddings, c.query_emb)
+    return frontier.TunedWidths(
+        kc=4, k2=4, refine_mult=None, recall_target=0.9, recall=0.9,
+        cost=int(hi.candidate_budget(index, 4, 4)),
+        rungs=((2, 2), (4, 4)), margin_cuts=(float(np.median(m)),))
+
+
+def _adaptive_runtime(built, c, max_batch=8, **cfg):
+    idx = built["plain"]
+    server = serve.make_server(hi.with_tuned(idx, _ladder(idx, c)),
+                               serve.ServeConfig(adaptive=True,
+                                                 max_batch=max_batch),
+                               device="cpu")
+    return server, _runtime(server, c, **cfg)
+
+
+def _resolved_rungs(server, qe):
+    return frontier.resolve_rung(
+        frontier.margins(server.index.cluster_sel.embeddings, qe),
+        server.margin_cuts)
+
+
+def test_adaptive_one_program_per_bucket_rung_and_bit_identity(built, c):
+    """Warmup builds exactly one program per (bucket, rung), serving
+    builds none, and every row equals the direct search at its resolved
+    rung's widths, bit for bit."""
+    server, rt = _adaptive_runtime(built, c)
+    assert server.width_source == "tuned"
+    assert rt.rungs == ((2, 2), (4, 4))
+    assert set(rt.warm_traces) == {(b, r) for b in rt.buckets
+                                   for r in range(2)}
+    assert set(rt.warm_traces.values()) == {1}
+    assert set(rt._programs) == set(rt.warm_traces)
+    with rt:
+        futures = [rt.submit(c.query_emb[i], c.query_tokens[i])
+                   for i in range(24)]
+        rows = [f.result(timeout=WAIT) for f in futures]
+        assert rt.serve_traces == 0
+        rt.assert_one_compile_per_bucket()
+        assert all(rt.rung_dispatch[r] > 0 for r in range(2)), \
+            rt.rung_dispatch
+        assert sum(rt.rung_dispatch.values()) == 24
+        rung = _resolved_rungs(server, c.query_emb[:24])
+        for r, (kc, k2) in enumerate(rt.rungs):
+            ref = hi.search(server.index, c.query_emb[:24],
+                            c.query_tokens[:24], kc=kc, k2=k2,
+                            top_r=server.cfg.top_r, device="cpu")
+            for i in np.nonzero(rung == r)[0]:
+                _rows_equal(rows[i], ref, i)
+
+
+def test_adaptive_rungs_equal_the_reference_rule(built, c):
+    """The runtime's rung per request is frontier.resolve_rung of the
+    float64 margin against the embeddings it holds (one float64 copy per
+    ladder refresh), the reference's margins on the same inputs."""
+    from repro.core.exec import frontier as jfrontier
+    server, rt = _adaptive_runtime(built, c)
+    with rt:
+        assert rt._cluster_emb.dtype == np.float64
+        emb = server.index.cluster_sel.embeddings.numpy()
+        np.testing.assert_array_equal(rt._cluster_emb, emb)
+        want = jfrontier.resolve_rung(
+            jfrontier.margins(emb, c.query_emb), server.margin_cuts)
+        got = [rt._rung_for(c.query_emb[i]) for i in range(len(want))]
+        np.testing.assert_array_equal(got, want)
+        # positive rescaling resolves the same rung
+        assert [rt._rung_for(np.float32(4.0) * c.query_emb[i])
+                for i in range(len(want))] == got
+
+
+def test_adaptive_batches_carry_one_rung(built, c):
+    """Co-rung micro-batching: requests queued together split into
+    batches of one rung each, FIFO within a rung."""
+    server, rt = _adaptive_runtime(built, c, linger_ms=100.0)
+    rung = _resolved_rungs(server, c.query_emb[:16])
+    seen = []
+    orig = rt._run_batch
+
+    def spy(misses, r, epoch, rows):
+        seen.append((r, [int(np.flatnonzero(
+            (c.query_emb[:16] == m.qe).all(1))[0]) for m in misses]))
+        return orig(misses, r, epoch, rows)
+
+    rt._run_batch = spy
+    with rt:
+        futures = [rt.submit(c.query_emb[i], c.query_tokens[i])
+                   for i in range(16)]
+        for f in futures:
+            f.result(timeout=WAIT)
+    for r, idxs in seen:
+        assert all(rung[i] == r for i in idxs), (r, idxs)
+        assert idxs == sorted(idxs)
+    assert sorted(i for _, idxs in seen for i in idxs) == list(range(16))
+    assert {r for r, _ in seen} == {0, 1}
+
+
+def test_adaptive_concurrent_clients_each_get_their_rung_rows(built, c):
+    """More client threads than cores submit to an adaptive runtime with
+    the switch interval cut: every row is its query's at its rung, and
+    the per-rung counters lose no update."""
+    import sys
+    server, rt = _adaptive_runtime(built, c, cache_size=8,
+                                   queue_depth=1024)
+    rung = _resolved_rungs(server, c.query_emb[:16])
+    want = [hi.search(server.index, c.query_emb[:16], c.query_tokens[:16],
+                      kc=kc, k2=k2, top_r=server.cfg.top_r, device="cpu")
+            for kc, k2 in rt.rungs]
+    n_threads, per_thread = 12, 10
+    got, errors = {}, []
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with rt:
+            def client(t):
+                try:
+                    for k in range(per_thread):
+                        i = (3 * t + k) % 16
+                        got[(t, k)] = (i, rt.submit(
+                            c.query_emb[i], c.query_tokens[i]).result(
+                                timeout=WAIT))
+                except BaseException as e:      # noqa: BLE001 — reported
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=WAIT)
+            assert not any(t.is_alive() for t in threads)
+            assert not errors, errors
+            assert (sum(rt.rung_dispatch.values()) + rt.cache.hits
+                    == rt.n_served + rt.cache.hits
+                    == n_threads * per_thread)
+            assert rt.serve_traces == 0
+    finally:
+        sys.setswitchinterval(old)
+    assert len(got) == n_threads * per_thread
+    for i, row in got.values():
+        _rows_equal(row, want[rung[i]], i)
+
+
+def test_adaptive_cache_key_separates_rungs_and_replays_within(built, c):
+    server, rt = _adaptive_runtime(built, c, cache_size=64)
+    with rt:
+        q0 = np.asarray(c.query_emb[0], np.float32)
+        t0 = np.asarray(c.query_tokens[0], np.int64)
+        # a margin flip at a cut can only miss, never replay a row
+        # computed at the other rung's widths
+        assert rt._key(q0, t0, None, 0) != rt._key(q0, t0, None, 1)
+        first = rt.submit(q0, t0).result(timeout=WAIT)
+        hits0 = rt.cache.hits
+        again = rt.submit(np.float32(2.0) * q0, t0).result(timeout=WAIT)
+        assert rt.cache.hits == hits0 + 1
+        np.testing.assert_array_equal(first.doc_ids, again.doc_ids)
+        # a row cached at one rung is not served to the other rung
+        r0 = rt._rung_for(q0)
+        rt.cache.put(rt._key(q0, t0, None, 1 - r0), "other rung")
+        assert rt.submit(q0, t0).result(timeout=WAIT) is first
+
+
+def test_metrics_expose_width_info_and_rung_dispatch(built, c):
+    server, rt = _adaptive_runtime(built, c)
+    with rt:
+        rt.query(c.query_emb[:8], c.query_tokens[:8], timeout=WAIT)
+        stats = rt.stats()
+        body = rt_mod.render_metrics(stats)
+    assert stats["rungs"] == [[2, 2], [4, 4]]
+    assert sum(stats["rung_dispatch"].values()) == 8
+    assert 'hi2_runtime_width_info{source="tuned",kc="4",k2="4"} 1' in body
+    assert "hi2_runtime_rungs 2" in body
+    assert 'hi2_runtime_rung_dispatch_total{rung="0",kc="2",k2="2"} ' in body
+    assert 'hi2_runtime_rung_dispatch_total{rung="1",kc="4",k2="4"} ' in body
+    assert 'hi2_runtime_bucket_compiles{bucket="2",rung="0"} 1' in body
+
+
+def test_adaptive_mutable_server_keeps_its_ladder_across_compaction(built,
+                                                                    c):
+    """MutableServer resolves its widths from the tuned base once; the
+    compacted base carries no record, yet the ladder stays and the
+    runtime refreshes its margin embeddings from the new base."""
+    mut = _fresh_mut(built)
+    mut.base = hi.with_tuned(mut.base, _ladder(mut.base, c))
+    server = serve.make_mutable_server(mut, serve.ServeConfig(
+        max_batch=8, mutable=True, adaptive=True), device="cpu")
+    with _runtime(server, c) as rt:
+        assert rt.rungs == ((2, 2), (4, 4))
+        rt.add(c.doc_emb[-16:], c.doc_tokens[-16:])
+        rt.compact()
+        assert server.index.tuned is None
+        assert server.rungs == ((2, 2), (4, 4)) and rt.rungs == server.rungs
+        np.testing.assert_array_equal(
+            rt._cluster_emb, server.index.cluster_sel.embeddings.numpy())
+        rows = rt.query(c.query_emb[:8], c.query_tokens[:8], timeout=WAIT)
+        assert rt.serve_traces == 0
+        rung = _resolved_rungs(server, c.query_emb[:8])
+        for r, (kc, k2) in enumerate(rt.rungs):
+            ref = server.mut.search(c.query_emb[:8], c.query_tokens[:8],
+                                    kc=kc, k2=k2, top_r=server.cfg.top_r)
+            for i in np.nonzero(rung == r)[0]:
+                np.testing.assert_array_equal(rows.doc_ids[i],
+                                              ref.doc_ids[i].numpy())
+                np.testing.assert_array_equal(rows.scores[i],
+                                              ref.scores[i].numpy())
 
 
 # --------------------------------------------------------------------------
