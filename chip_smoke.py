@@ -140,20 +140,43 @@ never prints the final line.  Every phase prints its seconds.
               ``bucket_invariance``; 17e ``autotune.py --check`` on the
               card at its smoke shape (every contract) and its full
               shape (contracts (c)-(e); (a) and (b) printed);
+ 18. train    HI²_sup training (paper §4.3) at the paper's BERT slot
+              (d 768, 12 heads, d_ff 3,072, 2 layers, f32) over phase
+              10's corpus (V 30,528, L 10,000): 18a the differentiable
+              ``flash_attention`` (kernel forward, the reference's
+              recompute backward) against autograd through the plain
+              version at the step's doc and query chunks, a ragged S and
+              a window (dq, dk, dv within 1e-4); 18b one step of 4
+              queries x 12 candidates (1 positive + 7 hard + 4 in-batch,
+              refine weight 0.5) from phase 10's cluster embeddings: the
+              loss, its aux terms and every gradient leaf against the
+              CPU plain path; 18c ``train_hi2_sup`` for 50 steps of 32
+              queries (25,600 tokens: 32 query tokens and 12 x 64 doc
+              tokens a query), negatives mined from phase 10's
+              ``opq`` index and united with the topic pool, as a counted
+              run (4 ``flash_attention`` launches a step; KMeans'
+              ``assign_argmax``; the mining's search): steps/s,
+              tokens/s, the windowed loss means (which must fall) and
+              one profiled step; 18d two 6-step ``fit`` runs equal bit
+              for bit, and a run saved at step 3 and resumed equal to
+              the straight run; 18e the port's ``sup_distill.py
+              --check`` at its smoke and full shapes;
 
 then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
-kernel's ``launches`` is read from the counted run of the path that runs
-it: ``pq_adc_fused`` and ``topk_scores`` from phase 5, ``sq8_dot_fused``
-from 9c, ``assign_argmax`` from phase 10's builds, ``flash_attention``
-from phase 12, ``pq_adc`` from phase 14; phase 15's counted runs are
-checked in the phase and printed.  It imports only the port, never jax
-or the reference package, and exits non-zero without a card.
+kernel's ``launches`` is read from the counted runs of the paths that
+run it: ``pq_adc_fused`` and ``topk_scores`` from phase 5,
+``sq8_dot_fused`` from 9c, ``assign_argmax`` from phase 10's builds and
+18c, ``flash_attention`` from phase 12 and 18c, ``pq_adc`` from phase
+14; phase 15's counted runs are checked in the phase and printed.  It
+imports only the port, never jax or the reference package, and exits
+non-zero without a card.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import pathlib
 import shutil
@@ -172,13 +195,17 @@ from repro_torch.benchmarks import autotune  # noqa: E402
 from repro_torch.benchmarks import bucket_invariance  # noqa: E402
 from repro_torch.benchmarks import kernel_bench  # noqa: E402
 from repro_torch.benchmarks import serving_load  # noqa: E402
+from repro_torch.benchmarks import sup_distill  # noqa: E402
 from repro_torch.benchmarks.synth_msmarco import (  # noqa: E402
     BATCH, CLUSTER_CAP, HIDDEN, K1_TERMS, K2, KC, N_CLUSTERS, N_DOCS, PQ_K,
     PQ_M, QUERY_LEN, REFINE_CODEC, SMOKE_BATCHES, TERM_CAP, TOP_R, VOCAB,
     main_path_inputs, planted_docs, refine_index, synth_leaves,
     synth_queries)
 from repro_torch.benchmarks.timing import Timer  # noqa: E402
+from repro_torch import optim  # noqa: E402
+from repro_torch import tree as tree_mod  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
+from repro_torch.core import distill  # noqa: E402
 from repro_torch.core import exec as qexec  # noqa: E402
 from repro_torch.core.exec import frontier  # noqa: E402
 from repro_torch.core import hybrid_index as hi  # noqa: E402
@@ -188,6 +215,7 @@ from repro_torch.core import segments  # noqa: E402
 from repro_torch.core import term_selector as ts_mod  # noqa: E402
 from repro_torch.core.codecs import flat as flat_codec  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.distributed.fault import StragglerMonitor  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.assign_topk import ops as at_ops  # noqa: E402
 from repro_torch.kernels.assign_topk import ref as at_ref  # noqa: E402
@@ -262,6 +290,21 @@ RT_MUT_ADD = 16_384
 # which git ignores; removed after the phase)
 TUNE_MULTS = (2, 4, 8)
 TUNE_CKPT = ROOT / "build" / "tuned_ckpt"
+# phase 18: training at the BERT slot.  18c takes TRAIN_STEPS steps (cut
+# from SupTrainConfig's 300 for the run's time) of TRAIN_BATCH queries;
+# 18b holds one step of TRAIN_CHECK_B queries (cut from 32 so the CPU
+# side fits the run) to the CPU; 18d repeats REPEAT_STEPS steps and
+# resumes at RESUME_AT from a checkpoint under build/ (removed after)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_CHECK_B = 50, 32, 4
+TRAIN_TOL = 1e-4                     # rtol = atol, f32 (DESIGN.md §11)
+REPEAT_STEPS, RESUME_AT = 6, 3
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+# 18a: (B, H, S, d, causal, window): the training step's doc and query
+# chunks, a ragged S and a window
+FLASH_GRAD_CASES = {"docs": (384, ENC_HEADS, 64, 64, False, 0),
+                    "queries": (32, ENC_HEADS, 8, 64, False, 0),
+                    "ragged": (3, 4, 37, 64, False, 0),
+                    "window": (2, 4, 100, 32, True, 16)}
 
 #: kernel → (its wrapper module, the name of its launch count there)
 COUNTERS = {"pq_adc_fused": (adc_ops, "launches"),
@@ -2301,6 +2344,276 @@ def tuner_phase(dev, built: dict) -> None:
         autotune_on_card([], "full shape", strict=False)
 
 
+# --------------------------------------------------------------------------
+# phase 18: HI²_sup training on the card
+# --------------------------------------------------------------------------
+
+def sup_train_cfg(seed: int, batch_queries: int = 0
+                  ) -> train.SupTrainConfig:
+    """The paper's BERT slot with the §15 recipe (7 hard + 4 in-batch
+    negatives, refine-stage KL at 0.5) over phase 10's L clusters, for
+    TRAIN_STEPS steps of ``batch_queries`` (default TRAIN_BATCH)
+    queries."""
+    return train.SupTrainConfig(
+        n_clusters=N_CLUSTERS, encoder_layers=ENC_LAYERS,
+        encoder_dim=HIDDEN, encoder_heads=ENC_HEADS, n_steps=TRAIN_STEPS,
+        batch_queries=batch_queries or TRAIN_BATCH, n_negatives=7,
+        n_inbatch=4, refine_weight=0.5, seed=seed)
+
+
+def flash_grad_parity(dev, seed: int) -> float:
+    """18a: the differentiable ``flash_attention`` (kernel forward,
+    recompute backward) against autograd through the plain version on
+    the card, on (B, S, H, d) projections viewed (B, H, S, d) as the
+    encoder gives them; the loss Σ w·out² makes the gradients depend on
+    the forward.  One kernel launch per call; dq, dk, dv within
+    TRAIN_TOL."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = 0.0
+    for name, (b, h, s_len, d, causal, window) in FLASH_GRAD_CASES.items():
+        q, k, v, w = (_bshd(gen, dev, b, s_len, h, d, torch.float32)
+                      for _ in range(4))
+        grads = {}
+        for route in ("kernel", "plain"):
+            inputs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            before = fa_ops.launches
+            if route == "kernel":
+                out = fa_ops.flash_attention(*inputs, causal, window)[0]
+                if fa_ops.launches != before + 1:
+                    fail(f"flash_attention {name}: the forward launched "
+                         f"{fa_ops.launches - before} kernels, not 1")
+            else:
+                out = fa_ref.attention(*inputs, causal=causal, window=window)
+            (w * out * out).sum().backward()
+            if fa_ops.launches != before + (route == "kernel"):
+                fail(f"flash_attention {name}: the backward launched a "
+                     "kernel")
+            grads[route] = [t.grad for t in inputs]
+        for n, g, p in zip("qkv", grads["kernel"], grads["plain"]):
+            err = float((g - p).abs().max())
+            worst = max(worst, err)
+            if not torch.allclose(g, p, rtol=TRAIN_TOL, atol=TRAIN_TOL):
+                fail(f"flash_attention {name}: d{n} differs from autograd "
+                     f"through the plain version (max abs err {err:.3g}, "
+                     f"tol {TRAIN_TOL})")
+    log(f"[train] 18a flash_attention gradients at {len(FLASH_GRAD_CASES)} "
+        f"shapes {list(FLASH_GRAD_CASES)}: dq, dk, dv max abs err "
+        f"{worst:.3g} against autograd through the plain version (rtol = "
+        f"atol = {TRAIN_TOL})")
+    return worst
+
+
+def _train_params(dev, seed: int, built: dict, enc_cfg):
+    """Phase 10's cluster embeddings with a term scorer drawn from
+    ``seed`` on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return distill.DistillParams(
+        cluster_embeddings=built["cluster_sel"].embeddings.clone(),
+        term_mlp=ts_mod.init_mlp(gen, HIDDEN),
+        encoder=tfm.init(gen, enc_cfg))
+
+
+def step_vs_cpu(dev, seed: int, built: dict, pool: np.ndarray) -> None:
+    """18b: the loss, its aux terms and every gradient leaf of one
+    TRAIN_CHECK_B-query batch on the card against the CPU plain path from
+    the same parameters and batch."""
+    cfg = sup_train_cfg(seed, batch_queries=TRAIN_CHECK_B)
+    enc_cfg = train.encoder_config(cfg, VOCAB)
+    params = _train_params(dev, seed, built, enc_cfg)
+    batch = train.sup_batches(built["corpus"], cfg, pool,
+                              built["doc_assign"])(0)
+    loss = train.sup_loss(enc_cfg, VOCAB, cfg.refine_weight)
+    before = fa_ops.launches
+    t0 = time.perf_counter()
+    (value, aux), grads = optim.value_and_grad(
+        loss, params, tree_mod.to(batch, dev), has_aux=True)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    if fa_ops.launches - before != 2 * ENC_LAYERS:
+        fail(f"one step launched flash_attention "
+             f"{fa_ops.launches - before} times, expected {2 * ENC_LAYERS}")
+    t0 = time.perf_counter()
+    (c_value, c_aux), c_grads = optim.value_and_grad(
+        loss, params.to("cpu"), batch, has_aux=True)
+    cpu_s = time.perf_counter() - t0
+    worst, rel = {}, 0.0
+    for k in aux:
+        err = abs(float(aux[k]) - float(c_aux[k]))
+        if err > TRAIN_TOL * (1 + abs(float(c_aux[k]))):
+            fail(f"18b {k}: card {float(aux[k])!r} vs CPU "
+                 f"{float(c_aux[k])!r}")
+        worst[k] = err
+    for (path, g), c in zip(hi.index_leaves(grads),
+                            tree_mod.leaves(c_grads)):
+        g = g.cpu()
+        err = float((g - c).abs().max())
+        rel = max(rel, err / max(float(c.abs().max()), 1e-30))
+        if not torch.allclose(g, c, rtol=TRAIN_TOL, atol=TRAIN_TOL):
+            fail(f"18b gradient {path}: card vs CPU max abs err {err:.3g} "
+                 f"(tol {TRAIN_TOL})")
+        worst[path] = err
+    log(f"[train] 18b one step at B {TRAIN_CHECK_B} x D "
+        f"{batch.doc_tokens.shape[1]} (d {HIDDEN}, V {VOCAB}, L "
+        f"{N_CLUSTERS}): loss {float(value):.6f} (CPU "
+        f"{float(c_value):.6f}), aux "
+        f"{ {k: round(float(v), 6) for k, v in aux.items()} }; "
+        f"{len(worst) - len(aux)} gradient leaves within rtol = atol = "
+        f"{TRAIN_TOL} of the CPU (max abs err "
+        f"{max(v for k, v in worst.items() if k not in aux):.3g}, max "
+        f"relative to the leaf's largest {rel:.3g}); card {card_s:.2f} s "
+        f"(first call), CPU {cpu_s:.2f} s")
+
+
+def train_on_card(dev, seed: int, built: dict, mine_index) -> dict:
+    """18c: ``train_hi2_sup`` at the paper's BERT slot on phase 10's
+    corpus, negatives mined from phase 10's ``opq`` index united with the
+    topic pool, as one counted run; steps/s, tokens/s, and one profiled
+    step.  Returns what 18d reuses and the run's launches."""
+    corpus = built["corpus"]
+    cfg = sup_train_cfg(seed)
+    reset_counts()
+    t0 = time.perf_counter()
+    topic = synthetic.hard_negatives(corpus, cfg.n_negatives, seed=seed)
+    mined = distill.mine_hard_negatives(mine_index, corpus.query_emb,
+                                        corpus.query_tokens, corpus.qrels,
+                                        cfg.n_negatives)
+    pool = np.concatenate([topic, mined], axis=1)
+    mine_s = time.perf_counter() - t0
+    monitor = StragglerMonitor(window=cfg.n_steps)
+    t0 = time.perf_counter()
+    params, enc_cfg, assign, losses = train.train_hi2_sup(
+        corpus, cfg, log_every=10, negatives=pool, monitor=monitor,
+        device=dev)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_counts()
+    steps = list(monitor.durations)
+    tokens = cfg.batch_queries * (corpus.query_tokens.shape[1] + (
+        1 + cfg.n_negatives + cfg.n_inbatch) * corpus.doc_tokens.shape[1])
+    steady = float(np.mean(steps[1:]))
+    log(f"[train] 18c train_hi2_sup: {cfg.n_steps} steps of {tokens} "
+        f"tokens (B {cfg.batch_queries} x D "
+        f"{1 + cfg.n_negatives + cfg.n_inbatch}); mining + topic pool "
+        f"{mine_s:.2f} s; train_hi2_sup {total_s:.2f} s of which steps "
+        f"{sum(steps):.2f} s (KMeans and init the rest); step 1 "
+        f"{steps[0] * 1e3:.1f} ms, steps 2-{cfg.n_steps} mean "
+        f"{steady * 1e3:.2f} ms, median "
+        f"{float(np.median(steps[1:])) * 1e3:.2f} ms, max "
+        f"{max(steps[1:]) * 1e3:.2f} ms: {1 / steady:.2f} steps/s, "
+        f"{tokens / steady:.0f} tokens/s; launches {launches}")
+    want = {"flash_attention": 2 * ENC_LAYERS * cfg.n_steps}
+    if launches["flash_attention"] != want["flash_attention"]:
+        fail(f"18c launched flash_attention {launches['flash_attention']} "
+             f"times, expected {want['flash_attention']}")
+    missing = [k for k in ("assign_argmax", "topk_scores", "pq_adc_fused")
+               if launches[k] < 1]
+    if missing:
+        fail(f"18c never launched {missing}")
+    traj = sup_distill.trajectory(losses)
+    log(f"[train] 18c loss trajectory: {json.dumps(traj)}")
+    if (traj["loss_last"] >= traj["loss_first"]
+            or traj["frac_improving_windows"] < sup_distill.MONOTONE_FRAC):
+        fail(f"18c loss did not fall (contract (b)): {traj}")
+    loss_fn = train.sup_loss(enc_cfg, VOCAB, cfg.refine_weight)
+    batches = train.sup_batches(corpus, cfg, pool, assign)
+    state = optim.adam_init(params)
+    batch = tree_mod.to(batches(cfg.n_steps), dev)
+    adam = optim.AdamConfig(lr=cfg.lr)
+    profile_call(lambda: train.train_step(loss_fn, params, state, batch,
+                                          1.0, adam, 1.0),
+                 f"one training step (train.train_step, B "
+                 f"{cfg.batch_queries})", top=15)
+    return dict(params=params, loss_fn=loss_fn, batches=batches, cfg=cfg,
+                launches=launches)
+
+
+def _equal_trees(a, b) -> list:
+    return [p for (p, x), y in zip(hi.index_leaves(a), tree_mod.leaves(b))
+            if not torch.equal(x, y)]
+
+
+def train_repeatability(dev, trained: dict) -> None:
+    """18d: two REPEAT_STEPS-step ``fit`` runs from 18c's parameters are
+    equal bit for bit, and a run saved at step RESUME_AT and resumed
+    equals the straight run bit for bit."""
+    cfg = trained["cfg"]
+
+    def run(n, **kw):
+        return train.fit(trained["loss_fn"], trained["params"],
+                         trained["batches"], n,
+                         adam=optim.AdamConfig(lr=cfg.lr),
+                         schedule=optim.warmup_cosine(cfg.warmup_steps,
+                                                      REPEAT_STEPS),
+                         log_every=0, device=dev, **kw)
+
+    t0 = time.perf_counter()
+    first, l_first = run(REPEAT_STEPS)
+    second, l_second = run(REPEAT_STEPS)
+    diff = _equal_trees(first, second)
+    if diff or l_first != l_second:
+        fail(f"18d two {REPEAT_STEPS}-step runs differ: leaves {diff[:5]}, "
+             f"losses {l_first} vs {l_second}")
+    del second
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    try:
+        run(RESUME_AT, ckpt_dir=str(TRAIN_CKPT), save_every=RESUME_AT)
+        resumed, l_resumed = run(REPEAT_STEPS, ckpt_dir=str(TRAIN_CKPT),
+                                 save_every=RESUME_AT)
+    finally:
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    diff = _equal_trees(first, resumed)
+    if diff or l_resumed != l_first[RESUME_AT:]:
+        fail(f"18d resumed at {RESUME_AT} differs from the straight run: "
+             f"leaves {diff[:5]}, losses {l_resumed} vs "
+             f"{l_first[RESUME_AT:]}")
+    log(f"[train] 18d two {REPEAT_STEPS}-step runs equal bit for bit "
+        f"(losses {l_first}); saved at step {RESUME_AT} and resumed: equal "
+        f"to the straight run, {len(tree_mod.leaves(first))} leaves "
+        f"({time.perf_counter() - t0:.1f} s with the checkpoint's writes)")
+
+
+def sup_distill_on_card(argv: list, what: str) -> None:
+    """18e: the port's ``sup_distill.py --check`` on the card, as a
+    counted run."""
+    reset_counts()
+    report = sup_distill.run(sup_distill.parse_args(
+        argv + ["--check", "--device", "cuda"]))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(json.dumps(report, sort_keys=True))
+    failures = sup_distill.check(report)
+    log(f"[train] 18e sup_distill {what}: launches {launches}; sup wins "
+        f"{report['sup_wins']}/{report['n_operating_points']}; trajectory "
+        f"{report['trajectory']['window_means']}; contracts "
+        f"{failures or 'met'}")
+    if failures:
+        fail(f"sup_distill {what} --check: {failures}")
+    missing = [k for k in ("flash_attention", "assign_argmax", "topk_scores",
+                           "pq_adc_fused") if launches[k] < 1]
+    if missing:
+        fail(f"sup_distill {what} never launched {missing}")
+
+
+def training_phase(dev, seed: int, built: dict, mine_index) -> dict:
+    """Phase 18; returns 18c's counted launches."""
+    with phase("18a flash_attention gradients"):
+        flash_grad_parity(dev, seed + 5)
+    with phase("18b one step against the CPU"):
+        topic = synthetic.hard_negatives(built["corpus"], 7, seed=seed)
+        step_vs_cpu(dev, seed, built, topic)
+    with phase("18c train_hi2_sup (counted)"):
+        trained = train_on_card(dev, seed, built, mine_index)
+    with phase("18d repeatability"):
+        train_repeatability(dev, trained)
+    launches = trained.pop("launches")
+    del trained
+    torch.cuda.empty_cache()
+    with phase("18e sup_distill --check (smoke shape, then full shape)"):
+        sup_distill_on_card(["--smoke"], "smoke shape")
+        sup_distill_on_card([], "full shape")
+    return launches
+
+
 def run_kernel_bench() -> dict:
     """Phase 14: the port's ``kernel_bench`` at its full shapes with
     ``--check`` semantics, as a counted run: the main path of ``pq_adc``
@@ -2356,6 +2669,12 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script needs an NVIDIA card")
+    # the ~170,000 objects the imports made never die; frozen, a full
+    # collection scans only what the run makes later.  Unfrozen, one
+    # takes tens of ms, and where the allocation count lands one inside
+    # a runtime check's burst of submissions it splits the burst past
+    # its linger (phase 16's one batch a bucket)
+    gc.freeze()
     t_start = time.perf_counter()
     with phase("1 card"):
         name = card()
@@ -2446,6 +2765,7 @@ def main(argv=None) -> None:
 
     with phase("10 build on the card"):
         built = build_on_card(dev, args.seed)
+    mine_index = built["indexes"]["opq"]      # 18c mines its negatives
     with phase("17 the width tuner"):
         tuner_phase(dev, built)
     with phase("11a parity (flash_attention)"):
@@ -2462,12 +2782,20 @@ def main(argv=None) -> None:
         bench_launches = run_kernel_bench()
     with phase("15 mutable index"):
         mutable_phase(dev, built, args.seed, BUILD_QUERIES // BATCH)
+    with phase("18 HI²_sup training"):
+        train_launches = training_phase(dev, args.seed, built, mine_index)
+    del mine_index
 
+    # the paths' counted runs: the builds and 18c's KMeans for
+    # assign_argmax, the sup build and 18c's steps for flash_attention
     launches = dict(opq_launches,
                     sq8_dot_fused=refine_launches["sq8_dot_fused"],
-                    assign_argmax=sum(built["assign_launches"].values()),
-                    flash_attention=sup_launches["flash_attention"],
+                    assign_argmax=sum(built["assign_launches"].values())
+                    + train_launches["assign_argmax"],
+                    flash_attention=sup_launches["flash_attention"]
+                    + train_launches["flash_attention"],
                     pq_adc=bench_launches["pq_adc"])
+    log(f"[train] launches of 18c's counted run: {train_launches}")
     # the PQ shape's launches: the opq build's (OPQ training and encode)
     times["assign_argmax"]["pq_shape"]["launches"] = (
         built["assign_launches"]["opq"])

@@ -1,8 +1,7 @@
 """BM25 term scoring, paper Eq. 7 (port of ``repro/core/bm25.py``:
 ``PAD_ID``, ``BM25Stats``, ``first_occurrence_mask``,
-``term_frequency``, ``fit``, ``score_positions``, ``top_terms`` and
-``average_term_scores``; ``score_vector`` comes with supervised
-training).
+``term_frequency``, ``fit``, ``score_positions``, ``top_terms``,
+``average_term_scores`` and ``score_vector``).
 
     s_v = (α+1) · IDF(v) · TF(v,D) / (TF(v,D) + α · (1 − β + β·|D|/avgdl))
 
@@ -115,3 +114,27 @@ def average_term_scores(tokens: torch.Tensor, scores: torch.Tensor,
     sums, counts = kmeans.segment_sum(scores[first].float(), tokens[first],
                                       vocab_size)
     return sums / torch.clamp(counts.float(), min=1.0)
+
+
+def score_vector(tokens: torch.Tensor, scores: torch.Tensor,
+                 vocab_size: int) -> torch.Tensor:
+    """Dense (n, V) score vectors s_D (Eq. 12) from per-position scores:
+    repeated terms collapse by max (Eq. 7's max over d_i = v), terms a
+    row does not hold (and PAD) are 0.
+
+    The reference's ``segment_max``: a max from −inf per (row, term),
+    PAD positions sent to a dropped segment.  ``scatter_reduce("amax",
+    include_self=False)`` gives the same values and the same gradient —
+    split evenly among tied maxima, 0 at PAD and at terms a row lacks —
+    and a max is the same whatever order the card's atomics take."""
+    n, length = tokens.shape
+    valid = tokens != PAD_ID
+    row = torch.arange(n, device=tokens.device)[:, None].expand(n, length)
+    seg = torch.where(valid, row * vocab_size + tokens.clamp(min=0).long(),
+                      n * vocab_size)
+    src = torch.where(valid, scores, torch.full_like(scores, -torch.inf))
+    out = torch.full((n * vocab_size + 1,), -torch.inf, dtype=scores.dtype,
+                     device=scores.device).scatter_reduce(
+        0, seg.reshape(-1), src.reshape(-1), "amax", include_self=False)
+    out = out[:n * vocab_size].reshape(n, vocab_size)
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))

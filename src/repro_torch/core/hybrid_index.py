@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as dev_mod
+from repro_torch import tree as tree_mod
 from repro_torch.core import cluster_selector as cs_mod
 from repro_torch.core import codecs
 from repro_torch.core import exec as qexec
@@ -93,26 +94,9 @@ def count_max_postings(lists: PaddedLists) -> int:
     return int(torch.bincount(ids).max()) if ids.numel() else 0
 
 
-def index_leaves(obj, path: str = "") -> list:
-    """(path, leaf) of every tensor or numpy array in an index (or any
-    tree of dataclasses, NamedTuples and dicts): the leaves two builds
-    are compared by, and the leaves a checkpoint holds.  The order and
-    the paths are those ``jax.tree_util.tree_flatten_with_path`` gives
-    for the reference's structure: fields in declared order (``.name``),
-    dict values by sorted key (``['key']``); ``None`` and metadata that
-    is not an array (the codec spec, the tuned record) hold no leaf."""
-    if isinstance(obj, (torch.Tensor, np.ndarray)):
-        return [(path, obj)]
-    if dataclasses.is_dataclass(obj):
-        return [leaf for f in dataclasses.fields(obj) for leaf in
-                index_leaves(getattr(obj, f.name), f"{path}.{f.name}")]
-    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return [leaf for k in obj._fields
-                for leaf in index_leaves(getattr(obj, k), f"{path}.{k}")]
-    if isinstance(obj, dict):
-        return [leaf for k in sorted(obj)
-                for leaf in index_leaves(obj[k], f"{path}[{k!r}]")]
-    return []
+#: (path, leaf) of every tensor or numpy array of an index (or any tree),
+#: in the reference's leaf order: :func:`repro_torch.tree.leaves_with_paths`
+index_leaves = tree_mod.leaves_with_paths
 
 
 def _params_to(params, device):

@@ -1,7 +1,7 @@
 """Term selector, paper §4.2 Eq. 7–8 (port of
 ``repro/core/term_selector.py``: ``TermSelector``, ``query_terms``,
-``doc_terms``, ``fit_unsup``, and the HI²_sup scorer ``TermMLP`` /
-``mlp_token_scores``; ``init_mlp`` comes with supervised training).
+``doc_terms``, ``fit_unsup``, ``score_vectors``, and the HI²_sup scorer
+``TermMLP`` / ``init_mlp`` / ``mlp_token_scores``).
 
 Indexing side: the top-K₁ᵀ salient terms of each document, scored by
 BM25 (HI²_unsup) or by the MLP over encoder token states (HI²_sup).
@@ -9,6 +9,7 @@ Search side: dispatch the query to ≤ K₂ᵀ of its own terms ranked by the
 stored corpus-average term scores s̄ — no model on the query path."""
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -26,6 +27,22 @@ class TermMLP(NamedTuple):
 
     def to(self, device) -> "TermMLP":
         return TermMLP(*(t.to(device) for t in self))
+
+
+def init_mlp(generator: torch.Generator, hidden: int) -> TermMLP:
+    """w1, w2 from N(0, 1/hidden) (drawn in that order from
+    ``generator``, on its device), zero biases."""
+    s = 1.0 / math.sqrt(hidden)
+
+    def normal(shape):
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=generator.device) * s
+
+    w1 = normal((hidden, hidden))
+    return TermMLP(w1=w1,
+                   b1=torch.zeros((hidden,), device=generator.device),
+                   w2=normal((hidden, 1)),
+                   b2=torch.zeros((1,), device=generator.device))
 
 
 def mlp_token_scores(mlp: TermMLP, hidden_states: torch.Tensor,
@@ -72,6 +89,12 @@ def doc_terms(tokens: torch.Tensor, position_scores: torch.Tensor, k1: int
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Indexing side: top-K₁ᵀ unique terms per document (+ scores)."""
     return bm25.top_terms(tokens, position_scores, k1)
+
+
+def score_vectors(tokens: torch.Tensor, position_scores: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """s_D / s_Q over the vocabulary (Eq. 12), max-pooled over repeats."""
+    return bm25.score_vector(tokens, position_scores, vocab_size)
 
 
 def fit_unsup(tokens: torch.Tensor, vocab_size: int, alpha: float = 0.82,

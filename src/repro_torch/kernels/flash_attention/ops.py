@@ -1,7 +1,18 @@
-"""Checked wrapper of the flash-attention forward kernel (port of
-``repro/kernels/flash_attention/ops.py::flash_attention``, forward only;
-the ``torch.autograd.Function`` whose backward recomputes through the
-plain version comes with training).
+"""Checked, differentiable wrapper of the flash-attention forward kernel
+(port of ``repro/kernels/flash_attention/ops.py::flash_attention`` and
+its ``jax.custom_vjp``).
+
+Under autograd (HI²_sup distillation trains through the term scorer)
+:func:`flash_attention` is a ``torch.autograd.Function``: the forward
+is the kernel on a CUDA tensor (its plain version on a CPU tensor),
+and the backward recomputes the attention through the plain version
+(``ref.attention``) under autograd, exactly as the reference's ``_bwd``
+differentiates its ``ref.attention``.  The JAX package has no backward
+Pallas kernel, so that recompute is the reference's own algorithm, not
+a fallback, and there is no backward kernel to port.  ``lse`` is
+returned non-differentiable.  The forward saves q, k and v themselves
+(never the kernel's output buffer), so the recompute reads nothing a
+later launch writes.
 
 Replaces the TPU kernel
 ``repro/kernels/flash_attention/kernel.py::_flash_kernel``.  On the H100
@@ -23,7 +34,8 @@ same kernel's element-wise load instance.
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
 launches the kernel on the current stream, without synchronizing, or
-raises.  :data:`launches` counts kernel launches.
+raises.  :data:`launches` counts kernel launches (forward launches; the
+backward launches none).
 """
 from __future__ import annotations
 
@@ -110,26 +122,11 @@ def kernel_args(q, k, v, out, lse, causal: bool, window: int, scale: float,
             int(vec), stream]
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0,
-                    scale: Optional[float] = None
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """q (B, Hq, Sq, d); k, v (B, Hkv, Sk, d), Hq a multiple of Hkv,
-    float32 or bfloat16 → (out (B, Hq, Sq, d) in q's dtype, lse
-    (B, Hq, Sq) f32).  Query head h reads kv head h // (Hq / Hkv); masks
-    go by absolute position; a row with no visible key gives zeros and
-    lse = -1e30."""
+def _launch(q, k, v, causal: bool, window: int, scale: float
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on CUDA tensors (already checked) → (out, lse)."""
     global launches
-    _check(q, k, v, window)
     b, hq, sq, d = q.shape
-    if scale is None:
-        scale = 1.0 / (d ** 0.5)
-    if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal, window, scale,
-                                   q_chunk=Q_CHUNK)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
-                         f"{q.device}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} is not one of the kernel's "
                          f"{HEAD_DIMS}")
@@ -148,3 +145,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib, err, "flash_attention")
     launches += 1
     return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU).  Backward:
+    autograd through ``ref.attention`` on the saved q, k, v — the
+    reference's ``_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        if q.device.type == "cpu":
+            out, lse = ref.flash_attention(q, k, v, causal, window, scale,
+                                           q_chunk=Q_CHUNK)
+        else:
+            out, lse = _launch(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v)
+        ctx.attn = (causal, window, scale)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, grad_out, _grad_lse):
+        causal, window, scale = ctx.attn
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ref.attention(*inputs, causal=causal, window=window,
+                                scale=scale)
+            grads = torch.autograd.grad(out, inputs, grad_out)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad[:3])) + (None,) * 3
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """q (B, Hq, Sq, d); k, v (B, Hkv, Sk, d), Hq a multiple of Hkv,
+    float32 or bfloat16 → (out (B, Hq, Sq, d) in q's dtype, lse
+    (B, Hq, Sq) f32).  Query head h reads kv head h // (Hq / Hkv); masks
+    go by absolute position; a row with no visible key gives zeros and
+    lse = -1e30.  Differentiable in q, k and v (not in lse)."""
+    _check(q, k, v, window)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    if scale is None:
+        scale = 1.0 / (q.shape[3] ** 0.5)
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                 float(scale))

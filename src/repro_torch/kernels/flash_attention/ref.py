@@ -1,8 +1,9 @@
 """Plain PyTorch attention (port of
 ``repro/kernels/flash_attention/ref.py``: ``attention`` and
 ``attention_chunked``), with causal and sliding-window masks and GQA.
-The wrapper takes :func:`flash_attention` for CPU tensors; on the card
-only the smoke check calls it.
+The wrapper takes :func:`flash_attention` for CPU tensors, and its
+backward differentiates :func:`attention` on every device (the
+reference's recompute); on the card the smoke check also calls it.
 
 The reference's conventions hold: masked scores are ``NEG_INF = -1e30``
 (finite, not ``-inf``); masks go by absolute position; query head h
@@ -46,8 +47,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sk = k.shape[2]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    kg = k.repeat_interleave(group, dim=1).float()
-    vg = v.repeat_interleave(group, dim=1).float()
+    # group 1 reads k and v as they are: no copy, and no index
+    # backward (atomic adds on CUDA) when the attention is differentiated
+    kg = (k if group == 1 else k.repeat_interleave(group, dim=1)).float()
+    vg = (v if group == 1 else v.repeat_interleave(group, dim=1)).float()
     k_pos = torch.arange(sk, device=q.device)[None, :]
     step = sq if q_chunk is None else q_chunk
     outs, lses = [], []

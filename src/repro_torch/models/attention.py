@@ -1,5 +1,6 @@
 """GQA attention, full-sequence forward (port of
-``repro/models/attention.py``: ``_project_qkv`` and ``forward``; the
+``repro/models/attention.py``: ``init``, ``_project_qkv`` and
+``forward``; the
 KV-cache decode path, ``KVCache`` and ``decode_step``, comes with the
 LM modes).
 
@@ -9,7 +10,9 @@ kernel, on a CPU tensor its plain version.  The reference's two routes
 (``use_flash`` → the Pallas kernel, else the chunked XLA path) compute
 the same function (attention.py:67-74); the port has no routing switch,
 so ``use_flash`` is accepted for parity with the reference's signature
-and routes nothing.
+and routes nothing.  Under autograd the kernel's backward is the
+reference's: a recompute through the plain version
+(:mod:`repro_torch.kernels.flash_attention.ops`).
 """
 from __future__ import annotations
 
@@ -19,6 +22,20 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers
+
+
+def init(generator: torch.Generator, d_model: int, n_heads: int,
+         n_kv_heads: int, d_head: int, dtype=torch.float32) -> dict:
+    """wq, wk, wv, wo at ``layers.dense_init``'s scale, drawn in that
+    order from ``generator``."""
+    return {
+        "wq": layers.dense_init(generator, d_model, n_heads * d_head, dtype),
+        "wk": layers.dense_init(generator, d_model, n_kv_heads * d_head,
+                                dtype),
+        "wv": layers.dense_init(generator, d_model, n_kv_heads * d_head,
+                                dtype),
+        "wo": layers.dense_init(generator, n_heads * d_head, d_model, dtype),
+    }
 
 
 def _project_qkv(params: dict, x: torch.Tensor, n_heads: int,

@@ -1,16 +1,76 @@
 """Common neural layers as plain functions over parameter dicts (port of
-``repro/models/layers.py``: ``dense``, ``embedding_lookup``,
+``repro/models/layers.py``: ``dense_init``, ``dense``,
+``embedding_init``, ``embedding_lookup``, ``rmsnorm_init``,
 ``rmsnorm``, ``rope_freqs`` and ``apply_rope``; ``layernorm`` and
-``softmax_xent`` come with training).
+``softmax_xent``, which only the LM, GNN and recsys models call, come
+with those models).
 
 Parameters are nested dicts of tensors in the reference's layout
 (``{"w": (d_in, d_out)}``, ``{"table": (V, d)}``, ``{"scale": (d,)}``),
 so a reference checkpoint maps onto them leaf for leaf
-(:mod:`repro_torch.checkpoint.checkpoint`).
+(:mod:`repro_torch.checkpoint.checkpoint`).  The ``*_init`` functions
+draw from an explicit ``torch.Generator`` on the device where the
+parameters are made; they cannot draw ``jax.random``'s numbers, only
+its distributions.
+
+Row lookups (:func:`take_rows`) sum their gradient rows in row order on
+every device, so a training step on the card is repeatable bit for bit
+(CUDA's own indexing backward adds duplicate rows with atomics).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from repro_torch.core.kmeans import segment_sum
+
+
+def _normal(generator: torch.Generator, shape) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device)
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32, scale: Optional[float] = None) -> dict:
+    """{"w": (d_in, d_out)} drawn from N(0, scale²), scale d_in^-½ by
+    default."""
+    if scale is None:
+        scale = d_in ** -0.5
+    return {"w": (_normal(generator, (d_in, d_out)) * scale).to(dtype)}
+
+
+def embedding_init(generator: torch.Generator, n_rows: int, dim: int,
+                   dtype=torch.float32, scale: float = 0.02) -> dict:
+    return {"table": (_normal(generator, (n_rows, dim)) * scale).to(dtype)}
+
+
+def rmsnorm_init(dim: int, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+class _TakeRows(torch.autograd.Function):
+    """``table[ids]`` whose backward sums the gradient rows of each table
+    row in row order (:func:`repro_torch.core.kmeans.segment_sum`)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.n_rows = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, = ctx.saved_tensors
+        rows = grad.reshape((-1,) + tuple(grad.shape[ids.dim():]))
+        sums, _ = segment_sum(rows, ids.reshape(-1), ctx.n_rows)
+        return sums, None
+
+
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` (any shape, in [0, n_rows)) of ``table``, with a
+    gradient that is the same bits on every run."""
+    return _TakeRows.apply(table, ids.long())
 
 
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -25,7 +85,7 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 def embedding_lookup(params: dict, ids: torch.Tensor) -> torch.Tensor:
     """Rows of the table; ``PAD_ID = -1`` (any negative id) reads row 0."""
-    return params["table"][ids.clamp(min=0).long()]
+    return take_rows(params["table"], ids.clamp(min=0))
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6

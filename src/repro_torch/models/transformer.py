@@ -1,14 +1,15 @@
 """Transformer, encoder mode (port of ``repro/models/transformer.py``:
-``TransformerConfig``, ``_mlp_forward``, ``_layer_forward``,
-``hidden_states`` and ``encode`` — the HI²_sup term-scorer backbone, the
-paper's Eq. 7 BERT slot).
+``TransformerConfig``, ``_init_layer``, ``init``, ``_mlp_forward``,
+``_layer_forward``, ``hidden_states`` and ``encode`` — the HI²_sup
+term-scorer backbone, the paper's Eq. 7 BERT slot).
 
 Parameters are the reference's pytree as nested dicts of tensors:
 ``embed.table``, ``final_norm.scale``, ``unembed.w`` and ``layers``,
 whose every leaf carries a leading L axis (the reference stacks the
 layers and runs them with ``lax.scan``; here a loop takes layer i's
 slice).  ``remat`` is a training option and changes nothing in a
-forward pass.
+forward pass.  ``encode`` carries gradients (HI²_sup distillation
+trains through it): nothing on its path detaches.
 
 Not yet ported: MoE layers (``n_experts > 0``), the LM heads
 ``logits_fn`` / ``loss_fn`` and the decode path ``init_decode_caches`` /
@@ -60,6 +61,65 @@ class TransformerConfig:
 def _not_yet_ported(what: str):
     raise NotImplementedError(f"{what} is not yet ported to repro_torch")
 
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def _init_layer(generator: torch.Generator, cfg: TransformerConfig) -> dict:
+    """One dense layer's parameters: the norms at 1, attention at
+    ``dense_init``'s scale, the SwiGLU weights at d_model^-½ (gate, up)
+    and d_ff^-½ (down), drawn in that order."""
+    if cfg.is_moe:
+        _not_yet_ported("the MoE layer (n_experts > 0)")
+    dev = generator.device
+    s_in, s_out = cfg.d_model ** -0.5, cfg.d_ff ** -0.5
+    return {
+        "attn_norm": layers.rmsnorm_init(cfg.d_model, cfg.param_dtype, dev),
+        "attn": attention.init(generator, cfg.d_model, cfg.n_heads,
+                               cfg.n_kv_heads, cfg.head_dim,
+                               cfg.param_dtype),
+        "mlp_norm": layers.rmsnorm_init(cfg.d_model, cfg.param_dtype, dev),
+        "mlp": {
+            "w_gate": layers.dense_init(generator, cfg.d_model, cfg.d_ff,
+                                        cfg.param_dtype, s_in),
+            "w_up": layers.dense_init(generator, cfg.d_model, cfg.d_ff,
+                                      cfg.param_dtype, s_in),
+            "w_down": layers.dense_init(generator, cfg.d_ff, cfg.d_model,
+                                        cfg.param_dtype, s_out),
+        },
+    }
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init(generator: torch.Generator, cfg: TransformerConfig) -> dict:
+    """The reference's parameter tree on ``generator``'s device: the
+    embedding, the layers stacked on a leading L axis, the final norm
+    and the (encoder-unused) unembedding."""
+    if cfg.is_moe:
+        _not_yet_ported("the MoE layer (n_experts > 0)")
+    embed = layers.embedding_init(generator, cfg.vocab_size, cfg.d_model,
+                                  cfg.param_dtype)
+    stacked = _stack([_init_layer(generator, cfg)
+                      for _ in range(cfg.n_layers)])
+    return {
+        "embed": embed,
+        "layers": stacked,
+        "final_norm": layers.rmsnorm_init(cfg.d_model, cfg.param_dtype,
+                                          generator.device),
+        "unembed": layers.dense_init(generator, cfg.d_model, cfg.vocab_size,
+                                     cfg.param_dtype),
+    }
+
+
+# --------------------------------------------------------------------------
+# forward (encode)
+# --------------------------------------------------------------------------
 
 def _mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x W_gate) · x W_up) W_down, in x's dtype."""

@@ -1,0 +1,74 @@
+"""AdamW over trees of tensors (port of ``repro/optim/adam.py``).
+
+Used by HI²_sup distillation (cluster embeddings + term-scorer encoder,
+paper §4.3).  The moments are float32 trees of the parameters'
+structure, and ``step`` is a 0-dim int32 tensor, so ``{"params",
+"opt"}`` checkpoints hold the reference's leaves, in its order, with
+its dtypes.  The bias corrections ``1 - b**step`` are float32, as in the
+reference.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Union
+
+import torch
+
+from repro_torch import tree as tree_mod
+
+
+class AdamConfig(NamedTuple):
+    lr: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+
+
+class AdamState(NamedTuple):
+    step: torch.Tensor   # () i32
+    mu: Any              # first moment
+    nu: Any              # second moment
+
+
+def adam_init(params) -> AdamState:
+    zeros = tree_mod.map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                         params)
+    device = tree_mod.leaves(params)[0].device
+    return AdamState(step=torch.zeros((), dtype=torch.int32, device=device),
+                     mu=zeros, nu=tree_mod.map(torch.clone, zeros))
+
+
+@torch.no_grad()
+def adam_update(grads, state: AdamState, params, config: AdamConfig,
+                lr_scale: Union[torch.Tensor, float] = 1.0
+                ) -> tuple[Any, AdamState]:
+    """One AdamW step.  ``lr_scale`` multiplies the base lr (schedules)."""
+    step = state.step + 1
+    b1, b2 = config.b1, config.b2
+    stepf = step.float()
+    bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32,
+                             device=step.device) ** stepf
+    bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32,
+                             device=step.device) ** stepf
+    lr = config.lr * lr_scale
+
+    def moment1(m, g):
+        return b1 * m + (1 - b1) * g.float()
+
+    def moment2(v, g):
+        g = g.float()
+        return b2 * v + (1 - b2) * g * g
+
+    mu = tree_mod.map(moment1, state.mu, grads)
+    nu = tree_mod.map(moment2, state.nu, grads)
+
+    def upd(p, m, v):
+        mhat = m / bc1
+        vhat = v / bc2
+        delta = mhat / (torch.sqrt(vhat) + config.eps)
+        if config.weight_decay:
+            delta = delta + config.weight_decay * p.float()
+        return (p.float() - lr * delta).to(p.dtype)
+
+    new_params = tree_mod.map(upd, params, mu, nu)
+    return new_params, AdamState(step=step, mu=mu, nu=nu)

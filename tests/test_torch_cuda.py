@@ -674,6 +674,130 @@ def test_sup_position_scores_on_the_card_match_the_cpu(cuda):
 
 
 # --------------------------------------------------------------------------
+# HI²_sup training on the card: flash_attention under autograd, a step
+# against the CPU, repeatable runs and resume
+# --------------------------------------------------------------------------
+
+FLASH_GRAD_CASES = {   # b, h, s, d, causal, window
+    "docs": (384, 12, 64, 64, False, 0),
+    "queries": (32, 12, 8, 64, False, 0),
+    "ragged": (3, 4, 37, 64, False, 0),
+    "window": (2, 4, 100, 32, True, 16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_GRAD_CASES))
+def test_flash_attention_gradients_on_the_card_match_plain_autograd(cuda,
+                                                                    name):
+    """The Function (kernel forward, recompute backward) against autograd
+    through the plain version on the card: one launch, none in the
+    backward, dq, dk, dv within rtol = atol = 1e-4 under a loss that
+    depends on the forward (Σ w·out²)."""
+    b, h, s, d, causal, window = FLASH_GRAD_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(len(name))
+    q, k, v, w = (_bshd_at(g, cuda, b, s, h, d, torch.float32, 0)
+                  for _ in range(4))
+    grads = []
+    for kernel in (True, False):
+        inputs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        before = fa_ops.launches
+        if kernel:
+            out = fa_ops.flash_attention(*inputs, causal, window)[0]
+        else:
+            out = fa_ref.attention(*inputs, causal=causal, window=window)
+        (w * out * out).sum().backward()
+        torch.cuda.synchronize()
+        assert fa_ops.launches == before + kernel
+        grads.append([t.grad for t in inputs])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _train_setup(cuda):
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train
+    corpus = synthetic.generate(seed=0, n_docs=2000, n_queries=64,
+                                hidden=32, vocab_size=512, n_topics=16,
+                                make_model_b=False)
+    cfg = train.SupTrainConfig(n_clusters=16, encoder_layers=2,
+                               encoder_dim=64, encoder_heads=4, n_steps=6,
+                               batch_queries=8, n_negatives=3, n_inbatch=4,
+                               refine_weight=0.5, kmeans_iters=4)
+    return corpus, cfg
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One value-and-grad of the distillation loss on the card against
+    the CPU plain path from the same parameters and batch: the loss, its
+    aux terms and every gradient leaf within rtol = atol = 1e-4."""
+    from repro_torch import optim
+    from repro_torch import tree as tree_mod
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train
+    corpus, cfg = _train_setup(cuda)
+    params, enc_cfg, assign = train.init_sup(corpus, cfg, device=cuda)
+    batch = train.sup_batches(corpus, cfg, synthetic.hard_negatives(
+        corpus, cfg.n_negatives), assign)(0)
+    loss = train.sup_loss(enc_cfg, corpus.vocab_size, cfg.refine_weight)
+    before = fa_ops.launches
+    (value, aux), grads = optim.value_and_grad(
+        loss, params, tree_mod.to(batch, cuda), has_aux=True)
+    assert fa_ops.launches == before + 2 * cfg.encoder_layers
+    (c_value, c_aux), c_grads = optim.value_and_grad(
+        loss, params.to("cpu"), batch, has_aux=True)
+    for key in aux:
+        torch.testing.assert_close(aux[key].cpu(), c_aux[key], rtol=1e-4,
+                                   atol=1e-4)
+    for (path, got), want in zip(hi.index_leaves(grads),
+                                 tree_mod.leaves(c_grads)):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4,
+                                   msg=path)
+
+
+def test_train_hi2_sup_on_the_card_is_repeatable_and_resumes(cuda,
+                                                             tmp_path):
+    """Two train_hi2_sup runs from one seed are equal bit for bit (4
+    flash launches a step), and a fit saved at step 3 and resumed equals
+    the straight run bit for bit — the gradient gathers sum in row
+    order, not by atomics."""
+    from repro_torch import optim
+    from repro_torch import tree as tree_mod
+    from repro_torch.launch import train
+    corpus, cfg = _train_setup(cuda)
+    runs = []
+    for _ in range(2):
+        before = fa_ops.launches
+        runs.append(train.train_hi2_sup(corpus, cfg, log_every=0,
+                                        device=cuda))
+        assert fa_ops.launches == before + 4 * cfg.n_steps
+    (p1, _, a1, l1), (p2, _, a2, l2) = runs
+    assert l1 == l2 and torch.equal(a1, a2)
+    for x, y in zip(tree_mod.leaves(p1), tree_mod.leaves(p2)):
+        assert torch.equal(x, y)
+
+    params, enc_cfg, assign = train.init_sup(corpus, cfg, device=cuda)
+    loss = train.sup_loss(enc_cfg, corpus.vocab_size, cfg.refine_weight)
+    batches = train.sup_batches(corpus, cfg, train.negative_pool(corpus,
+                                                                 cfg),
+                                assign)
+
+    def run(n, **kw):
+        return train.fit(loss, params, batches, n,
+                         adam=optim.AdamConfig(lr=cfg.lr),
+                         schedule=optim.warmup_cosine(cfg.warmup_steps, 6),
+                         log_every=0, device=cuda, **kw)
+
+    straight, losses = run(6)
+    assert losses == l1            # train_hi2_sup is init_sup + this fit
+    ckpt_dir = str(tmp_path / "ckpt")
+    run(3, ckpt_dir=ckpt_dir, save_every=3)
+    resumed, tail = run(6, ckpt_dir=ckpt_dir, save_every=3)
+    assert tail == losses[3:]
+    for x, y in zip(tree_mod.leaves(straight), tree_mod.leaves(resumed)):
+        assert torch.equal(x, y)
+
+
+# --------------------------------------------------------------------------
 # the mutable index on the card (DESIGN.md §8) and a repeatable build
 # --------------------------------------------------------------------------
 

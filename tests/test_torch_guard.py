@@ -63,7 +63,10 @@ def test_port_sources_import_neither_jax_nor_the_reference():
             "benchmarks/streaming_updates.py", "launch/runtime.py",
             "benchmarks/serving_load.py", "rowwise.py",
             "core/exec/frontier.py", "launch/tune.py",
-            "checkpoint/manager.py", "benchmarks/autotune.py"} <= walked
+            "checkpoint/manager.py", "benchmarks/autotune.py",
+            "optim/adam.py", "optim/grad.py", "optim/schedule.py",
+            "distributed/fault.py", "tree.py",
+            "benchmarks/sup_distill.py"} <= walked
     offenders = [(f.relative_to(_ROOT).as_posix(), m) for f in files
                  for m in _imported_modules(f) if _FORBIDDEN.search(m)]
     assert not offenders, offenders
@@ -92,7 +95,10 @@ def test_importing_every_port_module_loads_no_jax():
         " 'repro_torch.benchmarks.serving_load',"
         " 'repro_torch.core.exec.frontier', 'repro_torch.launch.tune',"
         " 'repro_torch.checkpoint.manager',"
-        " 'repro_torch.benchmarks.autotune'} <= set(mods), mods\n"
+        " 'repro_torch.benchmarks.autotune', 'repro_torch.optim.adam',"
+        " 'repro_torch.optim.grad', 'repro_torch.optim.schedule',"
+        " 'repro_torch.distributed.fault', 'repro_torch.tree',"
+        " 'repro_torch.benchmarks.sup_distill'} <= set(mods), mods\n"
         "assert not bad, bad\n")
     env = {"PYTHONPATH": str(_ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -280,6 +286,40 @@ def test_sup_entry_points_without_device_raise_when_cuda_is_absent(
     idx = train.build_sup_index(Corpus, params, cfg, assign, k1_terms=2,
                                 codec="flat", device="cpu")
     assert idx.device == torch.device("cpu") and idx.n_docs == 40
+
+
+def test_training_entry_points_without_device_raise_when_cuda_is_absent(
+        monkeypatch):
+    """``fit`` and ``train_hi2_sup`` default to the card and never fall
+    back to the CPU; the same calls run when the caller asks for it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = {"w": torch.zeros(3)}
+
+    def loss_fn(p, batch):
+        loss = torch.sum((p["w"] - batch) ** 2)
+        return loss, {"loss": loss}
+
+    def batches(i):
+        return np.full(3, float(i), np.float32)
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.fit(loss_fn, params, batches, 2, log_every=0)
+    from repro_torch.data import synthetic
+    corpus = synthetic.generate(seed=0, n_docs=64, n_queries=8, hidden=8,
+                                vocab_size=64, n_topics=4,
+                                make_model_b=False)
+    cfg = train.SupTrainConfig(n_clusters=4, encoder_layers=1,
+                               encoder_dim=8, encoder_heads=2, n_steps=2,
+                               batch_queries=4, n_negatives=2,
+                               kmeans_iters=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.train_hi2_sup(corpus, cfg, log_every=0)
+    p, losses = train.fit(loss_fn, params, batches, 2, log_every=0,
+                          device="cpu")
+    assert p["w"].device.type == "cpu" and len(losses) == 2
+    tp, _, assign, losses = train.train_hi2_sup(corpus, cfg, log_every=0,
+                                                device="cpu")
+    assert tp.cluster_embeddings.device.type == "cpu" and len(losses) == 2
 
 
 def test_new_kernel_wrappers_refuse_other_devices():

@@ -264,12 +264,8 @@ def test_opq_sup_index_reaches_the_reference_quality(trained):
         assert abs(got_m - want_m) <= 0.02, (k, got_m, want_m)
 
 
-def test_unported_training_and_sparse_raise(trained):
-    """Training is not yet ported and raises; ``sparse=True`` is ported
-    and builds the impact plane beside the term lists."""
-    for fn in (train.fit, train.train_hi2_sup):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            fn()
+def test_build_sup_index_sparse_builds_the_impact_plane(trained):
+    """``sparse=True`` builds the impact plane beside the term lists."""
     index = train.build_sup_index(trained["corpus"], trained["tparams"],
                                   trained["enc_cfg"], trained["assign"],
                                   k1_terms=2, sparse=True, codec="flat",
