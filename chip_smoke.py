@@ -161,13 +161,32 @@ never prints the final line.  Every phase prints its seconds.
               for bit, and a run saved at step 3 and resumed equal to
               the straight run; 18e the port's ``sup_distill.py
               --check`` at its smoke and full shapes;
+ 19. paper    the paper's benchmarks and examples (``repro_torch.
+              benchmarks``, ``repro_torch.examples``), after phase 18 on
+              phase 10's corpus and indexes, as one counted run: 19a
+              each at its reference size (N 20,000, h 64, L 256, OPQ m
+              8 k 256; seed 0): ``table3_codec`` over the five codecs
+              with ``--check`` semantics (the DESIGN.md §7 refine
+              contract), its rows also over the indexes moved to the CPU
+              (every field equal, recall and MRR within their near-tie
+              queries / n_queries), ``table2_robustness``,
+              ``fig4_ablation`` (held to the CPU the same way),
+              ``fig3_tradeoff`` and ``table1_main`` (HI²_sup trained on
+              the card for 200 steps), ``hybrid_fusion`` and
+              ``filtered_search`` with ``--check``, and the three
+              examples; 19b Table 3's rows over phase 10's corpus and
+              KMeans at full width (K^C 30, K₂ᵀ 32, R 100; its ``opq``
+              and ``flat`` indexes, ``pq``, ``refine`` and ``sq8`` built
+              over the same lists), the §7 contract's status printed,
+              not failed, and Figure 4's curves over its ``opq`` index;
 
 then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
 kernel's ``launches`` is read from the counted runs of the paths that
 run it: ``pq_adc_fused`` and ``topk_scores`` from phase 5,
 ``sq8_dot_fused`` from 9c, ``assign_argmax`` from phase 10's builds and
 18c, ``flash_attention`` from phase 12 and 18c, ``pq_adc`` from phase
-14; phase 15's counted runs are checked in the phase and printed.  It
+14, each plus its launches in phase 19; phase 15's counted runs are
+checked in the phase and printed.  It
 imports only the port, never jax or the reference package, and exits
 non-zero without a card.
 """
@@ -193,9 +212,17 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.benchmarks import autotune  # noqa: E402
 from repro_torch.benchmarks import bucket_invariance  # noqa: E402
+from repro_torch.benchmarks import common as paper  # noqa: E402
+from repro_torch.benchmarks import fig3_tradeoff  # noqa: E402
+from repro_torch.benchmarks import fig4_ablation  # noqa: E402
+from repro_torch.benchmarks import filtered_search  # noqa: E402
+from repro_torch.benchmarks import hybrid_fusion  # noqa: E402
 from repro_torch.benchmarks import kernel_bench  # noqa: E402
 from repro_torch.benchmarks import serving_load  # noqa: E402
 from repro_torch.benchmarks import sup_distill  # noqa: E402
+from repro_torch.benchmarks import table1_main  # noqa: E402
+from repro_torch.benchmarks import table2_robustness  # noqa: E402
+from repro_torch.benchmarks import table3_codec  # noqa: E402
 from repro_torch.benchmarks.synth_msmarco import (  # noqa: E402
     BATCH, CLUSTER_CAP, HIDDEN, K1_TERMS, K2, KC, N_CLUSTERS, N_DOCS, PQ_K,
     PQ_M, QUERY_LEN, REFINE_CODEC, SMOKE_BATCHES, TERM_CAP, TOP_R, VOCAB,
@@ -205,6 +232,7 @@ from repro_torch.benchmarks.timing import Timer  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch import tree as tree_mod  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
+from repro_torch.core import codecs  # noqa: E402
 from repro_torch.core import distill  # noqa: E402
 from repro_torch.core import exec as qexec  # noqa: E402
 from repro_torch.core.exec import frontier  # noqa: E402
@@ -216,6 +244,9 @@ from repro_torch.core import term_selector as ts_mod  # noqa: E402
 from repro_torch.core.codecs import flat as flat_codec  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.distributed.fault import StragglerMonitor  # noqa: E402
+from repro_torch.examples import quickstart  # noqa: E402
+from repro_torch.examples import serve_retrieval  # noqa: E402
+from repro_torch.examples import train_hi2_distill  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.assign_topk import ops as at_ops  # noqa: E402
 from repro_torch.kernels.assign_topk import ref as at_ref  # noqa: E402
@@ -305,6 +336,16 @@ FLASH_GRAD_CASES = {"docs": (384, ENC_HEADS, 64, 64, False, 0),
                     "queries": (32, ENC_HEADS, 8, 64, False, 0),
                     "ragged": (3, 4, 37, 64, False, 0),
                     "window": (2, 4, 100, 32, True, 16)}
+
+# phase 19: the paper benchmarks.  Rows held against the CPU: top-R
+# ids up to swaps within PAPER_TOL, each recall or MRR within its
+# near-tie queries / n_queries + PAPER_FLOAT (the f32 mean's last bits)
+PAPER_TOL = 1e-4
+PAPER_FLOAT = 1e-6
+PAPER_METRICS = ("R@10", "R@100", "MRR@10")
+# the kernels phase 19a must launch (all but the unfused pq_adc)
+PAPER_KERNELS = ("pq_adc_fused", "topk_scores", "sq8_dot_fused",
+                 "assign_argmax", "flash_attention")
 
 #: kernel → (its wrapper module, the name of its launch count there)
 COUNTERS = {"pq_adc_fused": (adc_ops, "launches"),
@@ -1053,8 +1094,9 @@ def build_on_card(dev, seed: int) -> dict:
     impact plane (``sparse=True``) and is served fused too.  Returns what phase 12 reuses: the
     corpus, its planes on the card, the KMeans selector and φ(D), the
     ``refine:sq8:4`` quality and each build's ``assign_argmax``
-    launches; and what phase 17 tunes: the ``refine:sq8:4`` and ``opq``
-    indexes and the brute-force top-100 ids."""
+    launches; what phase 17 tunes: the ``refine:sq8:4`` and ``opq``
+    indexes and the brute-force top-100 ids; and phase 19b's ``flat``
+    index."""
     with phase("build: synthetic corpus on the host"):
         corpus = synthetic.generate(seed, n_docs=BUILD_DOCS,
                                     n_queries=BUILD_QUERIES, hidden=HIDDEN,
@@ -1132,6 +1174,9 @@ def build_on_card(dev, seed: int) -> dict:
         base = index if base is None else base
         if spec != "flat":
             indexes[spec] = index      # phase 17 tunes them
+        else:
+            flat_index = index         # phase 19b's flat row (its plane
+            # is ``emb`` itself: the codec keeps f32 rows as they are)
     gap = recall["flat"] - recall[REFINE_CODEC]
     log(f"[build] R@100 gap flat - {REFINE_CODEC}: {gap:.4f} (fails above "
         f"{REFINE_RECALL_GAP}; the DESIGN.md §7 contract is "
@@ -1143,7 +1188,7 @@ def build_on_card(dev, seed: int) -> dict:
                 cluster_sel=base.cluster_sel, doc_assign=base.doc_assign,
                 recall=recall[REFINE_CODEC], mrr=mrr[REFINE_CODEC],
                 assign_launches=assign_launches, indexes=indexes,
-                oracle=oracle)
+                flat_index=flat_index, oracle=oracle)
 
 
 # --------------------------------------------------------------------------
@@ -2614,6 +2659,219 @@ def training_phase(dev, seed: int, built: dict, mine_index) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 19: the paper benchmarks
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recorded_searches():
+    """Within the block, every ``hi.search`` result (``search_ivf`` and
+    ``search_term_only`` go through it), in call order."""
+    log, orig = [], hi.search
+
+    def search(*a, **k):
+        out = orig(*a, **k)
+        log.append(out)
+        return out
+
+    hi.search = search
+    try:
+        yield log
+    finally:
+        hi.search = orig
+
+
+def rows_vs_cpu(what: str, on_card, on_cpu) -> tuple:
+    """Run the same rows over indexes on the card (``on_card()``) and
+    their ``.to("cpu")`` copies (``on_cpu()``) and pair their searches:
+    ``n_candidates`` equal, top-R ids equal up to swaps within PAPER_TOL.
+    Returns (card rows, CPU rows, the near-tie queries of each search)."""
+    with recorded_searches() as card_log:
+        card_rows = on_card()
+    torch.cuda.synchronize()
+    with recorded_searches() as cpu_log:
+        cpu_rows = on_cpu()
+    if len(card_log) != len(cpu_log):
+        fail(f"{what}: {len(card_log)} searches on the card, "
+             f"{len(cpu_log)} on the CPU")
+    ties = []
+    for i, (a, b) in enumerate(zip(card_log, cpu_log)):
+        if not torch.equal(a.n_candidates.cpu(), b.n_candidates):
+            fail(f"{what}: search {i}: n_candidates differ from the CPU")
+        ai, as_ = a.doc_ids.cpu().numpy(), a.scores.cpu().numpy()
+        bi, bs = b.doc_ids.numpy(), b.scores.numpy()
+        n = 0
+        for q in np.flatnonzero((ai != bi).any(axis=1)):
+            if not topk_match(bi[q], bs[q], ai[q], as_[q], PAPER_TOL):
+                fail(f"{what}: search {i}, query {q}: top-R ids differ from "
+                     f"the CPU beyond swaps within {PAPER_TOL}")
+            n += 1
+        ties.append(n)
+    return card_rows, cpu_rows, ties
+
+
+def check_metric(what: str, card: float, cpu: float, ties: int,
+                 n_queries: int) -> None:
+    if abs(card - cpu) > ties / n_queries + PAPER_FLOAT:
+        fail(f"{what}: {card} on the card, {cpu} on the CPU ({ties} "
+             f"near-tie queries of {n_queries})")
+
+
+def table3_vs_cpu(what: str, corpus, indexes: dict, kc: int, k2: int,
+                  top_r: int, dev) -> list:
+    """Table 3's rows on the card and over the same indexes on the CPU
+    (the plain path): every field equal but the metrics, each within its
+    near-tie queries.  Returns the card's rows."""
+    cpu_indexes = {spec: idx.to("cpu") for spec, idx in indexes.items()}
+    card, cpu, ties = rows_vs_cpu(
+        what,
+        lambda: table3_codec.rows(corpus, indexes, kc=kc, k2=k2,
+                                  top_r=top_r, device=dev),
+        lambda: table3_codec.rows(corpus, cpu_indexes, kc=kc, k2=k2,
+                                  top_r=top_r, device="cpu"))
+    n_q = corpus.query_emb.shape[0]
+    for a, b, n in zip(card, cpu, ties):
+        for key, val in a.items():
+            if key in PAPER_METRICS:
+                check_metric(f"{what} {a['codec']} {key}", val, b[key], n,
+                             n_q)
+            elif val != b[key]:
+                fail(f"{what} {a['codec']}: {key} {val} on the card, "
+                     f"{b[key]} on the CPU")
+    log(f"[paper] {what}: every row against the CPU plain path; near-tie "
+        f"queries per codec {dict(zip(indexes, ties))}")
+    return card
+
+
+def fig4_vs_cpu(what: str, idx, dev, queries=None, qrels=None) -> dict:
+    """Figure 4's curves on the card and over ``idx.to("cpu")``: the
+    mean candidates equal, R@100 within its near-tie queries."""
+    cpu_idx = idx.to("cpu")
+    card, cpu, ties = rows_vs_cpu(
+        what, lambda: fig4_ablation.rows(idx, dev, queries, qrels),
+        lambda: fig4_ablation.rows(cpu_idx, "cpu", queries, qrels))
+    n_q = (paper.N_QUERIES if queries is None else queries[0].shape[0])
+    points = [(name, a, b) for name in card
+              for a, b in zip(card[name], cpu[name])]
+    for (name, a, b), n in zip(points, ties):
+        if a[0] != b[0]:
+            fail(f"{what} {name}: candidates {a[0]} on the card, {b[0]} on "
+                 f"the CPU")
+        check_metric(f"{what} {name} R@100", a[1], b[1], n, n_q)
+    log(f"[paper] {what}: every point against the CPU plain path; near-tie "
+        f"queries {ties}")
+    return card
+
+
+def log_curves(what: str, curves: dict) -> None:
+    log(json.dumps({"paper": what, "curves": curves}))
+
+
+def paper_scripts(dev) -> None:
+    """19a: every ported paper script and example at its reference size
+    on the card (the reference's seed-0 corpora), each ``--check``."""
+    with phase("19a table3_codec (5 codecs)"):
+        corpus, kw = table3_codec.setting(smoke=False)
+        indexes = table3_codec.build(corpus, specs=codecs.registered(),
+                                     device=dev, **kw)
+        rows = table3_vs_cpu("19a table3_codec", corpus, indexes,
+                             paper.KC, paper.K2, paper.TOP_R, dev)
+        report = table3_codec.report(rows, smoke=False)
+        log(json.dumps(report))
+        contract = report["refine_contract"]
+        if contract["status"] != "checked" or contract["failures"]:
+            fail(f"table3_codec --check: {contract}")
+        del indexes
+    with phase("19a table2_robustness"):
+        log(json.dumps({"paper": "table2", "rows":
+                        table2_robustness.run(dev)}))
+    with phase("19a fig4_ablation"):
+        log_curves("fig4", fig4_vs_cpu("19a fig4_ablation",
+                                       paper.unsup_index(dev), dev))
+    with phase(f"19a fig3_tradeoff (HI²_sup: {paper.SUP_STEPS} steps)"):
+        log_curves("fig3", fig3_tradeoff.run(dev))
+    with phase("19a table1_main"):
+        log(json.dumps({"paper": "table1", "rows": table1_main.run(dev)}))
+    for name, mod in (("hybrid_fusion", hybrid_fusion),
+                      ("filtered_search", filtered_search)):
+        with phase(f"19a {name} --check"):
+            report = mod.run(mod.parse_args(["--check", "--device",
+                                             str(dev)]))
+            log(json.dumps(report, sort_keys=True))
+            if report["check_failures"]:
+                fail(f"{name} --check: {report['check_failures']}")
+    for mod in (quickstart, serve_retrieval, train_hi2_distill):
+        name = mod.__name__.rsplit(".", 1)[-1]
+        with phase(f"19a example {name}"):
+            mod.main(["--device", str(dev)])
+            sys.stdout.flush()
+
+
+def paper_full_width(dev, seed: int, built: dict, opq_index) -> None:
+    """19b: Table 3's rows over phase 10's corpus and KMeans at full
+    width, every registered codec (phase 10's ``opq`` and ``flat``
+    indexes, the others built over the same lists), and Figure 4's
+    curves over the ``opq`` index; the §7 refine contract's status is
+    printed, not failed."""
+    corpus = built["corpus"]
+    indexes = {}
+    with phase("19b builds (pq, refine, sq8 over phase 10's KMeans)"):
+        for spec in codecs.registered():
+            if spec == "opq":
+                indexes[spec] = opq_index
+            elif spec == "flat":
+                indexes[spec] = built["flat_index"]
+            else:
+                indexes[spec] = hi.build(
+                    seed, built["emb"], built["tokens"], VOCAB,
+                    n_clusters=N_CLUSTERS, k1_terms=K1_TERMS, codec=spec,
+                    pq_m=PQ_M, pq_k=PQ_K, cluster_capacity=CLUSTER_CAP,
+                    term_capacity=TERM_CAP, cluster_sel=built["cluster_sel"],
+                    doc_assign=built["doc_assign"], device=dev)
+    with phase("19b table3_codec rows at full width"):
+        rows = table3_codec.rows(corpus, indexes, kc=KC, k2=K2, top_r=TOP_R,
+                                 device=dev)
+        report = table3_codec.report(rows, smoke=False)
+        log(json.dumps(report))
+        c = report["refine_contract"]
+        by = {r["resolved"].split(":")[0] if r["resolved"].startswith(
+            "refine") else r["resolved"]: r for r in rows}
+        log(f"[paper] 19b the DESIGN.md §7 refine contract at N "
+            f"{BUILD_DOCS}, h {HIDDEN}: {c['status']}, "
+            f"{c['failures'] or 'met'}; R@100 flat {by['flat']['R@100']:.4f}"
+            f", refine {by['refine']['R@100']:.4f} (slack "
+            f"{table3_codec.RECALL_SLACK}); cost refine "
+            f"{by['refine']['candidate_cost']} / pq "
+            f"{by['pq']['candidate_cost']} (ratio "
+            f"{table3_codec.COST_RATIO}); reported, not failed")
+    del indexes
+    torch.cuda.empty_cache()
+    with phase("19b fig4_ablation over phase 10's opq index"):
+        curves = fig4_ablation.rows(
+            opq_index, dev, (corpus.query_emb, corpus.query_tokens),
+            corpus.qrels)
+        log_curves("fig4 full width", curves)
+
+
+def paper_phase(dev, seed: int, built: dict, opq_index) -> dict:
+    """Phase 19; returns its launches (19a and 19b, counted runs; the
+    CPU comparisons launch nothing)."""
+    reset_counts()
+    paper_scripts(dev)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"[paper] 19a launches {launches}")
+    missing = [k for k in PAPER_KERNELS if launches[k] < 1]
+    if missing:
+        fail(f"phase 19a never launched {missing}")
+    reset_counts()
+    paper_full_width(dev, seed, built, opq_index)
+    torch.cuda.synchronize()
+    full = read_counts()
+    log(f"[paper] 19b launches {full}")
+    return {k: launches[k] + full[k] for k in launches}
+
+
 def run_kernel_bench() -> dict:
     """Phase 14: the port's ``kernel_bench`` at its full shapes with
     ``--check`` semantics, as a counted run: the main path of ``pq_adc``
@@ -2784,6 +3042,8 @@ def main(argv=None) -> None:
         mutable_phase(dev, built, args.seed, BUILD_QUERIES // BATCH)
     with phase("18 HI²_sup training"):
         train_launches = training_phase(dev, args.seed, built, mine_index)
+    with phase("19 paper benchmarks"):
+        paper_launches = paper_phase(dev, args.seed, built, mine_index)
     del mine_index
 
     # the paths' counted runs: the builds and 18c's KMeans for
@@ -2799,6 +3059,8 @@ def main(argv=None) -> None:
     # the PQ shape's launches: the opq build's (OPQ training and encode)
     times["assign_argmax"]["pq_shape"]["launches"] = (
         built["assign_launches"]["opq"])
+    # phase 19's launches join each kernel's counted runs
+    launches = {k: v + paper_launches[k] for k, v in launches.items()}
     kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
                     replaces=SOURCES[k][1], launches=launches[k],
                     max_abs_err=errs[k], **times[k])

@@ -1,8 +1,11 @@
-"""CUDA-event timing of a callable on the current card, shared by
-``chip_smoke.py`` and :mod:`repro_torch.benchmarks.kernel_variants`."""
+"""Timing of a callable: CUDA events on the current card (:class:`Timer`,
+shared by ``chip_smoke.py`` and :mod:`repro_torch.benchmarks.
+kernel_variants`) and the host clock around synchronized calls
+(:func:`mean_us`, the paper benchmarks' per-call time)."""
 from __future__ import annotations
 
 import statistics
+import time
 
 import torch
 
@@ -41,3 +44,21 @@ class Timer:
             torch.cuda.synchronize()
             times = [s.elapsed_time(e) for s, e in events]
         return statistics.median(times)
+
+
+def mean_us(fn, *args, device: torch.device, warmup: int = 1,
+            iters: int = 3) -> float:
+    """Mean host-clock µs per call of ``fn(*args)`` after ``warmup``
+    calls, each call followed by a synchronize of ``device`` when it is
+    a card: the time a caller waits for the result."""
+    def call():
+        fn(*args)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for _ in range(warmup):
+        call()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        call()
+    return (time.perf_counter() - t0) / iters * 1e6

@@ -1,5 +1,6 @@
 """Per-query namespace filters (port of ``repro/core/exec/filters.py``:
-``allowed_mask``, ``make_filter``, ``pad_filter``; DESIGN.md §9).
+``allowed_mask``, ``make_filter``, ``allow_all``, ``pad_filter``,
+``namespace_histogram``; DESIGN.md §9).
 
 A query's predicate is a bitmap over namespace ids, ``W = ceil(n / 32)``
 words of 32 bits; doc d passes query b iff bit ``doc_ns[d]`` of row b is
@@ -62,6 +63,15 @@ def filter_words(allowed: Sequence, n_namespaces: int) -> np.ndarray:
     return out
 
 
+def allow_all(batch: int, n_namespaces: int, *,
+              device: dev_mod.DeviceLike = "cuda") -> torch.Tensor:
+    """The pass-everything bitmap, :func:`make_filter`'s words for every
+    namespace on every row: search with it is bit-identical to search
+    with no filter."""
+    return make_filter([range(n_namespaces)] * batch, n_namespaces,
+                       device=device)
+
+
 def allowed_mask(ns_filter: torch.Tensor, ns_ids: torch.Tensor
                  ) -> torch.Tensor:
     """(B, W) int64 bitmap × (B, C) namespace ids → (B, C) bool.  Ids
@@ -86,3 +96,12 @@ def pad_filter(ns_filter: Optional[torch.Tensor], batch: int
         raise ValueError(
             f"filter batch {ns_filter.shape[0]} exceeds max_batch {batch}")
     return torch.nn.functional.pad(ns_filter, (0, 0, 0, pad))
+
+
+def namespace_histogram(doc_ns, n_namespaces: int) -> np.ndarray:
+    """Docs per namespace (a host ``np.bincount``) — selectivity
+    accounting for benchmarks."""
+    if isinstance(doc_ns, torch.Tensor):
+        doc_ns = doc_ns.cpu().numpy()
+    return np.bincount(np.asarray(doc_ns).reshape(-1),
+                       minlength=n_namespaces)

@@ -71,6 +71,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import threading
 import time
 from concurrent.futures import Future, InvalidStateError
@@ -362,10 +363,20 @@ class ServingRuntime:
         """Build every bucket's search program (one per bucket — the
         counts land in :attr:`warm_traces`) and start the scheduler.
         Must run before :meth:`submit`; running it again after
-        :meth:`close` revives the runtime."""
+        :meth:`close` revives the runtime.
+
+        Before the scheduler starts, the objects alive at that point
+        (the imports', the index's, the programs') are moved out of the
+        collector's generations (``gc.freeze``), after one collection
+        so that no garbage is kept.  A full collection during serving
+        then scans only what serving made: unfrozen, one pass over the
+        whole heap takes tens of ms and can split a bucket's burst of
+        submissions past its linger."""
         self._hidden, self._query_len = int(hidden), int(query_len)
         with self._serve_lock:
             self._warm_buckets()
+        gc.collect()
+        gc.freeze()
         with self._cond:
             closing, t = self._closing, self._thread
         if (closing and t is not None

@@ -13,6 +13,7 @@ Every wait on a future has a timeout, so a hang fails one test.  The
 indexes are built once per module; mutable servers are restored from one
 built state, so each test mutates its own copy.
 """
+import gc
 import inspect
 import threading
 
@@ -180,6 +181,28 @@ def test_warmup_revives_a_closed_runtime(built, c):
     again = rt.query(c.query_emb[:2], c.query_tokens[:2], timeout=WAIT)
     np.testing.assert_array_equal(first.doc_ids, again.doc_ids)
     rt.close()
+
+
+def test_warmup_freezes_the_objects_alive_at_warmup(built, c):
+    """The objects alive when warmup has built its programs leave the
+    collector's generations (``gc.freeze``), so a full collection while
+    serving scans only what serving made; the rows stay bit-identical
+    to ``Server.query``'s."""
+    server = _plain_server(built)
+    direct = server.query(c.query_emb[:8], c.query_tokens[:8])
+    alive = [object()]           # a tracked object made before warmup
+    gc.unfreeze()
+    try:
+        before = gc.get_freeze_count()
+        with _runtime(server, c) as rt:
+            assert gc.get_freeze_count() > before
+            assert not any(o is alive for o in gc.get_objects())
+            futures = [rt.submit(c.query_emb[i], c.query_tokens[i])
+                       for i in range(8)]
+            for i, f in enumerate(futures):
+                _rows_equal(f.result(timeout=WAIT), direct, i)
+    finally:
+        gc.unfreeze()
 
 
 def test_done_callback_may_reenter_submit(built, c):
