@@ -179,14 +179,35 @@ never prints the final line.  Every phase prints its seconds.
               and ``flat`` indexes, ``pq``, ``refine`` and ``sq8`` built
               over the same lists), the §7 contract's status printed,
               not failed, and Figure 4's curves over its ``opq`` index;
+ 20. mesh     document-sharded and 2-D mesh serving (DESIGN.md §6, §12),
+              every mesh position on the one card (the reference
+              emulates devices on a CPU; here S positions share one
+              H100, so S > 1 measures the split, not scaling), each a
+              counted run bitwise equal (ids, scores, n_candidates) to
+              ``Server`` and every position launching the path's kernels:
+              20a after 16a, phase 3's index through ``ShardedServer`` at
+              S = 2 and 4 (and ``Server`` timed the same way), its plane
+              bytes a position, the 4 x 256 batches dense and, at S = 4,
+              fused at 0.5; 20b after 16b, phase 9's ``refine:sq8:4`` at
+              S = 4 (``sq8_dot_fused`` a shard, refine's psum); 20c after
+              19, phase 10's ``opq`` index with a namespace plane (doc id
+              mod 8): filtered at S = 4, a (2, 2) ``MeshServer`` dense and
+              filtered, then the shard-loss drill (checkpoint under
+              build/, eject shard 0: ``partial``, nothing from its range,
+              ids and scores equal to a ``MutableServer`` with the range
+              tombstoned; the last shard refused; rejoin bitwise equal);
+              20d ``sharded_search.py --devices 4 --device cuda`` at its
+              reference size, every ``doc_ids_identical`` true;
 
 then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
 kernel's ``launches`` is read from the counted runs of the paths that
 run it: ``pq_adc_fused`` and ``topk_scores`` from phase 5,
 ``sq8_dot_fused`` from 9c, ``assign_argmax`` from phase 10's builds and
 18c, ``flash_attention`` from phase 12 and 18c, ``pq_adc`` from phase
-14, each plus its launches in phase 19; phase 15's counted runs are
-checked in the phase and printed.  It
+14, each plus its launches in phases 19 and 20 (20a-20c's sharded runs,
+not their single-device yardsticks, and 20d's whole benchmark run, its
+index build and single-device baseline searches included); phase 15's
+counted runs are checked in the phase and printed.  It
 imports only the port, never jax or the reference package, and exits
 non-zero without a card.
 """
@@ -219,6 +240,7 @@ from repro_torch.benchmarks import filtered_search  # noqa: E402
 from repro_torch.benchmarks import hybrid_fusion  # noqa: E402
 from repro_torch.benchmarks import kernel_bench  # noqa: E402
 from repro_torch.benchmarks import serving_load  # noqa: E402
+from repro_torch.benchmarks import sharded_search  # noqa: E402
 from repro_torch.benchmarks import sup_distill  # noqa: E402
 from repro_torch.benchmarks import table1_main  # noqa: E402
 from repro_torch.benchmarks import table2_robustness  # noqa: E402
@@ -240,6 +262,7 @@ from repro_torch.core import hybrid_index as hi  # noqa: E402
 from repro_torch.core import inverted_lists  # noqa: E402
 from repro_torch.core import metrics  # noqa: E402
 from repro_torch.core import segments  # noqa: E402
+from repro_torch.core import sharded_index as shi  # noqa: E402
 from repro_torch.core import term_selector as ts_mod  # noqa: E402
 from repro_torch.core.codecs import flat as flat_codec  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
@@ -337,6 +360,16 @@ FLASH_GRAD_CASES = {"docs": (384, ENC_HEADS, 64, 64, False, 0),
                     "ragged": (3, 4, 37, 64, False, 0),
                     "window": (2, 4, 100, 32, True, 16)}
 
+# phase 20: the sharded and mesh servers, every position on the one card:
+# 20a serves phase 3's index at S in SHARDS (dense, and fused at S = 4),
+# 20b phase 9's at S = 4, 20c phase 10's opq index with the namespace
+# plane doc id mod MESH_NS at S = 4, filtered, then on a (data, model) =
+# MESH_GEOMETRY mesh with the shard-loss drill, its checkpoint under
+# build/ (removed after)
+SHARDS = (2, 4)
+MESH_GEOMETRY = (2, 2)
+MESH_NS = 8
+MESH_CKPT = ROOT / "build" / "mesh_ckpt"
 # phase 19: the paper benchmarks.  Rows held against the CPU: top-R
 # ids up to swaps within PAPER_TOL, each recall or MRR within its
 # near-tie queries / n_queries + PAPER_FLOAT (the f32 mean's last bits)
@@ -2872,6 +2905,205 @@ def paper_phase(dev, seed: int, built: dict, opq_index) -> dict:
     return {k: launches[k] + full[k] for k in launches}
 
 
+# --------------------------------------------------------------------------
+# phase 20: document-sharded and 2-D mesh serving, positions on one card
+# --------------------------------------------------------------------------
+
+def _add(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def serve_equal(server, qe_all, qt_all, want: list, what: str, kernels,
+                namespaces=None) -> dict:
+    """A counted run: ``server`` answers ``len(want)`` batches of BATCH
+    queries, each bitwise equal (ids, scores, n_candidates) to ``want``'s
+    result; every kernel in ``kernels`` must launch at least once per
+    batch and mesh position.  Prints batch ms and q/s; returns the
+    launches."""
+    server.warmup(qe_all.shape[1], qt_all.shape[1])
+    reset_counts()
+    batch_s = []
+    for i, ref in enumerate(want):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        t0 = time.perf_counter()
+        res = server.query(qe_all[sl], qt_all[sl], namespaces=namespaces)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+        for name in ("doc_ids", "scores", "n_candidates"):
+            if not torch.equal(getattr(res, name), getattr(ref, name)):
+                fail(f"{what}: batch {i} {name} differ from Server's")
+        if res.partial:
+            fail(f"{what}: a full mesh answered partial")
+    launches = read_counts()
+    positions = getattr(getattr(server, "mesh", None), "size", 1)
+    short = [k for k in kernels if launches[k] < positions * len(want)]
+    log(f"[mesh] {what}: {len(want)} x {BATCH} queries bitwise equal to "
+        f"Server; {len(want) * BATCH / sum(batch_s):.1f} q/s; batch ms "
+        f"{[round(x * 1e3, 2) for x in batch_s]}; launches {launches}")
+    if short:
+        fail(f"{what}: {short} launched fewer than once a batch on each "
+             f"of {positions} positions")
+    return launches
+
+
+def sharded_phase(index, dev, qe_all, qt_all, want: list, kernels,
+                  what: str, shards=SHARDS, fused=None) -> dict:
+    """20a/20b: ``Server`` (S = 1, timed the same way) and
+    ``ShardedServer`` at each S in ``shards`` with every position on
+    ``dev``, each bitwise equal to ``want`` (the single-device results);
+    ``fused`` (the fused single-device results) also serves the largest
+    S at FUSION_WEIGHT; one batch at the largest S is profiled.  Returns
+    the launches of the sharded runs."""
+    cfg = dict(kc=KC, k2=K2, top_r=TOP_R, max_batch=BATCH)
+    launches: dict = {}
+    serve_equal(serve.Server(index, serve.ServeConfig(**cfg), device=dev),
+                qe_all, qt_all, want, f"{what} S=1", kernels)
+    for n in shards:
+        t0 = time.perf_counter()
+        server = serve.ShardedServer(index, serve.ServeConfig(
+            n_shards=n, **cfg), devices=[dev] * n)
+        torch.cuda.synchronize()
+        log(f"[mesh] {what} S={n}: partition on the host and placement "
+            f"{time.perf_counter() - t0:.1f} s; plane bytes per position "
+            f"{[shi.plane_bytes(server.index, s) for s in range(n)]} "
+            f"(single device "
+            f"{sum(x.nbytes for _, x in hi.index_leaves(index))} in all)")
+        _add(launches, serve_equal(server, qe_all, qt_all, want,
+                                   f"{what} S={n}", kernels))
+        if n == max(shards):
+            profile_call(lambda: server.query(qe_all[:BATCH],
+                                              qt_all[:BATCH]),
+                         f"{what} S={n} (device time summed over the "
+                         "positions' streams, which overlap)")
+        if fused is not None and n == max(shards):
+            server.set_fusion(FUSION_WEIGHT)
+            _add(launches, serve_equal(
+                server, qe_all, qt_all, fused,
+                f"{what} S={n} fused at {FUSION_WEIGHT}", kernels))
+        server.mesh.close()
+        del server
+        torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_drill(server, mut_of, qe, qt, full, what: str) -> None:
+    """20c's shard-loss drill (DESIGN.md §12) without the runtime:
+    checkpoint, eject shard 0 (results ``partial``, nothing from its
+    range, ids and scores equal to a ``MutableServer`` over the same
+    index with that range tombstoned: ``mut_of(lo, hi)``), refuse the
+    last shard, rejoin bitwise equal to ``full``."""
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        path = server.checkpoint(str(MESH_CKPT))
+        log(f"[mesh] {what}: checkpoint {time.perf_counter() - t0:.1f} s")
+        server.eject_shard(0)
+        [(lo, hi_)] = server.lost_doc_ranges()
+        deg = server.query(qe, qt)
+        ids = deg.doc_ids.cpu().numpy()
+        if not (deg.partial and server.partial and server.epoch == 1):
+            fail(f"{what}: ejected mesh not partial / epoch {server.epoch}")
+        if ((ids >= lo) & (ids < hi_)).any():
+            fail(f"{what}: a result came from the lost range [{lo}, {hi_})")
+        oracle = mut_of(lo, hi_).query(qe, qt)
+        if not (torch.equal(oracle.doc_ids, deg.doc_ids)
+                and torch.equal(oracle.scores, deg.scores)):
+            fail(f"{what}: degraded results differ from the tombstoned "
+                 "MutableServer oracle")
+        try:
+            server.eject_shard(1)
+        except ValueError:
+            pass
+        else:
+            fail(f"{what}: ejecting the last healthy shard was accepted")
+        t0 = time.perf_counter()
+        server.rejoin(path)
+        back = server.query(qe, qt)
+        torch.cuda.synchronize()
+        for name in ("doc_ids", "scores", "n_candidates"):
+            if not torch.equal(getattr(back, name), getattr(full, name)):
+                fail(f"{what}: after rejoin {name} differ from before")
+        log(f"[mesh] {what}: ejected shard 0 = docs [{lo}, {hi_}): partial, "
+            f"none from the range, equal to the tombstoned oracle (n_cand "
+            f"equal: {torch.equal(oracle.n_candidates, deg.n_candidates)});"
+            f" last shard refused; rejoin {time.perf_counter() - t0:.1f} s, "
+            f"bitwise equal to before, epoch {server.epoch}")
+    finally:
+        shutil.rmtree(MESH_CKPT, ignore_errors=True)
+
+
+def mesh_phase(dev, seed: int, built: dict, opq_index) -> dict:
+    """20c and 20d; returns their launches."""
+    corpus = built["corpus"]
+    ns = (np.arange(BUILD_DOCS) % MESH_NS).astype(np.int32)
+    index = dataclasses.replace(opq_index,
+                                doc_ns=torch.from_numpy(ns).to(dev))
+    qe, qt = corpus.query_emb, corpus.query_tokens
+    allowed = [(i % MESH_NS, (i + 3) % MESH_NS) for i in range(BATCH)]
+    cfg = dict(kc=KC, k2=K2, top_r=TOP_R, max_batch=BATCH,
+               n_namespaces=MESH_NS)
+    kernels = ("pq_adc_fused", "topk_scores")
+    base = serve.Server(index, serve.ServeConfig(**cfg), device=dev)
+    n_b = BUILD_QUERIES // BATCH
+    sl = [slice(i * BATCH, (i + 1) * BATCH) for i in range(n_b)]
+    dense = [base.query(qe[s], qt[s]) for s in sl]
+    filtered = [base.query(qe[s], qt[s], namespaces=allowed) for s in sl]
+    launches: dict = {}
+    with phase("20c filtered, S = 4"):
+        server = serve.ShardedServer(index, serve.ServeConfig(
+            n_shards=4, **cfg), devices=[dev] * 4)
+        _add(launches, serve_equal(server, qe, qt, filtered,
+                                   "20c filtered S=4", kernels,
+                                   namespaces=allowed))
+        ids = torch.cat([r.doc_ids for r in filtered]).cpu().numpy()
+        ok = all(set(ids[i][ids[i] >= 0] % MESH_NS) <= set(allowed[i % BATCH])
+                 for i in range(len(ids)))
+        if not ok:
+            fail("20c: a filtered result left its namespaces")
+        server.mesh.close()
+        del server
+    d, m = MESH_GEOMETRY
+    with phase(f"20c MeshServer {MESH_GEOMETRY} and the drill"):
+        server = serve.MeshServer(index, serve.ServeConfig(
+            n_shards=m, data_parallel=d, **cfg), devices=[dev] * (d * m))
+        _add(launches, serve_equal(server, qe, qt, dense,
+                                   f"20c MeshServer {MESH_GEOMETRY}",
+                                   kernels))
+        _add(launches, serve_equal(server, qe, qt, filtered[:1],
+                                   f"20c MeshServer {MESH_GEOMETRY} "
+                                   "filtered", kernels, namespaces=allowed))
+
+        def mut_of(lo, hi_):
+            mut = segments.MutableHybridIndex(
+                index, vocab_size=VOCAB, seed=seed,
+                build_kwargs=dict(k1_terms=K1_TERMS),
+                delta_capacity=BATCH, delta_cluster_capacity=4,
+                delta_term_capacity=4, corpus_emb=corpus.doc_emb,
+                corpus_tokens=corpus.doc_tokens, corpus_ns=ns)
+            mut.delete_docs(np.arange(lo, hi_))
+            return serve.MutableServer(mut, serve.ServeConfig(
+                mutable=True, **cfg))
+
+        mesh_drill(server, mut_of, qe[sl[0]], qt[sl[0]], dense[0],
+                   f"20c MeshServer {MESH_GEOMETRY}")
+        server.mesh.close()
+        del server, base
+        torch.cuda.empty_cache()
+    with phase("20d sharded_search --devices 4 (counted)"):
+        reset_counts()
+        report = sharded_search.run(sharded_search.parse_args(
+            ["--devices", "4", "--device", "cuda"]))
+        torch.cuda.synchronize()
+        bench = read_counts()
+        log(json.dumps(report, sort_keys=True))
+        log(f"[mesh] 20d launches {bench}")
+        if not all(e["doc_ids_identical"] for e in report["sharded"]):
+            fail("sharded_search: sharded ids differ from the baseline")
+        _add(launches, bench)
+    return launches
+
+
 def run_kernel_bench() -> dict:
     """Phase 14: the port's ``kernel_bench`` at its full shapes with
     ``--check`` semantics, as a counted run: the main path of ``pq_adc``
@@ -2986,6 +3218,16 @@ def main(argv=None) -> None:
     with phase("16a runtime (opq, dense and fused)"):
         runtime_phase(index, dev, qe_all, qt_all,
                       ("pq_adc_fused", "topk_scores"), throughput=True)
+    with phase("20a sharded serving (opq, S = 2 and 4 on one card)"):
+        fserver.set_fusion(FUSION_WEIGHT)
+        fused = [fserver.query(qe_all[i * BATCH:(i + 1) * BATCH],
+                               qt_all[i * BATCH:(i + 1) * BATCH])
+                 for i in range(args.batches)]
+        mesh_launches = sharded_phase(
+            index, dev, qe_all, qt_all, results,
+            ("pq_adc_fused", "topk_scores"), "20a serve_msmarco (opq)",
+            fused=fused)
+        del fused
     del server, fserver, results, leaves, inp, cpu_index
 
     with phase("9a refine index (refine:sq8:4)"):
@@ -3018,7 +3260,14 @@ def main(argv=None) -> None:
     with phase("16b runtime (refine:sq8:4, dense and fused)"):
         runtime_phase(rindex, dev, qe_all, qt_all,
                       ("sq8_dot_fused", "topk_scores"), throughput=False)
-    del server, results, rindex, rinp
+    del server, rinp
+    torch.cuda.empty_cache()
+    with phase("20b sharded serving (refine:sq8:4, S = 4 on one card)"):
+        _add(mesh_launches, sharded_phase(
+            rindex, dev, qe_all, qt_all, results,
+            ("sq8_dot_fused", "topk_scores"),
+            "20b serve_msmarco_refine_sq8 (refine:sq8:4)", shards=(4,)))
+    del results, rindex
     torch.cuda.empty_cache()
 
     with phase("10 build on the card"):
@@ -3044,6 +3293,8 @@ def main(argv=None) -> None:
         train_launches = training_phase(dev, args.seed, built, mine_index)
     with phase("19 paper benchmarks"):
         paper_launches = paper_phase(dev, args.seed, built, mine_index)
+    with phase("20c-d mesh serving and sharded_search"):
+        _add(mesh_launches, mesh_phase(dev, args.seed, built, mine_index))
     del mine_index
 
     # the paths' counted runs: the builds and 18c's KMeans for
@@ -3059,8 +3310,9 @@ def main(argv=None) -> None:
     # the PQ shape's launches: the opq build's (OPQ training and encode)
     times["assign_argmax"]["pq_shape"]["launches"] = (
         built["assign_launches"]["opq"])
-    # phase 19's launches join each kernel's counted runs
-    launches = {k: v + paper_launches[k] for k, v in launches.items()}
+    # phase 19's and phase 20's launches join each kernel's counted runs
+    launches = {k: v + paper_launches[k] + mesh_launches.get(k, 0)
+                for k, v in launches.items()}
     kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
                     replaces=SOURCES[k][1], launches=launches[k],
                     max_abs_err=errs[k], **times[k])

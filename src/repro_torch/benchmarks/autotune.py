@@ -20,8 +20,8 @@ Three stages, each over the one deterministic corpus and index
     serving layout (``plain``: ``Server``; ``mutable``:
     ``MutableServer``) returns rows bit-identical to the direct search
     at those widths, and a default-config server returns the same rows.
-    The reference's ``sharded`` and ``sharded_mutable`` layouts are not
-    yet ported and raise.
+    The reference's ``sharded`` and ``sharded_mutable`` layouts come
+    with ROADMAP.md A4b and raise.
   · **runtime**: adaptive serving through the micro-batching runtime —
     warmup builds exactly one program per (batch-bucket, width-rung)
     (on the card one captured CUDA graph each), serving builds none,
@@ -197,8 +197,10 @@ def run_variant(layout: str, args, built=None) -> dict:
     from repro_torch.launch import serve
 
     if layout in UNPORTED_LAYOUTS:
-        raise NotImplementedError(f"autotune layout {layout!r} is not yet "
-                                  "ported to repro_torch")
+        raise NotImplementedError(
+            f"autotune layout {layout!r} is not yet ported to repro_torch: "
+            "it comes with the multi-device path's second half (ROADMAP.md "
+            "A4b)")
     dev = dev_mod.resolve(args.device)
     corpus, index = built or _build(args, dev)
     b = args.max_batch

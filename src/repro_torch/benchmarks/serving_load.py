@@ -9,8 +9,8 @@ traffic, on the single-device layouts.
 Builds a namespaced index over the synthetic corpus on ``--device``
 (default ``cuda``) for each layout (``plain``: ``Server``; ``mutable``:
 ``MutableServer`` over the same corpus with an empty delta; the
-reference's ``sharded`` and ``sharded_mutable`` are not yet ported and
-raise) and reports, under the reference's keys:
+reference's ``sharded`` and ``sharded_mutable`` need the runtime over
+a mesh and the sharded mutable index, ROADMAP.md A4b, and raise) and reports, under the reference's keys:
 
   · the warmup ledger (exactly one program per bucket, none built by
     serving afterwards: on the card, one CUDA graph capture each);
@@ -129,8 +129,11 @@ def poisson(rt, req: list, rate: float, seed: int = 0) -> dict:
 
 def run_layout(layout: str, args) -> dict:
     if layout in UNPORTED_LAYOUTS:
-        raise NotImplementedError(f"serving_load layout {layout!r} is not "
-                                  "yet ported to repro_torch")
+        raise NotImplementedError(
+            f"serving_load layout {layout!r} is not yet ported to "
+            "repro_torch: it comes with the multi-device path's second half "
+            "(ROADMAP.md A4b: the sharded mutable index and the runtime "
+            "over a mesh)")
     dev = dev_mod.resolve(args.device)
     corpus, server = _build_server(layout, args, dev)
     qe, qt = corpus.query_emb, corpus.query_tokens

@@ -26,9 +26,10 @@ Two stages, on ``--device`` (default ``cuda``):
     mutable index survives add → delete → compact with the compaction
     equal to a from-scratch supervised build over the survivors.  The
     reference's ``sharded`` and ``sharded_mutable`` layouts come with
-    the multi-device path and raise.  The reference runs this stage in
-    a subprocess with two emulated devices, which only its sharded
-    layouts need; here it runs in the same process.
+    the multi-device path's second half (ROADMAP.md A4b) and raise.
+    The reference runs this stage in a subprocess with two emulated
+    devices, which only its sharded layouts need; here it runs in the
+    same process.
 
 ``--check`` exits non-zero unless (a) sup recall >= unsup at matched
 cost on at least one operating point (costs asserted equal), (b) the
@@ -265,8 +266,8 @@ def run_variant(layout: str, args, v: dict) -> dict:
     if layout in UNPORTED_LAYOUTS:
         raise NotImplementedError(
             f"sup_distill layout {layout!r} is not yet ported to "
-            "repro_torch: it comes with the multi-device path (ROADMAP.md "
-            "A4)")
+            "repro_torch: it comes with the multi-device path's second "
+            "half (ROADMAP.md A4b)")
     if layout == "plain":
         return {"ids_identical": True}            # the reference
     mut = _build_mut(args, v)

@@ -25,6 +25,15 @@ structure:
 A ``refine:<base>:<mult>`` index carries its base codec's params and,
 beside the base planes, ``.doc_planes['refine_emb']`` (fp16).
 
+A :class:`repro_torch.core.sharded_index.ShardedHybridIndex` is written
+as the reference writes its own (its ``data_fields`` order):
+``.cluster_sel.embeddings``, ``.term_sel.avg_scores``,
+``.cluster_entries``, ``.cluster_lengths``, ``.term_entries``,
+``.term_lengths``, ``.codec_params...``, ``.doc_planes['<key>']``,
+``.doc_assign`` and the optional ``.doc_ns``, ``.sparse_weights``, each
+plane with its leading shard axis; :func:`restore_index` reads one into
+a template (``sharded_index.to_meta``) on the host.
+
 A ``save_mutable`` directory (:func:`load_mutable`) holds the same index
 leaves under a ``['base']`` prefix, the delta state under
 ``['delta']['cluster_entries']``, ``['delta']['planes']['codes']`` and so
@@ -129,11 +138,11 @@ def index_from_numpy(leaves: dict, codec: str,
         codec=codec)
 
 
-def _attach_tuned(index: HybridIndex, extra: dict) -> HybridIndex:
-    """The index with the manifest's tuned-width record, when it has
-    one (a malformed record raises)."""
+def _attach_tuned(index, extra: dict):
+    """The index with the manifest's tuned-width record, when it has one
+    and the index has the field (a malformed record raises)."""
     tuned = extra.get("tuned")
-    if tuned is None:
+    if tuned is None or not hasattr(index, "tuned"):
         return index
     return dataclasses.replace(index, tuned=frontier.from_json(tuned))
 
@@ -220,16 +229,20 @@ def _read_by_index(path: str, like) -> list:
 def _rebuild(like, arrays: list):
     """``like`` with its leaves replaced, in ``index_leaves`` order, by
     ``arrays`` (consumed from the front): a tensor leaf becomes a tensor
-    on its device, a numpy leaf a numpy array."""
+    on its device (a shape-only ``meta`` leaf: on the host), a numpy leaf
+    a numpy array."""
     if isinstance(like, torch.Tensor):
-        return _to_tensor(arrays.pop(0), like.device)
+        return _to_tensor(arrays.pop(0), torch.device("cpu") if like.is_meta
+                          else like.device)
     if isinstance(like, np.ndarray):
         return np.array(arrays.pop(0))
     if dataclasses.is_dataclass(like):
         new = {f.name: _rebuild(getattr(like, f.name), arrays)
                for f in dataclasses.fields(like)}
-        if isinstance(like, HybridIndex):
+        if "max_postings" in new:
             new["max_postings"] = None     # counted again from the lists
+        if "placement" in new:
+            new["placement"] = None        # the restored planes are new
         return dataclasses.replace(like, **new)
     if isinstance(like, tuple) and hasattr(like, "_fields"):
         return type(like)(*(_rebuild(getattr(like, k), arrays)
@@ -246,23 +259,31 @@ def restore(path: str, like):
     return _rebuild(like, _read_by_index(path, like))
 
 
-def save_index(directory: str, step: int, index: HybridIndex,
+def save_index(directory: str, step: int, index,
                extra: Optional[dict] = None) -> str:
-    """Checkpoint a built index, recording its codec spec, whether it is
-    filtered, and its tuned widths (DESIGN.md §7, §9, §14) in the
-    manifest as the reference does."""
+    """Checkpoint a built index (a :class:`HybridIndex` or a
+    ``ShardedHybridIndex``, whose placed blocks are stacked on the host
+    first), recording its codec spec, whether it is filtered, and its
+    tuned widths (DESIGN.md §7, §9, §14) in the manifest as the
+    reference does."""
+    from repro_torch.core import sharded_index as shi
+    if isinstance(index, shi.ShardedHybridIndex):
+        index = shi.to_host(index)
     extra = dict(extra or {})
     extra["codec"] = index.codec
     extra["filtered"] = index.doc_ns is not None
-    if index.tuned is not None:
-        extra["tuned"] = frontier.to_json(index.tuned)
+    tuned = getattr(index, "tuned", None)
+    if tuned is not None:
+        extra["tuned"] = frontier.to_json(tuned)
     return save(directory, step, index, extra=extra)
 
 
-def restore_index(path: str, like: HybridIndex) -> HybridIndex:
+def restore_index(path: str, like):
     """Restore an index checkpoint into the structure of ``like`` (leaves
-    by index, on ``like``'s device), checking the recorded codec spec
-    when one was saved and attaching the tuned widths it records."""
+    by index, on ``like``'s device; a sharded template's ``meta`` leaves
+    on the host), checking the recorded codec spec when one was saved
+    and attaching the tuned widths it records to a target that has the
+    field."""
     extra = load_manifest(path).get("extra", {})
     saved = extra.get("codec")
     if saved is not None and saved != like.codec:

@@ -15,8 +15,10 @@ width R′ and the refine step:
     top    = topk_by_score(..., codec.refine_width(top_r))
     top    = codec.refine(..., top_r, ctx)   # identity unless re-ranking
 
-The sharding hooks (``partition``, ``replicate``) and ``abstract`` come
-with the multi-device slice.
+The sharding hooks split the doc planes over document shards
+(``partition``) and place the params (``replicate``) for
+:mod:`repro_torch.core.sharded_index`.  ``abstract`` (the dry-run's
+shape-only planes) comes with the dry-run family (ROADMAP.md A6).
 """
 from __future__ import annotations
 
@@ -38,8 +40,18 @@ def gather_rows(plane: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return plane[ids.clamp(min=0).long()]
 
 
+def tree_map(fn: Callable, planes):
+    """``fn`` over every tensor of a (possibly nested) plane dict, in a
+    dict of the same structure (``None`` stays ``None``)."""
+    if isinstance(planes, dict):
+        return {k: tree_map(fn, v) for k, v in planes.items()}
+    return None if planes is None else fn(planes)
+
+
 class RefineCtx(NamedTuple):
-    """Environment hooks for the refine stage (single device here)."""
+    """Environment hooks for the refine stage: row gathers, which frontier
+    ids this device owns, and the sum across shards (the identity on one
+    device)."""
     gather: Callable[[Any, torch.Tensor], torch.Tensor]
     owned: Callable[[torch.Tensor], torch.Tensor]
     psum: Callable[[torch.Tensor], torch.Tensor]
@@ -91,6 +103,18 @@ class Codec:
         """Re-rank the (B, R′) frontier down to (B, top_r); the identity,
         valid because ``refine_width`` is ``top_r`` here."""
         return scores, ids
+
+    # --- sharding hooks --------------------------------------------------
+    def partition(self, doc_planes: dict,
+                  split: Callable[[Any], Any]) -> dict:
+        """Apply the document split ((n_docs, ...) → (S, P, ...)) to every
+        doc plane, nested dicts included; override to exclude or
+        re-derive planes."""
+        return tree_map(split, doc_planes)
+
+    def replicate(self, params: Any) -> Any:
+        """Params placement under sharding: replicated by default."""
+        return params
 
     # --- accounting ------------------------------------------------------
     def bytes_per_doc(self, doc_planes: dict) -> int:

@@ -1,4 +1,4 @@
-"""The staged query-execution engine, single device (port of
+"""The staged query-execution engine (port of
 ``repro/core/exec/stages.py``; DESIGN.md §9):
 
     dispatch → gather → dedup → filter → score → topk → refine
@@ -6,8 +6,11 @@
 over a list of :class:`Source`s on one device: one for an immutable
 index, the (base, delta) pair of the mutable one
 (:mod:`repro_torch.core.segments`, DESIGN.md §8), whose tombstones the
-filter stage masks before selection.  ``execute(shard=...)`` raises
-``NotImplementedError`` until the sharding slice lands.
+filter stage masks before selection.  ``execute(shard=...)`` runs the
+same chain on one mesh position of the document-sharded index
+(:mod:`repro_torch.core.sharded_index`, DESIGN.md §6): the
+:class:`ShardEnv` merges the per-shard top-R′ across the shard axis
+before refine, and sums the refine scores and the candidate counts.
 ``execute(fusion=...)`` adds the sparse BM25 path and the RRF fusion of
 DESIGN.md §13 (:func:`sparse_topk`, :func:`fuse`) after refine.
 
@@ -30,6 +33,7 @@ from repro_torch.core.exec import filters
 from repro_torch.core.exec import fusion as fusion_mod
 from repro_torch.core.exec.fusion import FusionSpec
 from repro_torch.core.inverted_lists import PAD_DOC, PaddedLists
+from repro_torch.distributed import collectives
 
 
 class SearchResult(NamedTuple):
@@ -69,6 +73,26 @@ class Source:
         """Upper bound on the global ids this source may own."""
         return (self.offset + self.size if self.family_hi is None
                 else self.family_hi)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardEnv:
+    """Marks execution on one position of a sharded mesh: sources hold
+    one shard's rows, and the frontier merges across ``axis_name`` before
+    refine.  ``axis_index`` is the position's index along that axis and
+    ``group`` its :class:`repro_torch.distributed.collectives.Group`
+    there (the reference's ``axis_index`` and named-axis collectives)."""
+    axis_name: str
+    axis_index: int = 0
+    group: Any = None
+
+    def all_gather(self, *xs: torch.Tensor) -> tuple:
+        """Each of ``xs`` stacked over the shard axis: (S, ...)."""
+        return self.group.all_gather(self.axis_index, xs)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the shard axis, in shard order."""
+        return self.group.psum(self.axis_index, x)
 
 
 @dataclasses.dataclass
@@ -191,14 +215,22 @@ def score(codec_impl: codecs_base.Codec, codec_params: Any,
     return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
 
 
-def topk(frontier: Frontier, r_prime: int
+def topk(frontier: Frontier, r_prime: int, shard: Optional[ShardEnv] = None
          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Total-order top-R′ selection over the scored frontier."""
-    return topk_by_score(frontier.scores, frontier.cands, r_prime)
+    """Total-order top-R′ selection over the scored frontier; under a
+    :class:`ShardEnv` the per-shard frontiers all-gather and re-select,
+    which the total order makes bit-identical to selecting over the
+    concatenated candidates (DESIGN.md §6)."""
+    top_s, top_ids = topk_by_score(frontier.scores, frontier.cands, r_prime)
+    if shard is not None:
+        top_s, top_ids = topk_by_score(
+            *collectives.gather_topk(top_s, top_ids, shard), r_prime)
+    return top_s, top_ids
 
 
 def sparse_topk(sources: Sequence[Source], term_ids: torch.Tensor, r: int,
-                ns_filter: Optional[torch.Tensor]
+                ns_filter: Optional[torch.Tensor],
+                shard: Optional[ShardEnv] = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The sparse (BM25) query path (DESIGN.md §13): top-r documents by
     summed term impact over the ≤K₂ᵀ dispatched term lists of every
@@ -213,7 +245,11 @@ def sparse_topk(sources: Sequence[Source], term_ids: torch.Tensor, r: int,
     probed lists (each list holds a document once, and ``query_terms``
     probes a list at most once) and by the most postings any document of
     a source has: that bound goes to :func:`fusion.sum_by_doc`, so
-    nothing is read back to the host."""
+    nothing is read back to the host.
+
+    Under a :class:`ShardEnv` each shard holds all of a document's
+    postings, so per-shard sums equal the single-device ones bit for
+    bit; the counts are summed and the top-r merged as in :func:`topk`."""
     b, k2 = term_ids.shape
     known = [s.max_postings for s in sources]
     longest = (k2 if any(n is None for n in known)
@@ -240,7 +276,12 @@ def sparse_topk(sources: Sequence[Source], term_ids: torch.Tensor, r: int,
     rep = first & (sid != PAD_DOC) & (totals > 0.0)
     scores = torch.where(rep, totals, -torch.inf)
     top_s, top_ids = _topk_of_id_sorted(scores, sid, r)
-    return top_s, top_ids, rep.sum(dim=-1, dtype=torch.int32)
+    n_sparse = rep.sum(dim=-1, dtype=torch.int32)
+    if shard is not None:
+        n_sparse = shard.psum(n_sparse)
+        top_s, top_ids = topk_by_score(
+            *collectives.gather_topk(top_s, top_ids, shard), r)
+    return top_s, top_ids, n_sparse
 
 
 def fuse(dense_scores: torch.Tensor, dense_ids: torch.Tensor,
@@ -306,10 +347,13 @@ def refine_planes(sources: Sequence[Source]) -> dict:
             for k in sources[0].doc_planes}
 
 
-def make_refine_ctx(sources: Sequence[Source]) -> codecs_base.RefineCtx:
+def make_refine_ctx(sources: Sequence[Source],
+                    shard: Optional[ShardEnv] = None
+                    ) -> codecs_base.RefineCtx:
     """RefineCtx over a source list: gathers route by family range,
-    ``owned`` is the union of the sources' id ranges, ``psum`` the
-    identity (one device)."""
+    ``owned`` is the union of the sources' id ranges (so each document
+    is scored by exactly one shard), ``psum`` sums across the shard axis
+    (the identity on one device)."""
     def gather_fn(plane_group, ids):
         return _route_gather(sources, plane_group, ids)
 
@@ -321,8 +365,9 @@ def make_refine_ctx(sources: Sequence[Source]) -> codecs_base.RefineCtx:
             mask = m if mask is None else mask | m
         return mask
 
-    return codecs_base.RefineCtx(gather=gather_fn, owned=owned,
-                                 psum=lambda x: x)
+    return codecs_base.RefineCtx(
+        gather=gather_fn, owned=owned,
+        psum=(lambda x: x) if shard is None else shard.psum)
 
 
 # --------------------------------------------------------------------------
@@ -352,11 +397,13 @@ def execute(codec_impl: codecs_base.Codec, codec_params: Any,
             query_embeddings: torch.Tensor, query_tokens: torch.Tensor, *,
             kc: int, k2: int, top_r: int,
             ns_filter: Optional[torch.Tensor] = None,
-            shard: Any = None,
+            shard: Optional[ShardEnv] = None,
             fusion: Optional[FusionSpec] = None) -> SearchResult:
     """Run the stage chain over ``sources`` (Eq. 5 + DESIGN.md §9).
     ``ns_filter`` is an int64 (B, W) namespace bitmap
     (:func:`repro_torch.core.exec.filters.make_filter`) or None.
+    ``shard`` (a :class:`ShardEnv`) runs the chain on one position of a
+    sharded mesh over that shard's sources.
 
     ``fusion`` (a :class:`FusionSpec`) adds the sparse BM25 path and RRF
     fusion after refine when every source carries ``sparse_weights``;
@@ -364,8 +411,6 @@ def execute(codec_impl: codecs_base.Codec, codec_params: Any,
     fusion, ``scores`` are RRF mass and ``n_candidates`` also counts the
     unique sparse-matched documents (a document both paths see counts
     in each)."""
-    if shard is not None:
-        raise NotImplementedError("sharded execution is not yet ported")
     cluster_ids, term_ids = dispatch(cluster_sel, term_sel,
                                      query_embeddings, query_tokens, kc, k2)
     frontier = gather(sources, cluster_ids, term_ids)
@@ -373,20 +418,23 @@ def execute(codec_impl: codecs_base.Codec, codec_params: Any,
     frontier.live = filter_stage(frontier, sources, keep, ns_filter)
     frontier.scores = score(codec_impl, codec_params, sources, frontier,
                             frontier.live, query_embeddings)
-    top_s, top_ids = topk(frontier, codec_impl.refine_width(top_r))
+    top_s, top_ids = topk(frontier, codec_impl.refine_width(top_r), shard)
     top_s, top_ids = codec_impl.refine(
         codec_params, refine_planes(sources), query_embeddings,
-        top_s, top_ids, top_r, make_refine_ctx(sources))
+        top_s, top_ids, top_r, make_refine_ctx(sources, shard))
     # the reference's §13 contract: an index without the impact plane
     # serves the dense-only result, unchanged to the bit
     if fusion is not None and all(s.sparse_weights is not None
                                   for s in sources):
         sp_s, sp_ids, n_sparse = sparse_topk(sources, term_ids, top_r,
-                                             ns_filter)
+                                             ns_filter, shard)
         top_s, top_ids = fuse(top_s, top_ids, sp_s, sp_ids, fusion, top_r)
     else:
         n_sparse = 0
-    n_cand = frontier.live.sum(dim=-1, dtype=torch.int32) + n_sparse
+    n_cand = frontier.live.sum(dim=-1, dtype=torch.int32)
+    if shard is not None:
+        n_cand = shard.psum(n_cand)
+    n_cand = n_cand + n_sparse
     valid = torch.isfinite(top_s)
     return SearchResult(
         doc_ids=torch.where(valid, top_ids,

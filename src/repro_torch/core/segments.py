@@ -2,7 +2,7 @@
 ``repro/core/segments.py``: ``DeltaFull``, ``DeltaSegment``,
 ``_pair_sources``, ``search``, ``_insert_posting`` and
 ``MutableHybridIndex``; DESIGN.md §8).  ``ShardedMutableIndex`` comes
-with the sharding slice.
+with the second half of the multi-device slice (ROADMAP.md A4b).
 
     MutableHybridIndex = immutable base + one delta segment + tombstones
 

@@ -1,0 +1,363 @@
+"""The in-process device mesh and its collectives (port of
+``repro/distributed/collectives.py``: ``gather_topk``; the mesh stands in
+for the reference's ``jax.sharding.Mesh`` and ``shard_map``).
+
+The reference is single-controller: one process calls a search, and
+``shard_map`` runs the same body on every device of the mesh, where it
+meets ``all_gather`` and ``psum`` in the middle.  Here a :class:`Mesh`
+is a grid of :class:`torch.device`\\ s with axis names, and each mesh
+position runs the body in a worker thread of its own (on a card, on a
+CUDA stream of its own).  The threads are started once per mesh and
+kept.  Several positions may share one device (``["cuda:0"] * 4``
+places four on one card, as the reference emulates devices on a CPU);
+a position never moves to another device.
+
+A :class:`Group` joins the positions that differ only along one axis
+and gives them ``all_gather`` and ``psum``.  Both meet at a barrier,
+where each position posts its tensors and reads the others'.  When the
+whole group is on one card the streams are ordered by CUDA events (a
+reader's stream waits for the event each poster recorded) and the host
+never waits for the card; a reader ties what it read to its own stream
+(``record_stream``), so the allocator keeps those blocks until its
+stream is done with them.  Otherwise each position synchronizes its
+stream before it posts and after it reads, and copies what it reads
+onto its own device: that is the CPU's path, and on a card the path of
+a group that spans several cards (``test_torch_cuda.py``'s
+``across_cards`` tests, on four H100s).  Every position meets the others once
+more before anyone may post again.  ``psum`` adds in position order, so
+every position holds the same bits.
+
+A call fails; it never hangs.  A position that raises breaks every
+barrier of the mesh and :meth:`Mesh.run` raises its error in the
+caller.  Every barrier wait has a timeout (:data:`TIMEOUT_S`, read when
+the mesh is built), so a position that never arrives at a collective
+fails the call.  The caller waits for the positions' results no longer
+than twice that at a time, so a position that stalls anywhere else
+fails the call too, and closes the mesh.
+
+``flat_allreduce``, ``hierarchical_allreduce`` and ``pmean_metrics``
+(the training mesh's gradient all-reduce) come with the second half of
+the multi-device slice (ROADMAP.md A4b), as does a ``torch.distributed``
+group for hosts with several cards.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+import weakref
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import device as dev_mod
+
+#: seconds a position waits at a collective for the others (a mesh
+#: reads it when it is built)
+TIMEOUT_S = 600.0
+
+
+def _settle(device: torch.device) -> None:
+    """Wait for the work this thread queued on ``device``."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+class Group:
+    """Collectives among ``size`` positions (ranks 0..size-1) of one
+    mesh: each rank calls the same collective with its own tensors."""
+
+    def __init__(self, size: int, one_card: bool = False):
+        self.size = int(size)
+        self.one_card = one_card         # every rank on the same card
+        self._slots: list = [None] * self.size
+        self._barrier = threading.Barrier(self.size, timeout=TIMEOUT_S)
+
+    def _exchange(self, rank: int, xs: tuple, combine: Callable):
+        dev = xs[0].device
+        if self.one_card and dev.type == "cuda":
+            stream = torch.cuda.current_stream(dev)
+            posted = torch.cuda.Event()
+            posted.record(stream)
+            self._slots[rank] = (xs, posted)
+            self._barrier.wait()
+            for ys, ready in self._slots:
+                stream.wait_event(ready)
+                for t in ys:
+                    t.record_stream(stream)
+            out = combine([list(ys) for ys, _ in self._slots])
+        else:
+            _settle(dev)                 # what we post is complete
+            self._slots[rank] = (xs, None)
+            self._barrier.wait()
+            out = combine([[t.to(dev) for t in ys]
+                           for ys, _ in self._slots])
+            _settle(dev)                 # what we read is consumed
+        self._barrier.wait()
+        return out
+
+    def all_gather(self, rank: int, xs: Sequence[torch.Tensor]) -> tuple:
+        """Each of ``xs`` stacked over the ranks: (size, ...) tensors on
+        this rank's device, rank order."""
+        return self._exchange(rank, tuple(xs), lambda parts: tuple(
+            torch.stack(col) for col in zip(*parts)))
+
+    def psum(self, rank: int, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``x``, added in rank order
+        (((x₀ + x₁) + x₂) + …), the same bits on every rank."""
+        def add(parts):
+            acc = parts[0][0]
+            for p in parts[1:]:
+                acc = acc + p[0]
+            return acc.clone() if len(parts) == 1 else acc
+        return self._exchange(rank, (x,), add)
+
+    def abort(self) -> None:
+        self._barrier.abort()
+
+    def reset(self) -> None:
+        self._slots = [None] * self.size
+        self._barrier.reset()
+
+
+def gather_topk(scores: torch.Tensor, ids: torch.Tensor, shard
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-shard top-R planes for the sharded search (DESIGN.md
+    §6): all-gather each shard's (B, R) scores and ids over the shard
+    axis of ``shard`` (a :class:`repro_torch.core.exec.ShardEnv`) and lay
+    them out as one (B, S·R) candidate plane per query, shard-major as
+    the reference's ``moveaxis(0, 1).reshape``.  Every shard returns the
+    same plane."""
+    s, i = shard.all_gather(scores, ids)            # (S, B, R) each
+    n_shards, b, r = s.shape
+    return (s.movedim(0, 1).reshape(b, n_shards * r),
+            i.movedim(0, 1).reshape(b, n_shards * r))
+
+
+# --------------------------------------------------------------------------
+# the mesh and its worker threads
+# --------------------------------------------------------------------------
+
+def mesh_devices(need: int, devices, what: str) -> list:
+    """``need`` resolved devices for a mesh: ``devices`` when given (its
+    length must be ``need``), else the first ``need`` cards, raising
+    when there are fewer."""
+    if devices is None:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < need:
+            raise RuntimeError(
+                f"need {need} cards for {what}, have {have}; place several "
+                f"mesh positions on one device with devices= (e.g. "
+                f"devices=['cuda:0'] * {need}, or ['cpu'] * {need})")
+        return [torch.device("cuda", i) for i in range(need)]
+    out = [dev_mod.resolve(d) for d in devices]
+    if len(out) != need:
+        raise ValueError(f"{what} needs {need} devices, devices= gives "
+                         f"{len(out)}")
+    return out
+
+
+class _Call:
+    """One :meth:`Mesh.run`: every position's result or error."""
+
+    def __init__(self, n: int):
+        self.left = n
+        self.results: dict = {}
+        self.errors: dict = {}
+        self.lock = threading.Lock()
+        self.done = threading.Event()
+
+    def post(self, coord, result, error) -> None:
+        with self.lock:
+            if error is None:
+                self.results[coord] = result
+            else:
+                self.errors[coord] = error
+            self.left -= 1
+            if self.left == 0:
+                self.done.set()
+
+
+def _worker(coord, device: torch.device, jobs: "queue.SimpleQueue",
+            groups: list) -> None:
+    """A position's thread: runs each job on its own stream (a card) in
+    inference mode; an error breaks every group of the mesh."""
+    stream = None
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        stream = torch.cuda.Stream(device)
+    while True:
+        job = jobs.get()
+        if job is None:
+            return
+        fn, ready, call = job
+        out = None
+        try:
+            with torch.inference_mode():
+                if stream is None:
+                    out = fn(coord)
+                else:
+                    with torch.cuda.stream(stream):
+                        if ready is not None:
+                            stream.wait_event(ready)
+                        out = fn(coord)
+                    stream.synchronize()
+        except BaseException as e:          # noqa: BLE001 — re-raised
+            for g in groups:
+                g.abort()
+            call.post(coord, None, e)
+        else:
+            call.post(coord, out, None)
+        # hold nothing of the job while idle: its closure may keep the
+        # mesh alive, and the mesh stops its threads when it is freed
+        del job, fn, ready, call, out
+
+
+def _record_on_caller(out) -> None:
+    """Tie the card tensors of a position's result to the caller's
+    stream, so the allocator does not hand their blocks back to the
+    position's stream while the caller still reads them."""
+    if isinstance(out, torch.Tensor):
+        if out.is_cuda:
+            out.record_stream(torch.cuda.current_stream(out.device))
+    elif isinstance(out, (tuple, list)):
+        for x in out:
+            _record_on_caller(x)
+
+
+def _stop(queues: list, threads: list) -> None:
+    """End the worker threads and wait for them (a thread that ended
+    while the interpreter shuts down could race its teardown)."""
+    for q in queues:
+        q.put(None)
+    for t in threads:
+        if t is not threading.current_thread():
+            t.join()
+
+
+class Mesh:
+    """A grid of devices with axis names (``shape[axis]`` sizes, as the
+    reference's ``Mesh.shape``), a worker thread per position and a
+    :class:`Group` per line of positions along each axis."""
+
+    def __init__(self, devices, axis_names: Sequence[str]):
+        grid = np.empty(np.shape(np.asarray(devices, dtype=object)),
+                        dtype=object)
+        for coord in np.ndindex(grid.shape):
+            grid[coord] = dev_mod.resolve(
+                np.asarray(devices, dtype=object)[coord])
+        if grid.ndim != len(axis_names):
+            raise ValueError(f"{grid.ndim}-D device grid for axes "
+                             f"{tuple(axis_names)}")
+        self.devices = grid
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, grid.shape))
+        self.timeout = TIMEOUT_S
+        self._groups: dict = {}
+        for ax, name in enumerate(self.axis_names):
+            for coord in np.ndindex(grid.shape):
+                key = (name,) + coord[:ax] + coord[ax + 1:]
+                if key not in self._groups:
+                    line = {grid[coord[:ax] + (i,) + coord[ax + 1:]]
+                            for i in range(grid.shape[ax])}
+                    self._groups[key] = Group(grid.shape[ax],
+                                              one_card=len(line) == 1)
+        self._lock = threading.Lock()
+        self._queues: dict = {}
+        groups = list(self._groups.values())
+        threads = []
+        for coord in self.positions():
+            q = queue.SimpleQueue()
+            threads.append(threading.Thread(
+                target=_worker, daemon=True, name=f"mesh-position-{coord}",
+                args=(coord, grid[coord], q, groups)))
+            threads[-1].start()
+            self._queues[coord] = q
+        self._closer = weakref.finalize(
+            self, _stop, list(self._queues.values()), threads)
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def positions(self) -> list:
+        """Every position's coordinate tuple, row-major."""
+        return list(np.ndindex(self.devices.shape))
+
+    def axis_index(self, axis_name: str) -> int:
+        if axis_name not in self.shape:
+            raise ValueError(f"mesh has no axis {axis_name!r} "
+                             f"(axes: {self.axis_names})")
+        return self.axis_names.index(axis_name)
+
+    def group(self, axis_name: str, coord: tuple) -> Group:
+        """The group of ``coord`` along ``axis_name``: the positions that
+        share every other coordinate with it."""
+        ax = self.axis_index(axis_name)
+        return self._groups[(axis_name,) + coord[:ax] + coord[ax + 1:]]
+
+    def run(self, fn: Callable[[tuple], Any]) -> dict:
+        """``fn(coord)`` on every position at once, each in its worker
+        thread (on a card on the worker's stream, after the work the
+        caller queued so far on the first position's device); returns
+        {coord: result}.  A position that raises breaks the others'
+        collectives and its error is raised here; when every error is a
+        broken barrier, a position missed a collective for ``timeout``
+        seconds and a RuntimeError says so.  When ``2 * timeout`` seconds
+        pass with no position finishing, a RuntimeError names the
+        positions still out, and the mesh is closed: a stalled thread
+        may yet reach a collective, and must meet no later call."""
+        if not self._closer.alive:
+            raise RuntimeError("this mesh is closed")
+        first = self.devices.flat[0]
+        with self._lock:
+            ready = None
+            if first.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(first))
+            call = _Call(self.size)
+            for q in self._queues.values():
+                q.put((fn, ready, call))
+            while not call.done.is_set():
+                with call.lock:
+                    left = call.left
+                if not call.done.wait(2 * self.timeout):
+                    with call.lock:
+                        if call.left == left:
+                            self._abandon(call)
+            if call.errors:
+                for g in self._groups.values():
+                    g.reset()
+                real = [e for e in call.errors.values()
+                        if not isinstance(e, threading.BrokenBarrierError)]
+                if real:
+                    raise real[0]
+                raise RuntimeError(
+                    f"a collective of the mesh broke: a position did not "
+                    f"arrive within {self.timeout} s")
+        for out in call.results.values():
+            _record_on_caller(out)
+        return call.results
+
+    def _abandon(self, call: _Call) -> None:
+        """Close the mesh around positions that stopped finishing: break
+        its collectives, let each thread end when it comes free (without
+        waiting for it), and raise."""
+        late = [c for c in self.positions()
+                if c not in call.results and c not in call.errors]
+        for g in self._groups.values():
+            g.abort()
+        self._closer.detach()
+        for q in self._queues.values():
+            q.put(None)
+        raise RuntimeError(
+            f"mesh positions {late} did not finish: no position finished "
+            f"for {2 * self.timeout} s; the mesh is closed")
+
+    def close(self) -> None:
+        """Stop the worker threads (also done when the mesh is freed)."""
+        self._closer()
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, devices="
+                f"{[str(d) for d in self.devices.flat]})")

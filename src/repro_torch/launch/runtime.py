@@ -317,6 +317,11 @@ class ServingRuntime:
     """
 
     def __init__(self, server, cfg: RuntimeConfig = RuntimeConfig()):
+        if getattr(server, "mesh", None) is not None:
+            raise NotImplementedError(
+                f"the runtime over a mesh ({type(server).__name__}) is not "
+                "yet ported to repro_torch: it comes with ROADMAP.md A4b; "
+                "serve the mesh through its query() meanwhile")
         if cfg.linger_ms < 0:
             raise ValueError("linger_ms must be >= 0")
         if cfg.queue_depth < 1:

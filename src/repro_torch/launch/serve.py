@@ -1,6 +1,7 @@
-"""Single-device serving (port of ``repro/launch/serve.py``:
-``ServeConfig``, ``resolve_widths``, ``Server``, ``MutableServer``,
-``make_server``, ``make_mutable_server`` and the ``main`` demo loop).
+"""Serving (port of ``repro/launch/serve.py``: ``ServeConfig``,
+``resolve_widths``, ``Server``, ``ShardedServer``, ``MeshServer``,
+``MutableServer``, ``make_server``, ``make_mutable_server`` and the
+``main`` demo loop).
 
 The dispatch widths resolve once per server (DESIGN.md §14): an
 explicit ``ServeConfig`` value, else the index's tuned record
@@ -9,29 +10,52 @@ explicit ``ServeConfig`` value, else the index's tuned record
 multi-rung tuned record the server exposes the record's width ladder
 (``rungs``, ``margin_cuts``), which the runtime serves per query.
 
-:class:`Server` holds one index on one device and pads every request
-batch to ``max_batch``, so each search runs at one shape.  It serves
-hybrid dense∥sparse fusion (DESIGN.md §13) when ``fusion_weight`` is
-set: :meth:`Server.set_fusion` re-weights live.  :class:`MutableServer`
-serves a :class:`repro_torch.core.segments.MutableHybridIndex` with live
-``add``/``delete``/``compact`` (DESIGN.md §8).  Either serves behind the
-micro-batching runtime of :mod:`repro_torch.launch.runtime` (one CUDA
-graph per bucket on the card).  The sharded and 2-D mesh layouts of the
-reference are not yet ported: asking for them raises.
+Serving layouts:
+
+  · :class:`Server` holds one index on one device and pads every
+    request batch to ``max_batch``, so each search runs at one shape.
+  · :class:`ShardedServer`, the document-sharded layout of DESIGN.md
+    §6: the index partitioned over a 1-D mesh of ``n_shards`` positions
+    (:mod:`repro_torch.core.sharded_index`), the per-shard top-R merged
+    by one all-gather; results equal :class:`Server`'s bit for bit.
+  · :class:`MeshServer`, the 2-D (data, model) mesh of DESIGN.md §12:
+    shards along the model axis, replicated along ``data_parallel``
+    slices that split the query batch.  It survives the loss of a
+    model-axis shard by serving the survivors' document ranges
+    (``partial=True``) until :meth:`MeshServer.rejoin` restores from a
+    checkpoint.
+  · :class:`MutableServer` serves a :class:`repro_torch.core.segments.
+    MutableHybridIndex` with live ``add``/``delete``/``compact``
+    (DESIGN.md §8).  Its sharded form (``ShardedMutableServer``) comes
+    with ROADMAP.md A4b.
+
+A mesh's positions take the first cards, one each, unless ``devices=``
+places them (``["cuda:0"] * 4`` puts four on one card); ``device="cpu"``
+puts them all on the CPU.  Every layout serves hybrid dense∥sparse
+fusion (DESIGN.md §13) when ``fusion_weight`` is set
+(:meth:`Server.set_fusion` re-weights live).  :class:`Server` and
+:class:`MutableServer` serve behind the micro-batching runtime of
+:mod:`repro_torch.launch.runtime` (one CUDA graph per bucket on the
+card); the mesh layouts behind it come with A4b.
 
     python -m repro_torch.launch.serve --device cpu --codec refine:sq8
     python -m repro_torch.launch.serve --device cpu --fusion-weight 0.5
+    python -m repro_torch.launch.serve --device cpu --shards 4
+    python -m repro_torch.launch.serve --device cpu --shards 2 \\
+        --data-parallel 2
     python -m repro_torch.launch.serve --device cpu --mutable --docs 3000
     python -m repro_torch.launch.serve --device cpu --runtime --cache 64
     python -m repro_torch.launch.serve --device cpu --runtime --adaptive
 
 builds an index over the synthetic corpus and serves its queries, as
 ``python -m repro.launch.serve`` does; ``--fusion-weight W`` builds the
-BM25 impact plane and fuses by RRF with dense weight W; ``--mutable``
-streams the corpus's last eighth in, deletes a quarter of it and
-compacts; ``--runtime`` serves through the runtime and prints its
-bucket stats.  ``--device`` defaults to ``cuda``, and the device chooses
-the kernels (no ``--use-kernel``).
+BM25 impact plane and fuses by RRF with dense weight W; ``--shards S``
+and ``--data-parallel D`` serve it on a (D, S) mesh (on the card: the
+first S·D cards; on the CPU every position is the CPU); ``--mutable``
+streams the corpus's last eighth in, deletes a quarter of
+it and compacts; ``--runtime`` serves through the runtime and prints
+its bucket stats.  ``--device`` defaults to ``cuda``, and the device
+chooses the kernels (no ``--use-kernel``).
 """
 from __future__ import annotations
 
@@ -49,7 +73,10 @@ from repro_torch.core import codecs
 from repro_torch.core import exec as qexec
 from repro_torch.core import hybrid_index as hi
 from repro_torch.core import segments as seg
+from repro_torch.core import sharded_index as shi
 from repro_torch.core.exec import filters as ns_filters
+from repro_torch.distributed import fault
+from repro_torch.launch import mesh as mesh_mod
 
 #: the hand-picked width defaults serving falls back to when neither an
 #: explicit ServeConfig override nor a tuned index record is present
@@ -66,8 +93,8 @@ class ServeConfig:
     top_r: int = 100
     max_batch: int = 64
     n_namespaces: int = 0        # >0 → filtered search over N namespaces
-    n_shards: int = 1            # >1: sharded layout, not yet ported
-    data_parallel: int = 1       # >1: 2-D serving mesh, not yet ported
+    n_shards: int = 1            # >1 → document-sharded layout (§6)
+    data_parallel: int = 1       # >1 → 2-D (data, model) serving mesh (§12)
     mutable: bool = False        # serve a MutableHybridIndex (§8)
     delta_capacity: int = 1024   # delta slots between compactions
     # hybrid dense∥sparse fusion (§13): None = dense-only; else the RRF
@@ -110,11 +137,6 @@ class Server:
                  cfg: Optional[ServeConfig] = None, *,
                  device: dev_mod.DeviceLike = "cuda"):
         cfg = ServeConfig() if cfg is None else cfg
-        for field, default, what in (("n_shards", 1, "sharded serving"),
-                                     ("data_parallel", 1, "mesh serving")):
-            if getattr(cfg, field) != default:
-                raise NotImplementedError(f"{what} ({field}=) is not yet "
-                                          "ported to repro_torch")
         self.device = dev_mod.resolve(device)
         self.index = index.to(self.device)
         self.cfg = cfg
@@ -147,6 +169,12 @@ class Server:
         """Index mutation counter (DESIGN.md §10): always 0, an immutable
         index never invalidates cached results."""
         return 0
+
+    @property
+    def n_replicas(self) -> int:
+        """Data-axis replica slices (DESIGN.md §12): 1 on every layout
+        but the 2-D mesh."""
+        return max(1, int(self.cfg.data_parallel))
 
     @property
     def _adaptive_ladder(self) -> bool:
@@ -242,7 +270,7 @@ class Server:
         return hi.SearchResult(doc_ids=res.doc_ids[:n],
                                scores=res.scores[:n],
                                n_candidates=res.n_candidates[:n],
-                               partial=False)
+                               partial=bool(res.partial))
 
     # mutation API: live only on MutableServer
     def add(self, doc_emb, doc_tokens, namespaces=None) -> np.ndarray:
@@ -257,6 +285,165 @@ class Server:
         self.add(None, None)
 
 
+def _positions(devices, device, n: int):
+    """The devices of a mesh of ``n`` positions: ``devices`` when given,
+    all ``n`` on the CPU when ``device`` is the CPU, else None (the first
+    ``n`` cards)."""
+    if devices is not None:
+        return devices
+    return ["cpu"] * n if dev_mod.resolve(device).type == "cpu" else None
+
+
+class ShardedServer(Server):
+    """Document-sharded serving (DESIGN.md §6): the request contract of
+    :class:`Server` and its results bit for bit, the index split over a
+    1-D mesh of ``cfg.n_shards`` positions (``mesh``, else one from
+    ``devices``/``device``, see :func:`_positions`).  Queries and results
+    live on the first position's device."""
+
+    def __init__(self, index: hi.HybridIndex,
+                 cfg: Optional[ServeConfig] = None, mesh=None, *,
+                 devices=None, device: dev_mod.DeviceLike = "cuda"):
+        self.cfg = ServeConfig() if cfg is None else cfg
+        # widths resolve from the input index: the sharded form drops
+        # the tuned record (per-index metadata, not per-shard)
+        self._resolve_widths(index)
+        self.mesh = mesh or shi.make_shard_mesh(
+            self.cfg.n_shards,
+            devices=_positions(devices, device, self.cfg.n_shards))
+        self.device = self.mesh.devices.flat[0]
+        self.index = shi.device_put(shi.partition(index, self.cfg.n_shards),
+                                    self.mesh)
+        self.set_fusion(self.cfg.fusion_weight)
+        self.n_served = 0
+
+    def _search(self, qe, qt, filter=None, widths=None) -> hi.SearchResult:
+        kc, k2 = widths if widths is not None else (self.kc, self.k2)
+        return shi.search(self.index, qe, qt, kc=kc, k2=k2,
+                          top_r=self.cfg.top_r, mesh=self.mesh,
+                          filter=filter, fusion=self.fusion)
+
+
+class MeshServer(Server):
+    """2-D (data, model) mesh serving with shard-loss degradation
+    (DESIGN.md §12).
+
+    The index is partitioned into ``cfg.n_shards`` document shards along
+    the model axis and replicated along ``cfg.data_parallel`` data-axis
+    slices; each slice searches its block of the query batch, and every
+    result equals the single-device search bit for bit (the §6 merge
+    runs per slice over the model axis only).
+
+    :meth:`eject_shard` drops one model-axis shard from the serving set:
+    requests are then served from the survivors' document ranges,
+    flagged ``partial=True``, and :meth:`rejoin` restores the full mesh
+    from a :meth:`checkpoint`, bit-identical to the results before the
+    failure.  Both bump :attr:`epoch`, so a result cache never replays
+    full results while degraded or the reverse."""
+
+    def __init__(self, index: hi.HybridIndex,
+                 cfg: Optional[ServeConfig] = None, mesh=None, *,
+                 devices=None, device: dev_mod.DeviceLike = "cuda"):
+        cfg = ServeConfig() if cfg is None else cfg
+        data, model = max(1, int(cfg.data_parallel)), int(cfg.n_shards)
+        if cfg.max_batch % data:
+            raise ValueError(f"max_batch {cfg.max_batch} must divide over "
+                             f"{data} data-axis slices")
+        self.cfg = cfg
+        self._resolve_widths(index)
+        self.data, self.model = data, model
+        self.data_axis = "data"
+        self.mesh = mesh or mesh_mod.make_serving_mesh(
+            data, model, devices=_positions(devices, device, data * model))
+        self.device = self.mesh.devices.flat[0]
+        self._full = shi.device_put(shi.partition(index, model), self.mesh)
+        self.index = self._full
+        # shapes and dtypes only: rejoin restores from the checkpoint,
+        # never from the live planes
+        self._template = shi.to_meta(self._full)
+        self.health = fault.ShardHealth(model)
+        self._survivor = None    # (sub_index, sub_mesh, offsets) | None
+        self._mesh_epoch = 0
+        self.set_fusion(cfg.fusion_weight)
+        self.n_served = 0
+
+    @property
+    def epoch(self) -> int:
+        """Bumps on every membership change (eject/rejoin): degraded and
+        full results never share a cache key."""
+        return self._mesh_epoch
+
+    @property
+    def partial(self) -> bool:
+        return self.health.degraded
+
+    def _search(self, qe, qt, filter=None, widths=None) -> hi.SearchResult:
+        kc, k2 = widths if widths is not None else (self.kc, self.k2)
+        da = self.data_axis if self.data > 1 else None
+        kw = dict(kc=kc, k2=k2, top_r=self.cfg.top_r, filter=filter,
+                  data_axis=da, fusion=self.fusion)
+        if self._survivor is None:
+            return shi.search(self._full, qe, qt, mesh=self.mesh, **kw)
+        sub, sub_mesh, offsets = self._survivor
+        res = shi.search(sub, qe, qt, mesh=sub_mesh, shard_offsets=offsets,
+                         **kw)
+        return res._replace(partial=True)
+
+    # --- shard-loss degradation + recovery -------------------------------
+    def note_shard_latency(self, shard: int, dt: float) -> bool:
+        """Feed one measured per-shard latency into the straggler policy
+        (:class:`repro_torch.distributed.fault.ShardHealth`); ejects the
+        shard and returns True once it crosses ``MAX_STRIKES`` deadline
+        misses."""
+        if self.health.observe(shard, dt):
+            self.eject_shard(shard)
+            return True
+        return False
+
+    def eject_shard(self, shard: int) -> None:
+        """Drop one model-axis shard from the serving set: later queries
+        are served from the survivors' document ranges and flagged
+        ``partial=True``.  Idempotent per shard; the last healthy shard
+        cannot be ejected.  The survivors keep their positions' devices
+        and planes (no copy)."""
+        if shard in self.health.lost:
+            return
+        self.health.eject(shard)
+        survivors = self.health.healthy
+        sub_mesh = mesh_mod.make_serving_mesh(
+            self.data, len(survivors),
+            devices=list(self.mesh.devices[:, survivors].flat))
+        sub = shi.device_put(shi.take_shards(self._full, survivors),
+                             sub_mesh)
+        offsets = shi.shard_offsets_for(survivors, self._full.docs_per_shard)
+        self._survivor = (sub, sub_mesh, offsets)
+        self._mesh_epoch += 1
+
+    def lost_doc_ranges(self) -> list:
+        """[lo, hi) global doc-id ranges missing from results now, the
+        degradation contract (DESIGN.md §12)."""
+        per, n = self._full.docs_per_shard, self._full.n_docs
+        return [(m * per, min((m + 1) * per, n)) for m in self.health.lost]
+
+    def checkpoint(self, directory: str, step: int = 0) -> str:
+        """Persist the full sharded index (codec spec in the manifest) in
+        the reference's leaf layout; the path feeds :meth:`rejoin`."""
+        from repro_torch.checkpoint import checkpoint as ckpt
+        return ckpt.save_index(directory, step, self._full)
+
+    def rejoin(self, checkpoint_path: str) -> None:
+        """Restore the full mesh from a checkpoint: every lost shard
+        returns, and results equal those before the failure bit for bit
+        (one more epoch bump keeps caches honest)."""
+        from repro_torch.checkpoint import checkpoint as ckpt
+        restored = ckpt.restore_index(checkpoint_path, self._template)
+        self._full = shi.device_put(restored, self.mesh)
+        self.index = self._full
+        self.health.rejoin()
+        self._survivor = None
+        self._mesh_epoch += 1
+
+
 class MutableServer(Server):
     """Serving over a :class:`repro_torch.core.segments.
     MutableHybridIndex` (DESIGN.md §8): the padded-batch request
@@ -268,9 +455,9 @@ class MutableServer(Server):
                  cfg: Optional[ServeConfig] = None):
         cfg = ServeConfig(mutable=True) if cfg is None else cfg
         if cfg.n_shards != 1 or cfg.data_parallel != 1:
-            raise NotImplementedError("sharded mutable serving (n_shards=, "
-                                      "data_parallel=) is not yet ported "
-                                      "to repro_torch")
+            raise NotImplementedError(
+                "sharded mutable serving (n_shards=, data_parallel=) is not "
+                "yet ported to repro_torch: it comes with ROADMAP.md A4b")
         self.mut = mut
         self.device = mut.device
         self.index = mut.base    # the padded-query plumbing reads it
@@ -331,13 +518,19 @@ class MutableServer(Server):
 
 def make_server(index: hi.HybridIndex, cfg: ServeConfig, *,
                 device: dev_mod.DeviceLike = "cuda") -> Server:
-    """The server for ``cfg``: the single-device :class:`Server` (other
-    layouts raise "not yet ported"; a mutable one is
-    :func:`make_mutable_server`'s)."""
+    """The server for ``cfg``: :class:`MeshServer` for ``data_parallel >
+    1``, :class:`ShardedServer` for ``n_shards > 1``, else
+    :class:`Server` (a mutable one is :func:`make_mutable_server`'s).
+    A mesh takes the first cards, or the CPU for ``device="cpu"``; build
+    the mesh server with ``devices=`` to place its positions."""
     if cfg.mutable:
         raise ValueError("make_server serves a built immutable index; "
                          "use make_mutable_server(mut, cfg) for "
                          "ServeConfig(mutable=True)")
+    if cfg.data_parallel > 1:
+        return MeshServer(index, cfg, device=device)
+    if cfg.n_shards > 1:
+        return ShardedServer(index, cfg, device=device)
     return Server(index, cfg, device=device)
 
 
@@ -345,17 +538,14 @@ def make_mutable_server(mut: seg.MutableHybridIndex, cfg: ServeConfig, *,
                         device: dev_mod.DeviceLike = "cuda"
                         ) -> MutableServer:
     """A :class:`MutableServer` for ``mut``, which must live on
-    ``device`` (the sharded mutable layout raises "not yet ported")."""
+    ``device`` (the sharded mutable layout, ROADMAP.md A4b, raises "not
+    yet ported")."""
     dev = dev_mod.resolve(device)
     if mut.device != dev:
         raise ValueError(f"mutable index lives on {mut.device}, serving "
                          f"asked for {dev}; create it with device="
                          f"{str(dev)!r}")
     return MutableServer(mut, cfg)
-
-
-#: reference flags whose layouts are not yet ported (flag → its default)
-_UNPORTED_FLAGS = {"shards": 1, "data_parallel": 1}
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -384,8 +574,11 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the hand-written kernels) or cpu "
                          "(their plain PyTorch versions)")
-    for flag in ("--shards", "--data-parallel"):
-        ap.add_argument(flag, type=int, default=1, help="not yet ported")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="document shards (mesh positions; DESIGN.md §6)")
+    ap.add_argument("--data-parallel", type=int, default=1,
+                    help="data-axis replica slices of the 2-D serving mesh "
+                         "(DESIGN.md §12); shards x replicas positions")
     ap.add_argument("--runtime", action="store_true",
                     help="serve through the micro-batching runtime "
                          "(DESIGN.md §10; one CUDA graph per bucket on the "
@@ -411,11 +604,6 @@ def main(argv: Optional[list] = None) -> None:
                          "sparse rankings by RRF with dense weight W in "
                          "[0,1] (1.0 = dense-only, 0.0 = pure lexical)")
     args = ap.parse_args(argv)
-    for field, default in _UNPORTED_FLAGS.items():
-        if getattr(args, field) != default:
-            raise NotImplementedError(
-                f"--{field.replace('_', '-')} is not yet ported to "
-                "repro_torch")
     codecs.get(args.codec)   # fail fast (with the registered names) on typos
     dev = dev_mod.resolve(args.device)
 
@@ -435,6 +623,8 @@ def main(argv: Optional[list] = None) -> None:
                       mutable=args.mutable,
                       delta_capacity=args.delta_capacity,
                       n_namespaces=args.namespaces,
+                      n_shards=args.shards,
+                      data_parallel=args.data_parallel,
                       fusion_weight=args.fusion_weight)
     if args.mutable:
         if args.docs < 512:
@@ -479,8 +669,14 @@ def main(argv: Optional[list] = None) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
+    if args.data_parallel > 1:
+        layout = f"({args.data_parallel}, {args.shards}) mesh"
+    elif args.shards > 1:
+        layout = f"{args.shards} shard(s)"
+    else:
+        layout = "1 device"
     print(f"served {server.n_served} queries in {dt:.3f}s "
-          f"({server.n_served / dt:.0f} q/s, 1 device)")
+          f"({server.n_served / dt:.0f} q/s, {layout})")
     if args.namespaces:
         # each query restricted to one tenant; results must honor it
         b = min(args.batch, args.queries)

@@ -1,6 +1,6 @@
 """Optimisation (port of ``repro/optim``: AdamW, the schedules and the
 gradient tools; ``compression.py``, which serves cross-pod gradient
-traffic, comes with the multi-device path)."""
+traffic, comes with ROADMAP.md A4b)."""
 from repro_torch.optim.adam import (AdamConfig, AdamState, adam_init,
                                     adam_update)
 from repro_torch.optim.grad import (accumulate_grads, clip_by_global_norm,

@@ -492,9 +492,15 @@ def test_serve_cli_builds_and_serves_with_tenant_isolation(capsys):
     assert out[0].endswith(" q/s, 1 device)")
     assert out[1].startswith("filtered: 32 queries x 1/4 namespaces")
     assert out[1].endswith("tenant isolation OK")
-    for flag in (["--shards", "2"], ["--data-parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            serve.main(["--device", "cpu", *flag])
+    # --shards and --data-parallel are ported: mesh positions on the CPU
+    for flag, layout in ((["--shards", "2"], "2 shard(s)"),
+                         (["--shards", "2", "--data-parallel", "2"],
+                          "(2, 2) mesh")):
+        serve.main(["--device", "cpu", "--docs", "1000", "--queries", "64",
+                    "--batch", "32", *flag])
+        out = capsys.readouterr().out.splitlines()
+        assert out[0].startswith("served 64 queries in ")
+        assert out[0].endswith(f" q/s, {layout})")
     # --runtime is ported: serve through the micro-batching runtime
     serve.main(["--device", "cpu", "--docs", "1000", "--queries", "64",
                 "--batch", "32", "--runtime", "--cache", "64",

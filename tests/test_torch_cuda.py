@@ -25,7 +25,12 @@ and fused; mutations between batches capture nothing, ``compact()`` and
 ladder (DESIGN.md §14) it captures one graph per (bucket, rung) in one
 pool, each row equals the direct search at its resolved rung's widths,
 and no row replays across rungs; a tuned index saved from the card loads
-back onto it leaf for leaf, and serves the same rows.
+back onto it leaf for leaf, and serves the same rows.  Sharded search on
+two and four mesh positions of the card equals the single-device search
+bit for bit for every codec, dense and fused, and a (2, 2) MeshServer
+equals Server and survives the shard-loss drill.  On a host with several
+cards, one position a card (groups that span cards) gives the same bits;
+those tests skip on a host with one.
 """
 from typing import NamedTuple
 
@@ -1164,3 +1169,135 @@ def test_tuned_index_saved_from_the_card_loads_back_onto_it(rt_indexes,
                          kc=6, k2=8, top_r=100, device=index.device)
         assert torch.equal(got.doc_ids, want.doc_ids)
         assert torch.equal(got.scores, want.scores)
+
+
+# --------------------------------------------------------------------------
+# sharded and 2-D mesh serving: several mesh positions on one card
+# --------------------------------------------------------------------------
+
+#: the score kernel each codec's positions launch (flat has none)
+SHARD_KERNELS = {"opq": adc_ops, "pq": adc_ops, "sq8": sq8_ops,
+                 "refine:sq8:4": sq8_ops}
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("codec", RT_CODECS)
+def test_sharded_search_on_the_card_equals_single_device(rt_indexes, codec,
+                                                         fused):
+    """S = 2 and 4 positions on the card, each in its own thread and
+    stream: ids, scores and n_candidates equal the single-device search
+    on the card bit for bit, and every position launches topk_scores and
+    its codec's score kernel."""
+    from repro_torch.core import exec as qexec
+    from repro_torch.core import sharded_index as shi
+    c, indexes = rt_indexes
+    idx = indexes[codec]
+    dev = idx.device
+    kw = dict(kc=6, k2=8, top_r=100,
+              fusion=qexec.FusionSpec(0.5) if fused else None)
+    want = hi.search(idx, c.query_emb, c.query_tokens, device=dev, **kw)
+    for n in (2, 4):
+        mesh = shi.make_shard_mesh(n, devices=[dev] * n)
+        sidx = shi.device_put(shi.partition(idx, n), mesh)
+        shi.search(sidx, c.query_emb, c.query_tokens, mesh=mesh, **kw)
+        topk0 = at_ops.launches
+        score = SHARD_KERNELS.get(codec)
+        score0 = None if score is None else score.launches
+        got = shi.search(sidx, c.query_emb, c.query_tokens, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        assert at_ops.launches - topk0 == n
+        if score is not None:
+            assert score.launches - score0 >= n
+        for name in ("doc_ids", "scores", "n_candidates"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), (
+                n, name)
+        mesh.close()
+
+
+def test_mesh_server_on_the_card_equals_server_and_survives_a_drill(
+        rt_indexes, tmp_path):
+    """A (2, 2) MeshServer on four positions of the card equals Server bit
+    for bit; after ejecting shard 0 it serves partial results from the
+    survivors, and a rejoin from its checkpoint restores them exactly."""
+    from repro_torch.launch import serve
+    c, indexes = rt_indexes
+    idx = indexes["opq"]
+    dev = idx.device
+    cfg = dict(kc=6, k2=8, top_r=100, max_batch=16)
+    base = serve.Server(idx, serve.ServeConfig(**cfg), device=dev)
+    srv = serve.MeshServer(idx, serve.ServeConfig(
+        n_shards=2, data_parallel=2, **cfg), devices=[dev] * 4)
+    qe, qt = c.query_emb[:16], c.query_tokens[:16]
+    want = base.query(qe, qt)
+    full = srv.query(qe, qt)
+    for name in ("doc_ids", "scores", "n_candidates"):
+        assert torch.equal(getattr(full, name), getattr(want, name)), name
+    path = srv.checkpoint(str(tmp_path))
+    srv.eject_shard(0)
+    deg = srv.query(qe, qt)
+    assert deg.partial is True
+    lo, hi_ = srv.lost_doc_ranges()[0]
+    ids = deg.doc_ids.cpu().numpy()
+    assert not ((ids >= lo) & (ids < hi_)).any()
+    srv.rejoin(path)
+    back = srv.query(qe, qt)
+    assert back.partial is False
+    for name in ("doc_ids", "scores", "n_candidates"):
+        assert torch.equal(getattr(back, name), getattr(full, name)), name
+    srv.mesh.close()
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2,
+                    reason="needs several cards: one position a card")
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("codec", ["opq", "refine:sq8:4"])
+def test_sharded_search_across_cards_equals_single_device(rt_indexes, codec,
+                                                          fused):
+    """One position a card (the mesh takes the first cards when devices=
+    is omitted), so every group spans several cards and its collectives
+    take the host-synchronized path with a copy onto the reader's card:
+    ids, scores and n_candidates equal the single-device search on the
+    first card bit for bit, and every card launches its kernels."""
+    from repro_torch.core import exec as qexec
+    from repro_torch.core import sharded_index as shi
+    c, indexes = rt_indexes
+    idx = indexes[codec]
+    kw = dict(kc=6, k2=8, top_r=100,
+              fusion=qexec.FusionSpec(0.5) if fused else None)
+    want = hi.search(idx, c.query_emb, c.query_tokens, device=idx.device,
+                     **kw)
+    n = min(4, torch.cuda.device_count())
+    mesh = shi.make_shard_mesh(n)
+    assert [d.index for d in mesh.devices.flat] == list(range(n))
+    assert not mesh.group("shards", (0,)).one_card
+    sidx = shi.device_put(shi.partition(idx, n), mesh)
+    topk0 = at_ops.launches
+    got = shi.search(sidx, c.query_emb, c.query_tokens, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    assert at_ops.launches - topk0 == n
+    assert got.doc_ids.device == mesh.devices.flat[0]
+    for name in ("doc_ids", "scores", "n_candidates"):
+        assert torch.equal(getattr(got, name).to(idx.device),
+                           getattr(want, name)), name
+    mesh.close()
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 4,
+                    reason="needs four cards: one position a card")
+def test_mesh_server_across_cards_equals_server(rt_indexes):
+    """A (2, 2) MeshServer on the first four cards (make_server places
+    them) equals Server bit for bit."""
+    from repro_torch.launch import serve
+    c, indexes = rt_indexes
+    idx = indexes["opq"]
+    cfg = dict(kc=6, k2=8, top_r=100, max_batch=16)
+    base = serve.Server(idx, serve.ServeConfig(**cfg), device=idx.device)
+    srv = serve.make_server(idx, serve.ServeConfig(
+        n_shards=2, data_parallel=2, **cfg))
+    assert [d.index for d in srv.mesh.devices.flat] == [0, 1, 2, 3]
+    qe, qt = c.query_emb[:16], c.query_tokens[:16]
+    want = base.query(qe, qt)
+    got = srv.query(qe, qt)
+    for name in ("doc_ids", "scores", "n_candidates"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    srv.mesh.close()

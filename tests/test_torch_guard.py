@@ -66,7 +66,9 @@ def test_port_sources_import_neither_jax_nor_the_reference():
             "checkpoint/manager.py", "benchmarks/autotune.py",
             "optim/adam.py", "optim/grad.py", "optim/schedule.py",
             "distributed/fault.py", "tree.py",
-            "benchmarks/sup_distill.py"} <= walked
+            "benchmarks/sup_distill.py", "distributed/collectives.py",
+            "core/sharded_index.py", "launch/mesh.py",
+            "benchmarks/sharded_search.py"} <= walked
     offenders = [(f.relative_to(_ROOT).as_posix(), m) for f in files
                  for m in _imported_modules(f) if _FORBIDDEN.search(m)]
     assert not offenders, offenders
@@ -98,7 +100,10 @@ def test_importing_every_port_module_loads_no_jax():
         " 'repro_torch.benchmarks.autotune', 'repro_torch.optim.adam',"
         " 'repro_torch.optim.grad', 'repro_torch.optim.schedule',"
         " 'repro_torch.distributed.fault', 'repro_torch.tree',"
-        " 'repro_torch.benchmarks.sup_distill'} <= set(mods), mods\n"
+        " 'repro_torch.benchmarks.sup_distill',"
+        " 'repro_torch.distributed.collectives',"
+        " 'repro_torch.core.sharded_index', 'repro_torch.launch.mesh',"
+        " 'repro_torch.benchmarks.sharded_search'} <= set(mods), mods\n"
         "assert not bad, bad\n")
     env = {"PYTHONPATH": str(_ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -171,10 +176,16 @@ def test_mutable_entry_points_without_device_raise_when_cuda_is_absent(
 
 def test_unported_layouts_and_codecs_raise(tmp_path):
     leaves, index = _tiny_index()
-    for field in (dict(n_shards=2), dict(data_parallel=2)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            serve.make_server(index, serve.ServeConfig(**field),
-                              device="cpu")
+    # the sharded and 2-D mesh layouts are ported (positions on the CPU
+    # here); the sharded mutable layout is not yet
+    for field, kind in ((dict(n_shards=2), "ShardedServer"),
+                        (dict(data_parallel=2), "MeshServer")):
+        server = serve.make_server(
+            index, serve.ServeConfig(max_batch=4, **field), device="cpu")
+        assert type(server).__name__ == kind
+    with pytest.raises(NotImplementedError, match="not yet ported.*A4b"):
+        serve.MutableServer(None, serve.ServeConfig(mutable=True,
+                                                    n_shards=2))
     # the mutable layout is ported: make_server refuses it as the
     # reference does, pointing at make_mutable_server
     with pytest.raises(ValueError, match="make_mutable_server"):
