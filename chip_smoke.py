@@ -198,16 +198,43 @@ never prints the final line.  Every phase prints its seconds.
               tombstoned; the last shard refused; rejoin bitwise equal);
               20d ``sharded_search.py --devices 4 --device cuda`` at its
               reference size, every ``doc_ids_identical`` true;
+ 21. mesh-rt  the serving runtime over a mesh and the sharded mutable
+              index (DESIGN.md §8, §10, §12), every position on the one
+              card, one CUDA graph per bucket per mesh captured across
+              the positions' streams: 21a after 20a, on phase 3's index,
+              the runtime over ``ShardedServer`` at S = 4 and a (2, 2)
+              ``MeshServer`` (9 and 8 captures, the quantum-2 ladder
+              2…256 on the mesh; capture seconds and pool bytes), every
+              bucket bit for bit against phase 5's ``Server`` rows, a
+              replayed 256-query batch against an eager one with its
+              profile, ``qps_serial`` (64 requests) against
+              ``qps_runtime`` (1,024) with every replica dispatched;
+              21b after phase 15, 15a replayed on the mesh: a fresh
+              mutable index over 15a's base served by
+              ``ShardedMutableServer`` at S = 4 and on (2, 2), the same
+              65,536 documents streamed in at fills 0.25, 0.5 and 1.0
+              and the same ids deleted through a runtime over the (2, 2)
+              server, every state dense and fused at 0.5 bit for bit
+              equal to 15a's ``MutableServer`` rows, every added id in
+              its owning shard's planes, nothing captured across
+              add/delete, ``compact()`` captured once a bucket and equal
+              to 15a's compacted index; 21c after 20d,
+              ``mesh_serving.py --device cuda`` at its reference size
+              (every result contract, every geometry captured; the
+              emulated (2, 1) gate printed) and ``serving_load.py``'s
+              four layouts with every contract;
 
 then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
 kernel's ``launches`` is read from the counted runs of the paths that
 run it: ``pq_adc_fused`` and ``topk_scores`` from phase 5,
 ``sq8_dot_fused`` from 9c, ``assign_argmax`` from phase 10's builds and
 18c, ``flash_attention`` from phase 12 and 18c, ``pq_adc`` from phase
-14, each plus its launches in phases 19 and 20 (20a-20c's sharded runs,
-not their single-device yardsticks, and 20d's whole benchmark run, its
-index build and single-device baseline searches included); phase 15's
-counted runs are checked in the phase and printed.  It
+14, each plus its launches in phases 19, 20 and 21 (20a-20c's sharded
+runs, not their single-device yardsticks, and 20d's whole benchmark run,
+its index build and single-device baseline searches included; 21a's
+warmups, 21b's eager checks, warmup, adds and compaction, and 21c's two
+benchmark runs whole); phase 15's counted runs are checked in the phase
+and printed.  It
 imports only the port, never jax or the reference package, and exits
 non-zero without a card.
 """
@@ -239,6 +266,7 @@ from repro_torch.benchmarks import fig4_ablation  # noqa: E402
 from repro_torch.benchmarks import filtered_search  # noqa: E402
 from repro_torch.benchmarks import hybrid_fusion  # noqa: E402
 from repro_torch.benchmarks import kernel_bench  # noqa: E402
+from repro_torch.benchmarks import mesh_serving  # noqa: E402
 from repro_torch.benchmarks import serving_load  # noqa: E402
 from repro_torch.benchmarks import sharded_search  # noqa: E402
 from repro_torch.benchmarks import sup_distill  # noqa: E402
@@ -370,6 +398,12 @@ SHARDS = (2, 4)
 MESH_GEOMETRY = (2, 2)
 MESH_NS = 8
 MESH_CKPT = ROOT / "build" / "mesh_ckpt"
+# phase 21: the runtime over ShardedServer at S = MESH_RT_SHARDS and over
+# the MESH_GEOMETRY MeshServer, every position on the card; its
+# qps_serial over MESH_SERIAL of the RT_REQUESTS (a serial mesh query is
+# a full padded batch)
+MESH_RT_SHARDS = 4
+MESH_SERIAL = 64
 # phase 19: the paper benchmarks.  Rows held against the CPU: top-R
 # ids up to swaps within PAPER_TOL, each recall or MRR within its
 # near-tie queries / n_queries + PAPER_FLOAT (the f32 mean's last bits)
@@ -1729,11 +1763,12 @@ def check_mutable_cpu(mut, qe8, qt8, first, tol: float, what: str) -> None:
 
 
 def mutable_stream(mut, dev, corpus, batches: int, score_kernel: str,
-                   spec: str, fused: bool) -> tuple:
+                   spec: str, fused: bool, record: dict = None) -> tuple:
     """Stream the corpus's last MUT_STREAM documents in MUT_FILLS steps,
     each ``add_docs`` a counted run (one ``assign_argmax`` launch: the
     codec encode, for ``opq``), serving dense (and fused) batches before
-    the first step and after each.  Returns (the streamed ids, the last
+    the first step and after each; ``record`` keeps each state's results
+    under (fill, fusion weight).  Returns (the streamed ids, the last
     dense batch's results)."""
     qe, qt = corpus.query_emb, corpus.query_tokens
     stream_emb = corpus.doc_emb[MUT_BASE:MUT_BASE + MUT_STREAM]
@@ -1774,15 +1809,18 @@ def mutable_stream(mut, dev, corpus, batches: int, score_kernel: str,
                 f", {qps:.1f} q/s")
             if weight is None:
                 last = results
+            if record is not None:
+                record[(frac, weight)] = results
     return np.concatenate(added), last
 
 
 def mutable_delete(mut, dev, corpus, batches: int, score_kernel: str,
-                   spec: str, added, last, fused: bool):
+                   spec: str, added, last, fused: bool, record: dict = None):
     """Delete every id in the top 10 of the last dense batch (base and
     delta alike) plus a quarter of the streamed ids, then serve again:
-    no deleted id may appear in any result.  Returns the first dense
-    batch after the deletes."""
+    no deleted id may appear in any result.  ``record`` keeps the
+    deleted ids and the results under ("deleted", fusion weight).
+    Returns the first dense batch after the deletes."""
     top10 = last[-1].doc_ids[:, :10].cpu().numpy().ravel()
     doomed = np.unique(np.concatenate([top10[top10 >= 0],
                                        added[: MUT_STREAM // 4]]))
@@ -1804,16 +1842,22 @@ def mutable_delete(mut, dev, corpus, batches: int, score_kernel: str,
         if np.isin(ids, doomed).any():
             fail(f"{spec}: a deleted id appeared in a result")
         first = results[0] if first is None else first
+        if record is not None:
+            record[("deleted", weight)] = results
+            record["doomed"] = doomed
     log(f"[mutable] {spec}: no deleted id in any result")
     return first
 
 
-def mutable_phase(dev, built: dict, seed: int, batches: int) -> None:
+def mutable_phase(dev, built: dict, seed: int, batches: int) -> dict:
     """Phase 15: the mutable index on the card at full widths over phase
     10's corpus: 15a ``opq`` with the impact plane (create, stream, serve
     dense and fused at each fill, delete, check against the CPU,
     compact against a rebuild), 15b ``refine:sq8:4`` (create, stream,
-    delete, check against the CPU)."""
+    delete, check against the CPU).  Returns what 21b replays of 15a:
+    its base and build arguments, every state's results, the deleted
+    ids and the compacted index's first dense batch."""
+    record: dict = {}
     corpus = built["corpus"]
     kw = dict(n_clusters=N_CLUSTERS, k1_terms=K1_TERMS, pq_m=PQ_M,
               pq_k=PQ_K, cluster_capacity=CLUSTER_CAP,
@@ -1835,12 +1879,13 @@ def mutable_phase(dev, built: dict, seed: int, batches: int) -> None:
             if caps != (MUT_DELTA_CAP, MUT_DELTA_CAP):
                 fail(f"{spec}: delta capacities {caps}, expected "
                      f"{MUT_DELTA_CAP}")
+        rec = record if spec == "opq" else None
         with phase(f"{tag} mutable {spec}: stream and serve (counted)"):
             added, last = mutable_stream(mut, dev, corpus, batches, kernel,
-                                         spec, fused)
+                                         spec, fused, rec)
         with phase(f"{tag} mutable {spec}: delete and serve"):
             first = mutable_delete(mut, dev, corpus, batches, kernel, spec,
-                                   added, last, fused)
+                                   added, last, fused, rec)
         if fused:
             with phase(f"{tag} mutable {spec}: profile"):
                 for weight in (None, FUSION_WEIGHT):
@@ -1857,11 +1902,17 @@ def mutable_phase(dev, built: dict, seed: int, batches: int) -> None:
                               ADC_TOL if spec == "opq" else SQ8_TOL, spec)
         if spec == "opq":
             compacted = compact_vs_rebuild(mut, dev, corpus, kw)
+            record.update(
+                base=mut.base, build_kwargs=dict(mut.build_kwargs),
+                compacted=compacted.search(
+                    corpus.query_emb[:BATCH], corpus.query_tokens[:BATCH],
+                    kc=KC, k2=K2, top_r=TOP_R))
             with phase("16c runtime (mutable opq)"):
                 runtime_mutable(compacted, dev, corpus)
             del compacted
         del mut
         torch.cuda.empty_cache()
+    return record
 
 
 def compact_vs_rebuild(mut, dev, corpus, kw: dict) -> None:
@@ -1924,11 +1975,13 @@ def runtime_for(server, linger_ms: float = RT_CHECK_LINGER_MS):
         linger_ms=linger_ms, queue_depth=4 * RT_REQUESTS))
 
 
-def warm_runtime(server, what: str, kernels) -> "runtime.ServingRuntime":
+def warm_runtime(server, what: str, kernels,
+                 total: dict = None) -> "runtime.ServingRuntime":
     """A counted run of the runtime's warmup: every count set to 0 just
-    before it and read just after; exactly one capture per bucket, each
-    kernel of ``kernels`` launched (its eager warm and its capture: the
-    replays run the captured launches without the wrappers)."""
+    before it and read just after (and added to ``total`` when given);
+    exactly one capture per bucket, each kernel of ``kernels`` launched
+    (its eager warm and its capture: the replays run the captured
+    launches without the wrappers)."""
     rt = runtime_for(server)
     reset_counts()
     before = qexec.trace_count()
@@ -1945,6 +1998,11 @@ def warm_runtime(server, what: str, kernels) -> "runtime.ServingRuntime":
     if captures != len(rt.buckets) or set(rt.warm_traces.values()) != {1}:
         fail(f"runtime {what}: {captures} captures for {len(rt.buckets)} "
              f"buckets ({rt.warm_traces})")
+    if not all(rt.captured.values()):
+        fail(f"runtime {what}: programs not captured as CUDA graphs: "
+             f"{rt.captured}")
+    if total is not None:
+        _add(total, launches)
     missing = [k for k in kernels if launches[k] < 2 * len(rt.buckets)]
     if missing:
         fail(f"runtime {what}: kernel(s) of the path not captured in every "
@@ -1995,17 +2053,20 @@ def replay_vs_eager(rt, server, qe, qt, what: str) -> None:
     profile_call(lambda: prog(rows), f"one replayed batch ({what})")
 
 
-def runtime_throughput(server, qe_all, qt_all) -> None:
-    """``qps_serial`` (one ``Server.query`` per query, rows to the host)
-    against ``qps_runtime`` (RT_REQUESTS one-query submissions through a
-    runtime at the reference's 2 ms linger), then open-loop Poisson
-    arrivals at a quarter of the burst rate (serving_load.py's)."""
+def runtime_throughput(server, qe_all, qt_all, n_serial: int = RT_REQUESTS
+                       ) -> "runtime.ServingRuntime":
+    """``qps_serial`` (one ``Server.query`` per query, rows to the host,
+    over the first ``n_serial`` requests) against ``qps_runtime``
+    (RT_REQUESTS one-query submissions through a runtime at the
+    reference's 2 ms linger), then open-loop Poisson arrivals at a
+    quarter of the burst rate (serving_load.py's).  Returns the closed
+    runtime."""
     req = [(qe_all[i % len(qe_all)], qt_all[i % len(qt_all)])
            for i in range(RT_REQUESTS)]
     t0 = time.perf_counter()
-    for e, t in req:
+    for e, t in req[:n_serial]:
         _host_rows(server.query(e[None], t[None]))
-    qps_serial = len(req) / (time.perf_counter() - t0)
+    qps_serial = n_serial / (time.perf_counter() - t0)
     rt = runtime_for(server, runtime.RuntimeConfig.linger_ms)
     rt.warmup(HIDDEN, QUERY_LEN)
     with rt:
@@ -2016,12 +2077,13 @@ def runtime_throughput(server, qe_all, qt_all) -> None:
         burst = dict(rt.bucket_counts)
         pois = serving_load.poisson(rt, req, qps_runtime / 4.0)
     log(f"[runtime] {len(req)} one-query requests: qps_serial "
-        f"{qps_serial:.1f}, qps_runtime {qps_runtime:.1f} "
+        f"{qps_serial:.1f} (over {n_serial}), qps_runtime {qps_runtime:.1f} "
         f"({qps_runtime / qps_serial:.1f}x; batches by bucket {burst}); "
         f"Poisson {json.dumps(pois)}; batches by bucket after it "
-        f"{rt.bucket_counts}")
+        f"{rt.bucket_counts}; requests by replica {rt.replica_dispatch}")
     if qps_runtime < 2 * qps_serial:
         fail("runtime: micro-batched throughput under 2x the serial rate")
+    return rt
 
 
 def runtime_phase(index, dev, qe_all, qt_all, kernels,
@@ -3104,6 +3166,259 @@ def mesh_phase(dev, seed: int, built: dict, opq_index) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 21: the runtime over a mesh and sharded mutable serving, every
+# position on the one card (one CUDA graph per bucket per mesh)
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def counted(total: dict):
+    """A counted run: every count set to 0 on entry, read and added to
+    ``total`` on exit."""
+    reset_counts()
+    yield
+    torch.cuda.synchronize()
+    _add(total, read_counts())
+
+
+def _rows_equal(got, want, what: str, n: int = None) -> None:
+    """Host rows (ids, scores, n_candidates) of ``got`` equal the first
+    ``n`` of ``want``'s, bit for bit."""
+    for name, g, w in zip(("ids", "scores", "n_candidates"),
+                          _host_rows(got), _host_rows(want)):
+        if not np.array_equal(g, w[:n]):
+            fail(f"{what}: {name} differ")
+
+
+def mesh_runtime_phase(index, dev, qe_all, qt_all, want: list) -> dict:
+    """21a: the runtime over ``ShardedServer`` at S = MESH_RT_SHARDS and a
+    MESH_GEOMETRY ``MeshServer`` on phase 3's index, every position on
+    ``dev``: warmup as a counted run (one graph per bucket per mesh,
+    captured across the positions' streams), every bucket bit for bit
+    against the single-device ``Server``'s first batch (``want``), a
+    replayed BATCH-query batch against an eager one with its profile,
+    then ``qps_serial`` (over MESH_SERIAL requests) against
+    ``qps_runtime`` over RT_REQUESTS submissions, every replica
+    dispatched.  Returns the warmups' launches."""
+    d, m = MESH_GEOMETRY
+    cfg = dict(kc=KC, k2=K2, top_r=TOP_R, max_batch=BATCH)
+    kernels = ("pq_adc_fused", "topk_scores")
+    launches: dict = {}
+    layouts = (
+        (f"ShardedServer S={MESH_RT_SHARDS}", lambda: serve.ShardedServer(
+            index, serve.ServeConfig(n_shards=MESH_RT_SHARDS, **cfg),
+            devices=[dev] * MESH_RT_SHARDS)),
+        (f"MeshServer {MESH_GEOMETRY}", lambda: serve.MeshServer(
+            index, serve.ServeConfig(n_shards=m, data_parallel=d, **cfg),
+            devices=[dev] * (d * m))))
+    for what, make in layouts:
+        with phase(f"21a runtime over {what}"):
+            server = make()
+            server.warmup(HIDDEN, QUERY_LEN)
+            with warm_runtime(server, f"21a {what}", kernels,
+                              launches) as rt:
+                if rt.buckets != runtime.bucket_sizes(
+                        BATCH, quantum=server.n_replicas):
+                    fail(f"21a {what}: buckets {rt.buckets}")
+                for b in rt.buckets:
+                    _rows_equal(rt.query(qe_all[:b], qt_all[:b],
+                                         timeout=120), want[0],
+                                f"21a {what} bucket {b} against Server", b)
+                if (rt.bucket_counts != {b: 1 for b in rt.buckets}
+                        or rt.serve_traces):
+                    fail(f"21a {what}: batches {rt.bucket_counts}, "
+                         f"{rt.serve_traces} captures while serving")
+                log(f"[mesh-rt] 21a {what}: every bucket "
+                    f"{list(rt.buckets)} bit for bit equal to Server's "
+                    f"{BATCH}-row batch (ids, scores, n_candidates); no "
+                    f"capture while serving")
+                replay_vs_eager(rt, server, qe_all, qt_all, f"21a {what}")
+            served = runtime_throughput(server, qe_all, qt_all,
+                                        n_serial=MESH_SERIAL)
+            if not all(served.replica_dispatch.values()):
+                fail(f"21a {what}: a replica never dispatched: "
+                     f"{served.replica_dispatch}")
+            server.mesh.close()
+            del rt, served, server
+            torch.cuda.empty_cache()
+    return launches
+
+
+def check_owning(smut, ids) -> None:
+    """Every added id sits in its owning shard's planes: the shard
+    ``owning_shard`` names is (id − N_base) // D, and the codec rows at
+    its local slot on each position of that shard equal the host delta
+    rows."""
+    mut = smut.mut
+    local = ids - mut.n_base
+    shard = smut.owning_shard(ids)
+    if not np.array_equal(shard, local // smut.dper):
+        fail("21b: owning_shard disagrees with the slot split")
+    smut.sync_device()
+    for (s, _), planes in smut._delta.items():
+        mine = local[shard == s]
+        for k, plane in planes["doc_planes"].items():
+            got = plane[torch.from_numpy(mine - s * smut.dper)].cpu()
+            if not torch.equal(got, torch.from_numpy(
+                    mut._delta_planes[k][mine])):
+                fail(f"21b: shard {s}'s {k} rows differ from the host's")
+    split = smut.split_delta()
+    for s in range(smut.n_shards):
+        lo = mut.n_base + s * smut.dper
+        for name in ("cluster_entries", "term_entries"):
+            e = split[name][s]
+            e = e[e != inverted_lists.PAD_DOC]
+            if ((e < lo) | (e >= lo + smut.dper)).any():
+                fail(f"21b: shard {s}'s {name} hold another shard's ids")
+
+
+def sharded_mutable_phase(dev, seed: int, corpus, rec: dict) -> dict:
+    """21b: phase 15a replayed on the mesh.  A fresh mutable index over
+    15a's base and corpus, served by a ``ShardedMutableServer`` at S =
+    MESH_RT_SHARDS and one on MESH_GEOMETRY (both over the same host
+    index); the same MUT_STREAM documents streamed in at MUT_FILLS and
+    the same ids deleted, through a runtime over the MESH_GEOMETRY
+    server.  At every state both servers' dense and fused batches equal
+    15a's ``MutableServer`` rows bit for bit, every added id lies in its
+    owning shard's planes, the runtime's rows equal 15a's and nothing is
+    captured; ``compact()`` captures once a bucket and equals 15a's
+    compacted index.  Returns the counted runs' launches."""
+    qe, qt = corpus.query_emb, corpus.query_tokens
+    launches: dict = {}
+    mut = segments.MutableHybridIndex(
+        rec["base"], vocab_size=VOCAB, seed=seed,
+        build_kwargs=rec["build_kwargs"], delta_capacity=MUT_STREAM,
+        delta_cluster_capacity=MUT_DELTA_CAP,
+        delta_term_capacity=MUT_DELTA_CAP,
+        corpus_emb=corpus.doc_emb[:MUT_BASE],
+        corpus_tokens=corpus.doc_tokens[:MUT_BASE])
+    d, m = MESH_GEOMETRY
+    cfg = dict(kc=KC, k2=K2, top_r=TOP_R, max_batch=BATCH, mutable=True)
+    t0 = time.perf_counter()
+    servers = {
+        f"S={MESH_RT_SHARDS}": serve.ShardedMutableServer(
+            mut, serve.ServeConfig(n_shards=MESH_RT_SHARDS, **cfg),
+            devices=[dev] * MESH_RT_SHARDS),
+        f"{MESH_GEOMETRY}": serve.ShardedMutableServer(
+            mut, serve.ServeConfig(n_shards=m, data_parallel=d, **cfg),
+            devices=[dev] * (d * m))}
+    torch.cuda.synchronize()
+    log(f"[mesh-rt] 21b: two sharded mutable servers over one fresh index "
+        f"(base {mut.n_base} docs, {MUT_STREAM} delta slots, D = "
+        f"{servers[f'S={MESH_RT_SHARDS}'].mut.dper} at S = "
+        f"{MESH_RT_SHARDS}): {time.perf_counter() - t0:.1f} s")
+    mesh_server = servers[f"{MESH_GEOMETRY}"]
+    n_b = len(rec[(0.0, None)])
+
+    def check_state(state) -> None:
+        t0 = time.perf_counter()
+        with counted(launches):
+            for what, server in servers.items():
+                for weight in (None, FUSION_WEIGHT):
+                    fusion = (None if weight is None
+                              else qexec.FusionSpec(weight))
+                    for i, ref in enumerate(rec[(state, weight)]):
+                        sl = slice(i * BATCH, (i + 1) * BATCH)
+                        res = (server.query(qe[sl], qt[sl])
+                               if weight is None else
+                               server.mut.search(qe[sl], qt[sl], kc=KC,
+                                                 k2=K2, top_r=TOP_R,
+                                                 fusion=fusion))
+                        _rows_equal(res, ref, f"21b {what} {state} weight "
+                                    f"{weight} batch {i} against 15a")
+        got = rt.query(qe[:BATCH], qt[:BATCH], timeout=120)
+        _rows_equal(got, rec[(state, None)][0],
+                    f"21b runtime {MESH_GEOMETRY} {state} against 15a")
+        log(f"[mesh-rt] 21b state {state} (epoch {mut.epoch}, "
+            f"{mut.delta_count} delta docs, {mut.n_deleted} deleted): "
+            f"{len(servers)} servers x {n_b} batches dense and fused at "
+            f"{FUSION_WEIGHT} and the runtime's batch bit for bit equal "
+            f"to 15a's MutableServer rows ({time.perf_counter() - t0:.1f} "
+            f"s)")
+
+    rt = warm_runtime(mesh_server, f"21b sharded mutable {MESH_GEOMETRY}",
+                      ("pq_adc_fused", "topk_scores"), launches)
+    stream_emb = corpus.doc_emb[MUT_BASE:MUT_BASE + MUT_STREAM]
+    stream_tok = corpus.doc_tokens[MUT_BASE:MUT_BASE + MUT_STREAM]
+    with rt:
+        check_state(0.0)
+        before = qexec.trace_count()
+        done = 0
+        for frac in MUT_FILLS:
+            upto = int(frac * MUT_STREAM)
+            t0 = time.perf_counter()
+            with counted(launches):
+                ids = rt.add(stream_emb[done:upto], stream_tok[done:upto])
+            log(f"[mesh-rt] 21b runtime add of {upto - done} docs "
+                f"{time.perf_counter() - t0:.2f} s")
+            for server in servers.values():
+                check_owning(server.mut, ids)
+            done = upto
+            check_state(frac)
+        rt.delete(rec["doomed"])
+        check_state("deleted")
+        if qexec.trace_count() != before:
+            fail("21b: add/delete through the runtime captured a graph")
+        t0 = time.perf_counter()
+        with counted(launches):
+            rt.compact()
+        compact_s = time.perf_counter() - t0
+        captures = qexec.trace_count() - before
+        if captures != len(rt.buckets) or not all(rt.captured.values()):
+            fail(f"21b: compact() made {captures} captures for "
+                 f"{len(rt.buckets)} buckets ({rt.captured})")
+        _rows_equal(rt.query(qe[:BATCH], qt[:BATCH], timeout=120),
+                    rec["compacted"], "21b runtime after compact() against "
+                    "15a's compacted index")
+    log(f"[mesh-rt] 21b: add/delete through the runtime with no capture; "
+        f"compact() {compact_s:.1f} s with {captures} captures (one a "
+        f"bucket), then bit for bit equal to 15a's compacted index; "
+        f"requests by replica {rt.replica_dispatch}; launches {launches}")
+    for server in servers.values():
+        server.mesh.close()
+    del rt, servers, mesh_server, mut
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_benches_phase() -> dict:
+    """21c: ``mesh_serving.py`` at its reference size with ``--check``
+    semantics (the emulated (2, 1) gate printed, not failed: it assumes
+    one emulating processor) and every geometry captured, then
+    ``serving_load.py``'s four layouts with every contract; one counted
+    run.  Returns its launches."""
+    launches: dict = {}
+    with counted(launches):
+        report = mesh_serving.run(mesh_serving.parse_args(
+            ["--device", "cuda"]))
+    log(json.dumps(report, sort_keys=True))
+    fails = mesh_serving.check_serving(report)
+    log(f"[mesh-rt] 21c mesh_serving: result contracts "
+        f"{fails or 'met'}; speedup_emulated_2x1 "
+        f"{report['speedup_emulated_2x1']} "
+        f"({mesh_serving.check_scaling(report) or 'the 1.6x gate met'})")
+    if fails:
+        fail(f"mesh_serving --check: {fails}")
+    uncaptured = [g for g, r in report["geometries"].items()
+                  if not r["captured"]]
+    if uncaptured:
+        fail(f"mesh_serving: geometries {uncaptured} not captured")
+    with counted(launches):
+        report = serving_load.run(serving_load.parse_args(
+            ["--device", "cuda"]))
+    log(json.dumps(report, sort_keys=True))
+    fails = [f for rep in report["layouts"].values()
+             for f in serving_load.check_layout(rep)]
+    rates = {n: (r["qps_serial"], r["qps_runtime"])
+             for n, r in report["layouts"].items()}
+    log(f"[mesh-rt] 21c serving_load: {rates} (qps_serial, qps_runtime); "
+        f"contracts {fails or 'met'}")
+    if fails:
+        fail(f"serving_load --check: {fails}")
+    log(f"[mesh-rt] 21c launches {launches}")
+    return launches
+
+
 def run_kernel_bench() -> dict:
     """Phase 14: the port's ``kernel_bench`` at its full shapes with
     ``--check`` semantics, as a counted run: the main path of ``pq_adc``
@@ -3228,6 +3543,8 @@ def main(argv=None) -> None:
             ("pq_adc_fused", "topk_scores"), "20a serve_msmarco (opq)",
             fused=fused)
         del fused
+    mesh_rt_launches = mesh_runtime_phase(index, dev, qe_all, qt_all,
+                                          results)
     del server, fserver, results, leaves, inp, cpu_index
 
     with phase("9a refine index (refine:sq8:4)"):
@@ -3288,7 +3605,13 @@ def main(argv=None) -> None:
     with phase("14 kernel_bench (counted)"):
         bench_launches = run_kernel_bench()
     with phase("15 mutable index"):
-        mutable_phase(dev, built, args.seed, BUILD_QUERIES // BATCH)
+        mutable_rec = mutable_phase(dev, built, args.seed,
+                                    BUILD_QUERIES // BATCH)
+    with phase("21b sharded mutable serving (opq, S = 4 and (2, 2))"):
+        _add(mesh_rt_launches, sharded_mutable_phase(
+            dev, args.seed, built["corpus"], mutable_rec))
+    del mutable_rec
+    torch.cuda.empty_cache()
     with phase("18 HI²_sup training"):
         train_launches = training_phase(dev, args.seed, built, mine_index)
     with phase("19 paper benchmarks"):
@@ -3296,6 +3619,9 @@ def main(argv=None) -> None:
     with phase("20c-d mesh serving and sharded_search"):
         _add(mesh_launches, mesh_phase(dev, args.seed, built, mine_index))
     del mine_index
+    torch.cuda.empty_cache()
+    with phase("21c mesh_serving and serving_load (counted)"):
+        _add(mesh_rt_launches, mesh_benches_phase())
 
     # the paths' counted runs: the builds and 18c's KMeans for
     # assign_argmax, the sup build and 18c's steps for flash_attention
@@ -3310,9 +3636,10 @@ def main(argv=None) -> None:
     # the PQ shape's launches: the opq build's (OPQ training and encode)
     times["assign_argmax"]["pq_shape"]["launches"] = (
         built["assign_launches"]["opq"])
-    # phase 19's and phase 20's launches join each kernel's counted runs
+    # phase 19's, 20's and 21's launches join each kernel's counted runs
+    log(f"[mesh-rt] phase 21 launches {mesh_rt_launches}")
     launches = {k: v + paper_launches[k] + mesh_launches.get(k, 0)
-                for k, v in launches.items()}
+                + mesh_rt_launches.get(k, 0) for k, v in launches.items()}
     kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
                     replaces=SOURCES[k][1], launches=launches[k],
                     max_abs_err=errs[k], **times[k])

@@ -16,12 +16,13 @@ Three stages, each over the one deterministic corpus and index
     (``serve.DEFAULT_KC/K2``), the tuned-static selection, and the
     adaptive ladder (per-query rung by dispatch margin, cost averaged
     over the resolved rungs).
-  · **variants**: with adaptivity off and explicit widths, each ported
-    serving layout (``plain``: ``Server``; ``mutable``:
-    ``MutableServer``) returns rows bit-identical to the direct search
-    at those widths, and a default-config server returns the same rows.
-    The reference's ``sharded`` and ``sharded_mutable`` layouts come
-    with ROADMAP.md A4b and raise.
+  · **variants**: with adaptivity off and explicit widths, every
+    serving layout (``plain``: ``Server``; ``sharded``: ``ShardedServer``
+    on two mesh positions; ``mutable``: ``MutableServer``;
+    ``sharded_mutable``: ``ShardedMutableServer`` on two positions; the
+    positions on ``--device``) returns rows bit-identical to the direct
+    search at those widths, and a default-config server returns the
+    same rows.
   · **runtime**: adaptive serving through the micro-batching runtime —
     warmup builds exactly one program per (batch-bucket, width-rung)
     (on the card one captured CUDA graph each), serving builds none,
@@ -38,7 +39,7 @@ last two alone, as the reference's does.
 tuned-static meets the recall target at strictly lower candidate cost
 than the default, (b) the adaptive ladder's mean per-query cost is <=
 tuned-static at equal-or-better recall, (c) explicit-width bit-identity
-on every ported layout, (d) one program per (bucket, rung) and none
+on every layout, (d) one program per (bucket, rung) and none
 built while serving, (e) no cross-rung cache replay.  Every report
 field is deterministic (no wall clock).  The report goes to stdout and,
 with ``--out``, to that file only.
@@ -55,8 +56,7 @@ import torch
 
 from repro_torch import device as dev_mod
 
-LAYOUTS = ("plain", "mutable")
-UNPORTED_LAYOUTS = ("sharded", "sharded_mutable")
+LAYOUTS = ("plain", "sharded", "mutable", "sharded_mutable")
 CODEC = "refine:pq:4"
 REFINE_MULTS = (2, 4, 8)
 
@@ -196,18 +196,14 @@ def run_variant(layout: str, args, built=None) -> dict:
     from repro_torch.core import segments as seg
     from repro_torch.launch import serve
 
-    if layout in UNPORTED_LAYOUTS:
-        raise NotImplementedError(
-            f"autotune layout {layout!r} is not yet ported to repro_torch: "
-            "it comes with the multi-device path's second half (ROADMAP.md "
-            "A4b)")
     dev = dev_mod.resolve(args.device)
     corpus, index = built or _build(args, dev)
     b = args.max_batch
     qe, qt = corpus.query_emb[:b], corpus.query_tokens[:b]
     kc, k2 = serve.DEFAULT_KC, serve.DEFAULT_K2
-    mutable = layout == "mutable"
-    kw = dict(top_r=args.top_r, max_batch=b, mutable=mutable,
+    mutable = layout in ("mutable", "sharded_mutable")
+    n = 2 if layout in ("sharded", "sharded_mutable") else 1
+    kw = dict(top_r=args.top_r, max_batch=b, n_shards=n, mutable=mutable,
               delta_capacity=256)
 
     def make(cfg):
@@ -215,11 +211,17 @@ def run_variant(layout: str, args, built=None) -> dict:
             mut = seg.MutableHybridIndex.create(
                 0, corpus.doc_emb, corpus.doc_tokens, corpus.vocab_size,
                 delta_capacity=256, device=dev, **_build_kwargs(args))
+            if n > 1:
+                return serve.ShardedMutableServer(mut, cfg,
+                                                  devices=[dev] * n)
             return serve.make_mutable_server(mut, cfg, device=dev)
+        if n > 1:
+            return serve.ShardedServer(index, cfg, devices=[dev] * n)
         return serve.make_server(index, cfg, device=dev)
 
     explicit = make(serve.ServeConfig(kc=kc, k2=k2, **kw))
     default = make(serve.ServeConfig(**kw))
+    # the direct call for this layout, at the same widths
     if mutable:
         direct = explicit.mut.search(qe, qt, kc=kc, k2=k2, top_r=args.top_r)
     else:
@@ -227,6 +229,9 @@ def run_variant(layout: str, args, built=None) -> dict:
                            device=dev)
     e_rows = explicit.query(qe, qt)
     d_rows = default.query(qe, qt)
+    for server in (explicit, default):
+        if n > 1:
+            server.mesh.close()
     return {
         "resolved_widths": [default.kc, default.k2],
         "width_source_default_cfg": default.width_source,

@@ -1,19 +1,22 @@
 """Serving-load benchmark (port of ``benchmarks/serving_load.py``;
 DESIGN.md §10): the micro-batching runtime under one-request-at-a-time
-traffic, on the single-device layouts.
+traffic, on every serving layout.
 
     python -m repro_torch.benchmarks.serving_load --smoke --check \\
         --device cpu                                     # CPU, plain path
     python -m repro_torch.benchmarks.serving_load --check --out F.json
 
 Builds a namespaced index over the synthetic corpus on ``--device``
-(default ``cuda``) for each layout (``plain``: ``Server``; ``mutable``:
-``MutableServer`` over the same corpus with an empty delta; the
-reference's ``sharded`` and ``sharded_mutable`` need the runtime over
-a mesh and the sharded mutable index, ROADMAP.md A4b, and raise) and reports, under the reference's keys:
+(default ``cuda``) for each layout (``plain``: ``Server``; ``sharded``:
+``ShardedServer`` over ``--shards`` mesh positions; ``mutable``:
+``MutableServer`` over the same corpus with an empty delta;
+``sharded_mutable``: ``ShardedMutableServer``; every mesh position on
+``--device``, so on the card they share it) and reports, under the
+reference's keys:
 
   · the warmup ledger (exactly one program per bucket, none built by
-    serving afterwards: on the card, one CUDA graph capture each);
+    serving afterwards: on the card, one CUDA graph capture each, over
+    a mesh one graph across its positions' streams);
   · bit-identity of runtime rows against direct ``Server.query`` rows,
     unfiltered and under per-query namespace filters;
   · ``qps_serial`` (one synchronous ``Server.query`` per request, padded
@@ -28,7 +31,9 @@ a mesh and the sharded mutable index, ROADMAP.md A4b, and raise) and reports, un
 bucket built once and none after warmup, the runtime is at least 2× the
 serial rate and the cache replays every query.  Times are host clocks
 (the ends of a request are the host's).  The report goes to stdout and,
-with ``--out``, to that file only.
+with ``--out``, to that file only.  The reference runs each layout in a
+subprocess (device emulation, a cold jit cache); the port's program
+ledger is counted per runtime, so every layout runs in this process.
 """
 from __future__ import annotations
 
@@ -48,8 +53,7 @@ from repro_torch.data import synthetic
 from repro_torch.launch import runtime as rt_mod
 from repro_torch.launch import serve
 
-LAYOUTS = ("plain", "mutable")
-UNPORTED_LAYOUTS = ("sharded", "sharded_mutable")
+LAYOUTS = ("plain", "sharded", "mutable", "sharded_mutable")
 N_NAMESPACES = 8
 
 
@@ -62,8 +66,10 @@ def _build_server(layout: str, args, dev: torch.device):
                         codec=args.codec, pq_m=4, pq_k=64,
                         cluster_capacity=192, term_capacity=96,
                         kmeans_iters=5)
-    cfg = serve.ServeConfig(max_batch=args.max_batch,
-                            mutable=layout == "mutable",
+    sharded = layout in ("sharded", "sharded_mutable")
+    n = args.shards if sharded else 1
+    cfg = serve.ServeConfig(max_batch=args.max_batch, n_shards=n,
+                            mutable=layout in ("mutable", "sharded_mutable"),
                             delta_capacity=256, n_namespaces=N_NAMESPACES)
     doc_ns = np.arange(args.docs) % N_NAMESPACES
     if cfg.mutable:
@@ -71,12 +77,15 @@ def _build_server(layout: str, args, dev: torch.device):
             0, corpus.doc_emb, corpus.doc_tokens, corpus.vocab_size,
             delta_capacity=256, doc_namespaces=doc_ns, device=dev,
             **build_kwargs)
-        server = serve.make_mutable_server(mut, cfg, device=dev)
+        server = (serve.ShardedMutableServer(mut, cfg, devices=[dev] * n)
+                  if sharded else serve.make_mutable_server(mut, cfg,
+                                                            device=dev))
     else:
         index = hi.build(0, corpus.doc_emb, corpus.doc_tokens,
                          corpus.vocab_size, doc_namespaces=doc_ns,
                          device=dev, **build_kwargs)
-        server = serve.make_server(index, cfg, device=dev)
+        server = (serve.ShardedServer(index, cfg, devices=[dev] * n)
+                  if sharded else serve.make_server(index, cfg, device=dev))
     return corpus, server
 
 
@@ -128,12 +137,6 @@ def poisson(rt, req: list, rate: float, seed: int = 0) -> dict:
 
 
 def run_layout(layout: str, args) -> dict:
-    if layout in UNPORTED_LAYOUTS:
-        raise NotImplementedError(
-            f"serving_load layout {layout!r} is not yet ported to "
-            "repro_torch: it comes with the multi-device path's second half "
-            "(ROADMAP.md A4b: the sharded mutable index and the runtime "
-            "over a mesh)")
     dev = dev_mod.resolve(args.device)
     corpus, server = _build_server(layout, args, dev)
     qe, qt = corpus.query_emb, corpus.query_tokens
@@ -186,6 +189,8 @@ def run_layout(layout: str, args) -> dict:
     again = cached.query(qe[:b], qt[:b], timeout=600)
     cached.close(drain=True)
     cstats = cached.stats()["cache"]
+    if getattr(server, "mesh", None) is not None:
+        server.mesh.close()
     return {
         "layout": layout,
         "shards": server.cfg.n_shards,
@@ -236,10 +241,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--smoke", action="store_true",
                     help="small corpus (CI scale)")
-    ap.add_argument("--layout", default=None,
-                    choices=LAYOUTS + UNPORTED_LAYOUTS,
-                    help="run ONE layout (default: every ported one)")
+    ap.add_argument("--layout", default=None, choices=LAYOUTS,
+                    help="run ONE layout (default: all four)")
     ap.add_argument("--codec", default="pq")
+    ap.add_argument("--shards", type=int, default=2,
+                    help="mesh positions of the sharded layouts, all on "
+                         "--device")
     ap.add_argument("--max-batch", type=int, default=None)
     ap.add_argument("--requests", type=int, default=None)
     ap.add_argument("--linger-ms", type=float, default=2.0)
@@ -264,23 +271,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def run(args) -> dict:
+    """The report of ``args.layout``, or of every layout by default."""
+    if args.layout:
+        return run_layout(args.layout, args)
+    return {
+        "bench": "serving",
+        "smoke": bool(args.smoke),
+        "codec": args.codec,
+        "n_docs": args.docs,
+        "max_batch": args.max_batch,
+        "n_requests": args.requests,
+        "linger_ms": args.linger_ms,
+        "n_namespaces": N_NAMESPACES,
+        "device": str(dev_mod.resolve(args.device)),
+        "layouts": {name: run_layout(name, args) for name in LAYOUTS},
+    }
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.layout:
-        report = run_layout(args.layout, args)
-    else:
-        report = {
-            "bench": "serving",
-            "smoke": bool(args.smoke),
-            "codec": args.codec,
-            "n_docs": args.docs,
-            "max_batch": args.max_batch,
-            "n_requests": args.requests,
-            "linger_ms": args.linger_ms,
-            "n_namespaces": N_NAMESPACES,
-            "device": str(dev_mod.resolve(args.device)),
-            "layouts": {name: run_layout(name, args) for name in LAYOUTS},
-        }
+    report = run(args)
     text = json.dumps(report, indent=2)
     print(text)
     if args.out:

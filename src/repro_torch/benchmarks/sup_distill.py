@@ -20,22 +20,21 @@ Two stages, on ``--device`` (default ``cuda``):
     is selector quality alone.  The sup index round-trips through
     ``save_index``/``restore_index``.
   · **variants**: the trained ``SupSelectors`` (restored from the
-    stage's ``{"params"}`` checkpoint) drive each ported serving layout
-    (``plain``: ``hi.build`` + search; ``mutable``:
-    ``MutableHybridIndex``) to the same doc ids, and a supervised
-    mutable index survives add → delete → compact with the compaction
-    equal to a from-scratch supervised build over the survivors.  The
-    reference's ``sharded`` and ``sharded_mutable`` layouts come with
-    the multi-device path's second half (ROADMAP.md A4b) and raise.
-    The reference runs this stage in a subprocess with two emulated
-    devices, which only its sharded layouts need; here it runs in the
-    same process.
+    stage's ``{"params"}`` checkpoint) drive every serving layout
+    (``plain``: ``hi.build`` + search; ``sharded``: ``ShardedServer``;
+    ``mutable``: ``MutableHybridIndex``; ``sharded_mutable``:
+    ``ShardedMutableServer``; the sharded ones on two mesh positions of
+    ``--device``) to the same doc ids, and a supervised mutable index
+    survives add → delete → compact with the compaction equal to a
+    from-scratch supervised build over the survivors.  The reference
+    runs this stage in a subprocess with two emulated devices, which
+    only its sharded layouts need; here it runs in the same process.
 
 ``--check`` exits non-zero unless (a) sup recall >= unsup at matched
 cost on at least one operating point (costs asserted equal), (b) the
 windowed loss means fall (a fraction ``MONOTONE_FRAC`` of the windows
 improve, and the last loss is below the first), (c) the index round
-trip is bit-identical, (d) the ported layouts agree and the mutable
+trip is bit-identical, (d) the four layouts agree and the mutable
 lifecycle holds.  Every report field is deterministic on one device
 (losses rounded to 4 dp, no wall clock).  The report goes to stdout
 and, with ``--out``, to that file only.
@@ -53,8 +52,7 @@ import torch
 
 from repro_torch import device as dev_mod
 
-LAYOUTS = ("plain", "mutable")
-UNPORTED_LAYOUTS = ("sharded", "sharded_mutable")
+LAYOUTS = ("plain", "sharded", "mutable", "sharded_mutable")
 CODEC = "opq"
 
 #: oracle width: recall@top_r of the exact top-10 neighbours — the
@@ -263,17 +261,27 @@ def _build_mut(args, v):
 
 def run_variant(layout: str, args, v: dict) -> dict:
     """One layout's doc ids against the plain supervised search."""
-    if layout in UNPORTED_LAYOUTS:
-        raise NotImplementedError(
-            f"sup_distill layout {layout!r} is not yet ported to "
-            "repro_torch: it comes with the multi-device path's second "
-            "half (ROADMAP.md A4b)")
+    from repro_torch.launch import serve
     if layout == "plain":
         return {"ids_identical": True}            # the reference
-    mut = _build_mut(args, v)
-    v["mut"] = mut
-    return {"ids_identical": bool(np.array_equal(_ids(mut.search(
-        v["qe"], v["qt"], kc=6, k2=8, top_r=args.top_r)), v["ref_ids"]))}
+    dev, b = v["dev"], v["qe"].shape[0]
+    cfg = dict(kc=6, k2=8, top_r=args.top_r, max_batch=b, n_shards=2)
+    if layout == "sharded":
+        server = serve.ShardedServer(v["base"], serve.ServeConfig(**cfg),
+                                     devices=[dev] * 2)
+    elif layout == "sharded_mutable":
+        server = serve.ShardedMutableServer(
+            _build_mut(args, v), serve.ServeConfig(
+                mutable=True, delta_capacity=128, **cfg), devices=[dev] * 2)
+    else:
+        mut = _build_mut(args, v)
+        v["mut"] = mut
+        return {"ids_identical": bool(np.array_equal(_ids(mut.search(
+            v["qe"], v["qt"], kc=6, k2=8, top_r=args.top_r)),
+            v["ref_ids"]))}
+    ids = _ids(server.query(v["qe"], v["qt"]))
+    server.mesh.close()
+    return {"ids_identical": bool(np.array_equal(ids, v["ref_ids"]))}
 
 
 def run_lifecycle(args, v: dict) -> dict:
@@ -338,7 +346,7 @@ def check(report: dict) -> list:
     for k, v in report["roundtrip"].items():
         if not v:
             fails.append(f"index round-trip failed: {k}")
-    # (d) the ported layouts + mutable lifecycle
+    # (d) the four layouts + mutable lifecycle
     for layout in LAYOUTS:
         if not report["variants"][layout]["ids_identical"]:
             fails.append(f"{layout}: doc ids differ from the plain "

@@ -1,8 +1,10 @@
-"""Streaming index mutations, single device (port of
-``repro/core/segments.py``: ``DeltaFull``, ``DeltaSegment``,
-``_pair_sources``, ``search``, ``_insert_posting`` and
-``MutableHybridIndex``; DESIGN.md §8).  ``ShardedMutableIndex`` comes
-with the second half of the multi-device slice (ROADMAP.md A4b).
+"""Streaming index mutations (port of ``repro/core/segments.py``:
+``DeltaFull``, ``DeltaSegment``, ``_pair_sources``, ``search``,
+``_insert_posting``, ``MutableHybridIndex`` and
+``ShardedMutableIndex``; DESIGN.md §6, §8).  The reference's
+``make_mutable_search_step`` has no separate object here:
+:meth:`ShardedMutableIndex.search` runs the body on the mesh's worker
+threads, as :func:`repro_torch.core.sharded_index.search` does.
 
     MutableHybridIndex = immutable base + one delta segment + tombstones
 
@@ -29,6 +31,16 @@ between mutations copy nothing, into tensors allocated once per index:
 their addresses stay fixed between compactions, so a CUDA graph captured
 over a search reads every later epoch's state
 (:mod:`repro_torch.launch.runtime`).
+
+:class:`ShardedMutableIndex` serves the same host state over the
+document-sharded layout: shard s owns base ids [s·P, (s+1)·P) and delta
+slots [s·D, (s+1)·D) (D = ⌈capacity / S⌉), so an added document's
+postings and codec rows go to the shard that owns its global id.  Each
+position's delta planes and tombstones are allocated once per index and
+rewritten in place once per mutation epoch, as the single-device ones
+are (the reference splits and places them again after every mutation),
+so a CUDA graph captured over a mesh search stays valid across
+``add_docs``/``delete_docs``.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ from repro_torch.core import cluster_selector as cs_mod
 from repro_torch.core import codecs
 from repro_torch.core import exec as qexec
 from repro_torch.core import hybrid_index as hi
+from repro_torch.core import sharded_index as shi
 from repro_torch.core.exec import filters
 from repro_torch.core.inverted_lists import PAD_DOC, PaddedLists
 
@@ -154,6 +167,16 @@ def _insert_posting(entries: np.ndarray, scores: np.ndarray,
     entries[list_id, j] = doc_id
     scores[list_id, j] = score
     return True
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the aligned leaves of nested dicts; None stays None."""
+    t = trees[0]
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
+    return fn(*trees)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -694,3 +717,186 @@ class MutableHybridIndex:
         out._epoch = int(m.get("epoch", 0))
         out._stale = True
         return out
+
+
+# --------------------------------------------------------------------------
+# document-sharded mutable search (DESIGN.md §6 + §8 + §9)
+# --------------------------------------------------------------------------
+
+class ShardedMutableIndex:
+    """Mutable HI² over the document-sharded layout of DESIGN.md §6.
+
+    Wraps a :class:`MutableHybridIndex` (the host-side source of truth)
+    and keeps a placed sharded view on the positions of ``mesh``: the
+    base partitioned once (:func:`repro_torch.core.sharded_index.
+    partition`), and each position's share of the delta planes, the
+    namespace and impact planes and the tombstones, copied from the host
+    state once per mutation epoch into tensors allocated at the first
+    search (:meth:`sync_device`).  Search equals the single-device
+    mutable search bit for bit (ids, scores, ``n_candidates``) for every
+    codec, with a namespace filter and under fusion.
+
+    ``mesh`` defaults to a 1-D mesh of ``n_shards`` positions on the CPU
+    when the index is there, else on the first ``n_shards`` cards.
+    ``data_axis`` names the query-splitting axis of a 2-D (data, model)
+    mesh (DESIGN.md §12), which must then be passed in."""
+
+    def __init__(self, mut: MutableHybridIndex, n_shards: int, mesh=None,
+                 axis_name: str = shi.SHARD_AXIS,
+                 data_axis: Optional[str] = None):
+        self.mut = mut
+        self.n_shards = int(n_shards)
+        self.axis_name = axis_name
+        self.data_axis = data_axis
+        if data_axis is not None and mesh is None:
+            raise ValueError("data_axis= needs the 2-D mesh passed in "
+                             "(launch.mesh.make_serving_mesh)")
+        if mesh is None:
+            mesh = shi.make_shard_mesh(
+                self.n_shards, axis_name,
+                devices=(["cpu"] * self.n_shards
+                         if mut.device.type == "cpu" else None))
+        if mesh.shape.get(axis_name) != self.n_shards:
+            raise ValueError(
+                f"mesh axis {axis_name!r} has size "
+                f"{mesh.shape.get(axis_name)}, not {self.n_shards} shards")
+        self.mesh = mesh
+        self.sbase = shi.device_put(shi.partition(mut.base, self.n_shards),
+                                    mesh, axis_name)
+        self.per = self.sbase.docs_per_shard
+        self.dper = -(-mut.delta_capacity // self.n_shards)
+        # (shard, device) -> that position's delta planes and tombstones,
+        # allocated at the first sync and rewritten in place after it
+        self._delta: dict = {}
+        self._synced: Optional[int] = None      # the epoch they hold
+
+    # --- mutation: delegate to the host index ----------------------------
+    def add_docs(self, doc_emb, doc_tokens, namespaces=None) -> np.ndarray:
+        return self.mut.add_docs(doc_emb, doc_tokens, namespaces=namespaces)
+
+    def delete_docs(self, doc_ids) -> None:
+        self.mut.delete_docs(doc_ids)
+
+    def compact(self, seed: Optional[int] = None) -> "ShardedMutableIndex":
+        """The compacted host index (:meth:`MutableHybridIndex.compact`)
+        sharded over the same mesh: new planes everywhere."""
+        return type(self)(self.mut.compact(seed), self.n_shards,
+                          mesh=self.mesh, axis_name=self.axis_name,
+                          data_axis=self.data_axis)
+
+    @property
+    def epoch(self) -> int:
+        """The wrapped host index's mutation counter (DESIGN.md §10)."""
+        return self.mut.epoch
+
+    @property
+    def base(self) -> hi.HybridIndex:
+        """The wrapped host index's single-device base."""
+        return self.mut.base
+
+    def needs_compact(self, fill_watermark: float = 0.0,
+                      tombstone_watermark: float = 0.0) -> bool:
+        return self.mut.needs_compact(fill_watermark, tombstone_watermark)
+
+    def owning_shard(self, doc_ids) -> np.ndarray:
+        """Which shard serves each global doc id (base range split by
+        ``per``, delta slots split by ``dper``)."""
+        ids = np.asarray(doc_ids)
+        n_base = self.mut.n_base
+        return np.where(ids < n_base, ids // self.per,
+                        (ids - n_base) // self.dper)
+
+    # --- device state ----------------------------------------------------
+    def split_delta(self) -> dict:
+        """The host state split over the shards: (S, ...) numpy planes
+        under the :class:`~repro_torch.core.exec.Source` field names
+        (delta list entries and lengths holding global ids, the delta
+        codec planes, namespace ids and impacts, and the base and delta
+        tombstones); None where the index has no such plane."""
+        mut, n_base = self.mut, self.mut.n_base
+        s, dper = self.n_shards, self.dper
+        delta, tomb = mut._host_state()
+        c_e, c_l = shi._split_lists(delta.cluster_lists.entries, s, dper,
+                                    base=n_base)
+        t_e, t_l, *t_w = shi._split_lists(
+            delta.term_lists.entries, s, dper, base=n_base,
+            weights=delta.sparse_weights)
+        return {
+            "cluster_entries": c_e, "cluster_lengths": c_l,
+            "term_entries": t_e, "term_lengths": t_l,
+            "doc_planes": {k: shi._split_docs(v, s, dper)
+                           for k, v in delta.doc_planes.items()},
+            "doc_ns": (None if delta.doc_ns is None
+                       else shi._split_docs(delta.doc_ns, s, dper)),
+            "sparse_weights": t_w[0] if t_w else None,
+            "tomb_base": shi._split_docs(tomb[:n_base], s, self.per),
+            "tomb_delta": shi._split_docs(tomb[n_base:], s, dper),
+        }
+
+    def sync_device(self) -> None:
+        """Bring every position's delta planes and tombstones up to the
+        host state, once per epoch: the first call allocates them on the
+        positions' devices (one copy per (shard, device)), later calls
+        copy into the same tensors in place, so their addresses hold
+        until :meth:`compact` makes a new index."""
+        if self._synced == self.mut.epoch:
+            return
+        split = self.split_delta()
+        ax = self.mesh.axis_index(self.axis_name)
+        for coord in self.mesh.positions():
+            dev, s = self.mesh.devices[coord], coord[ax]
+
+            def row(a):
+                return torch.from_numpy(np.ascontiguousarray(a[s]))
+
+            have = self._delta.get((s, dev))
+            if have is None:
+                self._delta[(s, dev)] = _tree_map(
+                    lambda a: row(a).to(dev), split)
+            else:
+                _tree_map(lambda t, a: t.copy_(row(a)), have, split)
+        self._synced = self.mut.epoch
+
+    def _sources(self, s: int, dev: torch.device) -> list:
+        """Shard ``s``'s (base, delta) source pair on ``dev``."""
+        blk = self.sbase.placement.blocks[s][dev]
+        d = self._delta[(s, dev)]
+        n_base = self.mut.n_base
+        return [
+            qexec.Source(cluster_lists=PaddedLists(blk["cluster_entries"],
+                                                   blk["cluster_lengths"]),
+                         term_lists=PaddedLists(blk["term_entries"],
+                                                blk["term_lengths"]),
+                         doc_planes=blk["doc_planes"], size=self.per,
+                         offset=s * self.per, family_hi=n_base,
+                         tombstones=d["tomb_base"], doc_ns=blk["doc_ns"],
+                         sparse_weights=blk["sparse_weights"],
+                         max_postings=self.sbase.max_postings),
+            qexec.Source(cluster_lists=PaddedLists(d["cluster_entries"],
+                                                   d["cluster_lengths"]),
+                         term_lists=PaddedLists(d["term_entries"],
+                                                d["term_lengths"]),
+                         doc_planes=d["doc_planes"], size=self.dper,
+                         offset=n_base + s * self.dper, family_lo=n_base,
+                         family_hi=n_base + self.n_shards * self.dper,
+                         tombstones=d["tomb_delta"], doc_ns=d["doc_ns"],
+                         sparse_weights=d["sparse_weights"],
+                         max_postings=int(self.mut.build_kwargs["k1_terms"])),
+        ]
+
+    def search(self, query_embeddings, query_tokens, *, kc: int, k2: int,
+               top_r: int, filter=None,
+               fusion: Optional[qexec.FusionSpec] = None
+               ) -> hi.SearchResult:
+        """:meth:`MutableHybridIndex.search`'s contract on the mesh; the
+        result lives on the first position's device."""
+        if filter is not None and not self.mut.filtered:
+            raise ValueError(
+                "search(filter=...) needs an index built with "
+                "doc_namespaces=")
+        self.sync_device()
+        return shi.run_search(
+            self.mesh, self.axis_name, self.data_axis,
+            self.sbase.placement.rep, self.mut.base.codec, self._sources,
+            query_embeddings, query_tokens, kc=kc, k2=k2, top_r=top_r,
+            filter=filter, fusion=fusion)

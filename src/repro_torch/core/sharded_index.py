@@ -398,17 +398,6 @@ def search(sindex: ShardedHybridIndex, query_embeddings, query_tokens, *,
         raise ValueError(
             f"mesh axis {axis_name!r} has size {mesh.shape.get(axis_name)} "
             f"but the index has {sindex.n_shards} shards")
-    b = query_embeddings.shape[0]
-    d = 1
-    if data_axis is not None:
-        if data_axis not in mesh.shape:
-            raise ValueError(f"mesh has no axis {data_axis!r} "
-                             f"(axes: {mesh.axis_names})")
-        d = mesh.shape[data_axis]
-        if b % d:
-            raise ValueError(
-                f"batch {b} does not divide over {d} data-axis slices; "
-                f"pad to a multiple of {d}")
     if filter is not None and sindex.doc_ns is None:
         raise ValueError("search(filter=...) needs an index partitioned "
                          "from one built with doc_namespaces=")
@@ -423,30 +412,70 @@ def search(sindex: ShardedHybridIndex, query_embeddings, query_tokens, *,
         offsets = [int(o) for o in offsets]
     if not is_placed(sindex, mesh, axis_name):
         sindex = device_put(sindex, mesh, axis_name)
-    dev0 = mesh.devices.flat[0]
-    qe = dev_mod.as_tensor(query_embeddings, dev0, torch.float32)
-    qt = dev_mod.as_tensor(query_tokens, dev0, torch.int64)
-    ns = None if filter is None else filters.as_words(filter, dev0)
-    codec_impl = codecs.get(sindex.codec)
-    ax = mesh.axis_index(axis_name)
-    dax = None if data_axis is None else mesh.axis_index(data_axis)
-    rows = b // d
     p = sindex.placement
 
-    def body(coord):
-        dev, s = mesh.devices[coord], coord[ax]
-        lo = 0 if dax is None else coord[dax] * rows
-        blk, rep = p.blocks[s][dev], p.rep[dev]
-        source = qexec.Source(
+    def sources(s, dev):
+        blk = p.blocks[s][dev]
+        return [qexec.Source(
             cluster_lists=PaddedLists(blk["cluster_entries"],
                                       blk["cluster_lengths"]),
             term_lists=PaddedLists(blk["term_entries"], blk["term_lengths"]),
             doc_planes=blk["doc_planes"], size=per, offset=offsets[s],
             doc_ns=blk["doc_ns"], sparse_weights=blk["sparse_weights"],
-            max_postings=sindex.max_postings)
+            max_postings=sindex.max_postings)]
+
+    return run_search(mesh, axis_name, data_axis, p.rep, sindex.codec,
+                      sources, query_embeddings, query_tokens, kc=kc, k2=k2,
+                      top_r=top_r, filter=filter, fusion=fusion)
+
+
+def batch_slices(mesh: collectives.Mesh, data_axis: Optional[str],
+                 b: int) -> int:
+    """The number of data-axis slices a batch of ``b`` queries splits
+    over (1 without ``data_axis``); raises when the mesh has no such
+    axis or ``b`` does not divide over it."""
+    if data_axis is None:
+        return 1
+    if data_axis not in mesh.shape:
+        raise ValueError(f"mesh has no axis {data_axis!r} "
+                         f"(axes: {mesh.axis_names})")
+    d = mesh.shape[data_axis]
+    if b % d:
+        raise ValueError(
+            f"batch {b} does not divide over {d} data-axis slices; "
+            f"pad to a multiple of {d}")
+    return d
+
+
+def run_search(mesh: collectives.Mesh, axis_name: str,
+               data_axis: Optional[str], rep: dict, codec: str, sources,
+               query_embeddings, query_tokens, *, kc: int, k2: int,
+               top_r: int, filter=None,
+               fusion: Optional[qexec.FusionSpec] = None) -> hi.SearchResult:
+    """The staged engine on every position of ``mesh`` under a
+    :class:`~repro_torch.core.exec.ShardEnv` along ``axis_name``: a
+    position at shard s on device ``dev`` searches ``sources(s, dev)``
+    (its shard's :class:`~repro_torch.core.exec.Source` list) with the
+    replicated state ``rep[dev]``, over its data slice's rows of the
+    batch.  Queries go to the first position's device, and the merged
+    result comes back there."""
+    b = query_embeddings.shape[0]
+    rows = b // batch_slices(mesh, data_axis, b)
+    dev0 = mesh.devices.flat[0]
+    qe = dev_mod.as_tensor(query_embeddings, dev0, torch.float32)
+    qt = dev_mod.as_tensor(query_tokens, dev0, torch.int64)
+    ns = None if filter is None else filters.as_words(filter, dev0)
+    codec_impl = codecs.get(codec)
+    ax = mesh.axis_index(axis_name)
+    dax = None if data_axis is None else mesh.axis_index(data_axis)
+
+    def body(coord):
+        dev, s = mesh.devices[coord], coord[ax]
+        lo = 0 if dax is None else coord[dax] * rows
+        r = rep[dev]
         return qexec.execute(
-            codec_impl, rep["codec_params"], rep["cluster_sel"],
-            rep["term_sel"], [source], qe[lo:lo + rows].to(dev),
+            codec_impl, r["codec_params"], r["cluster_sel"], r["term_sel"],
+            sources(s, dev), qe[lo:lo + rows].to(dev),
             qt[lo:lo + rows].to(dev), kc=kc, k2=k2, top_r=top_r,
             ns_filter=None if ns is None else ns[lo:lo + rows].to(dev),
             shard=qexec.ShardEnv(axis_name, s, mesh.group(axis_name, coord)),

@@ -27,6 +27,16 @@ a group that spans several cards (``test_torch_cuda.py``'s
 more before anyone may post again.  ``psum`` adds in position order, so
 every position holds the same bits.
 
+:meth:`Mesh.run` forks the positions' streams from the caller's with
+an event.  On a mesh whose positions all share one card it also joins
+them back: each position records an event after its work and the
+caller's stream waits on it, so neither the host nor a position waits
+for the card, and a CUDA graph captured around the call holds every
+position's work (the serving runtime's one graph per bucket,
+:mod:`repro_torch.launch.runtime`); the barriers run while capturing
+and never in a replay.  On any other mesh each position waits for its
+stream before it posts its result.
+
 A call fails; it never hangs.  A position that raises breaks every
 barrier of the mesh and :meth:`Mesh.run` raises its error in the
 caller.  Every barrier wait has a timeout (:data:`TIMEOUT_S`, read when
@@ -36,9 +46,9 @@ than twice that at a time, so a position that stalls anywhere else
 fails the call too, and closes the mesh.
 
 ``flat_allreduce``, ``hierarchical_allreduce`` and ``pmean_metrics``
-(the training mesh's gradient all-reduce) come with the second half of
-the multi-device slice (ROADMAP.md A4b), as does a ``torch.distributed``
-group for hosts with several cards.
+(the training mesh's gradient all-reduce) come with the build and
+training half of the multi-device slice (ROADMAP.md A4b), as does a
+``torch.distributed`` group for hosts with several cards.
 """
 from __future__ import annotations
 
@@ -158,19 +168,23 @@ def mesh_devices(need: int, devices, what: str) -> list:
 
 
 class _Call:
-    """One :meth:`Mesh.run`: every position's result or error."""
+    """One :meth:`Mesh.run`: every position's result or error, and on a
+    one-card mesh the event each position recorded after its work."""
 
     def __init__(self, n: int):
         self.left = n
         self.results: dict = {}
         self.errors: dict = {}
+        self.finished: dict = {}
         self.lock = threading.Lock()
         self.done = threading.Event()
 
-    def post(self, coord, result, error) -> None:
+    def post(self, coord, result, error, finished=None) -> None:
         with self.lock:
             if error is None:
                 self.results[coord] = result
+                if finished is not None:
+                    self.finished[coord] = finished
             else:
                 self.errors[coord] = error
             self.left -= 1
@@ -181,7 +195,10 @@ class _Call:
 def _worker(coord, device: torch.device, jobs: "queue.SimpleQueue",
             groups: list) -> None:
     """A position's thread: runs each job on its own stream (a card) in
-    inference mode; an error breaks every group of the mesh."""
+    inference mode; an error breaks every group of the mesh.  On a
+    one-card mesh (``join``) the job ends with an event recorded on the
+    stream, which the caller's stream waits on; otherwise the thread
+    waits for its stream before it posts."""
     stream = None
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -190,8 +207,8 @@ def _worker(coord, device: torch.device, jobs: "queue.SimpleQueue",
         job = jobs.get()
         if job is None:
             return
-        fn, ready, call = job
-        out = None
+        fn, ready, call, join = job
+        out = finished = None
         try:
             with torch.inference_mode():
                 if stream is None:
@@ -201,16 +218,20 @@ def _worker(coord, device: torch.device, jobs: "queue.SimpleQueue",
                         if ready is not None:
                             stream.wait_event(ready)
                         out = fn(coord)
-                    stream.synchronize()
+                    if join:
+                        finished = torch.cuda.Event()
+                        finished.record(stream)
+                    else:
+                        stream.synchronize()
         except BaseException as e:          # noqa: BLE001 — re-raised
             for g in groups:
                 g.abort()
             call.post(coord, None, e)
         else:
-            call.post(coord, out, None)
+            call.post(coord, out, None, finished)
         # hold nothing of the job while idle: its closure may keep the
         # mesh alive, and the mesh stops its threads when it is freed
-        del job, fn, ready, call, out
+        del job, fn, ready, call, out, finished
 
 
 def _record_on_caller(out) -> None:
@@ -280,6 +301,16 @@ class Mesh:
     def size(self) -> int:
         return int(self.devices.size)
 
+    @property
+    def one_card(self) -> bool:
+        """Whether every position is on the same card.  Then :meth:`run`
+        joins the positions' streams to the caller's by events, with no
+        host wait, so a CUDA graph captured around it holds every
+        position's work."""
+        first = self.devices.flat[0]
+        return first.type == "cuda" and all(d == first
+                                             for d in self.devices.flat)
+
     def positions(self) -> list:
         """Every position's coordinate tuple, row-major."""
         return list(np.ndindex(self.devices.shape))
@@ -300,7 +331,12 @@ class Mesh:
         """``fn(coord)`` on every position at once, each in its worker
         thread (on a card on the worker's stream, after the work the
         caller queued so far on the first position's device); returns
-        {coord: result}.  A position that raises breaks the others'
+        {coord: result}.  On a :attr:`one_card` mesh the caller's stream
+        then waits for every position's stream (the join of the fork
+        event), so the call returns once the work is queued and is
+        legal inside a CUDA graph capture; on other meshes each position
+        waits for its stream before it posts.  A position that raises
+        breaks the others'
         collectives and its error is raised here; when every error is a
         broken barrier, a position missed a collective for ``timeout``
         seconds and a RuntimeError says so.  When ``2 * timeout`` seconds
@@ -310,6 +346,7 @@ class Mesh:
         if not self._closer.alive:
             raise RuntimeError("this mesh is closed")
         first = self.devices.flat[0]
+        join = self.one_card
         with self._lock:
             ready = None
             if first.type == "cuda":
@@ -317,7 +354,7 @@ class Mesh:
                 ready.record(torch.cuda.current_stream(first))
             call = _Call(self.size)
             for q in self._queues.values():
-                q.put((fn, ready, call))
+                q.put((fn, ready, call, join))
             while not call.done.is_set():
                 with call.lock:
                     left = call.left
@@ -335,6 +372,10 @@ class Mesh:
                 raise RuntimeError(
                     f"a collective of the mesh broke: a position did not "
                     f"arrive within {self.timeout} s")
+        if join:
+            caller = torch.cuda.current_stream(first)
+            for finished in call.finished.values():
+                caller.wait_event(finished)
         for out in call.results.values():
             _record_on_caller(out)
         return call.results

@@ -1,10 +1,11 @@
-"""Serving runtime, single device (port of ``repro/launch/runtime.py``:
-``MIN_BUCKET``, ``CACHE_QUANT``, ``RuntimeOverloaded``,
-``RuntimeClosed``, ``RuntimeConfig``, ``bucket_sizes``, ``QueryCache``,
-``ServingRuntime``, ``render_metrics`` and ``MetricsServer``; DESIGN.md
-§10): bucketed micro-batching, an epoch-keyed LRU result cache, and
-admission control in front of a :class:`repro_torch.launch.serve.Server`
-or ``MutableServer``.
+"""Serving runtime (port of ``repro/launch/runtime.py``: ``MIN_BUCKET``,
+``CACHE_QUANT``, ``RuntimeOverloaded``, ``RuntimeClosed``,
+``RuntimeConfig``, ``bucket_sizes``, ``QueryCache``, ``ServingRuntime``,
+``render_metrics`` and ``MetricsServer``; DESIGN.md §10, §12):
+bucketed micro-batching, an epoch-keyed LRU result cache, and admission
+control in front of any server of :mod:`repro_torch.launch.serve` —
+``Server``, ``MutableServer``, and the mesh layouts ``ShardedServer``,
+``MeshServer`` and ``ShardedMutableServer``.
 
 ``Server.query`` is a synchronous, caller-batched API that pads every
 batch to ``max_batch``.  Real traffic is many independent clients
@@ -42,6 +43,20 @@ the search programs:
   · Admission control bounds the queue: past ``queue_depth`` pending
     requests :meth:`submit` fails fast with :class:`RuntimeOverloaded`;
     :meth:`close` drains gracefully.
+  · Over a mesh (DESIGN.md §12) the server's ``n_replicas`` data-axis
+    slices split every batch into equal row blocks, so every bucket is a
+    multiple of it (``bucket_sizes(quantum=)``), and request i of a
+    batch rides row ``(i % D)·bucket/D + i // D`` (:meth:`ServingRuntime.
+    _rows_idx`): a part-full bucket spreads its requests over every
+    replica.  ``replica_dispatch`` counts them per replica.  When every
+    mesh position shares one card a bucket's program is one CUDA graph
+    captured across the positions' streams (one per bucket per mesh,
+    not one per position or replica): the replay runs no worker thread
+    and no barrier.  A mesh over several cards runs each bucket
+    eagerly; :meth:`ServingRuntime.stats` says which programs were
+    captured.  Every row carries the server's ``partial`` flag (a
+    :class:`~repro_torch.launch.serve.MeshServer` serving its survivors
+    after a shard loss), read under the serve lock.
 
 Bit-identity contract: a query's rows are identical whether it rides a
 bucket of b or the full ``max_batch`` pad of ``Server.query``.  The
@@ -54,10 +69,11 @@ fixed row count (:mod:`repro_torch.rowwise`).  With that, a 1-row bucket
 is as exact as any other, so :data:`MIN_BUCKET` is 1.
 
 A captured graph holds the addresses of the index's device planes: a
-mutable index keeps its delta planes and tombstones at fixed addresses
-and copies each epoch into them before a replay
-(``MutableServer.sync_device``); ``compact()`` makes a new index, so the
-runtime captures every bucket again, as the reference recompiles.  A
+mutable index, single-device or sharded, keeps its delta planes and
+tombstones at fixed addresses and copies each epoch into them before a
+replay (``MutableServer.sync_device``); ``compact()`` makes a new index,
+and a mesh server's eject or rejoin a new placement, so the runtime
+captures every bucket again, as the reference recompiles.  A
 fusion weight is baked into a graph, so :meth:`ServingRuntime.
 set_fusion_weight` captures again too.
 
@@ -121,14 +137,22 @@ class RuntimeConfig:
     min_bucket: int = MIN_BUCKET
 
 
-def bucket_sizes(max_batch: int, min_bucket: int = MIN_BUCKET) -> tuple:
+def bucket_sizes(max_batch: int, min_bucket: int = MIN_BUCKET,
+                 quantum: int = 1) -> tuple:
     """The bucket ladder: powers of two from ``min_bucket`` up, capped
     by a final ``max_batch`` rung (itself, even when not a power of 2).
-    (The reference's ``quantum`` belongs to the 2-D mesh layout, not yet
-    ported.)"""
+
+    ``quantum`` is the batch granularity of the serving layout: the
+    data-axis replica count of a 2-D mesh server (DESIGN.md §12), whose
+    batch splits into equal per-replica row blocks.  Every rung is a
+    multiple of it (``max_batch`` itself must be)."""
     if max_batch < 1:
         raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-    sizes, b = [], max(1, min_bucket)
+    q = max(1, int(quantum))
+    if max_batch % q:
+        raise ValueError(f"max_batch {max_batch} is not a multiple of "
+                         f"the batch quantum {q}")
+    sizes, b = [], max(1, min_bucket) * q
     while b < max_batch:
         sizes.append(b)
         b *= 2
@@ -229,17 +253,29 @@ def _unpack(packed: np.ndarray, r: int) -> tuple:
             packed[:, 2 * r])
 
 
+def captures(server) -> bool:
+    """Whether the runtime captures ``server``'s programs as CUDA
+    graphs: on a card, for a single-device server or a mesh whose
+    positions all share that card (:attr:`repro_torch.distributed.
+    collectives.Mesh.one_card`); a mesh over several cards runs eagerly,
+    as the CPU does."""
+    mesh = getattr(server, "mesh", None)
+    return server.device.type == "cuda" and (mesh is None or mesh.one_card)
+
+
 class _Program:
     """One bucket's search program over a server, at one width rung
     (``widths`` (kc, k2), or None for the server's own): static input
     buffers (``qe`` (b, h) f32, ``qt`` (b, L) int64 and, on a namespaced
     server, the (b, W) int64 bitmap) and ``server._search`` over them.
-    On the
-    card it is warmed eagerly on a side stream (the kernels build and
-    set their attributes there, once) and captured as one CUDA graph
-    into ``pool``; a call copies the rows in through pinned buffers,
-    replays the graph and copies the packed output out.  On the CPU a
-    call runs the search on the buffers."""
+    When :func:`captures` holds it is warmed eagerly on a side stream
+    (the kernels build and set their attributes there, once) and
+    captured as one CUDA graph into ``pool`` (over a mesh, the worker
+    threads' streams join the capture through :meth:`repro_torch.
+    distributed.collectives.Mesh.run`'s fork and join events); a call
+    copies the rows in through pinned buffers, replays the graph and
+    copies the packed output out.  Otherwise a call runs the search on
+    the buffers."""
 
     def __init__(self, server, bucket: int, hidden: int, query_len: int,
                  pool=None, widths: Optional[tuple] = None):
@@ -257,7 +293,7 @@ class _Program:
                 device=dev))
         self.graph = None
         self.capture_s = 0.0
-        if dev.type == "cuda":
+        if captures(server):
             self.staged = [torch.empty(t.shape, dtype=t.dtype,
                                        pin_memory=True) for t in self.inputs]
             side = torch.cuda.Stream(dev)
@@ -289,7 +325,7 @@ class _Program:
         if self.graph is None:
             for t, a in zip(self.inputs, rows):
                 t.copy_(torch.from_numpy(a))
-            return self._run().numpy()
+            return self._run().cpu().numpy()
         for t, s, a in zip(self.inputs, self.staged, rows):
             s.numpy()[...] = a
             t.copy_(s, non_blocking=True)
@@ -307,8 +343,9 @@ def graph_pool_bytes(pool) -> int:
 
 class ServingRuntime:
     """Bucketed micro-batching + caching + admission control over one
-    :class:`repro_torch.launch.serve.Server` (plain or mutable; any
-    codec; with or without namespaces and fusion).
+    server of :mod:`repro_torch.launch.serve` (any layout, plain or
+    mutable, single-device or over a mesh; any codec; with or without
+    namespaces and fusion).
 
     Lifecycle: construct → :meth:`warmup` (builds every bucket's
     program, starts the scheduler) → :meth:`submit`/:meth:`query` →
@@ -317,11 +354,6 @@ class ServingRuntime:
     """
 
     def __init__(self, server, cfg: RuntimeConfig = RuntimeConfig()):
-        if getattr(server, "mesh", None) is not None:
-            raise NotImplementedError(
-                f"the runtime over a mesh ({type(server).__name__}) is not "
-                "yet ported to repro_torch: it comes with ROADMAP.md A4b; "
-                "serve the mesh through its query() meanwhile")
         if cfg.linger_ms < 0:
             raise ValueError("linger_ms must be >= 0")
         if cfg.queue_depth < 1:
@@ -329,7 +361,11 @@ class ServingRuntime:
         self.server = server
         self.cfg = cfg
         self.max_batch = int(server.cfg.max_batch)
-        self.buckets = bucket_sizes(self.max_batch, cfg.min_bucket)
+        # batch quantum: a 2-D mesh server splits each bucket over its
+        # data-axis replicas (DESIGN.md §12) in equal row blocks
+        self.n_replicas = max(1, int(getattr(server, "n_replicas", 1)))
+        self.buckets = bucket_sizes(self.max_batch, cfg.min_bucket,
+                                    self.n_replicas)
         self.cache = (QueryCache(cfg.cache_size) if cfg.cache_size > 0
                       else None)
         self._hidden: Optional[int] = None
@@ -350,6 +386,7 @@ class ServingRuntime:
         self.n_rejected = 0
         self.n_batches = 0
         self.bucket_counts = {b: 0 for b in self.buckets}
+        self.replica_dispatch = {r: 0 for r in range(self.n_replicas)}
         # width rungs (DESIGN.md §14): the server's static (kc, k2)
         # ladder; single-rung on every non-adaptive server, which then
         # keys its programs and ledger by bucket as before
@@ -358,6 +395,7 @@ class ServingRuntime:
         self._refresh_rungs()
         self.warm_traces: dict = {}
         self.capture_seconds: dict = {}
+        self.captured: dict = {}
         self.pool_bytes: Optional[int] = None
         # programs built by runtime batches after warmup: 0 unless the
         # server's index or fusion spec changed behind the runtime
@@ -436,7 +474,7 @@ class ServingRuntime:
         multi = len(self.rungs) > 1
         self.server.sync_device()
         with self._device_ctx():
-            cuda = self.server.device.type == "cuda"
+            cuda = captures(self.server)
             self.pool = torch.cuda.graph_pool_handle() if cuda else None
             for b in self.buckets:
                 for r, widths in enumerate(self.rungs):
@@ -447,6 +485,7 @@ class ServingRuntime:
                         self.pool, widths if multi else None)
                     self.warm_traces[key] = qexec.trace_count() - before
                     self.capture_seconds[key] = self._programs[key].capture_s
+                    self.captured[key] = self._programs[key].graph is not None
             self.pool_bytes = graph_pool_bytes(self.pool) if cuda else None
         self._built_for = (self.server.index, self.server.fusion)
 
@@ -545,7 +584,7 @@ class ServingRuntime:
             doc_ids=np.stack([r.doc_ids for r in rows]),
             scores=np.stack([r.scores for r in rows]),
             n_candidates=np.stack([r.n_candidates for r in rows]),
-            partial=False)
+            partial=any(bool(r.partial) for r in rows))
 
     # --- mutations (mutable servers): epoch-coherent forwarding ----------
     def add(self, doc_emb, doc_tokens, namespaces=None) -> np.ndarray:
@@ -607,14 +646,15 @@ class ServingRuntime:
             "n_batches": self.n_batches,
             "queue_depth": depth,
             "bucket_counts": dict(self.bucket_counts),
-            "n_replicas": 1,
-            "replica_dispatch": {0: self.n_served},
+            "n_replicas": self.n_replicas,
+            "replica_dispatch": dict(self.replica_dispatch),
             "rungs": [list(r) for r in self.rungs],
             "rung_dispatch": dict(self.rung_dispatch),
             "widths": [self.server.kc, self.server.k2],
             "width_source": self.server.width_source,
             "cache": cache,
             "capture_seconds": dict(self.capture_seconds),
+            "captured": dict(self.captured),
             "graph_pool_bytes": self.pool_bytes,
         }
 
@@ -669,17 +709,34 @@ class ServingRuntime:
                 return b
         return self.max_batch
 
-    def _bitmap(self, specs: Sequence, bucket: int) -> Optional[np.ndarray]:
+    def _rows_idx(self, n: int, bucket: int) -> list:
+        """Row placement for n requests in a bucket: identity on 1-D
+        layouts; on a D-replica mesh request i rides row ``(i % D) ·
+        bucket/D + i // D``, round-robin over the contiguous per-replica
+        row blocks the data axis splits the bucket into, so a part-full
+        bucket spreads its requests over every replica."""
+        d = self.n_replicas
+        if d == 1:
+            return list(range(n))
+        per = bucket // d
+        return [(i % d) * per + (i // d) for i in range(n)]
+
+    def _bitmap(self, specs: Sequence, bucket: int,
+                rows_idx: Optional[Sequence[int]] = None
+                ) -> Optional[np.ndarray]:
         """The bucket's (b, W) namespace bitmap, or None on an unfiltered
         server.  A namespaced server always gets one (allow-all rows for
         requests without a filter, a bitwise no-op), so each bucket has
-        one program; pad rows match nothing."""
+        one program; rows no request rides (pad rows) match nothing.
+        Request i's row is ``rows_idx[i]`` (default i)."""
         n_ns = self.server.cfg.n_namespaces
         if not n_ns:
             return None
-        rows = [range(n_ns) if ns is None else ns for ns in specs]
-        return ns_filters.filter_words(rows + [()] * (bucket - len(rows)),
-                                       n_ns)
+        rows = [()] * bucket
+        for i, ns in enumerate(specs):
+            rows[i if rows_idx is None else rows_idx[i]] = (
+                range(n_ns) if ns is None else ns)
+        return ns_filters.filter_words(rows, n_ns)
 
     def _loop(self) -> None:
         try:
@@ -774,14 +831,17 @@ class ServingRuntime:
     def _run_batch(self, misses: list, rung: int, epoch: int,
                    rows: dict) -> None:
         """One (bucket, rung) program over the cache misses (serve lock
-        held): rows copied in with the pad rows rewritten, one replay,
-        one packed copy out."""
+        held): rows copied in at their placed rows with the pad rows
+        rewritten, one replay, one packed copy out; every row carries
+        the server's ``partial`` flag."""
         bucket = self._bucket_for(len(misses))
+        place = self._rows_idx(len(misses), bucket)
         qe = np.zeros((bucket, self._hidden), np.float32)
         qt = np.full((bucket, self._query_len), -1, np.int64)
         for i, req in enumerate(misses):
-            qe[i], qt[i] = req.qe, req.qt
-        ns = self._bitmap([r.ns for r in misses], bucket)
+            qe[place[i]], qt[place[i]] = req.qe, req.qt
+        ns = self._bitmap([r.ns for r in misses], bucket, place)
+        partial = bool(self.server.partial)
         before = qexec.trace_count()
         with self._device_ctx():
             index, fusion = self._built_for
@@ -794,12 +854,14 @@ class ServingRuntime:
         self.serve_traces += qexec.trace_count() - before
         ids, scores, n_cand = _unpack(packed, self.server.cfg.top_r)
         for i, req in enumerate(misses):
-            row = hi.SearchResult(doc_ids=ids[i], scores=scores[i],
-                                  n_candidates=n_cand[i], partial=False)
+            j = place[i]
+            row = hi.SearchResult(doc_ids=ids[j], scores=scores[j],
+                                  n_candidates=n_cand[j], partial=partial)
             if self.cache is not None:
                 self.cache.put(self._key(req.qe, req.qt, req.ns, req.rung,
                                          epoch), row)
             rows[id(req)] = row
+            self.replica_dispatch[i % self.n_replicas] += 1
         if self.cache is not None:
             self.cache.misses += len(misses)
         self.n_served += len(misses)

@@ -26,17 +26,19 @@ Serving layouts:
     checkpoint.
   · :class:`MutableServer` serves a :class:`repro_torch.core.segments.
     MutableHybridIndex` with live ``add``/``delete``/``compact``
-    (DESIGN.md §8).  Its sharded form (``ShardedMutableServer``) comes
-    with ROADMAP.md A4b.
+    (DESIGN.md §8).  :class:`ShardedMutableServer` serves it over the
+    document-sharded layout (a 1-D mesh, or the 2-D (data, model) mesh
+    with ``data_parallel``): adds go to the shard that owns their ids,
+    and results equal :class:`MutableServer`'s bit for bit.
 
 A mesh's positions take the first cards, one each, unless ``devices=``
 places them (``["cuda:0"] * 4`` puts four on one card); ``device="cpu"``
 puts them all on the CPU.  Every layout serves hybrid dense∥sparse
 fusion (DESIGN.md §13) when ``fusion_weight`` is set
-(:meth:`Server.set_fusion` re-weights live).  :class:`Server` and
-:class:`MutableServer` serve behind the micro-batching runtime of
-:mod:`repro_torch.launch.runtime` (one CUDA graph per bucket on the
-card); the mesh layouts behind it come with A4b.
+(:meth:`Server.set_fusion` re-weights live).  Every layout serves
+behind the micro-batching runtime of :mod:`repro_torch.launch.runtime`
+(one CUDA graph per bucket on the card, one per bucket per mesh when
+every mesh position shares the card).
 
     python -m repro_torch.launch.serve --device cpu --codec refine:sq8
     python -m repro_torch.launch.serve --device cpu --fusion-weight 0.5
@@ -44,7 +46,10 @@ card); the mesh layouts behind it come with A4b.
     python -m repro_torch.launch.serve --device cpu --shards 2 \\
         --data-parallel 2
     python -m repro_torch.launch.serve --device cpu --mutable --docs 3000
+    python -m repro_torch.launch.serve --device cpu --mutable --shards 2 \\
+        --data-parallel 2 --docs 3000
     python -m repro_torch.launch.serve --device cpu --runtime --cache 64
+    python -m repro_torch.launch.serve --device cpu --runtime --shards 4
     python -m repro_torch.launch.serve --device cpu --runtime --adaptive
 
 builds an index over the synthetic corpus and serves its queries, as
@@ -52,10 +57,11 @@ builds an index over the synthetic corpus and serves its queries, as
 BM25 impact plane and fuses by RRF with dense weight W; ``--shards S``
 and ``--data-parallel D`` serve it on a (D, S) mesh (on the card: the
 first S·D cards; on the CPU every position is the CPU); ``--mutable``
-streams the corpus's last eighth in, deletes a quarter of
-it and compacts; ``--runtime`` serves through the runtime and prints
-its bucket stats.  ``--device`` defaults to ``cuda``, and the device
-chooses the kernels (no ``--use-kernel``).
+streams the corpus's last eighth in, deletes a quarter of it and
+compacts (with ``--shards``, on the mesh); ``--runtime`` serves any of
+these through the runtime and prints its bucket stats.  ``--device``
+defaults to ``cuda``, and the device chooses the kernels (no
+``--use-kernel``).
 """
 from __future__ import annotations
 
@@ -175,6 +181,12 @@ class Server:
         """Data-axis replica slices (DESIGN.md §12): 1 on every layout
         but the 2-D mesh."""
         return max(1, int(self.cfg.data_parallel))
+
+    @property
+    def partial(self) -> bool:
+        """Whether results miss a lost shard's documents (DESIGN.md §12):
+        only a degraded :class:`MeshServer` serves partial results."""
+        return False
 
     @property
     def _adaptive_ladder(self) -> bool:
@@ -417,6 +429,9 @@ class MeshServer(Server):
                              sub_mesh)
         offsets = shi.shard_offsets_for(survivors, self._full.docs_per_shard)
         self._survivor = (sub, sub_mesh, offsets)
+        # a new index object: a runtime over this server builds its
+        # programs again for the survivors' mesh
+        self.index = sub
         self._mesh_epoch += 1
 
     def lost_doc_ranges(self) -> list:
@@ -454,10 +469,6 @@ class MutableServer(Server):
     def __init__(self, mut: seg.MutableHybridIndex,
                  cfg: Optional[ServeConfig] = None):
         cfg = ServeConfig(mutable=True) if cfg is None else cfg
-        if cfg.n_shards != 1 or cfg.data_parallel != 1:
-            raise NotImplementedError(
-                "sharded mutable serving (n_shards=, data_parallel=) is not "
-                "yet ported to repro_torch: it comes with ROADMAP.md A4b")
         self.mut = mut
         self.device = mut.device
         self.index = mut.base    # the padded-query plumbing reads it
@@ -516,6 +527,40 @@ class MutableServer(Server):
         self.index = self.mut.base
 
 
+class ShardedMutableServer(MutableServer):
+    """Mutable and document-sharded (DESIGN.md §6, §8, §12): a
+    :class:`repro_torch.core.segments.ShardedMutableIndex` over
+    ``cfg.n_shards`` positions, replicated over ``cfg.data_parallel``
+    data-axis slices that split the query batch when it is above 1.
+    Adds go to the shard that owns their ids; results equal
+    :class:`MutableServer`'s bit for bit.  The mesh is ``mesh``, else
+    one from ``devices``/``device`` (:func:`_positions`); queries and
+    results live on its first position's device."""
+
+    def __init__(self, mut: seg.MutableHybridIndex,
+                 cfg: Optional[ServeConfig] = None, mesh=None, *,
+                 devices=None, device: dev_mod.DeviceLike = "cuda"):
+        cfg = ServeConfig(mutable=True) if cfg is None else cfg
+        data, model = max(1, int(cfg.data_parallel)), int(cfg.n_shards)
+        if cfg.max_batch % data:
+            raise ValueError(f"max_batch {cfg.max_batch} must divide over "
+                             f"{data} data-axis slices")
+        self.cfg = cfg
+        # resolved from the base once, as MutableServer's
+        self._resolve_widths(mut.base)
+        if mesh is None:
+            pos = _positions(devices, device, data * model)
+            mesh = (mesh_mod.make_serving_mesh(data, model, devices=pos)
+                    if data > 1 else shi.make_shard_mesh(model, devices=pos))
+        self.mesh = mesh
+        self.mut = seg.ShardedMutableIndex(
+            mut, model, mesh, data_axis="data" if data > 1 else None)
+        self.device = mesh.devices.flat[0]
+        self.index = mut.base
+        self.set_fusion(cfg.fusion_weight)
+        self.n_served = 0
+
+
 def make_server(index: hi.HybridIndex, cfg: ServeConfig, *,
                 device: dev_mod.DeviceLike = "cuda") -> Server:
     """The server for ``cfg``: :class:`MeshServer` for ``data_parallel >
@@ -537,14 +582,17 @@ def make_server(index: hi.HybridIndex, cfg: ServeConfig, *,
 def make_mutable_server(mut: seg.MutableHybridIndex, cfg: ServeConfig, *,
                         device: dev_mod.DeviceLike = "cuda"
                         ) -> MutableServer:
-    """A :class:`MutableServer` for ``mut``, which must live on
-    ``device`` (the sharded mutable layout, ROADMAP.md A4b, raises "not
-    yet ported")."""
+    """A :class:`ShardedMutableServer` for ``n_shards > 1`` or
+    ``data_parallel > 1`` (its mesh on the first cards, or the CPU for
+    ``device="cpu"``), else a :class:`MutableServer`; ``mut`` must live
+    on ``device``."""
     dev = dev_mod.resolve(device)
     if mut.device != dev:
         raise ValueError(f"mutable index lives on {mut.device}, serving "
                          f"asked for {dev}; create it with device="
                          f"{str(dev)!r}")
+    if cfg.n_shards > 1 or cfg.data_parallel > 1:
+        return ShardedMutableServer(mut, cfg, device=dev)
     return MutableServer(mut, cfg)
 
 
@@ -705,7 +753,7 @@ def main(argv: Optional[list] = None) -> None:
             torch.cuda.synchronize(dev)
         dt_c = time.perf_counter() - t0
         print(f"mutable: added {held}, deleted {held // 4}, "
-              f"compacted to {server.mut.n_base} docs in {dt_c:.2f}s")
+              f"compacted to {server.index.n_docs} docs in {dt_c:.2f}s")
     if args.runtime:
         if metrics is not None:
             metrics.close()

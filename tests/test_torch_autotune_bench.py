@@ -2,8 +2,8 @@
 repro_torch.benchmarks.autotune``) on the CPU: ``--smoke --check
 --device cpu`` exits 0 (contracts (a)-(e): the tune meets its target
 below the default's cost, the adaptive ladder is no dearer at no lower
-recall, explicit widths are bit-identical on the plain and mutable
-layouts, one program per (bucket, rung) and none after warmup, no
+recall, explicit widths are bit-identical on the plain, sharded,
+mutable and sharded mutable layouts, one program per (bucket, rung) and none after warmup, no
 cross-rung cache replay), writes only its ``--out`` file, and its report
 has the keys of the reference's ``benchmarks/autotune.py`` report (read
 from that file's dict literals)."""
@@ -77,7 +77,7 @@ def test_autotune_smoke_check_passes_on_cpu(report):
     assert tuned["cost"] < default["cost"]
     assert report["adaptive"]["n_rungs"] == len(tuned["rungs"]) >= 2
     assert report["adaptive"]["mean_cost"] <= tuned["cost"]
-    assert sorted(report["variants"]) == ["mutable", "plain"]
+    assert sorted(report["variants"]) == ["mutable", "plain", "sharded", "sharded_mutable"]
     for rep in report["variants"].values():
         assert rep["explicit_equals_direct"] and rep["default_equals_explicit"]
         assert rep["width_source_default_cfg"] == "default"
@@ -105,9 +105,17 @@ def test_autotune_report_has_the_reference_keys(report):
     assert set(report["runtime"]) == want["runtime"]
 
 
-def test_sharded_layouts_are_not_yet_ported():
+def test_sharded_layouts_serve_explicit_widths_bit_identically(report):
+    """The sharded and sharded mutable variants (two CPU mesh positions)
+    resolve the default widths from the unsharded index and serve the
+    direct search's rows."""
     from repro_torch.benchmarks import autotune
-    args = autotune.parse_args(["--smoke", "--device", "cpu"])
-    for layout in autotune.UNPORTED_LAYOUTS:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            autotune.run_variant(layout, args)
+    assert autotune.LAYOUTS == ("plain", "sharded", "mutable",
+                                "sharded_mutable")
+    assert not hasattr(autotune, "UNPORTED_LAYOUTS")
+    plain = report["variants"]["plain"]
+    for name in ("sharded", "sharded_mutable"):
+        rep = report["variants"][name]
+        assert rep["explicit_equals_direct"], name
+        assert rep["default_equals_explicit"], name
+        assert rep["resolved_widths"] == plain["resolved_widths"]

@@ -28,9 +28,15 @@ and no row replays across rungs; a tuned index saved from the card loads
 back onto it leaf for leaf, and serves the same rows.  Sharded search on
 two and four mesh positions of the card equals the single-device search
 bit for bit for every codec, dense and fused, and a (2, 2) MeshServer
-equals Server and survives the shard-loss drill.  On a host with several
-cards, one position a card (groups that span cards) gives the same bits;
-those tests skip on a host with one.
+equals Server and survives the shard-loss drill.  Behind the runtime,
+S = 4 and (2, 2) on the card capture one CUDA graph per bucket per mesh
+(across the positions' streams), whose rows equal ``query``'s bit for
+bit, with every replica dispatched and every row of a degraded mesh
+``partial``; the sharded mutable server equals the single-device
+mutable search and its graphs follow add/delete without a capture.  On
+a host with several cards, one position a card (groups that span cards)
+gives the same bits, and the runtime runs such a mesh eagerly; those
+tests skip on a host with one.
 """
 from typing import NamedTuple
 
@@ -1300,4 +1306,163 @@ def test_mesh_server_across_cards_equals_server(rt_indexes):
     got = srv.query(qe, qt)
     for name in ("doc_ids", "scores", "n_candidates"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
+    srv.mesh.close()
+
+
+# --------------------------------------------------------------------------
+# the runtime over a mesh and the sharded mutable index, positions on the
+# card: one CUDA graph per bucket per mesh
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("geometry", [(1, 4), (2, 2)],
+                         ids=["sharded4", "mesh2x2"])
+def test_runtime_over_a_mesh_captures_one_graph_per_bucket(rt_indexes,
+                                                           geometry, fused):
+    """ShardedServer (S = 4) and a (2, 2) MeshServer on four positions of
+    the card behind the runtime: one capture per bucket of the quantum
+    ladder (the graph spans every position's stream), none while
+    serving, every bucket's rows equal ``server.query``'s bit for bit,
+    every replica dispatched; a replay launches no wrapper."""
+    from repro_torch.core import exec as qexec
+    from repro_torch.launch import runtime as rt_mod
+    from repro_torch.launch import serve
+    c, indexes = rt_indexes
+    idx = indexes["opq"]
+    dev = idx.device
+    d, m = geometry
+    cfg = serve.ServeConfig(kc=6, k2=8, top_r=100, max_batch=16,
+                            n_shards=m, data_parallel=d,
+                            fusion_weight=0.5 if fused else None)
+    server = (serve.MeshServer(idx, cfg, devices=[dev] * 4) if d > 1 else
+              serve.ShardedServer(idx, cfg, devices=[dev] * 4))
+    assert server.mesh.one_card and rt_mod.captures(server)
+    rt = rt_mod.ServingRuntime(server, rt_mod.RuntimeConfig(linger_ms=100.0))
+    before = qexec.trace_count()
+    rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+    assert rt.buckets == rt_mod.bucket_sizes(16, quantum=d)
+    assert qexec.trace_count() - before == len(rt.buckets)
+    assert all(rt.stats()["captured"].values())
+    direct = server.query(c.query_emb[:16], c.query_tokens[:16])
+    with rt:
+        for b in rt.buckets:
+            rows = _rt_bucket(rt, c, b)
+            _rt_rows_equal(rows, server.query(c.query_emb[:b],
+                                              c.query_tokens[:b]))
+            _rt_rows_equal(rows, direct)
+        assert rt.bucket_counts == {b: 1 for b in rt.buckets}
+        topk0 = at_ops.launches
+        rt._programs[16]([c.query_emb[:16],
+                          c.query_tokens[:16].astype(np.int64)])
+        assert at_ops.launches == topk0          # the graph, no wrapper
+        rt.assert_one_compile_per_bucket()
+    assert all(n > 0 for n in rt.stats()["replica_dispatch"].values())
+    server.mesh.close()
+
+
+def test_runtime_over_a_degraded_mesh_flags_every_row_partial(rt_indexes,
+                                                              tmp_path):
+    """The (2, 2) drill through the runtime: after ejecting shard 1 a
+    new runtime captures the survivors' mesh, and every row is partial
+    and equal to the degraded ``query``'s."""
+    from repro_torch.launch import runtime as rt_mod
+    from repro_torch.launch import serve
+    c, indexes = rt_indexes
+    idx = indexes["opq"]
+    dev = idx.device
+    server = serve.MeshServer(idx, serve.ServeConfig(
+        kc=6, k2=8, top_r=100, max_batch=16, n_shards=2, data_parallel=2),
+        devices=[dev] * 4)
+    server.eject_shard(1)
+    want = server.query(c.query_emb[:16], c.query_tokens[:16])
+    with rt_mod.ServingRuntime(server, rt_mod.RuntimeConfig(
+            linger_ms=100.0)) as rt:
+        rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+        assert all(rt.stats()["captured"].values())
+        got = rt.query(c.query_emb[:16], c.query_tokens[:16], timeout=RT_WAIT)
+    assert got.partial is True and want.partial is True
+    np.testing.assert_array_equal(got.doc_ids, want.doc_ids.cpu().numpy())
+    np.testing.assert_array_equal(got.scores, want.scores.cpu().numpy())
+    server.mesh.close()
+
+
+@pytest.mark.parametrize("geometry", [(1, 4), (2, 2)],
+                         ids=["sharded4", "mesh2x2"])
+def test_sharded_mutable_runtime_follows_mutations_on_the_card(cuda,
+                                                               geometry):
+    """ShardedMutableServer on four positions of the card: its search
+    equals the single-device mutable search bit for bit, dense and
+    fused; behind the runtime ``add``/``delete`` capture nothing and the
+    replayed rows equal ``query``'s, ``compact()`` captures once per
+    bucket."""
+    from repro_torch.core import exec as qexec
+    from repro_torch.core import segments as seg
+    from repro_torch.launch import runtime as rt_mod
+    from repro_torch.launch import serve
+    c = _build_corpus()
+    mut = seg.MutableHybridIndex.create(0, c.doc_emb[:-256],
+                                        c.doc_tokens[:-256], c.vocab_size,
+                                        device=cuda, **_mutable_kw())
+    d, m = geometry
+    server = serve.ShardedMutableServer(mut, serve.ServeConfig(
+        kc=6, k2=8, top_r=100, max_batch=8, mutable=True, n_shards=m,
+        data_parallel=d), devices=[cuda] * 4)
+    qe, qt = c.query_emb[:8], c.query_tokens[:8]
+
+    def single(fusion=None):
+        return mut.search(qe, qt, kc=6, k2=8, top_r=100, fusion=fusion)
+
+    rt = rt_mod.ServingRuntime(server, rt_mod.RuntimeConfig(linger_ms=50.0))
+    rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+    assert all(rt.stats()["captured"].values())
+
+    def check(n):
+        _rt_rows_equal(_rt_bucket(rt, c, n),
+                       server.query(c.query_emb[:n], c.query_tokens[:n]))
+
+    with rt:
+        check(8)
+        before = qexec.trace_count()
+        ids = rt.add(c.doc_emb[-256:-128], c.doc_tokens[-256:-128])
+        assert set(server.mut.owning_shard(ids).tolist()) <= set(range(m))
+        check(8)
+        rt.delete(np.r_[ids[:20], 0, 1, 2])
+        check(3)
+        rt.add(c.doc_emb[-128:], c.doc_tokens[-128:])
+        check(1)
+        assert qexec.trace_count() == before      # no new capture
+        for f in (None, qexec.FusionSpec(0.5)):
+            got = server.mut.search(qe, qt, kc=6, k2=8, top_r=100, fusion=f)
+            want = single(f)
+            for name in ("doc_ids", "scores", "n_candidates"):
+                assert torch.equal(getattr(got, name),
+                                   getattr(want, name)), (f, name)
+        rt.compact()
+        assert qexec.trace_count() - before == len(rt.buckets)
+        check(8)
+        rt.assert_one_compile_per_bucket()
+    server.mesh.close()
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 4,
+                    reason="needs four cards: one position a card")
+def test_runtime_over_a_mesh_across_cards_runs_eagerly(rt_indexes):
+    """A (2, 2) MeshServer on the first four cards: the runtime builds one
+    eager program per bucket (no capture across cards) and its rows
+    equal ``query``'s bit for bit."""
+    from repro_torch.launch import runtime as rt_mod
+    from repro_torch.launch import serve
+    c, indexes = rt_indexes
+    idx = indexes["opq"]
+    srv = serve.make_server(idx, serve.ServeConfig(
+        kc=6, k2=8, top_r=100, max_batch=16, n_shards=2, data_parallel=2))
+    assert not srv.mesh.one_card and not rt_mod.captures(srv)
+    with rt_mod.ServingRuntime(srv, rt_mod.RuntimeConfig(
+            linger_ms=100.0)) as rt:
+        rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+        assert not any(rt.stats()["captured"].values())
+        for b in rt.buckets:
+            _rt_rows_equal(_rt_bucket(rt, c, b),
+                           srv.query(c.query_emb[:b], c.query_tokens[:b]))
+        rt.assert_one_compile_per_bucket()
     srv.mesh.close()

@@ -177,15 +177,25 @@ def test_mutable_entry_points_without_device_raise_when_cuda_is_absent(
 def test_unported_layouts_and_codecs_raise(tmp_path):
     leaves, index = _tiny_index()
     # the sharded and 2-D mesh layouts are ported (positions on the CPU
-    # here); the sharded mutable layout is not yet
+    # here), the sharded mutable one too
     for field, kind in ((dict(n_shards=2), "ShardedServer"),
                         (dict(data_parallel=2), "MeshServer")):
         server = serve.make_server(
             index, serve.ServeConfig(max_batch=4, **field), device="cpu")
         assert type(server).__name__ == kind
-    with pytest.raises(NotImplementedError, match="not yet ported.*A4b"):
-        serve.MutableServer(None, serve.ServeConfig(mutable=True,
-                                                    n_shards=2))
+    rng = np.random.default_rng(2)
+    mut = segments.MutableHybridIndex.create(
+        0, rng.normal(size=(40, 8)).astype(np.float32),
+        rng.integers(0, 16, (40, 3)).astype(np.int32), 16, n_clusters=4,
+        k1_terms=1, delta_capacity=4, device="cpu")
+    for field in (dict(n_shards=2), dict(n_shards=2, data_parallel=2)):
+        server = serve.make_mutable_server(mut, serve.ServeConfig(
+            kc=2, k2=1, top_r=5, max_batch=4, mutable=True, **field),
+            device="cpu")
+        assert type(server).__name__ == "ShardedMutableServer"
+        assert server.query(np.zeros((2, 8), np.float32),
+                            np.zeros((2, 3), np.int32)).doc_ids.shape[0] == 2
+        server.mesh.close()
     # the mutable layout is ported: make_server refuses it as the
     # reference does, pointing at make_mutable_server
     with pytest.raises(ValueError, match="make_mutable_server"):

@@ -16,9 +16,20 @@ namespaces, as ``tests/test_mesh_serving.py`` builds its own):
     ``note_shard_latency`` ejects a straggler;
   · a ``MeshServer`` checkpoint restores through the JAX package's
     ``restore_index`` leaf for leaf, and the JAX package's checkpoint of
-    its own partition restores into a port ``MeshServer``.
+    its own partition restores into a port ``MeshServer``;
+  · the serving runtime over ``ShardedServer``, ``MeshServer`` and
+    ``ShardedMutableServer``: the quantum ladder, one program per bucket
+    per mesh, rows equal to ``query``'s, every replica dispatched, and
+    the drill through the runtime (every row ``partial`` while a shard
+    is out, no cached full row replayed);
+  · ``mesh_serving.py``'s CPU smoke with ``--check``.
 """
+import ast
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -217,3 +228,157 @@ def test_mesh_checkpoints_cross_both_ways(built, corpus, tmp_path):
         ckpt.restore_index(jpath, dataclasses.replace(
             shi.to_meta(srv.index), codec="opq"))
     srv.mesh.close()
+
+
+# --------------------------------------------------------------------------
+# the runtime over a mesh (DESIGN.md §10, §12)
+# --------------------------------------------------------------------------
+
+def _layout(kind, built, corpus):
+    """A mesh server of four CPU positions over the JAX-built index (the
+    mutable one over its corpus, all but the last 64 docs)."""
+    cfg = dict(max_batch=16, n_namespaces=N_NS)
+    if kind == "sharded":
+        return serve.make_server(built[2], serve.ServeConfig(
+            n_shards=4, **cfg), device="cpu")
+    if kind == "mesh":
+        return serve.make_server(built[2], serve.ServeConfig(
+            n_shards=2, data_parallel=2, **cfg), device="cpu")
+    mut = seg.MutableHybridIndex.create(
+        0, corpus.doc_emb[:-64], corpus.doc_tokens[:-64], corpus.vocab_size,
+        delta_capacity=64, doc_namespaces=np.arange(N_DOCS - 64) % N_NS,
+        device="cpu", **KW)
+    return serve.make_mutable_server(mut, serve.ServeConfig(
+        n_shards=2, data_parallel=2, mutable=True, **cfg), device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["sharded", "mesh", "sharded_mutable"])
+def test_runtime_over_a_mesh_one_program_per_bucket_round_robin(
+        built, corpus, kind):
+    """One program per bucket per mesh (not per replica), none while
+    serving; computed rows round-robin over every data-axis replica; the
+    rows equal the server's ``query`` bit for bit, filtered too."""
+    from repro_torch.launch import runtime as rt_mod
+    srv = _layout(kind, built, corpus)
+    d = srv.n_replicas
+    assert d == (1 if kind == "sharded" else 2)
+    rt = rt_mod.ServingRuntime(srv, rt_mod.RuntimeConfig(linger_ms=50.0))
+    assert rt.buckets == ((1, 2, 4, 8, 16) if d == 1 else (2, 4, 8, 16))
+    rt.warmup(32, corpus.query_tokens.shape[1])
+    assert rt.warm_traces == {b: 1 for b in rt.buckets}
+    assert rt.stats()["captured"] == {b: False for b in rt.buckets}
+    qe, qt = corpus.query_emb, corpus.query_tokens
+    with rt:
+        for n in (1, 3, 16, 7, 2):
+            got = rt.query(qe[:n], qt[:n], timeout=120)
+            want = srv.query(qe[:n], qt[:n])
+            for name in ("doc_ids", "scores", "n_candidates"):
+                np.testing.assert_array_equal(getattr(got, name),
+                                              getattr(want, name).numpy())
+            assert got.partial is False
+        got = rt.query(qe[:16], qt[:16], namespaces=_want(16), timeout=120)
+        _equal(srv.query(qe[:16], qt[:16], namespaces=_want(16)),
+               type(got)(*(torch.as_tensor(x) for x in got[:3])))
+        rt.assert_one_compile_per_bucket()
+        disp = rt.stats()["replica_dispatch"]
+        assert set(disp) == set(range(d)) and all(v > 0
+                                                  for v in disp.values())
+        assert sum(disp.values()) == rt.n_served == 45
+    srv.mesh.close()
+
+
+def test_the_runtime_carries_the_drill_through_a_degraded_mesh(corpus,
+                                                              tmp_path):
+    """The shard-loss drill through the runtime (the reference's
+    ``tests/test_mesh_serving.py`` case): after an eject every row is
+    ``partial`` and equal to the degraded ``query``, the epoch bump keeps
+    the cache from replaying full rows, and after the rejoin the rows
+    are full and equal to those before the failure."""
+    from repro_torch.launch import runtime as rt_mod
+    index = hi.build(0, corpus.doc_emb, corpus.doc_tokens, corpus.vocab_size,
+                     device="cpu", **KW)
+    srv = serve.MeshServer(index, serve.ServeConfig(
+        max_batch=16, n_shards=2, data_parallel=2), device="cpu")
+    qe, qt = corpus.query_emb[:16], corpus.query_tokens[:16]
+    full = srv.query(qe, qt)
+    rt = rt_mod.ServingRuntime(srv, rt_mod.RuntimeConfig(cache_size=64,
+                                                         linger_ms=50.0))
+    rt.warmup(32, qt.shape[1])
+    with rt:
+        pre = rt.query(qe, qt, timeout=120)
+        assert pre.partial is False
+        path = srv.checkpoint(str(tmp_path))
+        srv.eject_shard(0)
+        degraded = srv.query(qe, qt)
+        hits0 = rt.cache.hits
+        via_rt = rt.query(qe, qt, timeout=120)
+        assert via_rt.partial is True and rt.cache.hits == hits0
+        np.testing.assert_array_equal(via_rt.doc_ids,
+                                      degraded.doc_ids.numpy())
+        np.testing.assert_array_equal(via_rt.scores, degraded.scores.numpy())
+        ids = via_rt.doc_ids
+        assert (ids[ids >= 0] >= 1500).all()
+        srv.rejoin(path)
+        post = rt.query(qe, qt, timeout=120)
+        assert post.partial is False
+        np.testing.assert_array_equal(post.doc_ids, full.doc_ids.numpy())
+        np.testing.assert_array_equal(post.scores, full.scores.numpy())
+    srv.mesh.close()
+
+
+# --------------------------------------------------------------------------
+# the mesh_serving benchmark's CPU smoke
+# --------------------------------------------------------------------------
+
+def _returned_keys(func) -> set:
+    """Keys of the last dict literal ``func`` returns."""
+    ret = [n.value for n in ast.walk(func)
+           if isinstance(n, ast.Return) and isinstance(n.value, ast.Dict)]
+    return {k.value for k in ret[-1].keys if k is not None}
+
+
+def test_mesh_serving_smoke_check_passes_on_cpu(tmp_path):
+    """``python -m repro_torch.benchmarks.mesh_serving --smoke --check
+    --device cpu`` exits 0 (ids identical across the five geometries, one
+    program per bucket per mesh and none while serving, runtime rows
+    equal to direct ones, every replica dispatched, the (2, 2) drill's
+    partial-result contract through the runtime, the emulated (2, 1)
+    gate), writes only its ``--out`` file, and reports the reference's
+    keys (plus ``device``, and per geometry ``positions_per_card`` and
+    ``captured``)."""
+    out = tmp_path / "mesh.json"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.mesh_serving",
+         "--smoke", "--check", "--device", "cpu", "--out", str(out)],
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")),
+        capture_output=True, text=True, timeout=600, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert os.listdir(tmp_path) == ["mesh.json"]
+    report = json.loads(out.read_text())
+    assert json.loads(proc.stdout) == report
+    tree = ast.parse(open(os.path.join(root, "benchmarks",
+                                       "mesh_serving.py")).read())
+    funcs = {n.name: n for n in ast.walk(tree)
+             if isinstance(n, ast.FunctionDef)}
+    main_report = [n.value for n in ast.walk(funcs["main"])
+                   if isinstance(n, ast.Assign)
+                   and getattr(n.targets[0], "id", None) == "report"
+                   and isinstance(n.value, ast.Dict)][0]
+    assert set(report) == {k.value for k in main_report.keys} | {"device"}
+    want_geo = (_returned_keys(funcs["run_geometry"]) - {"_fingerprint"}
+                | {"positions_per_card", "captured"})
+    assert set(report["geometries"]) == {"1x1", "2x1", "4x1", "1x2", "2x2"}
+    for g, rep in report["geometries"].items():
+        assert set(rep) == want_geo, g
+        assert rep["runtime_bit_identical"] and rep["dispatch_all_replicas"]
+        assert set(rep["warm_compiles"].values()) == {1}
+        assert rep["post_warmup_compiles"] == 0
+        assert rep["positions_per_card"] is None and not rep["captured"]
+    assert report["geometries"]["2x2"]["buckets"] == [2, 4, 8, 16, 32]
+    assert report["doc_ids_identical_across_geometries"]
+    assert report["speedup_emulated_2x1"] >= 1.6
+    drill = report["failover"]
+    assert set(drill) == _returned_keys(funcs["run_drill"])
+    assert drill["runtime_partial_flagged"] and drill["rejoin_bit_identical"]
+    assert drill["epoch_bumps"] == 2

@@ -337,6 +337,59 @@ def test_bucket_ladder_shapes():
         rt_mod.bucket_sizes(0)
 
 
+def test_bucket_ladder_quantum():
+    """The batch quantum of a 2-D mesh server (DESIGN.md §12): every
+    rung splits into equal per-replica row blocks (the reference's
+    cases, from the port's 1-row minimum)."""
+    assert rt_mod.bucket_sizes(64, quantum=2) == (2, 4, 8, 16, 32, 64)
+    assert rt_mod.bucket_sizes(64, min_bucket=2, quantum=2) == (
+        4, 8, 16, 32, 64)
+    assert rt_mod.bucket_sizes(32, quantum=4) == (4, 8, 16, 32)
+    assert rt_mod.bucket_sizes(32, min_bucket=2, quantum=4) == (8, 16, 32)
+    assert rt_mod.bucket_sizes(4, quantum=4) == (4,)
+    assert rt_mod.bucket_sizes(12, quantum=3) == (3, 6, 12)
+    with pytest.raises(ValueError, match="quantum"):
+        rt_mod.bucket_sizes(30, quantum=4)
+
+
+class _FakeMeshServer:
+    """What the runtime reads of a 4-replica server before warmup."""
+
+    class cfg:
+        max_batch = 32
+        n_namespaces = 3
+
+    n_replicas = 4
+    rungs = ((6, 8),)
+    margin_cuts = ()
+
+
+def test_runtime_quantum_and_row_placement_follow_the_replicas():
+    """Buckets are multiples of the server's replica count, and request
+    i of a batch rides row (i % D)·bucket/D + i // D: injective,
+    round-robin over the replicas' contiguous row blocks; the namespace
+    bitmap follows the rows, and unplaced rows match nothing."""
+    rt = rt_mod.ServingRuntime(_FakeMeshServer())
+    assert rt.n_replicas == 4 and rt.buckets == (4, 8, 16, 32)
+    assert rt.replica_dispatch == {0: 0, 1: 0, 2: 0, 3: 0}
+    assert rt._rows_idx(6, 8) == [0, 2, 4, 6, 1, 3]
+    assert rt._rows_idx(5, 8)[:4] == [0, 2, 4, 6]
+    for n, b in ((1, 4), (7, 8), (32, 32), (9, 16)):
+        place = rt._rows_idx(n, b)
+        assert len(set(place)) == n and max(place) < b
+        # replica r holds rows [r·b/4, (r+1)·b/4): a request per replica
+        # before any gets a second
+        assert [p // (b // 4) for p in place[:4]] == list(range(min(n, 4)))
+    bitmap = rt._bitmap([None, (1,), (0, 2)], 8, rt._rows_idx(3, 8))
+    want = np.zeros((8, 1), np.int64)
+    want[0], want[2], want[4] = 0b111, 0b010, 0b101
+    np.testing.assert_array_equal(bitmap, want)
+    # the 1-D default is the identity
+    plain = rt._bitmap([None, (1,), (0, 2)], 4)
+    np.testing.assert_array_equal(plain[:3, 0], [0b111, 0b010, 0b101])
+    assert not plain[3].any()
+
+
 # --------------------------------------------------------------------------
 # admission control: FIFO under backpressure, fail-fast rejection
 # --------------------------------------------------------------------------

@@ -71,7 +71,7 @@ def report(tmp_path_factory):
 def test_serving_smoke_check_passes_on_cpu(report):
     assert report["bench"] == "serving" and report["smoke"] is True
     assert report["device"] == "cpu"
-    assert sorted(report["layouts"]) == ["mutable", "plain"]
+    assert sorted(report["layouts"]) == ["mutable", "plain", "sharded", "sharded_mutable"]
     for name, rep in report["layouts"].items():
         assert rep["bit_identical"] and rep["bit_identical_filtered"], name
         assert rep["buckets"] == [1, 2, 4, 8, 16, 32]
@@ -80,7 +80,7 @@ def test_serving_smoke_check_passes_on_cpu(report):
         assert rep["qps_runtime"] >= 2 * rep["qps_serial"]
         assert rep["cache"] == {"queries": 32, "hits": 32,
                                 "bit_identical": True}
-        assert rep["mutable"] == (name == "mutable")
+        assert rep["mutable"] == (name in ("mutable", "sharded_mutable"))
 
 
 def test_serving_report_has_the_reference_keys(report):
@@ -92,12 +92,20 @@ def test_serving_report_has_the_reference_keys(report):
         assert set(rep["cache"]) == want["cache"]
 
 
-def test_sharded_layouts_are_not_yet_ported():
+def test_sharded_layouts_serve_through_the_runtime_over_a_mesh(report):
+    """The sharded and sharded mutable layouts (two CPU mesh positions)
+    pass the same contracts as the single-device ones: rows bitwise
+    equal to their server's, one program per bucket of the 1-D ladder."""
     from repro_torch.benchmarks import serving_load
-    args = serving_load.parse_args(["--smoke", "--device", "cpu"])
-    for layout in serving_load.UNPORTED_LAYOUTS:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            serving_load.run_layout(layout, args)
+    assert serving_load.LAYOUTS == ("plain", "sharded", "mutable",
+                                    "sharded_mutable")
+    assert not hasattr(serving_load, "UNPORTED_LAYOUTS")
+    for name in ("sharded", "sharded_mutable"):
+        rep = report["layouts"][name]
+        assert rep["shards"] == 2 and rep["layout"] == name
+        assert rep["bit_identical"] and rep["bit_identical_filtered"]
+        assert rep["warm_compiles"] == {str(b): 1 for b in rep["buckets"]}
+    assert report["layouts"]["plain"]["shards"] == 1
 
 
 @pytest.mark.parametrize("extra", [0, 1, 5])

@@ -19,7 +19,7 @@ against the JAX package:
     the call within its time limit, a mesh never takes more cards than
     exist without ``devices=``; ``search``'s argument checks;
     ``fault.py`` against the reference on the same event sequences; the
-    runtime refuses a mesh server; ``sharded_search.py``'s CPU smoke.
+    runtime over a mesh server; ``sharded_search.py``'s CPU smoke.
 """
 import json
 import os
@@ -526,14 +526,31 @@ def test_fault_matches_the_reference():
     assert issubclass(fault.SimulatedFailure, RuntimeError)
 
 
-def test_the_runtime_refuses_a_mesh_server(indexes):
+def test_the_runtime_serves_a_mesh_server(indexes, corpus):
+    """The runtime over a 2-shard CPU mesh: one eager program per bucket
+    (a card captures one graph per bucket per mesh; the CPU captures
+    nothing), every bucket's rows equal ``query``'s bit for bit."""
     from repro_torch.launch import runtime, serve
     _, tidx = indexes["opq"]
     server = serve.make_server(tidx, serve.ServeConfig(max_batch=4,
                                                        n_shards=2),
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="A4b"):
-        runtime.ServingRuntime(server)
+    assert not runtime.captures(server)
+    qe, qt = corpus.query_emb, corpus.query_tokens
+    with runtime.ServingRuntime(server, runtime.RuntimeConfig(
+            linger_ms=50.0)) as rt:
+        rt.warmup(qe.shape[1], qt.shape[1])
+        assert rt.buckets == (1, 2, 4)
+        assert rt.stats()["captured"] == {1: False, 2: False, 4: False}
+        for n in rt.buckets:
+            got = rt.query(qe[:n], qt[:n], timeout=120)
+            want = server.query(qe[:n], qt[:n])
+            for name in ("doc_ids", "scores", "n_candidates"):
+                np.testing.assert_array_equal(
+                    getattr(got, name), getattr(want, name).numpy())
+            assert got.partial is False
+        rt.assert_one_compile_per_bucket()
+    assert rt.stats()["replica_dispatch"] == {0: 7}
     server.mesh.close()
 
 

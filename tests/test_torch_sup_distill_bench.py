@@ -2,8 +2,8 @@
 repro_torch.benchmarks.sup_distill``) on the CPU: ``--smoke --check
 --device cpu`` exits 0 (contracts (a)-(d): sup recall >= unsup at
 matched cost somewhere, the windowed loss means fall, the index
-checkpoint round trip is bit-identical, the plain and mutable layouts
-agree and the supervised add → delete → compact lifecycle holds),
+checkpoint round trip is bit-identical, the plain, sharded, mutable
+and sharded mutable layouts agree and the supervised add → delete → compact lifecycle holds),
 writes only its ``--out`` file, and its report has the keys of the
 reference's ``benchmarks/sup_distill.py`` report (read from that
 file's dict literals)."""
@@ -100,8 +100,11 @@ def test_sup_distill_smoke_check_passes_on_cpu(report):
     assert report["negative_pool"] == {"topic": 7, "mined": 7,
                                        "in_batch": 4}
     var = report["variants"]
-    assert sorted(var) == ["mutable", "mutable_lifecycle", "plain"]
-    assert var["plain"]["ids_identical"] and var["mutable"]["ids_identical"]
+    assert sorted(var) == ["mutable", "mutable_lifecycle", "plain",
+                           "sharded", "sharded_mutable"]
+    assert all(var[k]["ids_identical"] for k in ("plain", "sharded",
+                                                 "mutable",
+                                                 "sharded_mutable"))
     life = var["mutable_lifecycle"]
     assert life["n_live_after"] == life["expected_live"] == 2500 + 16 - 12
     assert life["compact_equals_scratch"]
@@ -114,16 +117,18 @@ def test_sup_distill_report_has_the_reference_keys(report):
     assert set(report["trajectory"]) == want["trajectory"]
     assert set(report["roundtrip"]) == want["roundtrip"]
     assert set(report["negative_pool"]) == want["negative_pool"]
-    for layout in ("plain", "mutable"):
+    for layout in ("plain", "sharded", "mutable", "sharded_mutable"):
         assert set(report["variants"][layout]) == want["layout"]
     assert set(report["variants"]["mutable_lifecycle"]) == want["lifecycle"]
 
 
-def test_sharded_layouts_are_not_yet_ported():
+def test_sharded_layouts_agree_with_the_plain_supervised_search(report):
+    """The trained selectors drive the sharded and sharded mutable
+    layouts (two CPU mesh positions) to the plain supervised search's
+    doc ids, as the reference's variants stage does."""
     from repro_torch.benchmarks import sup_distill
-    args = sup_distill.parse_args(["--smoke", "--device", "cpu"])
-    assert sup_distill.UNPORTED_LAYOUTS == ("sharded", "sharded_mutable")
-    for layout in sup_distill.UNPORTED_LAYOUTS:
-        with pytest.raises(NotImplementedError,
-                           match="not yet ported.*multi-device"):
-            sup_distill.run_variant(layout, args, {})
+    assert sup_distill.LAYOUTS == ("plain", "sharded", "mutable",
+                                   "sharded_mutable")
+    assert not hasattr(sup_distill, "UNPORTED_LAYOUTS")
+    for layout in ("sharded", "sharded_mutable"):
+        assert report["variants"][layout] == {"ids_identical": True}
