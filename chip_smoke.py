@@ -223,12 +223,34 @@ never prints the final line.  Every phase prints its seconds.
               (every result contract, every geometry captured; the
               emulated (2, 1) gate printed) and ``serving_load.py``'s
               four layouts with every contract;
+ 22. mesh-build  build and training over a mesh (A4b items 4-5), every
+              position on the one card, after 21c: 22a
+              ``kmeans_fit_sharded`` over phase 10's corpus (N 1,048,576,
+              h 768, L 10,000, 15 steps) split in four row blocks (views)
+              on a ``make_shard_mesh(4)`` of the card, as a counted run
+              (one ``assign_argmax`` a position a step): positions bitwise
+              equal, the cost below the random init's and within 1% of
+              single-device ``kmeans_fit`` (both timed), one step from
+              shared centroids against the single-device step (counts
+              exact, sums within 1e-5, near-tie rows judged in float64)
+              and, on 65,536 points, the card's sharded step against the
+              CPU's; 22b four gradient trees of phase 18's configuration
+              (four batches, one a position): ``flat_allreduce`` at S = 4
+              and on a (pod 2, data 2) mesh with ``hierarchical_
+              allreduce``, every position the same bits, within 1e-5 of
+              the summands' magnitudes of the float64 sum and of each
+              other (one leaf on the flat fallback), ``pmean_metrics`` of
+              the losses, ms an all-reduce and one profiled; 50 steps of
+              ``compress_with_ef`` bitwise equal to the CPU; 22c phase
+              18's {params, opt} saved under build/ and
+              ``restore_resharded`` onto the card and split over 2 and 4
+              positions, every leaf reassembled bitwise equal;
 
 then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
 kernel's ``launches`` is read from the counted runs of the paths that
 run it: ``pq_adc_fused`` and ``topk_scores`` from phase 5,
-``sq8_dot_fused`` from 9c, ``assign_argmax`` from phase 10's builds and
-18c, ``flash_attention`` from phase 12 and 18c, ``pq_adc`` from phase
+``sq8_dot_fused`` from 9c, ``assign_argmax`` from phase 10's builds,
+18c and 22a, ``flash_attention`` from phase 12 and 18c, ``pq_adc`` from phase
 14, each plus its launches in phases 19, 20 and 21 (20a-20c's sharded
 runs, not their single-device yardsticks, and 20d's whole benchmark run,
 its index build and single-device baseline searches included; 21a's
@@ -293,7 +315,9 @@ from repro_torch.core import segments  # noqa: E402
 from repro_torch.core import sharded_index as shi  # noqa: E402
 from repro_torch.core import term_selector as ts_mod  # noqa: E402
 from repro_torch.core.codecs import flat as flat_codec  # noqa: E402
+from repro_torch.core import kmeans  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.distributed import collectives  # noqa: E402
 from repro_torch.distributed.fault import StragglerMonitor  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.examples import serve_retrieval  # noqa: E402
@@ -312,6 +336,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch import tune  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.optim import compression  # noqa: E402
 
 # the on-card build (phase 10): N cut from 8.8 M, widths kept
 BUILD_DOCS, BUILD_QUERIES, BUILD_ITERS = 1_048_576, 1_024, 15
@@ -404,6 +429,23 @@ MESH_CKPT = ROOT / "build" / "mesh_ckpt"
 # a full padded batch)
 MESH_RT_SHARDS = 4
 MESH_SERIAL = 64
+# phase 22: build and training over a mesh, every position on the one
+# card.  22a fits KMeans over phase 10's corpus split in KM_SHARDS blocks
+# of rows (views) and checks one step on a KM_CHECK_POINTS-point
+# subsample against the CPU; 22b all-reduces GRAD_POSITIONS gradient
+# trees of phase 18's configuration (timed over ALLREDUCE_REPS calls)
+# and runs EF_STEPS steps of int8 compression; 22c restores phase 18's
+# {params, opt} under build/ (removed after) onto the card and split
+# over RESHARD_SPLITS positions
+KM_SHARDS = 4
+KM_CHECK_POINTS = 65_536
+KM_COST_GAP = 0.01                   # sharded vs single-device cost
+GRAD_POSITIONS = 4
+ALLREDUCE_TOL = 1e-5                 # of Σ|summand|: the adds' order
+ALLREDUCE_REPS = 5
+EF_STEPS = 50
+RESHARD_SPLITS = (2, 4)
+RESHARD_CKPT = ROOT / "build" / "reshard_ckpt"
 # phase 19: the paper benchmarks.  Rows held against the CPU: top-R
 # ids up to swaps within PAPER_TOL, each recall or MRR within its
 # near-tie queries / n_queries + PAPER_FLOAT (the f32 mean's last bits)
@@ -3419,6 +3461,394 @@ def mesh_benches_phase() -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 22: build and training over a mesh
+# --------------------------------------------------------------------------
+
+def check_step(what: str, x, c, a_got, a_want, got: tuple, want: tuple
+               ) -> tuple[int, float]:
+    """One Lloyd step's (sums, counts) ``got`` against ``want``: the
+    assignments ``a_got`` / ``a_want`` equal except near-ties (the two
+    ids' scores ⟨x, c⟩ − ½‖c‖² in float64 within ASSIGN_TOL); ``want``
+    moved by the rows that went to the other twin; then counts exactly
+    equal and sums within rtol = atol = ASSIGN_TOL.  Returns (near-tie
+    rows, max abs sums error)."""
+    sums, counts = (t.double() for t in got)
+    w_sums, w_counts = (t.double() for t in want)
+    diff = (a_got != a_want).nonzero()[:, 0]
+    if len(diff):
+        xd, cd = x[diff].double(), c.double()
+        ig, iw = a_got[diff].long(), a_want[diff].long()
+
+        def score(ids):
+            cj = cd[ids]
+            return (xd * cj).sum(-1) - 0.5 * (cj * cj).sum(-1)
+
+        sg, sw = score(ig), score(iw)
+        if ((sg - sw).abs() > ASSIGN_TOL * (1 + sw.abs())).any():
+            fail(f"{what}: assignments differ beyond near-ties")
+        one = torch.ones(len(diff), dtype=torch.float64, device=x.device)
+        w_counts = w_counts.index_add(0, ig, one).index_add(0, iw, -one)
+        w_sums = w_sums.index_add(0, ig, xd).index_add(0, iw, -xd)
+    if not torch.equal(counts, w_counts):
+        fail(f"{what}: counts differ ({int((counts != w_counts).sum())} "
+             f"clusters)")
+    err = float((sums - w_sums).abs().max())
+    if not torch.allclose(sums, w_sums, rtol=ASSIGN_TOL, atol=ASSIGN_TOL):
+        fail(f"{what}: sums differ beyond rtol = atol = {ASSIGN_TOL} (max "
+             f"abs err {err:.3g})")
+    return len(diff), err
+
+
+def sharded_step_on(mesh, parts: dict, c, axis: str) -> tuple:
+    """One sharded Lloyd step from ``c`` on every position: (the
+    positions' assignments in rank order, concatenated; the psummed
+    (sums, counts), the same bits on every position)."""
+    def body(coord):
+        xl, cl = parts[coord], c.to(parts[coord].device)
+        return (kmeans.assign_blocked(xl, cl),
+                kmeans.sharded_step(xl, cl, N_CLUSTERS, axis,
+                                    pos=mesh.position(coord)))
+
+    outs = mesh.run(body)
+    stats = [o[1] for o in outs.values()]
+    if any(not (torch.equal(s[0], stats[0][0])
+                and torch.equal(s[1], stats[0][1])) for s in stats):
+        fail("a sharded step's statistics differ between positions")
+    order = sorted(outs, key=lambda k: mesh.rank(axis, k))
+    return torch.cat([outs[k][0] for k in order]), stats[0]
+
+
+def sharded_kmeans(dev, seed: int, built: dict) -> int:
+    """22a: ``kmeans_fit_sharded`` over phase 10's corpus split in
+    KM_SHARDS row blocks (views) on positions of the one card, as a
+    counted run (one ``assign_argmax`` a position a step): positions
+    bitwise equal, the cost below the random init's and within
+    KM_COST_GAP of single-device ``kmeans_fit`` (timed beside it); one
+    step from shared centroids against the single-device step, and on a
+    KM_CHECK_POINTS-point subsample against the CPU's sharded step.
+    Returns the counted launches."""
+    emb = built["emb"]
+    mesh = shi.make_shard_mesh(KM_SHARDS, devices=[dev] * KM_SHARDS)
+    axis = mesh.axis_names[0]
+    parts = collectives.Split(mesh, axis).place(emb)
+    if any(p.data_ptr() != emb[mesh.rank(axis, k) * p.shape[0]:].data_ptr()
+           for k, p in parts.items()):
+        fail("22a: the shards are not views of the corpus")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = mesh.run(lambda coord: kmeans.kmeans_fit_sharded(
+        seed, parts[coord], N_CLUSTERS, BUILD_ITERS, axis,
+        pos=mesh.position(coord)))
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    launches = read_counts()["assign_argmax"]
+    if launches != KM_SHARDS * BUILD_ITERS:
+        fail(f"22a launched assign_argmax {launches} times, expected "
+             f"{KM_SHARDS * BUILD_ITERS} (one a position a step)")
+    cs = outs[(0,)]
+    if any(not torch.equal(o, cs) for o in outs.values()):
+        fail("22a: the positions' centroids differ")
+    t0 = time.perf_counter()
+    c1, a1 = kmeans.kmeans_fit(torch.Generator(device=dev).manual_seed(seed),
+                               emb, N_CLUSTERS, BUILD_ITERS)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    cost_s = float(kmeans.kmeans_cost(emb, cs,
+                                      kmeans.assign_blocked(emb, cs)))
+    cost_1 = float(kmeans.kmeans_cost(emb, c1, a1))
+    c0 = emb[:N_CLUSTERS]
+    cost_0 = float(kmeans.kmeans_cost(emb, c0, kmeans.assign_blocked(emb, c0)))
+    log(f"[mesh-build] 22a kmeans_fit_sharded N {BUILD_DOCS} x h {HIDDEN}, "
+        f"L {N_CLUSTERS}, {BUILD_ITERS} steps on {KM_SHARDS} positions of "
+        f"the card ({BUILD_DOCS // KM_SHARDS} rows each): {sharded_s:.2f} s "
+        f"against single-device kmeans_fit {single_s:.2f} s; cost "
+        f"{cost_s:.6f} (single-device {cost_1:.6f}, random init "
+        f"{cost_0:.6f}); {launches} assign_argmax launches; positions "
+        f"bitwise equal")
+    if not cost_s < cost_0:
+        fail(f"22a: cost {cost_s} not below the random init's {cost_0}")
+    if abs(cost_s - cost_1) > KM_COST_GAP * cost_1:
+        fail(f"22a: cost {cost_s} not within {KM_COST_GAP} of "
+             f"single-device {cost_1}")
+    # one step from shared centroids: sharded against single-device
+    a_sh, got = sharded_step_on(mesh, parts, c1, axis)
+    a_one = kmeans.assign_blocked(emb, c1)
+    near, err = check_step("22a step vs single device", emb, c1, a_sh,
+                           a_one, got, kmeans._update(emb, a_one,
+                                                      N_CLUSTERS))
+    log(f"[mesh-build] 22a one step from shared centroids: counts equal to "
+        f"the single-device step's, sums max abs err {err:.3g} (rtol = "
+        f"atol = {ASSIGN_TOL}), {near} near-tie rows")
+    # the card's sharded step against the CPU's on a subsample
+    sub = emb[:KM_CHECK_POINTS]
+    sub_parts = collectives.Split(mesh, axis).place(sub)
+    a_card, got = sharded_step_on(mesh, sub_parts, c1, axis)
+    cpu_mesh = collectives.Mesh(["cpu"] * KM_SHARDS, (axis,))
+    t0 = time.perf_counter()
+    try:
+        a_cpu, want = sharded_step_on(
+            cpu_mesh, collectives.Split(cpu_mesh, axis).place(sub.cpu()),
+            c1.cpu(), axis)
+    finally:
+        cpu_mesh.close()
+    cpu_s = time.perf_counter() - t0
+    near, err = check_step("22a card vs CPU", sub.cpu(), c1.cpu(),
+                           a_card.cpu(), a_cpu, tuple(t.cpu() for t in got),
+                           want)
+    log(f"[mesh-build] 22a the card's sharded step against the CPU's on "
+        f"{KM_CHECK_POINTS} points: counts equal, sums max abs err "
+        f"{err:.3g}, {near} near-tie rows (CPU {cpu_s:.1f} s)")
+    mesh.close()
+    return launches
+
+
+def _tree_close_to_sum(got, parts: list, what: str) -> float:
+    """Every leaf of ``got`` within ALLREDUCE_TOL · Σ|summand| of the
+    float64 sum of the matching leaves of ``parts``; returns the largest
+    error relative to that bound's scale."""
+    worst = 0.0
+    for (path, g), *xs in zip(hi.index_leaves(got),
+                              *(tree_mod.leaves(p) for p in parts)):
+        total = sum(x.double() for x in xs)
+        scale = sum(x.double().abs() for x in xs)
+        err = (g.double() - total).abs()
+        if (err > ALLREDUCE_TOL * scale).any():
+            fail(f"{what}: leaf {path} beyond {ALLREDUCE_TOL} x sum of "
+                 f"magnitudes")
+        worst = max(worst, float((err / scale.clamp_min(1e-30)).max()))
+    return worst
+
+
+def _same_bits(outs: dict, what: str) -> None:
+    first = tree_mod.leaves(next(iter(outs.values())))
+    for o in outs.values():
+        if any(not torch.equal(a, b)
+               for a, b in zip(first, tree_mod.leaves(o))):
+            fail(f"{what}: positions hold different bits")
+
+
+def _timed_ms(fn) -> float:
+    times = []
+    for _ in range(ALLREDUCE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def grad_trees(dev, seed: int, built: dict) -> tuple:
+    """GRAD_POSITIONS gradient trees and losses of phase 18's
+    configuration (d 768, d_ff 3,072, B 32) from its batches 0, 1, …,
+    and the parameters they were taken at."""
+    cfg = sup_train_cfg(seed)
+    enc_cfg = train.encoder_config(cfg, VOCAB)
+    params = _train_params(dev, seed, built, enc_cfg)
+    topic = synthetic.hard_negatives(built["corpus"], cfg.n_negatives,
+                                     seed=seed)
+    batches = train.sup_batches(built["corpus"], cfg, topic,
+                                built["doc_assign"])
+    loss = train.sup_loss(enc_cfg, VOCAB, cfg.refine_weight)
+    grads, losses = [], []
+    for i in range(GRAD_POSITIONS):
+        (value, _), g = optim.value_and_grad(
+            loss, params, tree_mod.to(batches(i), dev), has_aux=True)
+        grads.append(g)
+        losses.append(value.detach())
+    return params, grads, losses
+
+
+def allreduce_phase(dev, params, grads: list, losses: list):
+    """22b: ``flat_allreduce`` of the GRAD_POSITIONS trees (one a
+    position) along "data" at S = 4, and on a (pod 2, data 2) mesh flat
+    and ``hierarchical_allreduce``: the same bits everywhere, flat within
+    ALLREDUCE_TOL · Σ|g| of the float64 sum, hierarchical within that of
+    flat (some leaf's dim 0 odd: the flat fallback); ``pmean_metrics``
+    of the losses; ms an all-reduce on the card; EF_STEPS steps of
+    ``compress_with_ef`` on the card against the CPU bit for bit.
+    Returns the flat sum."""
+    n_leaves = len(tree_mod.leaves(grads[0]))
+    n_params = sum(t.numel() for t in tree_mod.leaves(grads[0]))
+    odd = [p for p, t in hi.index_leaves(grads[0])
+           if t.dim() == 0 or t.shape[0] % 2]
+    if not odd:
+        fail("22b: no leaf takes hierarchical_allreduce's flat fallback")
+    line = collectives.Mesh([dev] * GRAD_POSITIONS, ("data",))
+    pod = collectives.Mesh([[dev] * 2] * 2, ("pod", "data"))
+    try:
+        def flat_body(coord):
+            return collectives.flat_allreduce(grads[coord[0]], "data",
+                                              pos=line.position(coord))
+
+        def pod_body(schedule):
+            def body(coord):
+                pos = pod.position(coord)
+                g = grads[pod.rank(("pod", "data"), coord)]
+                if schedule == "flat":
+                    return collectives.flat_allreduce(g, ("pod", "data"),
+                                                      pos=pos)
+                return collectives.hierarchical_allreduce(g, pos=pos)
+            return body
+
+        flat = line.run(flat_body)
+        _same_bits(flat, "22b flat_allreduce (S 4)")
+        flat0 = flat[(0,)]
+        worst = _tree_close_to_sum(flat0, grads, "22b flat vs float64")
+        pod_flat = pod.run(pod_body("flat"))
+        _same_bits(pod_flat, "22b flat_allreduce (2, 2)")
+        hier = pod.run(pod_body("hier"))
+        _same_bits(hier, "22b hierarchical_allreduce (2, 2)")
+        hier0 = hier[(0, 0)]
+        hw = 0.0
+        for (path, h), f, *xs in zip(hi.index_leaves(hier0),
+                                     tree_mod.leaves(flat0),
+                                     *(tree_mod.leaves(g) for g in grads)):
+            scale = sum(x.double().abs() for x in xs)
+            err = (h.double() - f.double()).abs()
+            if (err > ALLREDUCE_TOL * scale).any():
+                fail(f"22b hierarchical vs flat: leaf {path} beyond "
+                     f"{ALLREDUCE_TOL} x sum of magnitudes")
+            hw = max(hw, float((err / scale.clamp_min(1e-30)).max()))
+        metrics_out = pod.run(lambda coord: collectives.pmean_metrics(
+            {"loss": losses[pod.rank(("pod", "data"), coord)]},
+            ("pod", "data"), pos=pod.position(coord)))
+        _same_bits(metrics_out, "22b pmean_metrics")
+        mean_loss = float(metrics_out[(0, 0)]["loss"])
+        ms = {"flat S 4": _timed_ms(lambda: line.run(flat_body)),
+              "flat (2, 2)": _timed_ms(lambda: pod.run(pod_body("flat"))),
+              "hierarchical (2, 2)": _timed_ms(
+                  lambda: pod.run(pod_body("hier")))}
+        profile_call(lambda: line.run(flat_body),
+                     "one flat all-reduce (S 4 on one card)", top=8)
+    finally:
+        line.close()
+        pod.close()
+    log(f"[mesh-train] 22b {GRAD_POSITIONS} gradient trees of phase 18's "
+        f"configuration ({n_leaves} leaves, {n_params} parameters, "
+        f"{n_params * 4 / 1e6:.1f} MB each; losses "
+        f"{[round(float(v), 6) for v in losses]}): every position the "
+        f"same bits; flat within {ALLREDUCE_TOL} x sum of magnitudes of "
+        f"the float64 sum (worst {worst:.3g}); hierarchical within it of "
+        f"flat (worst {hw:.3g}; flat fallback on {odd}); pmean_metrics "
+        f"loss {mean_loss:.6f} on every position; ms an all-reduce on the "
+        f"one card (the emulated split's cost, median of "
+        f"{ALLREDUCE_REPS}): { {k: round(v, 3) for k, v in ms.items()} }")
+    # int8 compression with error feedback, card against CPU
+    small = [{"term_mlp": g.term_mlp, "layers": g.encoder["layers"],
+              "final_norm": g.encoder["final_norm"]} for g in grads]
+    t0 = time.perf_counter()
+    ef = compression.ef_init(small[0])
+    cpu = [tree_mod.to(g, "cpu") for g in small]
+    ef_cpu = compression.ef_init(cpu[0])
+    n_small = sum(t.numel() for t in tree_mod.leaves(small[0]))
+    for step in range(EF_STEPS):
+        comp, ef = compression.compress_with_ef(small[step % len(small)], ef)
+        comp_cpu, ef_cpu = compression.compress_with_ef(
+            cpu[step % len(cpu)], ef_cpu)
+        got = tree_mod.leaves(compression.decompress(comp))
+        want = tree_mod.leaves(compression.decompress(comp_cpu))
+        if any(not torch.equal(a.cpu(), b) for a, b in zip(got, want)) or any(
+                not torch.equal(a.cpu(), b) for a, b in
+                zip(tree_mod.leaves(ef), tree_mod.leaves(ef_cpu))):
+            fail(f"22b compress_with_ef step {step}: card and CPU differ")
+    log(f"[mesh-train] 22b {EF_STEPS} steps of compress_with_ef over "
+        f"{n_small} parameters (the term MLP and the encoder's layers, "
+        f"without the cluster, embedding and unembedding planes) on the "
+        f"card bitwise equal to the CPU "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return flat0
+
+
+def _placed_leaves(node) -> list:
+    """The leaves of a restored tree in ``tree_mod.leaves`` order, a
+    split leaf ({coord: block}) as one."""
+    if isinstance(node, dict) and node and all(isinstance(k, tuple)
+                                                for k in node):
+        return [node]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return [x for k in node._fields
+                for x in _placed_leaves(getattr(node, k))]
+    if isinstance(node, dict):
+        return [x for k in sorted(node) for x in _placed_leaves(node[k])]
+    return [node] if isinstance(node, torch.Tensor) else []
+
+
+def elastic_restore(dev, params, grads) -> None:
+    """22c: phase 18's {params, opt} (one AdamW step over ``grads``)
+    saved under build/ and ``restore_resharded`` onto the card and split
+    along dim 0 over 2 and then 4 positions of a mesh axis (a leaf whose
+    dim 0 the axis does not divide is placed on the card whole): every
+    leaf, reassembled, bitwise equal to the saved one."""
+    params, opt = optim.adam_update(grads, optim.adam_init(params), params,
+                                    optim.AdamConfig(lr=1e-3))
+    tree = {"params": params, "opt": opt}
+    saved = tree_mod.leaves(tree)
+    shutil.rmtree(RESHARD_CKPT, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        path = ckpt.save(str(RESHARD_CKPT), 1, tree)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ckpt.restore_resharded(path, tree, dev)
+        torch.cuda.synchronize()
+        if any(not torch.equal(a, b)
+               for a, b in zip(saved, tree_mod.leaves(back))):
+            fail("22c: restored onto the card, a leaf differs")
+        done, whole = {"card": time.perf_counter() - t0}, {}
+        del back
+        for n in RESHARD_SPLITS:
+            mesh = collectives.Mesh([dev] * n, ("data",))
+            split = collectives.Split(mesh, "data")
+            t0 = time.perf_counter()
+            back = ckpt.restore_resharded(path, tree, tree_mod.map(
+                lambda t: split if t.dim() and t.shape[0] % n == 0 else dev,
+                tree))
+            torch.cuda.synchronize()
+            placed = _placed_leaves(back)
+            whole[n] = 0
+            if len(placed) != len(saved):
+                fail(f"22c: split over {n}, {len(placed)} leaves restored "
+                     f"of {len(saved)}")
+            for a, b in zip(saved, placed):
+                if isinstance(b, dict):
+                    if not torch.equal(split.join(b), a.cpu()):
+                        fail(f"22c: split over {n}, a leaf reassembles "
+                             f"differently")
+                elif torch.equal(b, a):
+                    whole[n] += 1
+                else:
+                    fail(f"22c: split over {n}, a whole leaf differs")
+            done[f"split {n}"] = time.perf_counter() - t0
+            mesh.close()
+            del back
+    finally:
+        shutil.rmtree(RESHARD_CKPT, ignore_errors=True)
+    log(f"[mesh-train] 22c {{params, opt}} of {len(saved)} leaves saved "
+        f"({save_s:.2f} s) and restored onto the card and split over "
+        f"{RESHARD_SPLITS} positions (leaves placed whole, dim 0 not "
+        f"divided: {whole}): every leaf "
+        f"bitwise equal reassembled; seconds "
+        f"{ {k: round(v, 2) for k, v in done.items()} }")
+
+
+def mesh_build_phase(dev, seed: int, built: dict) -> dict:
+    """Phase 22; returns 22a's counted launches."""
+    with phase("22a sharded KMeans (counted)"):
+        launches = sharded_kmeans(dev, seed, built)
+    torch.cuda.empty_cache()
+    with phase("22b gradient all-reduce and int8 compression"):
+        params, grads, losses = grad_trees(dev, seed, built)
+        reduced = allreduce_phase(dev, params, grads, losses)
+    with phase("22c elastic restore"):
+        elastic_restore(dev, params, reduced)
+    del params, grads, reduced
+    torch.cuda.empty_cache()
+    return {"assign_argmax": launches}
+
+
 def run_kernel_bench() -> dict:
     """Phase 14: the port's ``kernel_bench`` at its full shapes with
     ``--check`` semantics, as a counted run: the main path of ``pq_adc``
@@ -3622,13 +4052,16 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
     with phase("21c mesh_serving and serving_load (counted)"):
         _add(mesh_rt_launches, mesh_benches_phase())
+    with phase("22 build and training over a mesh"):
+        mesh_build_launches = mesh_build_phase(dev, args.seed, built)
 
     # the paths' counted runs: the builds and 18c's KMeans for
     # assign_argmax, the sup build and 18c's steps for flash_attention
     launches = dict(opq_launches,
                     sq8_dot_fused=refine_launches["sq8_dot_fused"],
                     assign_argmax=sum(built["assign_launches"].values())
-                    + train_launches["assign_argmax"],
+                    + train_launches["assign_argmax"]
+                    + mesh_build_launches["assign_argmax"],
                     flash_attention=sup_launches["flash_attention"]
                     + train_launches["flash_attention"],
                     pq_adc=bench_launches["pq_adc"])

@@ -1,7 +1,8 @@
 """Index checkpoints (port of ``repro/checkpoint/checkpoint.py``:
 ``save``, ``load_manifest``, ``restore``, ``save_index``,
-``restore_index``, ``save_mutable``, and the read side of
-``restore_mutable`` as :func:`load_mutable`).
+``restore_index``, ``save_mutable``, ``restore_mutable`` (and its read
+side by path alone, :func:`load_mutable`) and ``restore_resharded``, the
+elastic restore onto a mesh's devices).
 
 A ``save_index`` directory holds ``manifest.json`` (leaf paths, shapes,
 dtypes, ``extra.codec``, ``extra.filtered`` and, on a tuned index,
@@ -64,6 +65,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as dev_mod
+from repro_torch import tree as tree_mod
 from repro_torch.core import codecs
 from repro_torch.core.cluster_selector import ClusterSelector
 from repro_torch.core.codecs.flat import FlatCodec
@@ -76,6 +78,7 @@ from repro_torch.core.exec import frontier
 from repro_torch.core.hybrid_index import HybridIndex
 from repro_torch.core.inverted_lists import PaddedLists
 from repro_torch.core.term_selector import TermMLP, TermSelector
+from repro_torch.distributed import collectives
 from repro_torch.models.transformer import TransformerConfig
 
 _PLANE = re.compile(r"^\.doc_planes\['([^']+)'\]$")
@@ -259,6 +262,37 @@ def restore(path: str, like):
     return _rebuild(like, _read_by_index(path, like))
 
 
+def _place(node, where):
+    """``node`` (a tree of tensors) under the placement tree ``where``:
+    ``None`` leaves a subtree where it is, a device moves its tensors
+    there, a :class:`~repro_torch.distributed.collectives.Split` turns
+    each tensor into {coord: block on that position's device}; a dict or
+    NamedTuple places each field under its own placement."""
+    if where is None:
+        return node
+    if isinstance(where, collectives.Split):
+        return tree_mod.map(where.place, node)
+    if isinstance(where, torch.device):
+        return tree_mod.map(lambda t: t.to(where), node)
+    if isinstance(where, tuple) and hasattr(where, "_fields"):
+        return type(node)(*(_place(getattr(node, k), getattr(where, k))
+                            for k in node._fields))
+    if isinstance(where, dict):
+        return {k: _place(node[k], where[k]) for k in node}
+    raise TypeError(f"not a placement: {where!r}")
+
+
+def restore_resharded(path: str, like, placements):
+    """Restore and place each leaf under ``placements`` (a tree shaped
+    like ``like``, or a prefix of it): ``None``, a device, or a
+    :class:`~repro_torch.distributed.collectives.Split` of dim 0 over
+    mesh axes, which gives {coord: block} with every block on its
+    position's device.  The elastic path: a checkpoint saved under one
+    device count restores under another.  Stands in for the reference's
+    ``device_put`` under ``NamedSharding``s."""
+    return _place(restore(path, like), placements)
+
+
 def save_index(directory: str, step: int, index,
                extra: Optional[dict] = None) -> str:
     """Checkpoint a built index (a :class:`HybridIndex` or a
@@ -312,6 +346,40 @@ def save_mutable(directory: str, step: int, mut,
     extra["mutable"] = mut.state_extra()
     tree = dict(mut.state_tree(), key=key_data(mut.seed))
     return save(directory, step, tree, extra=extra)
+
+
+def restore_mutable(path: str, like):
+    """Restore a mutable-index checkpoint (the reference's or the
+    port's) into a fresh instance shaped like ``like`` (same corpus,
+    delta and list shapes, leaf for leaf), on ``like``'s device with its
+    selectors, refusing a codec other than ``like``'s and a checkpoint
+    with no ``mutable`` entry with the reference's messages.  The
+    restored index searches and mutates as the saved one; ``compact()``
+    replays the seed the port recorded, else ``like``'s."""
+    manifest = load_manifest(path)
+    extra = manifest.get("extra", {})
+    saved = extra.get("codec")
+    if saved is not None and saved != like.base.codec:
+        raise ValueError(
+            f"checkpoint at {path} was built with codec {saved!r} but "
+            f"the restore target uses {like.base.codec!r}")
+    if "mutable" not in extra:
+        raise ValueError(
+            f"checkpoint at {path} is not a mutable-index checkpoint "
+            "(no 'mutable' manifest entry); use restore_index")
+    want = hi.index_leaves(dict(like.state_tree(), key=key_data(like.seed)))
+    got = manifest["leaves"]
+    if len(got) != len(want):
+        raise ValueError(f"leaf count mismatch: checkpoint has {len(got)}, "
+                         f"target has {len(want)}")
+    for g, (p, leaf) in zip(got, want):
+        if tuple(g["shape"]) != tuple(leaf.shape):
+            raise ValueError(f"shape mismatch at {p}: {tuple(g['shape'])} "
+                             f"vs {tuple(leaf.shape)}")
+    return load_mutable(path, seed=int(extra["mutable"].get("seed",
+                                                            like.seed)),
+                        codec=like.base.codec, selectors=like.selectors,
+                        device=like.device)
 
 
 def _read_leaves(path: str, manifest: dict) -> dict:

@@ -3,7 +3,7 @@ codecs (port of ``repro/core/codecs/pq.py``: ``PQCodebook``,
 ``OPQCodebook``, ``split_fragments``, ``train_pq``, ``pq_encode``,
 ``pq_decode``, ``reconstruction_mse``, ``train_opq``, ``opq_encode``,
 ``opq_reconstruction_mse``, ``adc_lut``, ``opq_adc_lut``, ``adc_score``,
-``_adc_scorer``, ``PQCodec`` and ``OPQCodec``).
+``pq_full_scores``, ``_adc_scorer``, ``PQCodec`` and ``OPQCodec``).
 
 PQ splits an h-dim embedding into m fragments and quantizes each to one
 of k codewords: m uint8 codes per document for k ≤ 256.  Training fits
@@ -155,8 +155,20 @@ def opq_adc_lut(opq: OPQCodebook, queries: torch.Tensor) -> torch.Tensor:
         lambda q: q @ opq.rotation, queries.float()))
 
 
-#: plain ADC over gathered (B, C, m) codes — the kernel's yardstick
-adc_score = adc_ref.pq_adc
+def adc_score(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Score candidates against per-query LUTs, plain torch (the
+    reference's jnp oracle, and the kernels' yardstick): lut (B, m, k);
+    codes (B, C, m) int → (B, C) f32, one flat gather over each query's
+    (m·k) LUT row."""
+    return adc_ref.pq_adc(lut, codes)
+
+
+def pq_full_scores(codebook: PQCodebook, queries: torch.Tensor,
+                   codes: torch.Tensor) -> torch.Tensor:
+    """Exhaustive PQ scoring of a whole corpus: (B, h) × (n, m) →
+    (B, n); builds a (B, n, m) index plane, so for small n."""
+    lut = adc_lut(codebook, queries)
+    return adc_score(lut, codes[None].expand(lut.shape[0], -1, -1))
 
 
 def _pack_codes(codes: torch.Tensor, k: int) -> torch.Tensor:

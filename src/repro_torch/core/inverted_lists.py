@@ -126,3 +126,8 @@ def dedup_mask(candidates: torch.Tensor) -> torch.Tensor:
     is_dup[:, 1:] = sorted_ids[:, 1:] == sorted_ids[:, :-1]
     keep_sorted = ~is_dup & (sorted_ids != PAD_DOC)
     return torch.empty_like(keep_sorted).scatter_(-1, order, keep_sorted)
+
+
+def list_size_histogram(lists: PaddedLists) -> np.ndarray:
+    """Each list's length, on the host."""
+    return lists.lengths.cpu().numpy()

@@ -1,6 +1,6 @@
-"""KMeans, single device (port of ``repro/core/kmeans.py``:
-``assign_blocked``, ``_update``, ``_reseed_empty``, ``kmeans_fit`` and
-``kmeans_cost``; ``kmeans_fit_sharded`` comes with multi-device).
+"""KMeans (port of ``repro/core/kmeans.py``: ``assign_blocked``,
+``_update``, ``_reseed_empty``, ``kmeans_fit``, ``kmeans_fit_sharded``
+and ``kmeans_cost``).
 
 The substrate of the cluster selector (paper §4.1: cluster embeddings
 from KMeans over all document embeddings) and of PQ training (one
@@ -16,6 +16,12 @@ in the reference (``assign_blocked``, plain jnp there).  TF32 stays off
 
 Initialisation and reseeding draw from an explicit ``torch.Generator``
 on the points' device; they cannot match ``jax.random`` bit for bit.
+
+:func:`kmeans_fit_sharded` is the SPMD body over points split across
+mesh positions (:class:`repro_torch.distributed.collectives.Position`):
+each Lloyd step assigns the position's own rows (one ``assign_argmax``
+launch a position on the card) and psums the (L, h) sums and (L,)
+counts, the only traffic between positions.
 """
 from __future__ import annotations
 
@@ -159,6 +165,50 @@ def kmeans_fit(generator: torch.Generator, x: torch.Tensor, n_clusters: int,
                     counts, xb)
     a = _assign(xb, c, block)
     return (c, a) if x.dim() == 3 else (c[0], a[0])
+
+
+def sharded_step(x_local: torch.Tensor, centroids: torch.Tensor,
+                 n_clusters: int, axis_names, block: int = 4096, *, pos
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One Lloyd step's statistics over points split across ``pos``'s
+    mesh: this position's :func:`assign_blocked` and :func:`_update`,
+    psummed over ``axis_names`` in rank order → ((L, h) sums, (L,)
+    counts), the same bits on every position."""
+    sums, counts = _update(x_local,
+                           assign_blocked(x_local, centroids, block),
+                           n_clusters)
+    return pos.psum(sums, axis_names), pos.psum(counts, axis_names)
+
+
+def kmeans_fit_sharded(seed: int, x_local: torch.Tensor, n_clusters: int,
+                       n_iters: int = 20, axis_names=("data",),
+                       block: int = 4096, *, pos) -> torch.Tensor:
+    """SPMD KMeans body: call inside a
+    :meth:`~repro_torch.distributed.collectives.Mesh.run` body with this
+    position's points (n_local, h) and its ``pos``
+    (``mesh.position(coord)``).  Every position proposes ``n_clusters``
+    of its own points at the same indices and the pmean of the proposals
+    is the start; each step psums the local sums and counts, divides,
+    reseeds empty clusters from local points at the same indices, and
+    pmeans, so every position returns the same (L, h) f32 centroids bit
+    for bit.
+
+    The reference draws from one key that every device holds.  Here each
+    position draws from a generator of its own, seeded with ``seed`` on
+    its points' device, so the positions' draws agree as the shared key's
+    do (one generator shared by the worker threads would race)."""
+    n_local = x_local.shape[0]
+    gen = torch.Generator(device=x_local.device).manual_seed(seed)
+    idx = torch.randint(0, n_local, (n_clusters,), generator=gen,
+                        device=x_local.device)
+    c = pos.pmean(x_local[idx].float(), axis_names)
+    for _ in range(n_iters):
+        sums, counts = sharded_step(x_local, c, n_clusters, axis_names,
+                                    block, pos=pos)
+        new = sums / torch.clamp(counts, min=1.0)[:, None]
+        # keep the positions identical after the local reseed
+        c = pos.pmean(_reseed_empty(gen, new, counts, x_local), axis_names)
+    return c
 
 
 def kmeans_cost(x: torch.Tensor, centroids: torch.Tensor,

@@ -1,1 +1,2 @@
-"""Data (port of ``repro/data``: the synthetic retrieval corpus)."""
+"""Data (port of ``repro/data``: the synthetic retrieval corpus and the
+sharded pipeline, ``pipeline.py``)."""

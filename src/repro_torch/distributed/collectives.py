@@ -1,6 +1,8 @@
 """The in-process device mesh and its collectives (port of
-``repro/distributed/collectives.py``: ``gather_topk``; the mesh stands in
-for the reference's ``jax.sharding.Mesh`` and ``shard_map``).
+``repro/distributed/collectives.py``: ``flat_allreduce``,
+``hierarchical_allreduce``, ``pmean_metrics`` and ``gather_topk``; the
+mesh stands in for the reference's ``jax.sharding.Mesh`` and
+``shard_map``).
 
 The reference is single-controller: one process calls a search, and
 ``shard_map`` runs the same body on every device of the mesh, where it
@@ -12,9 +14,12 @@ kept.  Several positions may share one device (``["cuda:0"] * 4``
 places four on one card, as the reference emulates devices on a CPU);
 a position never moves to another device.
 
-A :class:`Group` joins the positions that differ only along one axis
-and gives them ``all_gather`` and ``psum``.  Both meet at a barrier,
-where each position posts its tensors and reads the others'.  When the
+A :class:`Group` joins the positions that differ only along a set of
+axes (one axis, or several, as the reference's ``psum(x, ("data",
+"pod"))``) and gives them ``all_gather``, ``psum`` and ``psum_scatter``.
+A group's ranks run row-major over its axes in the mesh's axis order,
+whatever order a caller names them in.  Each collective meets at a
+barrier, where each position posts its tensors and reads the others'.  When the
 whole group is on one card the streams are ordered by CUDA events (a
 reader's stream waits for the event each poster recorded) and the host
 never waits for the card; a reader ties what it read to its own stream
@@ -24,8 +29,9 @@ stream before it posts and after it reads, and copies what it reads
 onto its own device: that is the CPU's path, and on a card the path of
 a group that spans several cards (``test_torch_cuda.py``'s
 ``across_cards`` tests, on four H100s).  Every position meets the others once
-more before anyone may post again.  ``psum`` adds in position order, so
-every position holds the same bits.
+more before anyone may post again.  ``psum`` adds in rank order, so
+every position holds the same bits; ``psum_scatter`` gives rank r block
+r of that sum (the same adds, on block r alone).
 
 :meth:`Mesh.run` forks the positions' streams from the caller's with
 an event.  On a mesh whose positions all share one card it also joins
@@ -45,13 +51,21 @@ fails the call.  The caller waits for the positions' results no longer
 than twice that at a time, so a position that stalls anywhere else
 fails the call too, and closes the mesh.
 
-``flat_allreduce``, ``hierarchical_allreduce`` and ``pmean_metrics``
-(the training mesh's gradient all-reduce) come with the build and
-training half of the multi-device slice (ROADMAP.md A4b), as does a
-``torch.distributed`` group for hosts with several cards.
+Inside a :meth:`Mesh.run` body, :meth:`Mesh.position` gives a
+:class:`Position`: the reference's named-axis collectives (``psum``,
+``pmean``, tiled ``psum_scatter`` and ``all_gather``) at that position,
+over one axis or a tuple of them.  The training mesh's gradient
+all-reduce (:func:`flat_allreduce`, :func:`hierarchical_allreduce`,
+:func:`pmean_metrics`) and the sharded KMeans
+(:func:`repro_torch.core.kmeans.kmeans_fit_sharded`) take one.
+:class:`Split` places a leading axis over mesh positions (the
+reference's ``NamedSharding`` of dim 0), for the data loader and the
+elastic restore.
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import queue
 import threading
 import weakref
@@ -61,6 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as dev_mod
+from repro_torch import tree as tree_mod
 
 #: seconds a position waits at a collective for the others (a mesh
 #: reads it when it is built)
@@ -106,21 +121,34 @@ class Group:
         self._barrier.wait()
         return out
 
-    def all_gather(self, rank: int, xs: Sequence[torch.Tensor]) -> tuple:
-        """Each of ``xs`` stacked over the ranks: (size, ...) tensors on
-        this rank's device, rank order."""
+    def all_gather(self, rank: int, xs: Sequence[torch.Tensor],
+                   tiled: bool = False) -> tuple:
+        """Each of ``xs`` over the ranks on this rank's device, rank
+        order: stacked into (size, ...) tensors, or with ``tiled``
+        concatenated along dim 0 (``jax.lax.all_gather(..., tiled=True)``)."""
+        join = torch.cat if tiled else torch.stack
         return self._exchange(rank, tuple(xs), lambda parts: tuple(
-            torch.stack(col) for col in zip(*parts)))
+            join(col) for col in zip(*parts)))
 
     def psum(self, rank: int, x: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``x``, added in rank order
         (((x₀ + x₁) + x₂) + …), the same bits on every rank."""
-        def add(parts):
-            acc = parts[0][0]
-            for p in parts[1:]:
-                acc = acc + p[0]
-            return acc.clone() if len(parts) == 1 else acc
-        return self._exchange(rank, (x,), add)
+        return self._exchange(rank, (x,), lambda parts: _add(
+            [p[0] for p in parts]))
+
+    def psum_scatter(self, rank: int, x: torch.Tensor) -> torch.Tensor:
+        """Block ``rank`` of the rank-order sum of every rank's ``x``,
+        split along dim 0 into ``size`` equal blocks
+        (``jax.lax.psum_scatter(..., scatter_dimension=0, tiled=True)``):
+        the same bits as that block of :meth:`psum`."""
+        if x.dim() == 0 or x.shape[0] % self.size:
+            raise ValueError(f"psum_scatter over {self.size} ranks needs "
+                             f"dim 0 a multiple of {self.size}, got shape "
+                             f"{tuple(x.shape)}")
+        block = x.shape[0] // self.size
+        lo = rank * block
+        return self._exchange(rank, (x,), lambda parts: _add(
+            [p[0][lo:lo + block] for p in parts]))
 
     def abort(self) -> None:
         self._barrier.abort()
@@ -128,6 +156,14 @@ class Group:
     def reset(self) -> None:
         self._slots = [None] * self.size
         self._barrier.reset()
+
+
+def _add(xs: list) -> torch.Tensor:
+    """((x₀ + x₁) + x₂) + …, a new tensor."""
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = acc + x
+    return acc.clone() if len(xs) == 1 else acc
 
 
 def gather_topk(scores: torch.Tensor, ids: torch.Tensor, shard
@@ -274,15 +310,17 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, grid.shape))
         self.timeout = TIMEOUT_S
+        # a group per set of axes and per coordinate along the others
         self._groups: dict = {}
-        for ax, name in enumerate(self.axis_names):
-            for coord in np.ndindex(grid.shape):
-                key = (name,) + coord[:ax] + coord[ax + 1:]
-                if key not in self._groups:
-                    line = {grid[coord[:ax] + (i,) + coord[ax + 1:]]
-                            for i in range(grid.shape[ax])}
-                    self._groups[key] = Group(grid.shape[ax],
-                                              one_card=len(line) == 1)
+        for r in range(1, grid.ndim + 1):
+            for axes in itertools.combinations(range(grid.ndim), r):
+                for coord in np.ndindex(grid.shape):
+                    key = self._group_key(axes, coord)
+                    if key not in self._groups:
+                        line = {grid[m] for m in self._members(axes, coord)}
+                        self._groups[key] = Group(
+                            int(np.prod([grid.shape[a] for a in axes])),
+                            one_card=len(line) == 1)
         self._lock = threading.Lock()
         self._queues: dict = {}
         groups = list(self._groups.values())
@@ -321,11 +359,52 @@ class Mesh:
                              f"(axes: {self.axis_names})")
         return self.axis_names.index(axis_name)
 
-    def group(self, axis_name: str, coord: tuple) -> Group:
-        """The group of ``coord`` along ``axis_name``: the positions that
-        share every other coordinate with it."""
-        ax = self.axis_index(axis_name)
-        return self._groups[(axis_name,) + coord[:ax] + coord[ax + 1:]]
+    def _axes(self, axes) -> tuple:
+        """Axis numbers of an axis name or a tuple of them, in mesh
+        order."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        if not names or len(set(names)) != len(names):
+            raise ValueError(f"axes {axes!r}: name each axis once")
+        return tuple(sorted(self.axis_index(n) for n in names))
+
+    def _group_key(self, axes: tuple, coord: tuple) -> tuple:
+        return (axes,) + tuple(c for a, c in enumerate(coord)
+                               if a not in axes)
+
+    def _members(self, axes: tuple, coord: tuple) -> list:
+        """The positions of ``coord``'s group over ``axes``, rank order
+        (row-major over ``axes``)."""
+        out = []
+        for idx in np.ndindex(*(self.devices.shape[a] for a in axes)):
+            m = list(coord)
+            for a, i in zip(axes, idx):
+                m[a] = i
+            out.append(tuple(m))
+        return out
+
+    def group(self, axes, coord: tuple) -> Group:
+        """The group of ``coord`` over ``axes`` (an axis name or a tuple
+        of them): the positions that share every other coordinate with
+        it."""
+        return self._groups[self._group_key(self._axes(axes), coord)]
+
+    def rank(self, axes, coord: tuple) -> int:
+        """``coord``'s rank in its group over ``axes``: row-major over
+        those axes in mesh order (one axis: its index there)."""
+        r = 0
+        for a in self._axes(axes):
+            r = r * self.devices.shape[a] + coord[a]
+        return r
+
+    def axis_size(self, axes) -> int:
+        """Positions in a group over ``axes``."""
+        return int(np.prod([self.devices.shape[a]
+                            for a in self._axes(axes)]))
+
+    def position(self, coord: tuple) -> "Position":
+        """The collectives of position ``coord``, for a :meth:`run`
+        body."""
+        return Position(self, tuple(coord))
 
     def run(self, fn: Callable[[tuple], Any]) -> dict:
         """``fn(coord)`` on every position at once, each in its worker
@@ -402,3 +481,118 @@ class Mesh:
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, devices="
                 f"{[str(d) for d in self.devices.flat]})")
+
+
+# --------------------------------------------------------------------------
+# a position's named-axis collectives, and the gradient all-reduce
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Position:
+    """One position of a :class:`Mesh` inside a :meth:`Mesh.run` body:
+    the reference's named-axis collectives there.  ``axes`` is an axis
+    name or a tuple of them; a tuple is one group whose ranks run
+    row-major over its axes in mesh order, so a psum over two axes adds
+    every position's tensor in that one rank order."""
+    mesh: Mesh
+    coord: tuple
+
+    def axis_size(self, axes) -> int:
+        return self.mesh.axis_size(axes)
+
+    def axis_index(self, axes) -> int:
+        return self.mesh.rank(axes, self.coord)
+
+    def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        return self.mesh.group(axes, self.coord).psum(
+            self.axis_index(axes), x)
+
+    def pmean(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """:meth:`psum` divided by the group's size, as ``jax.lax.pmean``
+        (by a tensor: CUDA multiplies by the reciprocal of a Python
+        scalar divisor, which would round otherwise than the CPU)."""
+        total = self.psum(x, axes)
+        return total / torch.full(
+            (), self.axis_size(axes), device=total.device,
+            dtype=total.dtype if total.is_floating_point() else None)
+
+    def psum_scatter(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Tiled along dim 0: this position's block of the sum."""
+        return self.mesh.group(axes, self.coord).psum_scatter(
+            self.axis_index(axes), x)
+
+    def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Tiled along dim 0: every rank's ``x`` concatenated."""
+        return self.mesh.group(axes, self.coord).all_gather(
+            self.axis_index(axes), (x,), tiled=True)[0]
+
+
+def flat_allreduce(grads, axis_names, *, pos: Position):
+    """Every leaf of ``grads`` (a tree of tensors) summed over
+    ``axis_names`` in one group, in its rank order."""
+    return tree_mod.map(lambda g: pos.psum(g, axis_names), grads)
+
+
+def hierarchical_allreduce(grads, data_axis: str = "data",
+                           pod_axis: str = "pod", *, pos: Position):
+    """reduce_scatter(data) → psum(pod) → all_gather(data), leafwise:
+    the bandwidth-optimal schedule at pod scale, which moves 1/|data| of
+    the bytes across pods.  Position (p, d) adds block d over ``data``
+    (rank order), then adds the pods' blocks (pod order), and every
+    position gathers the same blocks, so every position holds the same
+    bits; they differ from :func:`flat_allreduce`'s in the order of the
+    adds only.  A leaf with ``ndim == 0`` or a dim 0 that ``|data|``
+    does not divide takes the flat psum over both axes."""
+    data_size = pos.axis_size(data_axis)
+
+    def one(g):
+        if g.dim() == 0 or g.shape[0] % data_size != 0:
+            return pos.psum(g, (data_axis, pod_axis))
+        part = pos.psum(pos.psum_scatter(g, data_axis), pod_axis)
+        return pos.all_gather(part, data_axis)
+
+    return tree_mod.map(one, grads)
+
+
+def pmean_metrics(metrics, axis_names, *, pos: Position):
+    """Every leaf of ``metrics`` (tensors, 0-d for scalars) averaged over
+    ``axis_names``: the same bits on every position."""
+    return tree_mod.map(lambda m: pos.pmean(m, axis_names), metrics)
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """Dim 0 of a tensor split in equal blocks over ``axes`` of ``mesh``
+    (an axis name or a tuple of them, blocks in the group's rank
+    order): the reference's ``NamedSharding`` with ``P(axes)`` on the
+    leading axis.  Positions that differ only along other axes hold the
+    same block."""
+    mesh: Mesh
+    axes: Any = "data"
+
+    def place(self, x) -> dict:
+        """{coord: this position's block on its device} for every
+        position; a block of a tensor already on that device is a view.
+        Raises unless the group's size divides dim 0."""
+        n = self.mesh.axis_size(self.axes)
+        rows = x.shape[0] if x.ndim else 0
+        if x.ndim == 0 or rows % n:
+            raise ValueError(f"cannot split shape {tuple(x.shape)} over "
+                             f"{n} positions of {self.axes!r}")
+        per = rows // n
+        out = {}
+        for coord in self.mesh.positions():
+            r = self.mesh.rank(self.axes, coord)
+            block = x[r * per:(r + 1) * per]
+            if isinstance(block, np.ndarray):
+                block = torch.from_numpy(np.ascontiguousarray(block))
+            out[coord] = block.to(self.mesh.devices[coord])
+        return out
+
+    def join(self, pieces: dict) -> torch.Tensor:
+        """The tensor :meth:`place` split, on the host: one block of each
+        rank, rank order."""
+        first = {}
+        for coord, t in pieces.items():
+            first.setdefault(self.mesh.rank(self.axes, coord), t)
+        return torch.cat([first[r].cpu() for r in sorted(first)])

@@ -2,6 +2,10 @@
 ``make_serving_mesh``).
 
 A function, not a module constant, so importing touches no device.
+The training mesh's (pod, data) axes need no constructor of their own:
+a :class:`repro_torch.distributed.collectives.Mesh` over any grid of
+devices with those axis names runs the gradient all-reduce
+(``collectives.hierarchical_allreduce``) and the sharded KMeans.
 ``make_production_mesh`` and ``make_host_mesh`` (the TPU pod's (16, 16)
 and (2, 16, 16) meshes, which only the dry-run uses) come with the
 dry-run family (ROADMAP.md A6).

@@ -1,6 +1,7 @@
-"""Optimisation (port of ``repro/optim``: AdamW, the schedules and the
-gradient tools; ``compression.py``, which serves cross-pod gradient
-traffic, comes with ROADMAP.md A4b)."""
+"""Optimisation (port of ``repro/optim``: AdamW, the schedules, the
+gradient tools and the int8 gradient compression with error feedback
+that serves cross-pod gradient traffic)."""
+from repro_torch.optim import compression
 from repro_torch.optim.adam import (AdamConfig, AdamState, adam_init,
                                     adam_update)
 from repro_torch.optim.grad import (accumulate_grads, clip_by_global_norm,
@@ -8,7 +9,7 @@ from repro_torch.optim.grad import (accumulate_grads, clip_by_global_norm,
 from repro_torch.optim.schedule import (constant, cosine_decay,
                                         linear_warmup, warmup_cosine)
 
-__all__ = ["AdamConfig", "AdamState", "adam_init", "adam_update",
-           "accumulate_grads", "clip_by_global_norm", "global_norm",
+__all__ = ["compression", "AdamConfig", "AdamState", "adam_init",
+           "adam_update", "accumulate_grads", "clip_by_global_norm", "global_norm",
            "value_and_grad", "constant", "cosine_decay", "linear_warmup",
            "warmup_cosine"]

@@ -36,7 +36,12 @@ bit, with every replica dispatched and every row of a degraded mesh
 mutable search and its graphs follow add/delete without a capture.  On
 a host with several cards, one position a card (groups that span cards)
 gives the same bits, and the runtime runs such a mesh eagerly; those
-tests skip on a host with one.
+tests skip on a host with one.  The training mesh's collectives on four
+positions of the card (flat and hierarchical all-reduce, tiled
+psum_scatter / all_gather, pmean_metrics) give the CPU's bits on every
+position, captured in a CUDA graph too; the sharded KMeans agrees on
+every position; int8 compression and a three-way pmean equal the CPU's
+bit for bit.
 """
 from typing import NamedTuple
 
@@ -1466,3 +1471,149 @@ def test_runtime_over_a_mesh_across_cards_runs_eagerly(rt_indexes):
                            srv.query(c.query_emb[:b], c.query_tokens[:b]))
         rt.assert_one_compile_per_bucket()
     srv.mesh.close()
+
+
+# --------------------------------------------------------------------------
+# build and training over a mesh: the all-reduce and the sharded KMeans
+# --------------------------------------------------------------------------
+
+def _allreduce_body(mesh, inputs):
+    """Every collective of the training mesh at one position of a (pod 2,
+    data 2) mesh: flat and hierarchical all-reduce, tiled psum_scatter
+    and all_gather, pmean_metrics."""
+    from repro_torch.distributed import collectives
+
+    def body(coord):
+        pos = mesh.position(coord)
+        t = inputs[mesh.rank(("pod", "data"), coord)]
+        part = pos.psum_scatter(t["w"], "data")
+        return {"flat": collectives.flat_allreduce(t, ("pod", "data"),
+                                                   pos=pos),
+                "hier": collectives.hierarchical_allreduce(t, pos=pos),
+                "scatter": part, "gather": pos.all_gather(part, "data"),
+                "mean": collectives.pmean_metrics({"m": t["b"][0]},
+                                                  ("pod", "data"), pos=pos)}
+    return body
+
+
+def _grad_inputs(seed: int, dev) -> list:
+    rng = np.random.default_rng(seed)
+    return [{"w": torch.from_numpy(rng.standard_normal((16, 8)).astype(
+                 np.float32)).to(dev),
+             "b": torch.from_numpy(rng.standard_normal(5).astype(
+                 np.float32)).to(dev)} for _ in range(4)]
+
+
+def test_allreduce_on_one_card_equals_the_cpu_and_replays(cuda):
+    """Four positions of a (2, 2) mesh on the card: flat and hierarchical
+    all-reduce, the tiled collectives and pmean_metrics give every
+    position the bits of the same run on CPU positions (the same IEEE
+    adds in the same order); captured in a CUDA graph around
+    ``Mesh.run``, a replay on new inputs equals an eager run on them."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.distributed import collectives
+    cpu_mesh = collectives.Mesh([["cpu"] * 2] * 2, ("pod", "data"))
+    mesh = collectives.Mesh([[cuda] * 2] * 2, ("pod", "data"))
+    assert mesh.one_card
+    want = cpu_mesh.run(_allreduce_body(cpu_mesh, _grad_inputs(0, "cpu")))
+    static = _grad_inputs(0, cuda)
+    body = _allreduce_body(mesh, static)
+    got = mesh.run(body)
+    torch.cuda.synchronize()
+    for coord in mesh.positions():
+        for a, b in zip(tree_mod.leaves(got[coord]),
+                        tree_mod.leaves(want[coord])):
+            assert torch.equal(a.cpu(), b)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        mesh.run(body)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = mesh.run(body)
+    fresh = _grad_inputs(1, cuda)
+    for s, f in zip(static, fresh):
+        for k in s:
+            s[k].copy_(f[k])
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = mesh.run(_allreduce_body(mesh, fresh))
+    torch.cuda.synchronize()
+    for coord in mesh.positions():
+        for a, b in zip(tree_mod.leaves(captured[coord]),
+                        tree_mod.leaves(eager[coord])):
+            assert torch.equal(a, b)
+    mesh.close()
+    cpu_mesh.close()
+
+
+def test_kmeans_fit_sharded_on_the_card_agrees_on_every_position(cuda):
+    """Four positions of the card over 4 × 2,048 points: one
+    ``assign_argmax`` launch a position a step, every position the same
+    centroids bit for bit, the cost below the random init's; one step
+    from shared centroids: the card's psummed counts equal the CPU's."""
+    from repro_torch.core import kmeans
+    from repro_torch.distributed import collectives
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((8192, 32), generator=gen, device=cuda)
+    mesh = collectives.Mesh([cuda] * 4, ("data",))
+    parts = collectives.Split(mesh, "data").place(x)
+    before = at_ops.assign_launches
+    outs = mesh.run(lambda coord: kmeans.kmeans_fit_sharded(
+        3, parts[coord], 64, n_iters=5, pos=mesh.position(coord)))
+    torch.cuda.synchronize()
+    assert at_ops.assign_launches - before == 4 * 5
+    c = outs[(0,)]
+    assert all(torch.equal(o, c) for o in outs.values())
+    cost = kmeans.kmeans_cost(x, c, kmeans.assign_blocked(x, c))
+    c0 = x[:64]
+    assert cost < kmeans.kmeans_cost(x, c0, kmeans.assign_blocked(x, c0))
+    step = mesh.run(lambda coord: kmeans.sharded_step(
+        parts[coord], c, 64, "data", pos=mesh.position(coord)))
+    cpu_mesh = collectives.Mesh(["cpu"] * 4, ("data",))
+    cparts = collectives.Split(cpu_mesh, "data").place(x.cpu())
+    want = cpu_mesh.run(lambda coord: kmeans.sharded_step(
+        cparts[coord], c.cpu(), 64, "data", pos=cpu_mesh.position(coord)))
+    torch.cuda.synchronize()
+    assert torch.equal(step[(0,)][1].cpu(), want[(0,)][1])
+    torch.testing.assert_close(step[(0,)][0].cpu(), want[(0,)][0],
+                               rtol=1e-5, atol=1e-5)
+    mesh.close()
+    cpu_mesh.close()
+
+
+def test_compression_and_pmean_on_the_card_equal_the_cpu(cuda):
+    """50 steps of ``compress_with_ef`` on the card bitwise equal to the
+    CPU (the scale divides by a tensor: CUDA multiplies by the reciprocal
+    of a Python scalar divisor), and ``pmean`` over three positions (no
+    power of two) the same bits on the card as on the CPU."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.distributed import collectives
+    from repro_torch.optim import compression
+    rng = np.random.default_rng(5)
+    g = [{"w": torch.from_numpy(rng.standard_normal((64, 33)).astype(
+             np.float32) * 10 ** -i), "b": torch.from_numpy(
+             rng.standard_normal(7).astype(np.float32))} for i in range(3)]
+    trees = {"cpu": g, "cuda": [tree_mod.to(t, cuda) for t in g]}
+    ef = {k: compression.ef_init(v[0]) for k, v in trees.items()}
+    for step in range(50):
+        out = {}
+        for k, v in trees.items():
+            comp, ef[k] = compression.compress_with_ef(v[step % 3], ef[k])
+            out[k] = tree_mod.leaves(compression.decompress(comp)) + \
+                tree_mod.leaves(ef[k]) + [comp["w"].scale, comp["w"].q]
+        for a, b in zip(out["cuda"], out["cpu"]):
+            assert torch.equal(a.cpu(), b), step
+    means = {}
+    for k, v in trees.items():
+        mesh = collectives.Mesh([cuda if k == "cuda" else "cpu"] * 3,
+                                ("data",))
+        res = mesh.run(lambda coord: mesh.position(coord).pmean(
+            v[coord[0]]["w"], "data"))
+        means[k] = [res[(i,)].cpu() for i in range(3)]
+        mesh.close()
+    for a in means["cuda"] + means["cpu"]:
+        assert torch.equal(a, means["cpu"][0])
+
