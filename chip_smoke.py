@@ -245,6 +245,32 @@ never prints the final line.  Every phase prints its seconds.
               18's {params, opt} saved under build/ and
               ``restore_resharded`` onto the card and split over 2 and 4
               positions, every leaf reassembled bitwise equal;
+ 23. recsys   the recsys family at its published configs (configs/
+              dlrm_rm2.py, sasrec.py, dien.py, mind.py; DLRM's 26 x 10⁶ x
+              64 tables, 6.66 GB), weights drawn on the card from
+              ``--seed``, after phase 22: 23a each arch's
+              ``recsys/serve`` function (``dlrm_forward``,
+              ``sasrec_user_embedding``, ``dien_forward``,
+              ``mind_interests``) at ``serve_p99`` (B 512) and
+              ``serve_bulk`` (B 262,144) as counted runs, ms a batch, the
+              first 8 rows within 1e-4 of the CPU plain path on the same
+              weights, SASRec two ``flash_attention`` launches a call
+              (d 50), SASRec's bulk and DIEN's 512-row call profiled;
+              23b ``retrieval_cand`` (1 query x 10⁶ candidates, top
+              100), ids equal to the CPU's up to swaps within 1e-4 (DLRM
+              and DIEN over 65,536 / 16,384 random candidates plus the
+              card's top 100 on the CPU); 23c HI² over SASRec's 10⁶ x 50
+              item table with the example's recipe (three item tokens,
+              vocab 2,048, K₁ᵀ 3, capacities 512 / 128, 8 KMeans steps,
+              ``flat``) at L 6,400, 512 users with K^C 6, K₂ᵀ 3, R 10:
+              build s and launches (9 ``assign_argmax``), batch ms, mean
+              candidates, the share whose exact top-1 item is in HI²'s
+              top 10, 8 users against the CPU over the same planes; 23d
+              ``flash_attention`` at d 50 against its plain version (f32
+              and bf16, causal and not, S 1 / 50 / 130 at B 1 and
+              262,144, misaligned views), timed at SASRec's shape at B
+              512 and 262,144 beside SDPA and the bound; 23e the
+              ``recsys_retrieval`` example on the card;
 
 then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
 kernel's ``launches`` is read from the counted runs of the paths that
@@ -255,8 +281,10 @@ run it: ``pq_adc_fused`` and ``topk_scores`` from phase 5,
 runs, not their single-device yardsticks, and 20d's whole benchmark run,
 its index build and single-device baseline searches included; 21a's
 warmups, 21b's eager checks, warmup, adds and compaction, and 21c's two
-benchmark runs whole); phase 15's counted runs are checked in the phase
-and printed.  It
+benchmark runs whole) and in phase 23 (its serve, retrieval and HI²
+calls and the example; not 23d's checks); phase 15's counted runs are
+checked in the phase and printed.  ``flash_attention``'s entry also
+carries 23d's times at SASRec's bulk shape under ``sasrec_shape``.  It
 imports only the port, never jax or the reference package, and exits
 non-zero without a card.
 """
@@ -304,6 +332,8 @@ from repro_torch.benchmarks.timing import Timer  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch import tree as tree_mod  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.configs import shapes as rec_shapes  # noqa: E402
 from repro_torch.core import codecs  # noqa: E402
 from repro_torch.core import distill  # noqa: E402
 from repro_torch.core import exec as qexec  # noqa: E402
@@ -316,10 +346,12 @@ from repro_torch.core import sharded_index as shi  # noqa: E402
 from repro_torch.core import term_selector as ts_mod  # noqa: E402
 from repro_torch.core.codecs import flat as flat_codec  # noqa: E402
 from repro_torch.core import kmeans  # noqa: E402
+from repro_torch.data import recsys as rdata  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.distributed import collectives  # noqa: E402
 from repro_torch.distributed.fault import StragglerMonitor  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
+from repro_torch.examples import recsys_retrieval as rec_example  # noqa: E402
 from repro_torch.examples import serve_retrieval  # noqa: E402
 from repro_torch.examples import train_hi2_distill  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -335,6 +367,7 @@ from repro_torch.launch import runtime  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch import tune  # noqa: E402
+from repro_torch.models import recsys  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.optim import compression  # noqa: E402
 
@@ -446,6 +479,29 @@ ALLREDUCE_REPS = 5
 EF_STEPS = 50
 RESHARD_SPLITS = (2, 4)
 RESHARD_CKPT = ROOT / "build" / "reshard_ckpt"
+# phase 23: the recsys family at its published configs (configs/*.py),
+# weights drawn on the card from --seed.  23a serves each arch's
+# recsys/serve function at REC_SERVE's batches and holds the first
+# N_CHECK rows to the CPU within REC_TOL; 23b scores 1 query against the
+# retrieval_cand shape's 10⁶ candidates (top REC_TOP), DLRM and DIEN
+# held to the CPU over REC_CPU_CANDS random candidates plus the card's
+# top REC_TOP; 23c builds HI² over SASRec's item table at the example's
+# recipe with L = 10⁶ / 156 (its items a cluster) and serves REC_USERS
+# users; 23d holds flash_attention at d 50 to its plain version (the
+# plain one in REC_FLASH_BLOCK-row batch blocks at B 262,144)
+REC_ARCHS = ("dlrm-rm2", "sasrec", "dien", "mind")
+REC_SERVE = ("serve_p99", "serve_bulk")
+REC_TOL = 1e-4                       # rtol = atol, f32 sum orders
+REC_TOP = 100
+REC_CPU_CANDS = {"dlrm-rm2": 65_536, "dien": 16_384}
+REC_CLUSTERS, REC_USERS = 6_400, 512
+REC_FLASH_S = (1, 50, 130)
+REC_FLASH_B = (1, 262_144)
+REC_FLASH_BLOCK = 32_768
+# the serve calls profiled (torch.profiler): SASRec's bulk batch, DIEN's
+# 512-row one (200 GRU steps of small launches)
+REC_PROFILE = (("sasrec", "serve_bulk"), ("dien", "serve_p99"))
+
 # phase 19: the paper benchmarks.  Rows held against the CPU: top-R
 # ids up to swaps within PAPER_TOL, each recall or MRR within its
 # near-tie queries / n_queries + PAPER_FLOAT (the f32 mean's last bits)
@@ -1313,24 +1369,35 @@ def _bshd(gen, dev, b, s, h, d, dtype, offset: int = 0):
     return flat[offset:].view(b, s, h, d).transpose(1, 2)
 
 
-def check_flash(q, k, v, causal, window, what: str) -> float:
+def check_flash(q, k, v, causal, window, what: str,
+                batch_block: int = 0) -> float:
     """Kernel against the plain version: out within FLASH_TOL of its
     dtype, lse within LSE_TOL of the plain scores' logsumexp, dead rows
-    (no visible key) zeros with lse NEG_INF.  Returns the out error."""
-    out, lse = fa_ops.flash_attention(q, k, v, causal, window)
-    want, wlse = fa_ref.flash_attention(q, k, v, causal, window)
-    tol = FLASH_TOL[q.dtype]
-    if not torch.allclose(out.float(), want.float(), rtol=tol, atol=tol):
-        fail(f"flash_attention {what}: out differs beyond {tol} (max "
-             f"{float((out.float() - want.float()).abs().max()):.3g})")
-    if not torch.allclose(lse, wlse, rtol=LSE_TOL, atol=LSE_TOL):
-        fail(f"flash_attention {what}: lse differs beyond {LSE_TOL}")
-    dead = wlse == fa_ref.NEG_INF
-    if not torch.equal(lse == fa_ref.NEG_INF, dead) or bool(
-            (out[dead] != 0).any()):
-        fail(f"flash_attention {what}: fully-masked rows are not zeros "
-             f"with lse -1e30")
-    return float((out.float() - want.float()).abs().max())
+    (no visible key) zeros with lse NEG_INF.  ``batch_block`` > 0 runs
+    the plain version that many batch rows at a time (its score plane).
+    Returns the out error."""
+    out_all, lse_all = fa_ops.flash_attention(q, k, v, causal, window)
+    step = batch_block or q.shape[0]
+    tol, err = FLASH_TOL[q.dtype], 0.0
+    for i in range(0, q.shape[0], step):
+        rows = slice(i, i + step)
+        out, lse = out_all[rows], lse_all[rows]
+        want, wlse = fa_ref.flash_attention(q[rows], k[rows], v[rows],
+                                            causal, window)
+        gap = float((out.float() - want.float()).abs().max())
+        if not torch.allclose(out.float(), want.float(), rtol=tol,
+                              atol=tol):
+            fail(f"flash_attention {what}: out differs beyond {tol} (max "
+                 f"{gap:.3g})")
+        if not torch.allclose(lse, wlse, rtol=LSE_TOL, atol=LSE_TOL):
+            fail(f"flash_attention {what}: lse differs beyond {LSE_TOL}")
+        dead = wlse == fa_ref.NEG_INF
+        if not torch.equal(lse == fa_ref.NEG_INF, dead) or bool(
+                (out[dead] != 0).any()):
+            fail(f"flash_attention {what}: fully-masked rows are not zeros "
+                 f"with lse -1e30")
+        err = max(err, gap)
+    return err
 
 
 def llama_qkv(gen, dev):
@@ -3848,6 +3915,285 @@ def mesh_build_phase(dev, seed: int, built: dict) -> dict:
     torch.cuda.empty_cache()
     return {"assign_argmax": launches}
 
+# --------------------------------------------------------------------------
+# phase 23: the recsys family and HI² over SASRec's item tower
+# --------------------------------------------------------------------------
+
+REC_INIT = {"dlrm-rm2": recsys.dlrm_init, "sasrec": recsys.sasrec_init,
+            "dien": recsys.dien_init, "mind": recsys.mind_init}
+
+
+def rec_batch(arch: str, cfg, seed: int, b: int, dev):
+    """The arch's data-generator batch of ``b`` rows on ``dev``."""
+    if arch == "dlrm-rm2":
+        return rdata.dlrm_batch(seed, b, n_dense=cfg.n_dense,
+                                n_sparse=cfg.n_sparse, n_rows=cfg.n_rows,
+                                device=dev)
+    gen = {"sasrec": rdata.sasrec_batch, "dien": rdata.dien_batch,
+           "mind": rdata.mind_batch}[arch]
+    return gen(seed, b, seq_len=cfg.seq_len, n_items=cfg.n_items,
+               device=dev)
+
+
+def rec_serve_fn(arch: str, cfg):
+    """The arch's ``recsys/serve`` function (the reference's
+    ``launch/cells.py::_rec_serve_cell``)."""
+    return {"dlrm-rm2": lambda p, b: recsys.dlrm_forward(p, cfg, b),
+            "sasrec": lambda p, b: recsys.sasrec_user_embedding(p, cfg,
+                                                                b.items),
+            "dien": lambda p, b: recsys.dien_forward(p, cfg, b),
+            "mind": lambda p, b: recsys.mind_interests(p, cfg, b.history)
+            }[arch]
+
+
+def rec_serve(arch: str, cfg, params, cpu_params, dev, seed: int,
+              launches: dict) -> dict:
+    """23a: the serve function at each REC_SERVE batch as counted runs
+    (SASRec: ``n_blocks`` flash launches a call), ms a batch, the first
+    N_CHECK rows against the CPU plain path.  Returns {shape: ms}."""
+    fn = rec_serve_fn(arch, cfg)
+    timer, out = Timer(), {}
+    for sname in REC_SERVE:
+        b = rec_shapes.REC_SHAPES[sname].batch
+        batch = rec_batch(arch, cfg, seed, b, dev)
+        with torch.inference_mode():
+            reset_counts()
+            got = fn(params, batch)
+            torch.cuda.synchronize()
+            calls = read_counts()
+            _add(launches, calls)
+            if arch == "sasrec" and calls["flash_attention"] != cfg.n_blocks:
+                fail(f"sasrec {sname}: {calls['flash_attention']} "
+                     f"flash_attention launches a call, not {cfg.n_blocks}")
+            with counted(launches):
+                out[sname] = timer.ms(lambda: fn(params, batch),
+                                      reps=3 if b > 4096 else 10, warm=1)
+                if (arch, sname) in REC_PROFILE:
+                    profile_call(lambda: fn(params, batch),
+                                 f"23a {arch} {sname} (B {b})")
+            small = type(batch)(*(t[:N_CHECK].cpu() for t in batch))
+            want = fn(cpu_params, small)
+        got = got[:N_CHECK].cpu()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            fail(f"{arch} {sname}: output {tuple(got.shape)} not finite or "
+                 f"not the CPU's {tuple(want.shape)}")
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=REC_TOL, atol=REC_TOL):
+            fail(f"{arch} {sname}: rows differ from the CPU by {err:.3g}")
+        log(f"[recsys] 23a {arch} {sname} (B {b}): {out[sname]:.3f} ms a "
+            f"batch; first {N_CHECK} rows of {tuple(got.shape[1:])} within "
+            f"{err:.3g} of the CPU")
+        del batch, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def rec_retrieval(arch: str, cfg, params, cpu_params, dev, seed: int,
+                  launches: dict) -> float:
+    """23b: ``retrieval_cand``, 1 query against 10⁶ candidates, top
+    REC_TOP, as a counted run and timed; ids against the CPU plain path
+    up to swaps within REC_TOL (DLRM and DIEN, which score each
+    candidate alone, over a random REC_CPU_CANDS subset plus the card's
+    top).  Returns ms."""
+    n = rec_shapes.REC_SHAPES["retrieval_cand"].n_candidates
+    q = rec_batch(arch, cfg, seed + 1, 1, dev)
+    cands = torch.arange(n, device=dev)
+    fn = {"sasrec": lambda p, c: recsys.sasrec_retrieval(
+              p, cfg, q.items.to(c.device), REC_TOP),
+          "mind": lambda p, c: recsys.mind_retrieval(
+              p, cfg, q.history.to(c.device), REC_TOP),
+          "dlrm-rm2": lambda p, c: recsys.dlrm_retrieval(
+              p, cfg, q.dense[:1].to(c.device), q.sparse[0, :-1].to(
+                  c.device), c, REC_TOP),
+          "dien": lambda p, c: recsys.dien_retrieval(
+              p, cfg, q.history.to(c.device), c, REC_TOP)}[arch]
+    with torch.inference_mode():
+        with counted(launches):
+            got_s, got_i = fn(params, cands)
+            ms = Timer().ms(lambda: fn(params, cands),
+                            reps=1 if arch == "dien" else 5, warm=1)
+        got_s, got_i = got_s[0].cpu().numpy(), got_i[0].cpu().numpy()
+        if arch in REC_CPU_CANDS:
+            rng = np.random.default_rng(seed)
+            subset = np.union1d(rng.choice(n, REC_CPU_CANDS[arch],
+                                           replace=False), got_i)
+            want_s, pos = fn(cpu_params, torch.from_numpy(subset))
+            want_i, scope = subset[pos[0].numpy()], f"{subset.size:,}"
+        else:
+            want_s, want_i = fn(cpu_params, cands.cpu())
+            want_i, scope = want_i[0].numpy(), f"all {n:,}"
+    want_s = want_s[0].numpy()
+    if not np.isfinite(got_s).all() or not topk_match(
+            want_i, want_s, got_i, got_s, REC_TOL):
+        fail(f"{arch} retrieval_cand: top {REC_TOP} differs from the CPU's "
+             f"over {scope} candidates")
+    log(f"[recsys] 23b {arch} retrieval_cand (1 x {n:,}, top {REC_TOP}): "
+        f"{ms:.3f} ms; ids equal to the CPU's over {scope} candidates up to "
+        f"swaps within {REC_TOL}, {int((got_i != want_i).sum())} swapped")
+    return ms
+
+
+def rec_hi2(dev, seed: int, params, cfg, launches: dict) -> dict:
+    """23c: the example's recipe over SASRec's 10⁶-item table at d 50:
+    HI² (flat, L = REC_CLUSTERS, the example's capacities, KMeans steps
+    and three item tokens) and REC_USERS users; every kernel of the path
+    counted, 8 users against the CPU plain path over the same planes."""
+    ex = rec_example
+    tokens, _, _ = ex.item_tokens(cfg.n_items, ex.VOCAB)
+    table = params["item_embed"]["table"]
+    build: dict = {}
+    t0 = time.perf_counter()
+    with counted(build):
+        index = hi.build(1, table, tokens, ex.VOCAB, n_clusters=REC_CLUSTERS,
+                         k1_terms=ex.K1_TERMS, codec="flat",
+                         cluster_capacity=ex.CLUSTER_CAP,
+                         term_capacity=ex.TERM_CAP,
+                         kmeans_iters=ex.KMEANS_ITERS, device=dev)
+    build_s = time.perf_counter() - t0
+    if build["assign_argmax"] != ex.KMEANS_ITERS + 1:
+        fail(f"23c build: {build['assign_argmax']} assign_argmax launches, "
+             f"not {ex.KMEANS_ITERS + 1} (KMeans steps and the final "
+             f"assignment)")
+    serve_counts: dict = {}
+    with counted(serve_counts):
+        out = ex.run(params, cfg, dev, n_clusters=REC_CLUSTERS,
+                     n_users=REC_USERS, index=index, seed=seed)
+    if (serve_counts["topk_scores"] != 1
+            or serve_counts["flash_attention"] != cfg.n_blocks):
+        fail(f"23c users and search: launches {serve_counts}")
+    users, qt, res = out["users"], out["q_tokens"], out["res"]
+    with counted(serve_counts):
+        ms = Timer().ms(lambda: hi.search(
+            index, users, qt, kc=ex.KC, k2=ex.K2, top_r=ex.TOP_R,
+            device=dev), reps=10)
+    _add(launches, build)
+    _add(launches, serve_counts)
+    share = metrics.recall_at_k(res.doc_ids, out["exact"][:, 0], ex.TOP_R)
+    mean_cands = float(res.n_candidates.float().mean())
+    cpu_index = index.to("cpu")
+    u8 = users[:N_CHECK].cpu()
+    ref = hi.search(cpu_index, u8, qt[:N_CHECK], kc=ex.KC, k2=ex.K2,
+                    top_r=ex.TOP_R, device="cpu")
+    top = torch.sort(u8 @ cpu_index.cluster_sel.embeddings.T, dim=-1,
+                     descending=True).values[:, ex.KC - 1: ex.KC + 1]
+    skipped = []
+    for b in range(N_CHECK):
+        if float(top[b, 0] - top[b, 1]) <= TOPK_TOL:
+            skipped.append(b)
+            continue
+        if int(res.n_candidates[b]) != int(ref.n_candidates[b]) or not (
+                topk_match(ref.doc_ids[b].numpy(), ref.scores[b].numpy(),
+                           res.doc_ids[b].cpu().numpy(),
+                           res.scores[b].cpu().numpy(), REC_TOL)):
+            fail(f"23c user {b}: n_candidates or top-{ex.TOP_R} differ "
+                 f"from the CPU plain path")
+    log(f"[recsys] 23c HI² over SASRec's item tower (N {cfg.n_items:,}, d "
+        f"{cfg.embed_dim}, L {REC_CLUSTERS}, flat): build {build_s:.2f} s "
+        f"({build['assign_argmax']} assign_argmax launches); {REC_USERS} "
+        f"users: {ms:.3f} ms a batch, {mean_cands:.1f} candidates a user "
+        f"of {cfg.n_items:,}, exact top-1 in HI²'s top {ex.TOP_R} for "
+        f"{share:.1%}; {N_CHECK - len(skipped)} of {N_CHECK} users equal "
+        f"to the CPU (near-ties at the K^C boundary skipped: {skipped}); "
+        f"launches {serve_counts}")
+    return dict(build_s=build_s, batch_ms=ms, mean_candidates=mean_cands,
+                top1_in_top10=share)
+
+
+def rec_flash(dev, seed: int, d: int) -> tuple[float, dict]:
+    """23d: ``flash_attention`` at head dim ``d`` (SASRec's 50: ragged
+    in the d = 64 instance) against its plain version: f32 and bf16,
+    causal and not, S in REC_FLASH_S at B in REC_FLASH_B (Hq 1, as
+    SASRec), and views one element off 16-byte alignment; then SASRec's
+    shape timed at B 512 and 262,144 beside the plain version, SDPA and
+    the bound.  Returns (the largest f32 out error, the times)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            for s_len in REC_FLASH_S:
+                for b in REC_FLASH_B:
+                    q, k, v = (_bshd(gen, dev, b, s_len, 1, d, dtype)
+                               for _ in range(3))
+                    err[dtype] = max(err[dtype], check_flash(
+                        q, k, v, causal, 0, f"d {d} {dtype} B {b} S "
+                        f"{s_len} causal={causal}",
+                        batch_block=REC_FLASH_BLOCK))
+                    n_cases += 1
+                    del q, k, v
+        q = _bshd(gen, dev, 3, 130, 2, d, dtype, offset=1)
+        k, v = (_bshd(gen, dev, 3, 70, 1, d, dtype, offset=1)
+                for _ in range(2))
+        err[dtype] = max(err[dtype], check_flash(
+            q, k, v, True, 0, f"d {d} {dtype} misaligned view"))
+    torch.cuda.empty_cache()
+    log(f"[flash] 23d d = {d} (instance {fa_ops.instance_dim(d)}): "
+        f"{n_cases} cases + 2 misaligned views: max abs out err f32 "
+        f"{err[torch.float32]:.3g}, bf16 {err[torch.bfloat16]:.3g}")
+    timer, sdpa = Timer(), torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    for sname in REC_SERVE:
+        b, s_len = rec_shapes.REC_SHAPES[sname].batch, 50
+        q, k, v = (_bshd(gen, dev, b, s_len, 1, d, torch.float32)
+                   for _ in range(3))
+        if fa_ops.vector_loads(q, k, v):
+            fail(f"flash d = {d}: {4 * d}-byte rows took the 16-byte copies")
+        flops = 4.0 * b * d * s_len * (s_len + 1) / 2     # causal pairs
+        nbytes = 4.0 * (4 * b * s_len * d + b * s_len)
+        bms, by = bound(flops, nbytes)
+        t = dict(
+            ms=timer.ms(lambda: fa_ops.flash_attention(q, k, v, True, 0),
+                        reps=10),
+            plain_ms=timer.ms(lambda: fa_ref.flash_attention(q, k, v, True,
+                                                             0), reps=3),
+            library_ms=timer.ms(lambda: sdpa(q, k, v, is_causal=True),
+                                reps=5),
+            bound_ms=bms, bound_by=by, batch=b)
+        times[sname] = t
+        log(f"[times] 23d flash_attention at SASRec's shape B {b}, Hq 1, S "
+            f"{s_len}, d {d} f32 causal: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library (scaled_dot_product_attention)"
+            f" {t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}), bound /"
+            f" kernel {bms / t['ms']:.1%}")
+        del q, k, v
+    return err[torch.float32], times
+
+
+def recsys_phase(dev, seed: int) -> dict:
+    """Phase 23: the recsys family at its published configs and HI² over
+    SASRec's item tower.  Returns the counted launches, the flash
+    error and times, and 23c's record."""
+    launches: dict = {}
+    rec = {"serve_ms": {}, "retrieval_ms": {}}
+    sasrec = None
+    for arch in REC_ARCHS:
+        cfg = registry.get(arch).make_config()
+        with phase(f"23a-b {arch} serve and retrieval"):
+            params = REC_INIT[arch](
+                torch.Generator(device=dev).manual_seed(seed), cfg)
+            cpu_params = tree_mod.to(params, "cpu")
+            rec["serve_ms"][arch] = rec_serve(arch, cfg, params, cpu_params,
+                                              dev, seed, launches)
+            rec["retrieval_ms"][arch] = rec_retrieval(
+                arch, cfg, params, cpu_params, dev, seed, launches)
+        if arch == "sasrec":
+            sasrec = (params, cfg)
+        del params, cpu_params
+        torch.cuda.empty_cache()
+    with phase("23c HI² over the SASRec item tower"):
+        rec["hi2"] = rec_hi2(dev, seed, *sasrec, launches)
+    d = sasrec[1].embed_dim // sasrec[1].n_heads
+    del sasrec
+    torch.cuda.empty_cache()
+    with phase("23d flash_attention at d 50"):
+        rec["flash_err"], rec["flash_times"] = rec_flash(dev, seed + 4, d)
+    with phase("23e the recsys_retrieval example"):
+        with counted(launches):
+            rec_example.main([])
+    rec["launches"] = launches
+    log(f"[recsys] phase 23 launches {launches}")
+    return rec
+
 
 def run_kernel_bench() -> dict:
     """Phase 14: the port's ``kernel_bench`` at its full shapes with
@@ -4054,12 +4400,17 @@ def main(argv=None) -> None:
         _add(mesh_rt_launches, mesh_benches_phase())
     with phase("22 build and training over a mesh"):
         mesh_build_launches = mesh_build_phase(dev, args.seed, built)
+    build_assign = built["assign_launches"]
+    del built
+    torch.cuda.empty_cache()
+    with phase("23 recsys"):
+        rec = recsys_phase(dev, args.seed)
 
     # the paths' counted runs: the builds and 18c's KMeans for
     # assign_argmax, the sup build and 18c's steps for flash_attention
     launches = dict(opq_launches,
                     sq8_dot_fused=refine_launches["sq8_dot_fused"],
-                    assign_argmax=sum(built["assign_launches"].values())
+                    assign_argmax=sum(build_assign.values())
                     + train_launches["assign_argmax"]
                     + mesh_build_launches["assign_argmax"],
                     flash_attention=sup_launches["flash_attention"]
@@ -4067,12 +4418,17 @@ def main(argv=None) -> None:
                     pq_adc=bench_launches["pq_adc"])
     log(f"[train] launches of 18c's counted run: {train_launches}")
     # the PQ shape's launches: the opq build's (OPQ training and encode)
-    times["assign_argmax"]["pq_shape"]["launches"] = (
-        built["assign_launches"]["opq"])
+    times["assign_argmax"]["pq_shape"]["launches"] = build_assign["opq"]
     # phase 19's, 20's and 21's launches join each kernel's counted runs
     log(f"[mesh-rt] phase 21 launches {mesh_rt_launches}")
     launches = {k: v + paper_launches[k] + mesh_launches.get(k, 0)
-                + mesh_rt_launches.get(k, 0) for k, v in launches.items()}
+                + mesh_rt_launches.get(k, 0) + rec["launches"].get(k, 0)
+                for k, v in launches.items()}
+    # phase 23: SASRec's attention at d 50, and its launches
+    errs["flash_attention"] = max(errs["flash_attention"], rec["flash_err"])
+    times["flash_attention"]["sasrec_shape"] = dict(
+        rec["flash_times"]["serve_bulk"],
+        launches=rec["launches"].get("flash_attention", 0))
     kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
                     replaces=SOURCES[k][1], launches=launches[k],
                     max_abs_err=errs[k], **times[k])

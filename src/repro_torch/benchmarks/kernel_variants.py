@@ -66,8 +66,13 @@ timed beside the library call, ``torch.argmax(x @ c.T − ½‖c‖²)`` in
 4,096, Hq 32, Hkv 8, d 128 bf16, causal): both builds against the plain
 version (f32 out within 1e-4, bf16 within 2e-2, lse within 1e-4; the
 change in both load instances), timed beside
-``scaled_dot_product_attention``.  A parent whose C entry lacks the
-``vec`` flag (before the element-wise instance) is called without it.
+``scaled_dot_product_attention``.  Before that, every instance the parent
+has (d 16, 32, 64, 128; f32 and bf16; the 16-byte and element-wise
+loads; causal, ragged S) must give the parent's out and lse bit for bit.
+SASRec's attention (B 262,144, S 50, d 50 f32, causal; a head dim the
+parent refuses) is checked and timed for the change alone.  A parent
+whose C entry lacks the ``vec`` flag (before the element-wise instance)
+is called without it.
 
 ``sq8_dot_fused``: at the ``serve_msmarco_refine_sq8`` candidate plane of
 ``chip_smoke.py``'s phase 9 from the same ``--seed`` (B 256, C 63,488, h
@@ -405,6 +410,50 @@ def flash_shapes(gen):
         nbytes=2.0 * 4096 * 128 * (2 * 32 + 2 * 8),
         library=lambda q, k, v: sdpa(q, k, v, is_causal=True,
                                      enable_gqa=True))
+    # SASRec's two blocks at serve_bulk (configs/sasrec.py): d = 50 runs
+    # ragged in the d = 64 instance, which the parent does not have
+    b, s_len, d = 262_144, 50, 50
+    yield "sasrec_bulk", dict(
+        qkv=[bshd(b, s_len, 1, d, torch.float32) for _ in range(3)],
+        causal=True, flops=4.0 * b * s_len * (s_len + 1) / 2 * d,
+        nbytes=4.0 * (4 * b * s_len * d + b * s_len),
+        library=lambda q, k, v: sdpa(q, k, v, is_causal=True),
+        parent=False)
+
+
+def flash_instances(gen):
+    """(name, q, k, v, causal, offset) at every instance a parent has:
+    d in HEAD_DIMS, f32 and bf16, aligned and one element off 16 bytes,
+    a ragged Sq / Sk and a causal mask."""
+    for d in fa_ops.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for offset in (0, 1):
+                def bshd(b, s, h):
+                    n = b * s * h * d
+                    flat = torch.randn(n + offset, generator=gen,
+                                       device="cuda").to(dtype)
+                    return flat[offset:].view(b, s, h, d).transpose(1, 2)
+                name = f"d{d} {str(dtype)[6:]} offset {offset}"
+                yield name, bshd(3, 130, 4), bshd(3, 100, 2), \
+                    bshd(3, 100, 2), bool(offset), offset
+
+
+def flash_bitwise(libs: dict, with_vec: dict, gen) -> list:
+    """The change's out and lse against the parent's, bit for bit, at
+    :func:`flash_instances` in every load instance the input allows;
+    returns the names that differ."""
+    failed = []
+    for name, q, k, v, causal, offset in flash_instances(gen):
+        for vec in ((False,) if offset else (True, False)):
+            got = call_flash(libs["new"], True, q, k, v, causal, vec)
+            want = call_flash(libs["parent"], with_vec["parent"], q, k, v,
+                              causal, vec)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(f"[bitwise] {name} vec={vec}: "
+                  f"{'equal' if same else 'DIFFERS'}", flush=True)
+            if not same:
+                failed.append(f"{name} vec={vec}")
+    return failed
 
 
 def flash_main(args) -> dict:
@@ -412,13 +461,16 @@ def flash_main(args) -> dict:
     libs = build({"parent": args.parent,
                   "new": _build.SOURCES["flash_attention"]})
     timer = Timer(queued=True)
-    report = {}
-    for sname, sh in flash_shapes(torch.Generator(device="cuda")
-                                  .manual_seed(0)):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    differ = flash_bitwise(libs, with_vec, gen)
+    report = {"bitwise_differs": differ}
+    for sname, sh in flash_shapes(gen):
         q, k, v = sh["qkv"]
         want, wlse = fa_ref.flash_attention(q, k, v, sh["causal"], 0)
         tol = 1e-4 if q.dtype == torch.float32 else 2e-2
-        for name, lib in libs.items():
+        names = list(libs) if sh.get("parent", True) else ["new"]
+        for name in names:
+            lib = libs[name]
             for vec in (True, False)[:1 + with_vec[name]]:
                 out, lse = call_flash(lib, with_vec[name], q, k, v,
                                       sh["causal"], vec)
@@ -432,7 +484,8 @@ def flash_main(args) -> dict:
                     sys.exit(f"{name} disagrees with the plain version")
         del want, wlse
         times = {}
-        for name in ("parent", "new", "new", "parent"):
+        for name in (("parent", "new", "new", "parent") if len(names) == 2
+                     else ("new", "new")):
             times.setdefault(name, []).append(timer.ms(
                 lambda: call_flash(libs[name], with_vec[name], q, k, v,
                                    sh["causal"]), args.reps))
@@ -445,6 +498,9 @@ def flash_main(args) -> dict:
                           sh["nbytes"] / PEAK_BYTES)
         report[sname] = dict(bound_ms=bound, **times)
         report_times(sname, bound, times)
+    if differ:
+        print(json.dumps(report))
+        sys.exit(f"the change differs from the parent: {', '.join(differ)}")
     return report
 
 

@@ -50,6 +50,12 @@ encoder's pytree under ``.encoder['embed']['table']``,
 so on.  A checkpoint of the reference's training loop (``fit`` saves
 ``{"params": ..., "opt": ...}``) holds them under a ``['params']``
 prefix; :func:`load_distill` reads one.
+
+Recsys parameters (``repro/models/recsys.py``) map by the reference's
+``jax.tree_util.keystr`` paths, ``['tables']``, ``['bot'][0]['w']``,
+``['blocks']['attn']['wq']['w']`` (stacked, leading ``n_blocks`` axis),
+``['item_embed']['table']`` and so on: :func:`recsys_params_from_numpy`
+nests them back into the port's dicts and lists.
 """
 from __future__ import annotations
 
@@ -81,6 +87,7 @@ from repro_torch.core.term_selector import TermMLP, TermSelector
 from repro_torch.distributed import collectives
 from repro_torch.models.transformer import TransformerConfig
 
+_PATH = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
 _PLANE = re.compile(r"^\.doc_planes\['([^']+)'\]$")
 _KEY = re.compile(r"\.(\w+)|\['([^']*)'\]")
 _PARAMS_PREFIX = "['params']"
@@ -539,3 +546,96 @@ def load_distill(path: str, enc_cfg: TransformerConfig,
         leaves = {p[len(_PARAMS_PREFIX):]: a for p, a in leaves.items()
                   if p.startswith(_PARAMS_PREFIX)}
     return distill_params_from_numpy(leaves, enc_cfg, device=device)
+
+
+# --------------------------------------------------------------------------
+# recsys parameters
+# --------------------------------------------------------------------------
+
+def _lists(node):
+    """Dicts keyed 0 .. n-1 (a path's list indices) back into lists."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(isinstance(k, int) for k in out):
+        if sorted(out) != list(range(len(out))):
+            raise ValueError(f"list indices {sorted(out)} are not 0..n-1")
+        return [out[i] for i in range(len(out))]
+    return out
+
+
+def _recsys_shapes(arch_id: str, cfg) -> dict:
+    """Top-level keys → the shapes of the leaves that size them."""
+    if arch_id == "dlrm-rm2":
+        f = cfg.n_sparse + 1
+        return {"tables": (cfg.n_sparse, cfg.n_rows, cfg.embed_dim),
+                "bot": [(a, b) for a, b in zip(cfg.bot_mlp, cfg.bot_mlp[1:])],
+                "top": [(a, b) for a, b in zip(
+                    (f * (f - 1) // 2 + cfg.bot_mlp[-1],)
+                    + tuple(cfg.top_mlp_hidden), cfg.top_mlp_hidden)]}
+    if arch_id == "sasrec":
+        d = cfg.embed_dim
+        return {"item_embed": (cfg.n_items, d), "pos_embed": (cfg.seq_len, d),
+                "blocks": (cfg.n_blocks, d, d), "final_norm": (d,)}
+    if arch_id == "dien":
+        d_in, h = 2 * cfg.embed_dim, cfg.gru_dim
+        dims = (h + d_in,) + tuple(cfg.mlp_hidden) + (1,)
+        return {"item_embed": (cfg.n_items, cfg.embed_dim),
+                "cat_embed": (max(cfg.n_items // 100, 16), cfg.embed_dim),
+                "gru1": (d_in + h, h), "augru": (2 * h, h),
+                "top": list(zip(dims, dims[1:]))}
+    if arch_id == "mind":
+        return {"item_embed": (cfg.n_items, cfg.embed_dim),
+                "bilinear": (cfg.embed_dim, cfg.embed_dim)}
+    raise ValueError(f"{arch_id!r} is not a ported recsys arch (dlrm-rm2, "
+                     "sasrec, dien, mind)")
+
+
+def _sizing_leaf(key: str, node):
+    """The leaf whose shape :func:`_recsys_shapes` gives for ``key``."""
+    if isinstance(node, list):
+        return [p["w"] for p in node]
+    return {"item_embed": lambda n: n["table"],
+            "pos_embed": lambda n: n["table"],
+            "cat_embed": lambda n: n["table"],
+            "blocks": lambda n: n["attn"]["wq"]["w"],
+            "final_norm": lambda n: n["scale"],
+            "gru1": lambda n: n["wz"], "augru": lambda n: n["wz"],
+            "bilinear": lambda n: n["w"],
+            "tables": lambda n: n}[key](node)
+
+
+def recsys_params_from_numpy(arch_id: str, leaves: dict, cfg,
+                             device: dev_mod.DeviceLike = "cuda") -> dict:
+    """The port's parameter tree of recsys arch ``arch_id`` (``dlrm-rm2``,
+    ``sasrec``, ``dien``, ``mind``) on ``device`` from the reference's
+    ``keystr`` leaf paths → numpy arrays, checked against ``cfg``: the
+    top-level keys, the MLP depths and the leaves that size each part."""
+    dev = dev_mod.resolve(device)
+    want = _recsys_shapes(arch_id, cfg)
+    root: dict = {}
+    for path, arr in leaves.items():
+        found = list(_PATH.finditer(path))
+        if not found or "".join(m.group(0) for m in found) != path:
+            raise ValueError(f"unreadable leaf path {path!r}")
+        keys = [m.group(1) if m.group(1) is not None else int(m.group(2))
+                for m in found]
+        node = root
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = _to_tensor(arr, dev)
+    params = _lists(root)
+    if sorted(params) != sorted(want):
+        raise KeyError(f"{arch_id} parameters have keys {sorted(params)}, "
+                       f"need {sorted(want)}")
+    for key, shape in want.items():
+        try:
+            got = _sizing_leaf(key, params[key])
+            got = ([tuple(t.shape) for t in got] if isinstance(got, list)
+                   else tuple(got.shape))
+        except (KeyError, TypeError) as err:
+            raise KeyError(f"{arch_id} leaf {key!r} malformed: {err}") from err
+        if got != shape:
+            raise ValueError(f"{arch_id} leaf {key!r} has shape {got}, "
+                             f"cfg needs {shape}")
+    return params

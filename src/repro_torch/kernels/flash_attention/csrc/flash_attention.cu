@@ -62,6 +62,14 @@
 //     masked explicitly, since with a finite NEG_INF exp(s - m) would be 1
 //     on a fully-masked row.  An item with no live key runs one masked step
 //     and writes zeros and NEG_INF.
+//   * Head dims.  Instances exist for D in {16, 32, 64, 128}.  A head dim
+//     d that is none of them (SASRec's d = 50) runs in the next instance
+//     up (RAG = true): its columns d .. D - 1 are zero-filled on load (the
+//     cp.async source size, or an explicit guard in the element-wise
+//     copies) and never stored, and the scale is the caller's 1/sqrt(d).
+//     Zero columns add exact zeros to every score, so a ragged row costs
+//     D / d of the FMAs and no other rounding.  The RAG = false instances
+//     are the code they were before the ragged path existed.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,6 +98,7 @@ struct Params {
   float* lse;
   Strides qs, ks, vs, os;
   int hq, group, sq, sk, causal, window, n_qtiles, n_items;
+  int dh;                        // the true head dim, <= the instance's D
   float scale;
 };
 
@@ -201,12 +210,13 @@ __device__ __forceinline__ void stv(T* p, const float* x) {
 
 // rows row0 .. row0 + 63 of a (rows, D) slab whose row r starts at
 // src + r * row_stride, into dst rows of dst_row elements; rows >= n are
-// zeros.  VEC: one 16-byte cp.async per chunk (src size 0 past the edge);
-// otherwise element by element through registers.
-template <bool VEC, typename T, int D>
+// zeros, and under RAG so are columns >= dh.  VEC: one 16-byte cp.async
+// per chunk (src size 0 past the edge, short on the chunk that holds
+// column dh); otherwise element by element through registers.
+template <bool VEC, bool RAG, typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, int dst_row, const T* src,
                                           long long row_stride, int row0,
-                                          int n) {
+                                          int n, int dh) {
   constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
   constexpr int kPerRow = D / kChunk;
   for (int c = threadIdx.x; c < 64 * kPerRow; c += kThreads) {
@@ -215,11 +225,15 @@ __device__ __forceinline__ void load_tile(T* dst, int dst_row, const T* src,
     const bool in = gr < n;
     T* d = dst + r * dst_row + e;
     const T* s = src + static_cast<long long>(in ? gr : 0) * row_stride + e;
-    if constexpr (VEC) {
+    if constexpr (VEC && RAG) {
+      const int live = (dh - e) * static_cast<int>(sizeof(T));
+      cp_async16(d, s, in ? (live < 0 ? 0 : live > 16 ? 16 : live) : 0);
+    } else if constexpr (VEC) {
       cp_async16(d, s, in ? 16 : 0);
     } else {
 #pragma unroll
-      for (int u = 0; u < kChunk; ++u) d[u] = in ? s[u] : zero<T>();
+      for (int u = 0; u < kChunk; ++u)
+        d[u] = in && (!RAG || e + u < dh) ? s[u] : zero<T>();
     }
   }
 }
@@ -256,7 +270,7 @@ __device__ __forceinline__ Keys live_keys(const Params& p, int q0) {
 
 // copy the tiles of the step at key k0: q (on the first step) and k as one
 // cp.async group, v as the next
-template <typename T, int D, bool VEC>
+template <typename T, int D, bool VEC, bool RAG>
 __device__ __forceinline__ void issue(const Params& p, int k0, bool with_q,
                                       T* qb, T* kb, T* vb) {
   constexpr int kRow = D + 16 / static_cast<int>(sizeof(T));
@@ -267,13 +281,13 @@ __device__ __forceinline__ void issue(const Params& p, int k0, bool with_q,
   const int hk = h / p.group;
   if (with_q) {
     const T* q = static_cast<const T*>(p.q) + b * p.qs.b + h * p.qs.h;
-    load_tile<VEC, T, D>(qb, kRow, q, p.qs.s, qt * kBQ, p.sq);
+    load_tile<VEC, RAG, T, D>(qb, kRow, q, p.qs.s, qt * kBQ, p.sq, p.dh);
   }
   const T* k = static_cast<const T*>(p.k) + b * p.ks.b + hk * p.ks.h;
   const T* v = static_cast<const T*>(p.v) + b * p.vs.b + hk * p.vs.h;
-  load_tile<VEC, T, D>(kb, kRow, k, p.ks.s, k0, p.sk);
+  load_tile<VEC, RAG, T, D>(kb, kRow, k, p.ks.s, k0, p.sk, p.dh);
   cp_async_commit();
-  load_tile<VEC, T, D>(vb, D, v, p.vs.s, k0, p.sk);
+  load_tile<VEC, RAG, T, D>(vb, D, v, p.vs.s, k0, p.sk, p.dh);
   cp_async_commit();
 }
 
@@ -290,7 +304,7 @@ __device__ __forceinline__ bool visible(const Params& p, int qp, int kp) {
 }
 
 // grid: one block per item; dynamic shared memory Layout<T, D>::kBytes
-template <typename T, int D, bool VEC>
+template <typename T, int D, bool VEC, bool RAG>
 __global__ void __launch_bounds__(kThreads, Layout<T, D>::kMinBlocks)
 flash_fwd_kernel(const Params p) {
   using L = Layout<T, D>;
@@ -317,7 +331,7 @@ flash_fwd_kernel(const Params p) {
   }
 
   const Keys keys = live_keys(p, (item_id() % p.n_qtiles) * kBQ);
-  issue<T, D, VEC>(p, keys.beg, true, qbuf, kbuf, vbuf);
+  issue<T, D, VEC, RAG>(p, keys.beg, true, qbuf, kbuf, vbuf);
   for (int k0 = keys.beg;; k0 += kBK) {
     cp_async_wait<1>();                       // q and k landed
     __syncthreads();
@@ -418,7 +432,7 @@ flash_fwd_kernel(const Params p) {
     }
     if (k0 + kBK >= keys.end) break;          // the item's last step
     __syncthreads();                          // the tiles may be refilled
-    issue<T, D, VEC>(p, k0 + kBK, false, qbuf, kbuf, vbuf);
+    issue<T, D, VEC, RAG>(p, k0 + kBK, false, qbuf, kbuf, vbuf);
   }
 
   const int item = item_id();
@@ -437,7 +451,14 @@ flash_fwd_kernel(const Params p) {
       float x[kVW];
 #pragma unroll
       for (int c = 0; c < kVW; ++c) x[c] = acc[i][g * kVW + c] * inv;
-      stv<VEC, kVW>(ob + qp * p.os.s + g * 8 * kVW + tc * kVW, x);
+      const int col = g * 8 * kVW + tc * kVW;
+      if (RAG && col + kVW > p.dh) {        // columns >= dh are not stored
+#pragma unroll
+        for (int c = 0; c < kVW; ++c)
+          if (col + c < p.dh) put(ob + qp * p.os.s + col + c, x[c]);
+      } else {
+        stv<VEC, kVW>(ob + qp * p.os.s + col, x);
+      }
     }
     if (tc == 0)
       p.lse[static_cast<long long>(bh) * p.sq + qp] =
@@ -445,10 +466,10 @@ flash_fwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int D, bool VEC>
+template <typename T, int D, bool VEC, bool RAG>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr int bytes = Layout<T, D>::kBytes;
-  auto kernel = flash_fwd_kernel<T, D, VEC>;
+  auto kernel = flash_fwd_kernel<T, D, VEC, RAG>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -456,15 +477,21 @@ int launch(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the instance of head dim d: D = the least of {16, 32, 64, 128} >= d,
+// ragged (RAG) when d < D
+template <typename T, bool VEC, bool RAG>
+int dispatch_d(int d, const Params& p, cudaStream_t stream) {
+  if (d <= 16) return launch<T, 16, VEC, RAG>(p, stream);
+  if (d <= 32) return launch<T, 32, VEC, RAG>(p, stream);
+  if (d <= 64) return launch<T, 64, VEC, RAG>(p, stream);
+  return launch<T, 128, VEC, RAG>(p, stream);
+}
+
 template <typename T, bool VEC>
 int dispatch_d(int d, const Params& p, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16, VEC>(p, stream);
-    case 32: return launch<T, 32, VEC>(p, stream);
-    case 64: return launch<T, 64, VEC>(p, stream);
-    case 128: return launch<T, 128, VEC>(p, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool rag = d != 16 && d != 32 && d != 64 && d != 128;
+  return rag ? dispatch_d<T, VEC, true>(d, p, stream)
+             : dispatch_d<T, VEC, false>(d, p, stream);
 }
 
 bool aligned16(const void* ptr, const Strides& s, int size) {
@@ -480,8 +507,8 @@ extern "C" {
 // q (B, Hq, Sq, d), k / v (B, Hkv, Sk, d), out (B, Hq, Sq, d), each given
 // by its batch, head and row strides in elements (the feature stride is
 // 1); lse (B, Hq, Sq) f32 contiguous.  dtype 0 = f32, 1 = bf16 for q, k,
-// v and out.  d in {16, 32, 64, 128}; Hq a multiple of Hkv; B·Hq·ceil(Sq /
-// 64) < 2^31.  vec = 1 takes the 16-byte cp.async instance, which needs
+// v and out.  1 <= d <= 128 (d outside {16, 32, 64, 128} runs ragged in the
+// next instance up); Hq a multiple of Hkv; B·Hq·ceil(Sq / 64) < 2^31.  vec = 1 takes the 16-byte cp.async instance, which needs
 // every base pointer 16-byte aligned and every stride a multiple of 16
 // bytes (refused otherwise); vec = 0 the element-wise one.  Launches on
 // `stream` without synchronizing; returns cudaGetLastError().
@@ -494,7 +521,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         int sk, int d, int dtype, int causal, int window,
                         float scale, int vec, void* stream) {
   if (B < 1 || hq < 1 || hkv < 1 || hq % hkv || sq < 1 || sk < 1 ||
-      window < 0 || (dtype != 0 && dtype != 1))
+      d < 1 || d > 128 || window < 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n_qtiles = (sq + kBQ - 1) / kBQ;
   const long long n_items = static_cast<long long>(B) * hq * n_qtiles;
@@ -504,7 +531,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                  Strides{vsb, vsh, vss}, Strides{osb, osh, oss},
                  hq, hq / hkv, sq, sk, causal, window,
                  static_cast<int>(n_qtiles), static_cast<int>(n_items),
-                 scale};
+                 d, scale};
   const int size = dtype == 0 ? 4 : 2;
   if (vec && !(aligned16(q, p.qs, size) && aligned16(k, p.ks, size) &&
                aligned16(v, p.vs, size) && aligned16(out, p.os, size)))

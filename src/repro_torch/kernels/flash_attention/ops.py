@@ -30,7 +30,11 @@ and v through their strides, so the (B, H, S, d) views of (B, S, H, d)
 projections cost no copy, and writes ``out`` as a (B, H, S, d) view of
 (B, S, H, d) memory, which the attention layer reshapes back for free.
 Inputs that are not 16-byte aligned (:func:`vector_loads`) take the
-same kernel's element-wise load instance.
+same kernel's element-wise load instance.  A head dim d outside
+:data:`HEAD_DIMS` (SASRec's d = 50) runs in the next instance up
+(:func:`instance_dim`): the kernel zero-fills columns d .. D - 1 as it
+loads them and never stores them, so q, k and v are read in place, with
+no padded copy.
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
 launches the kernel on the current stream, without synchronizing, or
@@ -51,6 +55,7 @@ from repro_torch.kernels.flash_attention import ref
 launches = 0
 
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's template cases
+MAX_HEAD_DIM = HEAD_DIMS[-1]      # any 1 <= d <= 128 runs (ragged above)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ITEMS = 2 ** 31 - 1           # B · Hq · ceil(Sq / 64) work items
 Q_TILE = 64                       # query rows per work item
@@ -122,14 +127,21 @@ def kernel_args(q, k, v, out, lse, causal: bool, window: int, scale: float,
             int(vec), stream]
 
 
+def instance_dim(d: int) -> int:
+    """The kernel instance that runs head dim ``d``: the least of
+    :data:`HEAD_DIMS` >= d (``d`` itself when it is one)."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is outside the kernel's 1 .. "
+                         f"{MAX_HEAD_DIM}")
+    return next(h for h in HEAD_DIMS if h >= d)
+
+
 def _launch(q, k, v, causal: bool, window: int, scale: float
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel on CUDA tensors (already checked) → (out, lse)."""
     global launches
     b, hq, sq, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} is not one of the kernel's "
-                         f"{HEAD_DIMS}")
+    instance_dim(d)                   # raises above MAX_HEAD_DIM
     if b * hq * -(-sq // Q_TILE) > MAX_ITEMS:
         raise ValueError(f"B·Hq·ceil(Sq/{Q_TILE}) must be <= {MAX_ITEMS}")
     out, lse = outputs(q)

@@ -1,9 +1,9 @@
 """Common neural layers as plain functions over parameter dicts (port of
 ``repro/models/layers.py``: ``dense_init``, ``dense``,
 ``embedding_init``, ``embedding_lookup``, ``rmsnorm_init``,
-``rmsnorm``, ``rope_freqs`` and ``apply_rope``; ``layernorm`` and
-``softmax_xent``, which only the LM, GNN and recsys models call, come
-with those models).
+``rmsnorm``, ``layernorm_init``, ``layernorm``, ``rope_freqs`` and
+``apply_rope``; ``softmax_xent``, which only the LM and GNN models call,
+comes with those models).
 
 Parameters are nested dicts of tensors in the reference's layout
 (``{"w": (d_in, d_out)}``, ``{"table": (V, d)}``, ``{"scale": (d,)}``),
@@ -95,6 +95,23 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(dim: int, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-6
+              ) -> torch.Tensor:
+    """Layer normalisation in f32 (``eps`` under the root, as the
+    reference), scaled and shifted, cast back to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()
+            + params["bias"].float()).to(x.dtype)
 
 
 def rope_freqs(d_head: int, theta: float = 10000.0,

@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tree
 from repro_torch.models import attention, layers
 
 
@@ -91,12 +92,6 @@ def _init_layer(generator: torch.Generator, cfg: TransformerConfig) -> dict:
     }
 
 
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def init(generator: torch.Generator, cfg: TransformerConfig) -> dict:
     """The reference's parameter tree on ``generator``'s device: the
     embedding, the layers stacked on a leading L axis, the final norm
@@ -105,8 +100,8 @@ def init(generator: torch.Generator, cfg: TransformerConfig) -> dict:
         _not_yet_ported("the MoE layer (n_experts > 0)")
     embed = layers.embedding_init(generator, cfg.vocab_size, cfg.d_model,
                                   cfg.param_dtype)
-    stacked = _stack([_init_layer(generator, cfg)
-                      for _ in range(cfg.n_layers)])
+    stacked = tree.stack([_init_layer(generator, cfg)
+                          for _ in range(cfg.n_layers)])
     return {
         "embed": embed,
         "layers": stacked,
@@ -146,13 +141,6 @@ def _layer_forward(lp: dict, cfg: TransformerConfig, x: torch.Tensor
     return x + _mlp_forward(lp["mlp"], h)
 
 
-def _layer(stacked, i: int):
-    """Layer i's parameters: index i of every stacked leaf."""
-    if isinstance(stacked, dict):
-        return {k: _layer(v, i) for k, v in stacked.items()}
-    return stacked[i]
-
-
 def hidden_states(params: dict, cfg: TransformerConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
     """(B, S) token ids → (B, S, D) final hidden states in
@@ -163,7 +151,7 @@ def hidden_states(params: dict, cfg: TransformerConfig,
     x = layers.embedding_lookup(params["embed"], tokens).to(
         cfg.compute_dtype)
     for i in range(cfg.n_layers):
-        x = _layer_forward(_layer(params["layers"], i), cfg, x)
+        x = _layer_forward(tree.index(params["layers"], i), cfg, x)
     return layers.rmsnorm(params["final_norm"], x)
 
 

@@ -8,7 +8,9 @@ structures (dataclass and NamedTuple fields as declared, dict values by
 sorted key), so a sum over the leaves adds them in the reference's
 order and a checkpoint holds them at the reference's leaf indices.
 :func:`leaves`, :func:`unflatten` and :func:`map` work on parameter
-trees: tensors in NamedTuples and dicts.
+trees: tensors in NamedTuples and dicts; :func:`stack` and
+:func:`index` lay layers out as the reference's ``vmap`` of an init and
+read one back as its ``lax.scan`` does.
 """
 from __future__ import annotations
 
@@ -76,6 +78,21 @@ def map(fn: Callable, tree, *rest):   # jax.tree.map's name
     if any(len(c) != len(cols[0]) for c in cols):
         raise ValueError("trees of different structure")
     return unflatten(tree, [fn(*xs) for xs in zip(*cols)])
+
+
+def stack(trees: list):
+    """Dict trees of one structure → one tree whose leaves stack theirs
+    on a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def index(stacked, i: int):
+    """Entry i of every leaf of a stacked tree (:func:`stack`)."""
+    if isinstance(stacked, dict):
+        return {k: index(v, i) for k, v in stacked.items()}
+    return stacked[i]
 
 
 def to(tree, device) -> Any:

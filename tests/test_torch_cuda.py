@@ -41,7 +41,11 @@ positions of the card (flat and hierarchical all-reduce, tiled
 psum_scatter / all_gather, pmean_metrics) give the CPU's bits on every
 position, captured in a CUDA graph too; the sharded KMeans agrees on
 every position; int8 compression and a three-way pmean equal the CPU's
-bit for bit.
+bit for bit.  Attention at head dims outside {16, 32, 64, 128} (SASRec's
+50, and 40) runs ragged in the next instance up, within the same
+tolerances; SASRec's users on the card (two flash launches) are the
+CPU's within 1e-4 and its retrieval's constructed ties go to the lower
+id, as on the CPU.
 """
 from typing import NamedTuple
 
@@ -612,6 +616,16 @@ FLASH_CASES = {
                                 True, 300, 0),
     "bf16_d128_s1000": (torch.bfloat16, 1, 8, 2, 1000, 1000, 128, False, 0,
                         0),
+    # head dims outside {16, 32, 64, 128} run ragged in the next instance
+    # up: SASRec's d = 50 (200-byte f32 rows, the element-wise loads) and
+    # d = 40 (160-byte f32 rows, the 16-byte copies, short at column 40)
+    "f32_d50_sasrec": (torch.float32, 64, 1, 1, 50, 50, 50, True, 0, 0),
+    "bf16_d50_gqa_ragged": (torch.bfloat16, 2, 4, 2, 130, 70, 50, False, 0,
+                            0),
+    "f32_d50_misaligned_one_row": (torch.float32, 3, 1, 1, 1, 1, 50, True,
+                                   0, 1),
+    "f32_d40_window": (torch.float32, 2, 4, 2, 130, 130, 40, True, 32, 0),
+    "bf16_d40": (torch.bfloat16, 2, 2, 2, 100, 100, 40, False, 0, 0),
 }
 
 
@@ -631,7 +645,8 @@ def test_flash_attention_kernel_matches_plain(cuda, name):
     q = _bshd_at(g, cuda, b, sq, hq, d, dtype, offset)
     k, v = (_bshd_at(g, cuda, b, sk, hkv, d, dtype, offset)
             for _ in range(2))
-    assert fa_ops.vector_loads(q, k, v) is (offset == 0)
+    assert fa_ops.vector_loads(q, k, v) is (
+        offset == 0 and d * q.element_size() % 16 == 0)
     before = fa_ops.launches
     out, lse = fa_ops.flash_attention(q, k, v, causal, window)
     want, wlse = fa_ref.flash_attention(q, k, v, causal, window)
@@ -646,6 +661,38 @@ def test_flash_attention_kernel_matches_plain(cuda, name):
     assert bool((out[dead] == 0).all())
     if name == "f32_dead_rows":
         assert bool(dead.any())
+
+
+def test_sasrec_user_embedding_on_the_card_matches_the_cpu(cuda):
+    """SASRec at its published width (d 50, 1 head, 2 blocks, S 50) on
+    1,000 items: each block one flash launch at d = 50, the users within
+    1e-4 of the CPU on the same weights; retrieval over the item table
+    gives the CPU's ids, ties (every item twinned) to the lower id."""
+    from repro_torch import tree
+    from repro_torch.data import recsys as rdata
+    from repro_torch.models import recsys
+    cfg = recsys.SASRecConfig(n_items=1_000)
+    params = recsys.sasrec_init(torch.Generator().manual_seed(0), cfg)
+    table = params["item_embed"]["table"]
+    table[500:] = table[:500]                    # items i and i + 500 tie
+    on_card = tree.to(params, cuda)
+    items = rdata.sasrec_batch(0, 300, n_items=cfg.n_items, device="cpu"
+                               ).items
+    items[:3, :20] = recsys.PAD_ID
+    before = fa_ops.launches
+    got = recsys.sasrec_user_embedding(on_card, cfg, items.to(cuda))
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + cfg.n_blocks
+    want = recsys.sasrec_user_embedding(params, cfg, items)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for row in range(4):
+        gs, gi = recsys.sasrec_retrieval(on_card, cfg,
+                                         items[row:row + 1].to(cuda), 40)
+        ws, wi = recsys.sasrec_retrieval(params, cfg, items[row:row + 1], 40)
+        torch.testing.assert_close(gs.cpu(), ws, rtol=1e-4, atol=1e-4)
+        assert torch.equal(gi.cpu(), wi)
+        ids = gi[0].tolist()
+        assert all(ids[j + 1] == ids[j] + 500 for j in range(0, 40, 2))
 
 
 def test_sup_position_scores_on_the_card_match_the_cpu(cuda):

@@ -68,7 +68,9 @@ def test_port_sources_import_neither_jax_nor_the_reference():
             "distributed/fault.py", "tree.py",
             "benchmarks/sup_distill.py", "distributed/collectives.py",
             "core/sharded_index.py", "launch/mesh.py",
-            "benchmarks/sharded_search.py"} <= walked
+            "benchmarks/sharded_search.py", "models/recsys.py",
+            "data/recsys.py", "configs/registry.py", "configs/shapes.py",
+            "configs/sasrec.py", "examples/recsys_retrieval.py"} <= walked
     offenders = [(f.relative_to(_ROOT).as_posix(), m) for f in files
                  for m in _imported_modules(f) if _FORBIDDEN.search(m)]
     assert not offenders, offenders
@@ -103,7 +105,12 @@ def test_importing_every_port_module_loads_no_jax():
         " 'repro_torch.benchmarks.sup_distill',"
         " 'repro_torch.distributed.collectives',"
         " 'repro_torch.core.sharded_index', 'repro_torch.launch.mesh',"
-        " 'repro_torch.benchmarks.sharded_search'} <= set(mods), mods\n"
+        " 'repro_torch.benchmarks.sharded_search',"
+        " 'repro_torch.models.recsys', 'repro_torch.data.recsys',"
+        " 'repro_torch.configs.registry', 'repro_torch.configs.dlrm_rm2',"
+        " 'repro_torch.examples.recsys_retrieval'} <= set(mods), mods\n"
+        "from repro_torch.configs import registry\n"
+        "assert len(registry.all_archs()) == 5\n"
         "assert not bad, bad\n")
     env = {"PYTHONPATH": str(_ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -352,3 +359,48 @@ def test_new_kernel_wrappers_refuse_other_devices():
     q = torch.zeros(1, 2, 4, 16, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         fa_ops.flash_attention(q, q, q)
+
+
+def test_recsys_entry_points_without_device_raise_when_cuda_is_absent(
+        monkeypatch, capsys):
+    """The recsys data generators, the parameter carry-over and the
+    example ask for the card by default; the same calls run on the CPU
+    when asked."""
+    from repro_torch.data import recsys as rdata
+    from repro_torch.examples import recsys_retrieval
+    from repro_torch.models import recsys
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gens = {rdata.dlrm_batch: dict(n_rows=50),
+            rdata.sasrec_batch: dict(n_items=50),
+            rdata.dien_batch: dict(n_items=50),
+            rdata.mind_batch: dict(n_items=50)}
+    for gen, kw in gens.items():
+        with pytest.raises(RuntimeError, match="cuda"):
+            gen(0, 2, **kw)
+        batch = gen(0, 2, **kw, device="cpu")
+        assert all(t.device.type == "cpu" for t in batch)
+    cfg = recsys.MINDConfig(n_items=10, embed_dim=4)
+    leaves = {"['item_embed']['table']": np.zeros((10, 4), np.float32),
+              "['bilinear']['w']": np.zeros((4, 4), np.float32)}
+    with pytest.raises(RuntimeError, match="cuda"):
+        ckpt.recsys_params_from_numpy("mind", leaves, cfg)
+    params = ckpt.recsys_params_from_numpy("mind", leaves, cfg,
+                                           device="cpu")
+    assert params["bilinear"]["w"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        recsys_retrieval.main([])
+    monkeypatch.setattr(recsys_retrieval, "N_ITEMS", 2_000)
+    monkeypatch.setattr(recsys_retrieval, "N_CLUSTERS", 16)
+    recsys_retrieval.main(["--device", "cpu"])
+    assert "/2000 candidates" in capsys.readouterr().out
+
+
+def test_flash_attention_head_dims_run_in_the_next_instance_up():
+    """Any head dim 1 .. 128 has an instance (d = 50, SASRec's, runs in
+    the d = 64 one); the kernel has none above 128."""
+    assert [fa_ops.instance_dim(d) for d in (1, 16, 17, 40, 50, 64, 65,
+                                             128)] == [16, 16, 32, 64, 64,
+                                                       64, 128, 128]
+    for d in (0, 129, 256):
+        with pytest.raises(ValueError, match="head dim"):
+            fa_ops.instance_dim(d)
