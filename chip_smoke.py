@@ -271,6 +271,32 @@ never prints the final line.  Every phase prints its seconds.
               262,144, misaligned views), timed at SASRec's shape at B
               512 and 262,144 beside SDPA and the bound; 23e the
               ``recsys_retrieval`` example on the card;
+ 24. training the recsys and graph families' training cells (the
+              reference's ``launch/cells.py`` ``train_step``: value and
+              grad, clip 1.0, AdamW at lr 1e-4, ``train.cell_step``),
+              3 steps each from weights drawn from ``--seed``: 24a
+              DLRM, SASRec, DIEN and MIND at their published configs
+              and ``train_batch`` (B 65,536), loss and grad norm a
+              step, median step ms, peak GB, SASRec's two
+              ``flash_attention`` forwards a step as a counted run,
+              DIEN's step (whole, as the cell runs it) profiled; one
+              step at B 512 against the CPU: loss, grad norm and every
+              updated leaf within 1e-4, each leaf of both Adam moments
+              within 1% of the CPU's in norm, every leaf's update (new
+              − old) within rtol 1e-4, atol 1e-6 of AdamW's formula over
+              the card's own moments (DLRM's tables compared on the rows
+              the batch read, the CPU stepping only those); 24b
+              GatedGCN at ``make_config(shape)`` (16 layers, d 70,
+              remat) on ``full_graph_sm``, ``molecule`` and
+              ``minibatch_lg`` (1,024 seeds, fanout (15, 10), from a
+              parent graph cut to 10 edges a node), step ms, loss, peak
+              GB, launches a step, one step against the CPU as 24a's,
+              ``minibatch_lg``'s step profiled; ``ogb_products``
+              reported as not run (its sizes); 24c ``full_graph_sm``
+              split by ``partition_by_dst`` over 4 positions of the
+              card, ``loss_fn_partitioned``'s loss within 1e-5 of
+              ``loss_fn``'s and its gradients within 1e-4, under a
+              300 s timeout that ends the run (exit 1) on a hang;
 
 then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
 kernel's ``launches`` is read from the counted runs of the paths that
@@ -281,8 +307,9 @@ run it: ``pq_adc_fused`` and ``topk_scores`` from phase 5,
 runs, not their single-device yardsticks, and 20d's whole benchmark run,
 its index build and single-device baseline searches included; 21a's
 warmups, 21b's eager checks, warmup, adds and compaction, and 21c's two
-benchmark runs whole) and in phase 23 (its serve, retrieval and HI²
-calls and the example; not 23d's checks); phase 15's counted runs are
+benchmark runs whole), in phase 23 (its serve, retrieval and HI²
+calls and the example; not 23d's checks) and in phase 24 (24a's timed
+steps: SASRec's flash forwards); phase 15's counted runs are
 checked in the phase and printed.  ``flash_attention``'s entry also
 carries 23d's times at SASRec's bulk shape under ``sasrec_shape``.  It
 imports only the port, never jax or the reference package, and exits
@@ -295,10 +322,12 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -346,6 +375,7 @@ from repro_torch.core import sharded_index as shi  # noqa: E402
 from repro_torch.core import term_selector as ts_mod  # noqa: E402
 from repro_torch.core.codecs import flat as flat_codec  # noqa: E402
 from repro_torch.core import kmeans  # noqa: E402
+from repro_torch.data import graph as gdata  # noqa: E402
 from repro_torch.data import recsys as rdata  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.distributed import collectives  # noqa: E402
@@ -367,6 +397,7 @@ from repro_torch.launch import runtime  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch import tune  # noqa: E402
+from repro_torch.models import gnn  # noqa: E402
 from repro_torch.models import recsys  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.optim import compression  # noqa: E402
@@ -501,6 +532,35 @@ REC_FLASH_BLOCK = 32_768
 # the serve calls profiled (torch.profiler): SASRec's bulk batch, DIEN's
 # 512-row one (200 GRU steps of small launches)
 REC_PROFILE = (("sasrec", "serve_bulk"), ("dien", "serve_p99"))
+
+# phase 24: training cells (the reference's launch/cells.py train_step at
+# lr 1e-4, clip 1.0): each at its published config, TRAIN_CELL_STEPS steps,
+# one step at REC_CHECK_B (recsys) or the cell's own batch (GNN) against
+# the CPU: loss, grad norm, the updated leaves (and 24c's gradients)
+# within CELL_TOL.  A first step at lr 1e-4 moves a leaf by about 1e-4,
+# which CELL_TOL cannot see, so the step is held twice more: each leaf of
+# both Adam moments within MOMENT_RTOL of the CPU's in norm (a zero or
+# mis-scaled moment fails; elementwise, a 169,984-node sum's rounding
+# reaches 3.4e-4 of a leaf's largest), and each leaf's update (new - old)
+# within STEP_TOL of AdamW's formula over the card's own moments (a
+# dropped or mis-scaled update fails).  The update is not held against the
+# CPU's: a first step moves an element by lr * g / (|g| + eps), so where a
+# gradient is near eps = 1e-8 its rounding becomes up to lr of difference.
+# The partitioned GNN's loss within PARTITION_LOSS_TOL (the reference's
+# bound) of loss_fn's
+TRAIN_CELL_STEPS = 3
+REC_CHECK_B = 512
+CELL_TOL = 1e-4                      # rtol = atol, f32 sum orders
+MOMENT_RTOL = 1e-2                   # ||card - CPU|| / ||CPU||, a leaf
+STEP_TOL = (1e-4, 1e-6)              # (rtol, atol): f32 roundings
+PARTITION_LOSS_TOL = 1e-5            # rtol
+PARTITIONS = 4
+PARTITION_TIMEOUT_S = 300            # a hang fails the phase, not the run
+GNN_TRAIN_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")
+# minibatch_lg's parent graph: Reddit's 232,965 nodes but 10 edges a node
+# (the cell's 114,615,892 would take random_graph's per-edge loop tens of
+# minutes); the sampled batch keeps the cell's shape
+MINIBATCH_PARENT_EDGES = 2_329_650
 
 # phase 19: the paper benchmarks.  Rows held against the CPU: top-R
 # ids up to swaps within PAPER_TOL, each recall or MRR within its
@@ -4195,6 +4255,338 @@ def recsys_phase(dev, seed: int) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 24: training of the recsys and graph families
+# --------------------------------------------------------------------------
+
+def cell_steps(loss, cfg, params, batch, base: int) -> dict:
+    """TRAIN_CELL_STEPS cell steps from ``params`` (a counted run): loss
+    and grad norm a step, the median ms of steps 2.., peak GB above
+    ``base`` (the bytes allocated before the cell made its parameters:
+    parameters, batch and Adam state count, earlier phases' do not) and
+    launches a step."""
+    state = optim.adam_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms = [], [], []
+    reset_counts()
+    for _ in range(TRAIN_CELL_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = train.cell_step(loss, cfg, params, state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    if not np.isfinite(losses + norms).all():
+        fail(f"a training step gave loss {losses}, grad norm {norms}")
+    return dict(losses=losses, norms=norms, step_ms=float(np.median(ms[1:])),
+                peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                launches={k: v / TRAIN_CELL_STEPS for k, v in counts.items()},
+                counts=counts)
+
+
+def _close(what: str, got, want, rtol: float = CELL_TOL,
+           atol: float = CELL_TOL) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if got.shape != want.shape or not torch.allclose(
+            got, want, rtol=rtol, atol=atol):
+        fail(f"{what}: card and CPU differ by {err:.3g} (shapes "
+             f"{tuple(got.shape)}, {tuple(want.shape)}; rtol {rtol:.3g}, "
+             f"atol {atol:.3g})")
+    return err
+
+
+def _close_norm(what: str, got, want, rtol: float) -> float:
+    """``got`` within ``rtol`` of ``want`` in norm: ||got - want|| /
+    ||want||."""
+    got, want = got.double().cpu(), want.double().cpu()
+    if got.shape != want.shape:
+        fail(f"{what}: shapes {tuple(got.shape)}, {tuple(want.shape)}")
+    diff, size = float((got - want).norm()), float(want.norm())
+    err = diff / size if size else diff
+    if err > rtol:
+        fail(f"{what}: card and CPU differ by {err:.3g} of the CPU's norm "
+             f"(rtol {rtol:.3g})")
+    return err
+
+
+def adam_first_delta(mu, nu) -> torch.Tensor:
+    """A first AdamW step's update at CELL_ADAM from its moments, by the
+    reference's formula in float64 on the host."""
+    a = train.CELL_ADAM
+    assert a.weight_decay == 0.0
+    mu, nu = mu.double().cpu(), nu.double().cpu()
+    return -a.lr * (mu / (1 - a.b1)) / ((nu / (1 - a.b2)).sqrt() + a.eps)
+
+
+def step_vs_cpu_cell(what: str, loss, cfg, params, batch, cpu_cfg,
+                     cpu_params, cpu_batch, compare) -> dict:
+    """One cell step on the card and on the CPU from the same parameters
+    and batch: loss and grad norm within CELL_TOL; over the (name, card,
+    CPU) tensors ``compare`` pairs, the updated leaves within CELL_TOL,
+    both moments within MOMENT_RTOL in norm and each leaf's update within
+    STEP_TOL of :func:`adam_first_delta` of the card's moments.  Returns
+    the largest error of each (the moments' relative to the norm)."""
+    new, state, m = train.cell_step(loss, cfg, params,
+                                    optim.adam_init(params), batch)
+    cpu_new, cpu_state, cpu_m = train.cell_step(
+        loss, cpu_cfg, cpu_params, optim.adam_init(cpu_params), cpu_batch)
+    err = dict(metrics=max(_close(f"{what} {k}", m[k], cpu_m[k])
+                           for k in ("loss", "grad_norm")))
+    news = compare(new, cpu_new)
+    err["params"] = max(_close(f"{what} {name}", a, b)
+                        for name, a, b in news)
+    mus = compare(state.mu, cpu_state.mu)
+    nus = compare(state.nu, cpu_state.nu)
+    err["moments"] = max(
+        _close_norm(f"{what} {moment} {name}", a, b, MOMENT_RTOL)
+        for moment, pairs in (("mu", mus), ("nu", nus))
+        for name, a, b in pairs)
+    err["update"] = max(
+        _close(f"{what} update {name}", a - a0, adam_first_delta(mu, nu),
+               *STEP_TOL)
+        for (name, a, _), (_, a0, _), (_, mu, _), (_, nu, _) in zip(
+            news, compare(params, cpu_params), mus, nus))
+    return err
+
+
+def _same_leaves(new, cpu_new):
+    return [(p, a, b) for (p, a), (_, b) in zip(
+        tree_mod.leaves_with_paths(new), tree_mod.leaves_with_paths(cpu_new))]
+
+
+def dlrm_on_cpu(cfg, params, batch):
+    """The CPU's copy of a DLRM step: each table cut to the rows the batch
+    reads, in id order, and the ids renumbered, so the CPU steps 512 rows
+    a table, not 10⁶.  A row the batch does not read gets no gradient and
+    no update, and the kept rows' sums run in the same order.  Returns
+    (cfg, params, batch, compare) for :func:`step_vs_cpu_cell`."""
+    sparse = batch.sparse.clamp(min=0).long().cpu()
+    used = [torch.unique(sparse[:, f]) for f in range(cfg.n_sparse)]
+    width = max(len(u) for u in used)
+    tables = torch.zeros((cfg.n_sparse, width, cfg.embed_dim))
+    for f, u in enumerate(used):
+        tables[f, :len(u)] = params["tables"][f, u.to(
+            params["tables"].device)].cpu()
+    ids = torch.stack([torch.searchsorted(used[f],
+                                          sparse[:, f].contiguous())
+                       for f in range(cfg.n_sparse)], dim=1).int()
+    cpu_params = dict(tree_mod.to({k: v for k, v in params.items()
+                                   if k != "tables"}, "cpu"), tables=tables)
+    cpu_batch = recsys.DLRMBatch(batch.dense.cpu(), ids, batch.labels.cpu())
+
+    def compare(new, cpu_new):
+        out = [(p, a, b) for p, a, b in _same_leaves(
+            {k: v for k, v in new.items() if k != "tables"},
+            {k: v for k, v in cpu_new.items() if k != "tables"})]
+        for f, u in enumerate(used):
+            out.append((f"tables[{f}] (the {len(u)} rows read)",
+                        new["tables"][f, u.to(new["tables"].device)],
+                        cpu_new["tables"][f, :len(u)]))
+        return out
+
+    return (dataclasses.replace(cfg, n_rows=width), cpu_params, cpu_batch,
+            compare)
+
+
+def rec_train(arch: str, dev, seed: int, launches: dict) -> dict:
+    """24a: one recsys arch's training cell at its published config and
+    REC_SHAPES["train_batch"]."""
+    cfg = registry.get(arch).make_config()
+    b = rec_shapes.REC_SHAPES["train_batch"].batch
+    loss = recsys.LOSSES[arch]
+    base = torch.cuda.memory_allocated()
+    params = REC_INIT[arch](torch.Generator(device=dev).manual_seed(seed),
+                            cfg)
+    check = rec_batch(arch, cfg, seed + 7, REC_CHECK_B, dev)
+    if arch == "dlrm-rm2":
+        cpu_cfg, cpu_params, cpu_batch, compare = dlrm_on_cpu(cfg, params,
+                                                              check)
+    else:
+        cpu_cfg, cpu_params = cfg, tree_mod.to(params, "cpu")
+        cpu_batch, compare = tree_mod.to(check, "cpu"), _same_leaves
+    err = step_vs_cpu_cell(f"24a {arch} (B {REC_CHECK_B})", loss, cfg,
+                           params, check, cpu_cfg, cpu_params, cpu_batch,
+                           compare)
+    del check, cpu_params, cpu_batch
+    torch.cuda.empty_cache()
+    batch = rec_batch(arch, cfg, seed, b, dev)
+    rec = cell_steps(loss, cfg, params, batch, base)
+    _add(launches, rec["counts"])
+    flash = rec["launches"]["flash_attention"]
+    if arch == "sasrec" and flash != cfg.n_blocks:
+        fail(f"sasrec: {flash} flash_attention launches a step, not "
+             f"{cfg.n_blocks}")
+    log(f"[train] 24a {arch} (B {b}, 1 microbatch: the whole batch): loss "
+        f"{[round(x, 6) for x in rec['losses']]}, grad norm "
+        f"{[round(x, 6) for x in rec['norms']]}; {rec['step_ms']:.3f} ms a "
+        f"step (median of steps 2-{TRAIN_CELL_STEPS}); peak "
+        f"{rec['peak_gb']:.2f} GB; flash_attention {flash:g} a step; one "
+        f"step at B {REC_CHECK_B} against the CPU: largest errors {err}")
+    if arch == "dien":
+        profile_call(lambda: train.cell_step(loss, cfg, params,
+                                             optim.adam_init(params), batch),
+                     f"24a dien one training step (B {b})")
+    return dict(rec, err=err)
+
+
+def gnn_batch(shape, cfg, seed: int, dev):
+    """The cell's GraphBatch on ``dev`` and what of it was cut (None)."""
+    if shape.kind == "molecule":
+        return gdata.molecule_batch(seed, shape.batch_graphs, shape.n_nodes,
+                                    shape.n_edges, shape.d_feat,
+                                    cfg.n_classes, device=dev), None
+    if shape.kind == "full":
+        return gdata.random_graph(seed, shape.n_nodes, shape.n_edges,
+                                  shape.d_feat, cfg.n_classes,
+                                  device=dev), None
+    parent = gdata.random_graph(seed, shape.n_nodes, MINIBATCH_PARENT_EDGES,
+                                shape.d_feat, cfg.n_classes, device="cpu")
+    seeds = np.random.default_rng(seed).choice(shape.n_nodes,
+                                               shape.batch_nodes,
+                                               replace=False)
+    sub = gdata.NeighborSampler(shape.n_nodes, parent.edge_src,
+                                parent.edge_dst).sample(
+        seed, seeds, shape.fanout, parent.node_feat, parent.labels,
+        device=dev)
+    return sub, {"parent_edges": [shape.n_edges, MINIBATCH_PARENT_EDGES]}
+
+
+def gnn_train(name: str, dev, seed: int, launches: dict) -> dict:
+    """24b: GatedGCN's training cell at ``make_config(shape)``."""
+    shape = rec_shapes.GNN_SHAPES[name]
+    cfg = registry.get("gatedgcn").make_config(shape)
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    g, reduced = gnn_batch(shape, cfg, seed, dev)
+    made_s = time.perf_counter() - t0
+    params = gnn.init(torch.Generator(device=dev).manual_seed(seed), cfg)
+    err = step_vs_cpu_cell(f"24b {name}", gnn.loss_fn, cfg, params, g, cfg,
+                           tree_mod.to(params, "cpu"),
+                           tree_mod.to(g, "cpu"), _same_leaves)
+    rec = cell_steps(gnn.loss_fn, cfg, params, g, base)
+    _add(launches, rec["counts"])
+    log(f"[train] 24b gatedgcn {name}: {g.node_feat.shape[0]} nodes, "
+        f"{g.edge_src.shape[0]} edges, d_feat {shape.d_feat}, "
+        f"{cfg.n_classes} classes, {cfg.n_layers} layers d "
+        f"{cfg.d_hidden}, remat {cfg.remat}; batch made in {made_s:.1f} s"
+        + (f"; reduced {reduced}" if reduced else "") + f"; loss "
+        f"{[round(x, 6) for x in rec['losses']]}, grad norm "
+        f"{[round(x, 6) for x in rec['norms']]}; {rec['step_ms']:.3f} ms a "
+        f"step; peak {rec['peak_gb']:.2f} GB; launches a step "
+        f"{rec['launches']}; one step against the CPU: largest errors {err}")
+    if name == "minibatch_lg":
+        profile_call(lambda: train.cell_step(gnn.loss_fn, cfg, params,
+                                             optim.adam_init(params), g),
+                     f"24b gatedgcn {name} one training step")
+    return dict(rec, err=err, reduced=reduced, params=params, cfg=cfg, g=g)
+
+
+def within(seconds: float, fn, what: str):
+    """``fn()`` in a thread of its own; past ``seconds`` the run ends at
+    once with exit code 1 (a hung autograd thread could not be joined)."""
+    box: dict = {}
+
+    def run():
+        torch.cuda.set_device(0)
+        try:
+            box["out"] = fn()
+            torch.cuda.synchronize()
+        except BaseException as e:          # noqa: BLE001 — re-raised
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True, name=what)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        log(f"chip_smoke: {what} did not finish in {seconds} s (a hang)")
+        sys.stdout.flush()
+        os._exit(1)
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def partitioned_check(dev, full: dict) -> dict:
+    """24c: full_graph_sm split by partition_by_dst over PARTITIONS
+    positions of the one card, on 24b's initial parameters: the loss
+    within PARTITION_LOSS_TOL of loss_fn's, every gradient within
+    CELL_TOL, under a timeout."""
+    cfg, params, g = full["cfg"], full["params"], full["g"]
+    (want, _), wgrads = optim.value_and_grad(gnn.loss_fn, params, cfg, g,
+                                             has_aux=True)
+    mesh = collectives.Mesh([dev] * PARTITIONS, ("data",))
+    gp = gdata.partition_by_dst(g, PARTITIONS)
+
+    def step():
+        return optim.value_and_grad(
+            lambda p, b: gnn.loss_fn_partitioned(p, cfg, b, mesh), params,
+            gp, has_aux=True)
+
+    (loss, _), grads = within(PARTITION_TIMEOUT_S, step, "24c first step")
+    t0 = time.perf_counter()
+    within(PARTITION_TIMEOUT_S, step, "24c timed step")
+    ms = (time.perf_counter() - t0) * 1e3
+    mesh.close()
+    rel = abs(float(loss) - float(want)) / abs(float(want))
+    if rel > PARTITION_LOSS_TOL:
+        fail(f"24c: partitioned loss {float(loss)} vs loss_fn "
+             f"{float(want)} (rel {rel:.3g})")
+    err = max(_close(f"24c grad {p}", a, b)
+              for p, a, b in _same_leaves(grads, wgrads))
+    log(f"[train] 24c partitioned full_graph_sm on {PARTITIONS} positions "
+        f"of the card ({gp.node_feat.shape[0] // PARTITIONS} nodes, "
+        f"{gp.edge_src.shape[0] // PARTITIONS} edge slots a position): "
+        f"loss {float(loss):.7f} vs loss_fn {float(want):.7f} (rel "
+        f"{rel:.3g}), gradients within {err:.3g}; value and grad "
+        f"{ms:.1f} ms (a thread and {cfg.n_layers + 2} mesh calls)")
+    return dict(rel=rel, err=err, ms=ms)
+
+
+def ogb_products_note() -> None:
+    shape = rec_shapes.GNN_SHAPES["ogb_products"]
+    cfg = registry.get("gatedgcn").make_config(shape)
+    d = cfg.d_hidden
+    plane = shape.n_edges * d * 4
+    log(f"[train] 24b ogb_products not run: its edge plane is "
+        f"{shape.n_edges:,} edges x {d} x 4 B = {plane / 1e9:.1f} GB, one "
+        f"layer's forward holds at least four (h_src, h_dst, e_new, msg), "
+        f"and under remat the {cfg.n_layers} layers' saved (h, e) inputs "
+        f"alone take {cfg.n_layers * (plane + shape.n_nodes * d * 4) / 1e9:.0f}"
+        f" GB; one 80 GB card cannot hold it")
+
+
+def train_cells_phase(dev, seed: int) -> dict:
+    """Phase 24: the recsys and graph families' training cells on the
+    card.  Returns the counted launches (24a's steps) and each cell's
+    record."""
+    launches: dict = {}
+    rec: dict = {"recsys": {}, "gnn": {}}
+    log(f"[train] phase 24 starts with "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated by earlier "
+        f"phases; each cell's peak below is above that")
+    for arch in REC_ARCHS:
+        with phase(f"24a {arch} training"):
+            rec["recsys"][arch] = rec_train(arch, dev, seed, launches)
+        torch.cuda.empty_cache()
+    for name in GNN_TRAIN_SHAPES:
+        with phase(f"24b gatedgcn {name} training"):
+            rec["gnn"][name] = gnn_train(name, dev, seed, launches)
+        torch.cuda.empty_cache()
+    ogb_products_note()
+    with phase("24c partitioned gatedgcn (4 positions)"):
+        rec["partitioned"] = partitioned_check(dev,
+                                               rec["gnn"]["full_graph_sm"])
+    for r in rec["gnn"].values():
+        for k in ("params", "g"):
+            r.pop(k)
+    rec["launches"] = launches
+    log(f"[train] phase 24 launches {launches}")
+    return rec
+
+
 def run_kernel_bench() -> dict:
     """Phase 14: the port's ``kernel_bench`` at its full shapes with
     ``--check`` semantics, as a counted run: the main path of ``pq_adc``
@@ -4405,6 +4797,8 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
     with phase("23 recsys"):
         rec = recsys_phase(dev, args.seed)
+    with phase("24 training cells (recsys, GatedGCN)"):
+        cells = train_cells_phase(dev, args.seed)
 
     # the paths' counted runs: the builds and 18c's KMeans for
     # assign_argmax, the sup build and 18c's steps for flash_attention
@@ -4423,6 +4817,7 @@ def main(argv=None) -> None:
     log(f"[mesh-rt] phase 21 launches {mesh_rt_launches}")
     launches = {k: v + paper_launches[k] + mesh_launches.get(k, 0)
                 + mesh_rt_launches.get(k, 0) + rec["launches"].get(k, 0)
+                + cells["launches"].get(k, 0)
                 for k, v in launches.items()}
     # phase 23: SASRec's attention at d 50, and its launches
     errs["flash_attention"] = max(errs["flash_attention"], rec["flash_err"])

@@ -55,7 +55,11 @@ Recsys parameters (``repro/models/recsys.py``) map by the reference's
 ``jax.tree_util.keystr`` paths, ``['tables']``, ``['bot'][0]['w']``,
 ``['blocks']['attn']['wq']['w']`` (stacked, leading ``n_blocks`` axis),
 ``['item_embed']['table']`` and so on: :func:`recsys_params_from_numpy`
-nests them back into the port's dicts and lists.
+nests them back into the port's dicts and lists.  GatedGCN's
+(``repro/models/gnn.py``) the same way, ``['embed_h']['w']``,
+``['embed_e']['const']``, ``['layers']['E1']['w']`` (stacked, leading
+``n_layers`` axis), ``['head']['w']``: :func:`gnn_params_from_numpy`
+takes exactly those leaves.
 """
 from __future__ import annotations
 
@@ -259,6 +263,8 @@ def _rebuild(like, arrays: list):
                             for k in like._fields))
     if isinstance(like, dict):
         return {k: _rebuild(like[k], arrays) for k in sorted(like)}
+    if isinstance(like, list):
+        return [_rebuild(x, arrays) for x in like]
     return like
 
 
@@ -273,8 +279,8 @@ def _place(node, where):
     """``node`` (a tree of tensors) under the placement tree ``where``:
     ``None`` leaves a subtree where it is, a device moves its tensors
     there, a :class:`~repro_torch.distributed.collectives.Split` turns
-    each tensor into {coord: block on that position's device}; a dict or
-    NamedTuple places each field under its own placement."""
+    each tensor into {coord: block on that position's device}; a dict,
+    list or NamedTuple places each field under its own placement."""
     if where is None:
         return node
     if isinstance(where, collectives.Split):
@@ -286,6 +292,8 @@ def _place(node, where):
                             for k in node._fields))
     if isinstance(where, dict):
         return {k: _place(node[k], where[k]) for k in node}
+    if isinstance(where, list):
+        return [_place(x, w) for x, w in zip(node, where, strict=True)]
     raise TypeError(f"not a placement: {where!r}")
 
 
@@ -639,3 +647,50 @@ def recsys_params_from_numpy(arch_id: str, leaves: dict, cfg,
             raise ValueError(f"{arch_id} leaf {key!r} has shape {got}, "
                              f"cfg needs {shape}")
     return params
+
+
+# --------------------------------------------------------------------------
+# GNN parameters
+# --------------------------------------------------------------------------
+
+def _gnn_shapes(cfg) -> dict:
+    """Every leaf path of the reference's ``gnn.init`` → its shape."""
+    d, n = cfg.d_hidden, cfg.n_layers
+    want = {"['embed_h']['w']": (cfg.d_feat, d),
+            "['head']['w']": (d, cfg.n_classes)}
+    if cfg.d_edge_feat > 0:
+        want["['embed_e']['w']"] = (cfg.d_edge_feat, d)
+    else:
+        want["['embed_e']['const']"] = (d,)
+    for k in ("E1", "E2", "E3", "B1", "B2"):
+        want[f"['layers']['{k}']['w']"] = (n, d, d)
+    for k in ("norm_h", "norm_e"):
+        for leaf in ("scale", "bias"):
+            want[f"['layers']['{k}']['{leaf}']"] = (n, d)
+    return want
+
+
+def gnn_params_from_numpy(leaves: dict, cfg,
+                          device: dev_mod.DeviceLike = "cuda") -> dict:
+    """The port's GatedGCN parameter tree on ``device`` from the
+    reference's ``keystr`` leaf paths → numpy arrays, checked against
+    ``cfg`` (a ``GatedGCNConfig``): exactly the reference's leaves, the
+    layers stacked on a leading ``n_layers`` axis, each of the shape
+    ``cfg`` gives it."""
+    dev = dev_mod.resolve(device)
+    want = _gnn_shapes(cfg)
+    if sorted(leaves) != sorted(want):
+        raise KeyError(f"GatedGCN parameters have leaves {sorted(leaves)}, "
+                       f"need {sorted(want)}")
+    root: dict = {}
+    for path, arr in leaves.items():
+        if tuple(np.shape(arr)) != want[path]:
+            raise ValueError(f"GatedGCN leaf {path} has shape "
+                             f"{tuple(np.shape(arr))}, cfg needs "
+                             f"{want[path]}")
+        keys = [m.group(1) for m in _PATH.finditer(path)]
+        node = root
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = _to_tensor(arr, dev)
+    return root

@@ -4,8 +4,8 @@
 Each entry carries the exact published config, a reduced smoke-test
 config (same family, small dims), its shape set, and per-shape skips
 with reasons (DESIGN.md §4).  The port registers the families it has:
-recsys (``dlrm-rm2``, ``sasrec``, ``dien``, ``mind``) and ``hi2-synth``;
-the LM and GNN archs come with their models.
+recsys (``dlrm-rm2``, ``sasrec``, ``dien``, ``mind``), the GNN
+(``gatedgcn``) and ``hi2-synth``; the LM archs come with their models.
 """
 from __future__ import annotations
 
@@ -47,7 +47,7 @@ def all_archs() -> dict[str, ArchDef]:
 def _load_all() -> None:
     # import side effects register each arch (the ported families)
     from repro_torch.configs import (dien, dlrm_rm2,  # noqa: F401
-                                     hi2_synth, mind, sasrec)
+                                     gatedgcn, hi2_synth, mind, sasrec)
 
 
 def cells(include_skipped: bool = False,

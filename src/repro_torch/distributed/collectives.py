@@ -61,6 +61,14 @@ all-reduce (:func:`flat_allreduce`, :func:`hierarchical_allreduce`,
 :class:`Split` places a leading axis over mesh positions (the
 reference's ``NamedSharding`` of dim 0), for the data loader and the
 elastic restore.
+
+Training across positions (:func:`repro_torch.models.gnn.
+forward_partitioned`) runs each position's block in :meth:`Mesh.run`
+with ``grad=True`` and joins the blocks with :func:`replicate` and
+:func:`all_gather_tiled`, which the controlling thread calls: their
+backward adds in rank order and meets no barrier, because autograd runs
+a card's backward nodes on one thread, where a node waiting for the
+other positions would wait for itself.
 """
 from __future__ import annotations
 
@@ -180,6 +188,59 @@ def gather_topk(scores: torch.Tensor, ids: torch.Tensor, shard
             i.movedim(0, 1).reshape(b, n_shards * r))
 
 
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, devices):
+        ctx.home = x.device
+        return tuple(x.to(d, copy=True) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        live = [g.to(ctx.home) for g in grads if g is not None]
+        return (_add(live) if live else None), None
+
+
+class _AllGatherTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, *blocks):
+        ctx.sizes = [b.shape[0] for b in blocks]
+        ctx.devices = [b.device for b in blocks]
+        return tuple(torch.cat([b.to(d) for b in blocks]) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = [None]
+        lo = 0
+        for n, dev in zip(ctx.sizes, ctx.devices):
+            live = [g[lo:lo + n].to(dev) for g in grads if g is not None]
+            out.append(_add(live) if live else None)
+            lo += n
+        return tuple(out)
+
+
+def replicate(x: torch.Tensor, devices: Sequence) -> tuple:
+    """A copy of ``x`` on each of ``devices`` (rank order), for bodies
+    that run on mesh positions under autograd (a replicated input of the
+    reference's ``shard_map``).  Its backward adds the copies' gradients
+    in rank order on ``x``'s device (the transpose, a psum).  Called by
+    the controlling thread, outside :meth:`Mesh.run`: it meets no
+    barrier, forward or backward."""
+    return _Replicate.apply(x, list(devices))
+
+
+def all_gather_tiled(blocks: Sequence[torch.Tensor],
+                     devices: Sequence) -> tuple:
+    """Every rank's block (``blocks[r]``, on rank r's device) concatenated
+    in rank order along dim 0, one copy on each of ``devices``
+    (``jax.lax.all_gather(..., tiled=True)``), differentiable: backward
+    gives block r the rank-order sum of every copy's gradient rows of
+    block r (the transpose, a tiled ``psum_scatter``).  Called by the
+    controlling thread between :meth:`Mesh.run` calls, so no backward
+    node waits for another position; :meth:`Group.all_gather` is the
+    inference collective that positions call inside one."""
+    return _AllGatherTiled.apply(list(devices), *blocks)
+
+
 # --------------------------------------------------------------------------
 # the mesh and its worker threads
 # --------------------------------------------------------------------------
@@ -231,7 +292,8 @@ class _Call:
 def _worker(coord, device: torch.device, jobs: "queue.SimpleQueue",
             groups: list) -> None:
     """A position's thread: runs each job on its own stream (a card) in
-    inference mode; an error breaks every group of the mesh.  On a
+    inference mode, or with autograd recording (a ``grad`` job); an
+    error breaks every group of the mesh.  On a
     one-card mesh (``join``) the job ends with an event recorded on the
     stream, which the caller's stream waits on; otherwise the thread
     waits for its stream before it posts."""
@@ -243,10 +305,10 @@ def _worker(coord, device: torch.device, jobs: "queue.SimpleQueue",
         job = jobs.get()
         if job is None:
             return
-        fn, ready, call, join = job
+        fn, ready, call, join, grad = job
         out = finished = None
         try:
-            with torch.inference_mode():
+            with torch.enable_grad() if grad else torch.inference_mode():
                 if stream is None:
                     out = fn(coord)
                 else:
@@ -406,17 +468,21 @@ class Mesh:
         body."""
         return Position(self, tuple(coord))
 
-    def run(self, fn: Callable[[tuple], Any]) -> dict:
+    def run(self, fn: Callable[[tuple], Any], grad: bool = False) -> dict:
         """``fn(coord)`` on every position at once, each in its worker
         thread (on a card on the worker's stream, after the work the
         caller queued so far on the first position's device); returns
-        {coord: result}.  On a :attr:`one_card` mesh the caller's stream
-        then waits for every position's stream (the join of the fork
-        event), so the call returns once the work is queued and is
-        legal inside a CUDA graph capture; on other meshes each position
-        waits for its stream before it posts.  A position that raises
-        breaks the others'
-        collectives and its error is raised here; when every error is a
+        {coord: result}.  The positions run in inference mode, or with
+        ``grad`` under autograd, so their results join the caller's
+        graph (:func:`repro_torch.models.gnn.forward_partitioned`; the
+        backward then runs on autograd's own threads, on each position's
+        stream, and must meet no collective).  On a :attr:`one_card`
+        mesh the caller's stream then waits for every position's stream
+        (the join of the fork event), so the call returns once the work
+        is queued and is legal inside a CUDA graph capture; on other
+        meshes each position waits for its stream before it posts.  A
+        position that raises breaks the others' collectives and its
+        error is raised here; when every error is a
         broken barrier, a position missed a collective for ``timeout``
         seconds and a RuntimeError says so.  When ``2 * timeout`` seconds
         pass with no position finishing, a RuntimeError names the
@@ -433,7 +499,7 @@ class Mesh:
                 ready.record(torch.cuda.current_stream(first))
             call = _Call(self.size)
             for q in self._queues.values():
-                q.put((fn, ready, call, join))
+                q.put((fn, ready, call, join, grad))
             while not call.done.is_set():
                 with call.lock:
                     left = call.left

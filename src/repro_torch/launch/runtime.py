@@ -522,10 +522,54 @@ class ServingRuntime:
         requests and :class:`RuntimeClosed` after :meth:`close` (or
         before :meth:`warmup`).
         """
+        self._check_serving()
+        req = self._request(query_emb, query_tokens, namespaces)
+        if not req.future.done():
+            self._enqueue([req])
+        return req.future
+
+    def query(self, query_emb, query_tokens, namespaces=None,
+              timeout: Optional[float] = None) -> hi.SearchResult:
+        """Synchronous batch convenience with the ``Server.query``
+        signature: one request a row, reassembled into numpy planes.
+        The rows enter the queue under one hold of its lock, so the
+        scheduler sees them together (a batch of up to ``max_batch``
+        rows is one micro-batch whatever the linger), and admission
+        control takes or rejects them as a whole: it raises
+        :class:`RuntimeOverloaded` when they do not fit beside what is
+        pending, and :class:`ValueError` for more rows than
+        ``queue_depth``, which never fit.  ``timeout`` bounds each wait
+        (None: unbounded)."""
+        qe = np.atleast_2d(np.asarray(query_emb, np.float32))
+        qt = np.atleast_2d(np.asarray(query_tokens, np.int64))
+        n = qe.shape[0]
+        if namespaces is not None and len(namespaces) != n:
+            raise ValueError(f"{len(namespaces)} filter rows for {n} "
+                             "queries")
+        if n > self.cfg.queue_depth:
+            raise ValueError(f"{n} rows exceed queue_depth="
+                             f"{self.cfg.queue_depth}; split the batch")
+        self._check_serving()
+        reqs = [self._request(qe[i], qt[i],
+                              None if namespaces is None else namespaces[i])
+                for i in range(n)]
+        self._enqueue([r for r in reqs if not r.future.done()])
+        rows = [r.future.result(timeout=timeout) for r in reqs]
+        return hi.SearchResult(
+            doc_ids=np.stack([r.doc_ids for r in rows]),
+            scores=np.stack([r.scores for r in rows]),
+            n_candidates=np.stack([r.n_candidates for r in rows]),
+            partial=any(bool(r.partial) for r in rows))
+
+    def _check_serving(self) -> None:
         if self._thread is None or self._closing:
             raise RuntimeClosed(
                 "runtime not serving; call warmup(hidden, query_len) "
                 "first" if self._thread is None else "runtime closed")
+
+    def _request(self, query_emb, query_tokens, namespaces) -> "_Request":
+        """One validated request; its future already holds the row on a
+        cache hit."""
         qe = np.asarray(query_emb, np.float32).reshape(-1)
         qt = np.asarray(query_tokens, np.int64).reshape(-1)
         if qe.shape[0] != self._hidden or qt.shape[0] != self._query_len:
@@ -546,45 +590,31 @@ class ServingRuntime:
                 raise ValueError(
                     f"namespace id(s) {bad} out of range [0, {n_ns})")
         rung = self._rung_for(qe)
-        future: Future = Future()
+        req = _Request(qe, qt, ns, rung, Future())
         if self.cache is not None:
             # lock-free pre-check; the scheduler re-checks under the lock
             hit = self.cache.get(self._key(qe, qt, ns, rung))
             if hit is not None:
-                future.set_result(hit)
-                return future
-        req = _Request(qe, qt, ns, rung, future)
+                req.future.set_result(hit)
+        return req
+
+    def _enqueue(self, reqs: list) -> None:
+        """Queue ``reqs`` under one hold of the lock and wake the
+        scheduler once; past ``queue_depth`` none of them is queued."""
+        if not reqs:
+            return
         with self._cond:
             if self._closing:
                 raise RuntimeClosed("runtime closed")
-            if len(self._queue) >= self.cfg.queue_depth:
-                self.n_rejected += 1
+            if len(self._queue) + len(reqs) > self.cfg.queue_depth:
+                self.n_rejected += len(reqs)
                 raise RuntimeOverloaded(len(self._queue),
                                         self.cfg.retry_after_ms)
-            self._queue.append(req)
+            now = time.monotonic()
+            for req in reqs:
+                req.t_submit = now
+            self._queue.extend(reqs)
             self._cond.notify_all()
-        return future
-
-    def query(self, query_emb, query_tokens, namespaces=None,
-              timeout: Optional[float] = None) -> hi.SearchResult:
-        """Synchronous batch convenience with the ``Server.query``
-        signature: per-query submissions, reassembled into numpy
-        planes.  ``timeout`` bounds each wait (None: unbounded)."""
-        qe = np.atleast_2d(np.asarray(query_emb, np.float32))
-        qt = np.atleast_2d(np.asarray(query_tokens, np.int64))
-        n = qe.shape[0]
-        if namespaces is not None and len(namespaces) != n:
-            raise ValueError(f"{len(namespaces)} filter rows for {n} "
-                             "queries")
-        futures = [self.submit(qe[i], qt[i],
-                               None if namespaces is None else namespaces[i])
-                   for i in range(n)]
-        rows = [f.result(timeout=timeout) for f in futures]
-        return hi.SearchResult(
-            doc_ids=np.stack([r.doc_ids for r in rows]),
-            scores=np.stack([r.scores for r in rows]),
-            n_candidates=np.stack([r.n_candidates for r in rows]),
-            partial=any(bool(r.partial) for r in rows))
 
     # --- mutations (mutable servers): epoch-coherent forwarding ----------
     def add(self, doc_emb, doc_tokens, namespaces=None) -> np.ndarray:

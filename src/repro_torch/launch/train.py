@@ -5,6 +5,12 @@
   · :func:`fit` — the generic loop: value and grad, global-norm clip,
     AdamW, ``CheckpointManager`` saves and auto-resume, and the
     straggler monitor as an observer only;
+  · :func:`cell_step` — one step of the reference's training cells
+    (``launch/cells.py``'s ``train_step`` of the ``recsys/train`` and
+    ``gnn/*`` cells): the same step at :data:`CELL_ADAM`, clipped at
+    1.0, over a family's ``loss(params, cfg, batch)``
+    (:data:`repro_torch.models.recsys.LOSSES`,
+    :func:`repro_torch.models.gnn.loss_fn`);
   · :func:`train_hi2_sup` — the paper's joint optimisation (§4.3): the
     cluster embeddings, the term-scorer encoder and its MLP learned by
     KL distillation from the teacher embeddings, on ``device`` (default
@@ -64,6 +70,22 @@ def train_step(loss_fn: Callable, params, state: AdamState, batch,
     params, state = adam_update(grads, state, params, adam,
                                 lr_scale=lr_scale)
     return params, state, loss, gnorm
+
+
+#: the training cells' optimizer (the reference's ``launch/cells.py``
+#: ``ADAM``) and global-norm clip
+CELL_ADAM = AdamConfig(lr=1e-4, weight_decay=0.0)
+CELL_CLIP = 1.0
+
+
+def cell_step(loss: Callable, cfg, params, state: AdamState, batch):
+    """One training-cell step → (params, state, {"loss", "grad_norm"}):
+    :func:`train_step` of ``loss(params, cfg, batch) -> (loss, aux)`` at
+    :data:`CELL_ADAM`, clipped at :data:`CELL_CLIP`."""
+    params, state, value, gnorm = train_step(
+        lambda p, b: loss(p, cfg, b), params, state, batch, 1.0,
+        CELL_ADAM, CELL_CLIP)
+    return params, state, {"loss": value, "grad_norm": gnorm}
 
 
 def fit(loss_fn: Callable, params: Any, batches: Callable[[int], Any],

@@ -1,9 +1,8 @@
 """Common neural layers as plain functions over parameter dicts (port of
 ``repro/models/layers.py``: ``dense_init``, ``dense``,
 ``embedding_init``, ``embedding_lookup``, ``rmsnorm_init``,
-``rmsnorm``, ``layernorm_init``, ``layernorm``, ``rope_freqs`` and
-``apply_rope``; ``softmax_xent``, which only the LM and GNN models call,
-comes with those models).
+``rmsnorm``, ``layernorm_init``, ``layernorm``, ``rope_freqs``,
+``apply_rope`` and ``softmax_xent``).
 
 Parameters are nested dicts of tensors in the reference's layout
 (``{"w": (d_in, d_out)}``, ``{"table": (V, d)}``, ``{"scale": (d,)}``),
@@ -136,3 +135,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 ignore_id: int = -1) -> torch.Tensor:
+    """Mean cross entropy of ``logits`` (..., C) at ``labels`` (...);
+    positions labelled ``ignore_id`` are skipped.  The sum divides by a
+    tensor, the count: CUDA would turn a Python-scalar divisor into a
+    multiply by its reciprocal, other bits than the CPU's."""
+    mask = labels != ignore_id
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long().clamp(min=0)[..., None])[..., 0]
+    return -(ll * mask).sum() / mask.sum().clamp(min=1)

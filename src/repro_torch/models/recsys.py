@@ -1,9 +1,8 @@
-"""RecSys architecture family: DLRM, SASRec, DIEN, MIND — serving and
-retrieval (port of ``repro/models/recsys.py``: ``PAD_ID``,
-``embedding_bag``, ``embedding_bag_ragged``, ``_mlp_init``, ``_mlp``,
-the four families' configs, batches, ``*_init``, their serve functions
-and the ``*_retrieval`` functions; the ``*_loss`` functions and
-``bce_loss`` come with the training half).
+"""RecSys architecture family: DLRM, SASRec, DIEN, MIND — training,
+serving and retrieval (port of ``repro/models/recsys.py``, whole:
+``PAD_ID``, ``embedding_bag``, ``embedding_bag_ragged``, ``_mlp_init``,
+``_mlp``, ``bce_loss``, the four families' configs, batches, ``*_init``,
+``*_loss``, their serve functions and the ``*_retrieval`` functions).
 
 Parameters are nested dicts of tensors in the reference's layout, so a
 reference parameter tree maps onto them leaf for leaf
@@ -17,8 +16,20 @@ explicit ``torch.Generator`` on the device where the parameters are made
 SASRec's attention is :func:`repro_torch.models.attention.forward`, so on
 the card every block is one ``flash_attention`` launch, at the published
 head dim 50 (the kernel's ragged path in its d = 64 instance).  The
-reference's two ``lax.scan``s of DIEN are loops over the sequence.  Row
-lookups go through :func:`repro_torch.models.layers.take_rows`.
+reference's two ``lax.scan``s of DIEN are loops over the sequence (the
+interest states stacked, so autograd holds one node for them, not one
+in-place copy a step).  Row lookups go through
+:func:`repro_torch.models.layers.take_rows`, so a table's gradient sums
+its rows in row order, the same bits on every run.
+
+Each ``*_loss`` returns ``(loss, {"loss": loss})``, as the reference's.
+Where the reference's max has a tie, its gradient splits evenly among
+the tied entries (``jnp.maximum``, ``jnp.max``): so does the port's
+(``torch.maximum`` and ``torch.amax``; ``clamp``, ``relu`` and
+``max(dim).values`` would give it all to one side); ``bce_loss``'s |x|
+has JAX's slope 1 at 0.  :data:`LOSSES` and
+:data:`INITS` name each arch's pair, as the reference's
+``launch/cells.py`` does for its ``recsys/train`` cells.
 
 Every ``*_retrieval`` returns ``(scores, positions)`` of its top ``r``
 under the total order (score desc, position asc), as ``jax.lax.top_k``
@@ -33,6 +44,7 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import tree
 from repro_torch.core.exec.stages import topk_by_score
@@ -91,6 +103,18 @@ def _mlp(params: list[dict], x: torch.Tensor,
         if i < len(params) - 1 or final_act:
             x = torch.relu(x)
     return x
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross entropy on logits, in the stable form
+    max(x, 0) − x·y + log(1 + e^−|x|).  At x = 0 the gradient is JAX's:
+    the max splits it (½), and |x| has slope 1 there (JAX's ``abs``;
+    ``torch.abs`` has slope 0), so |x| is written as a select."""
+    logits = logits.float()
+    magnitude = torch.where(logits >= 0, logits, -logits)
+    return torch.mean(torch.maximum(logits, torch.zeros_like(logits))
+                      - logits * labels
+                      + torch.log1p(torch.exp(-magnitude)))
 
 
 def top_k(scores: torch.Tensor, r: int
@@ -160,6 +184,12 @@ def dlrm_forward(params: dict, cfg: DLRMConfig, batch: DLRMBatch
                                 device=tables.device)
     top_in = torch.cat([dense_v, inter[:, iu, ju]], dim=-1)
     return _mlp(params["top"], top_in)[:, 0]
+
+
+def dlrm_loss(params: dict, cfg: DLRMConfig, batch: DLRMBatch
+              ) -> tuple[torch.Tensor, dict]:
+    loss = bce_loss(dlrm_forward(params, cfg, batch), batch.labels)
+    return loss, {"loss": loss}
 
 
 def dlrm_retrieval(params: dict, cfg: DLRMConfig, dense: torch.Tensor,
@@ -242,6 +272,22 @@ def sasrec_hidden(params: dict, cfg: SASRecConfig, items: torch.Tensor
     return layers.layernorm(params["final_norm"], x)
 
 
+def sasrec_loss(params: dict, cfg: SASRecConfig, batch: SASRecBatch
+                ) -> tuple[torch.Tensor, dict]:
+    """BPR-style binary loss with sampled negatives (the paper's
+    objective), averaged over the positions whose target is not PAD."""
+    h = sasrec_hidden(params, cfg, batch.items)                 # (B, S, D)
+    table = params["item_embed"]["table"]
+    pos_e = layers.take_rows(table, batch.targets.clamp(min=0))
+    neg_e = layers.take_rows(table, batch.negatives.clamp(min=0))
+    pos_s = torch.einsum("bsd,bsd->bs", h, pos_e)
+    neg_s = torch.einsum("bsd,bsd->bs", h, neg_e)
+    mask = batch.targets != PAD_ID
+    loss = -(F.logsigmoid(pos_s) + F.logsigmoid(-neg_s))
+    loss = (loss * mask).sum() / mask.sum().clamp(min=1)
+    return loss, {"loss": loss}
+
+
 def sasrec_user_embedding(params: dict, cfg: SASRecConfig,
                           items: torch.Tensor) -> torch.Tensor:
     """Last hidden state = the retrieval query vector, (B, D)."""
@@ -322,15 +368,16 @@ def _dien_embed(params: dict, cfg: DIENConfig, ids: torch.Tensor
 def _interest_states(params: dict, cfg: DIENConfig, hist: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
     """The interest-extraction GRU over (B, S, 2d) → (B, S, H) states;
-    a masked step keeps h."""
-    b, s = mask.shape
-    h = torch.zeros((b, cfg.gru_dim), device=hist.device)
-    states = torch.empty((b, s, cfg.gru_dim), device=hist.device)
-    for t in range(s):
-        h_new = _gru_cell(params["gru1"], h, hist[:, t])
-        h = torch.where(mask[:, t, None] > 0, h_new, h)
-        states[:, t] = h
-    return states
+    a masked step keeps h.  The steps read ``unbind``'s views and the
+    states are stacked, so under autograd each is one node: a step's
+    own slice (``hist[:, t]``) would give a backward that fills and adds
+    a whole (B, S, 2d) gradient a step."""
+    h = torch.zeros((mask.shape[0], cfg.gru_dim), device=hist.device)
+    states = []
+    for x, m in zip(hist.unbind(1), mask.unbind(1)):
+        h = torch.where(m[:, None] > 0, _gru_cell(params["gru1"], h, x), h)
+        states.append(h)
+    return torch.stack(states, dim=1)
 
 
 def dien_forward(params: dict, cfg: DIENConfig, batch: DIENBatch
@@ -346,10 +393,16 @@ def dien_forward(params: dict, cfg: DIENConfig, batch: DIENBatch
     att = torch.softmax(torch.where(mask > 0, att, NEG_INF), dim=-1)
 
     h = torch.zeros((mask.shape[0], cfg.gru_dim), device=hist.device)
-    for t in range(mask.shape[1]):
-        h_new = _gru_cell(params["augru"], h, states[:, t], att=att[:, t])
-        h = torch.where(mask[:, t, None] > 0, h_new, h)
+    for x, a, m in zip(states.unbind(1), att.unbind(1), mask.unbind(1)):
+        h = torch.where(m[:, None] > 0,
+                        _gru_cell(params["augru"], h, x, att=a), h)
     return _mlp(params["top"], torch.cat([h, tgt], dim=-1))[:, 0]
+
+
+def dien_loss(params: dict, cfg: DIENConfig, batch: DIENBatch
+              ) -> tuple[torch.Tensor, dict]:
+    loss = bce_loss(dien_forward(params, cfg, batch), batch.labels)
+    return loss, {"loss": loss}
 
 
 def dien_retrieval(params: dict, cfg: DIENConfig, history: torch.Tensor,
@@ -424,6 +477,20 @@ def mind_interests(params: dict, cfg: MINDConfig, history: torch.Tensor
     return caps
 
 
+def mind_loss(params: dict, cfg: MINDConfig, batch: MINDBatch
+              ) -> tuple[torch.Tensor, dict]:
+    """Sampled softmax with label-aware attention: each candidate's score
+    is its max over the interests (a tie's gradient split evenly, as
+    ``jnp.max``'s), the target in column 0."""
+    caps = mind_interests(params, cfg, batch.history)           # (B, K, D)
+    cand = torch.cat([batch.target[:, None], batch.negatives], dim=1)
+    cand_e = layers.take_rows(params["item_embed"]["table"],
+                              cand.clamp(min=0))                # (B, 1+N, D)
+    scores = torch.amax(torch.einsum("bkd,bnd->bkn", caps, cand_e), dim=1)
+    loss = -torch.log_softmax(scores, dim=-1)[:, 0].mean()
+    return loss, {"loss": loss}
+
+
 def mind_retrieval(params: dict, cfg: MINDConfig, history: torch.Tensor,
                    top_r: int = 100) -> tuple[torch.Tensor, torch.Tensor]:
     """Multi-interest retrieval: the max over the K interest capsules of
@@ -432,3 +499,11 @@ def mind_retrieval(params: dict, cfg: MINDConfig, history: torch.Tensor,
     scores = torch.einsum("bkd,rd->bkr", caps,
                           params["item_embed"]["table"])
     return top_k(scores.max(dim=1).values, top_r)
+
+
+#: each arch's loss and init (the reference's ``launch/cells.py``
+#: ``_REC_LOSS``)
+LOSSES = {"dlrm-rm2": dlrm_loss, "sasrec": sasrec_loss, "dien": dien_loss,
+          "mind": mind_loss}
+INITS = {"dlrm-rm2": dlrm_init, "sasrec": sasrec_init, "dien": dien_init,
+         "mind": mind_init}

@@ -52,23 +52,25 @@ def adam_update(grads, state: AdamState, params, config: AdamConfig,
                              device=step.device) ** stepf
     lr = config.lr * lr_scale
 
+    # each expression as the reference writes it, evaluated in place on
+    # its own temporaries (the same roundings), so a 6.66 GB leaf (DLRM's
+    # tables) holds two temporaries at a time, not five
     def moment1(m, g):
-        return b1 * m + (1 - b1) * g.float()
+        return torch.mul(m, b1).add_(g.float() * (1 - b1))
 
     def moment2(v, g):
         g = g.float()
-        return b2 * v + (1 - b2) * g * g
+        return torch.mul(v, b2).add_((g * (1 - b2)).mul_(g))
+
+    def upd(p, m, v):
+        denom = torch.div(v, bc2).sqrt_().add_(config.eps)
+        delta = torch.div(m, bc1).div_(denom)
+        del denom
+        if config.weight_decay:
+            delta.add_(config.weight_decay * p.float())
+        return (p.float() - delta.mul_(lr)).to(p.dtype)
 
     mu = tree_mod.map(moment1, state.mu, grads)
     nu = tree_mod.map(moment2, state.nu, grads)
-
-    def upd(p, m, v):
-        mhat = m / bc1
-        vhat = v / bc2
-        delta = mhat / (torch.sqrt(vhat) + config.eps)
-        if config.weight_decay:
-            delta = delta + config.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype)
-
     new_params = tree_mod.map(upd, params, mu, nu)
     return new_params, AdamState(step=step, mu=mu, nu=nu)

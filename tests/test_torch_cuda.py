@@ -45,7 +45,12 @@ bit for bit.  Attention at head dims outside {16, 32, 64, 128} (SASRec's
 50, and 40) runs ragged in the next instance up, within the same
 tolerances; SASRec's users on the card (two flash launches) are the
 CPU's within 1e-4 and its retrieval's constructed ties go to the lower
-id, as on the CPU.
+id, as on the CPU.  One training-cell step (value and grad, clip 1.0,
+AdamW) of each recsys arch and of GatedGCN on a full graph, a molecule
+batch and a sampled minibatch is the CPU's within 1e-4, and the
+partitioned GatedGCN over 2 and 4 positions of the card gives
+``loss_fn``'s loss within 1e-5 and its gradients within 1e-4, under a
+timeout (a hang fails the test).
 """
 from typing import NamedTuple
 
@@ -1664,3 +1669,152 @@ def test_compression_and_pmean_on_the_card_equal_the_cpu(cuda):
     for a in means["cuda"] + means["cpu"]:
         assert torch.equal(a, means["cpu"][0])
 
+
+
+# --------------------------------------------------------------------------
+# training cells on the card: the recsys losses and GatedGCN
+# --------------------------------------------------------------------------
+
+CELL_TOL = dict(rtol=1e-4, atol=1e-4)
+#: a first AdamW step at lr 1e-4 moves a parameter by about 1e-4: the
+#: step is held by its update (new − old) and its first moment
+STEP_TOL = dict(rtol=1e-3, atol=1e-6)
+MOMENT_TOL = dict(rtol=1e-4, atol=1e-6)
+#: seconds the partitioned step may take before it counts as a hang
+PARTITION_TIMEOUT_S = 120
+
+
+def _trees_close(got, want, what: str, tol=CELL_TOL) -> None:
+    from repro_torch import tree as tree_mod
+    for (path, a), (_, b) in zip(tree_mod.leaves_with_paths(got),
+                                 tree_mod.leaves_with_paths(want)):
+        torch.testing.assert_close(a.cpu(), b, msg=f"{what} {path}", **tol)
+
+
+def _step_on_both(cuda, loss, cfg, params, batch):
+    """One cell step on the card and on the CPU from the same parameters
+    and batch → ((params, state, metrics) card, the same CPU)."""
+    from repro_torch import optim
+    from repro_torch import tree as tree_mod
+    from repro_torch.launch import train
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_mod.to(params, dev)
+        out.append(train.cell_step(loss, cfg, p, optim.adam_init(p),
+                                   tree_mod.to(batch, dev)))
+    return out
+
+
+def _check_step(card, cpu, params, what: str) -> None:
+    """Loss and grad norm within CELL_TOL; each parameter's update from
+    ``params`` within STEP_TOL, the first moment within MOMENT_TOL."""
+    from repro_torch import tree as tree_mod
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(card[2][key].cpu(), cpu[2][key],
+                                   msg=f"{what} {key}", **CELL_TOL)
+    _trees_close(tree_mod.map(lambda a, p: a.cpu() - p, card[0], params),
+                 tree_mod.map(torch.sub, cpu[0], params),
+                 f"{what} update", STEP_TOL)
+    _trees_close(card[1].mu, cpu[1].mu, f"{what} first moment",
+                 MOMENT_TOL)
+
+
+@pytest.mark.parametrize("arch", ["dlrm-rm2", "sasrec", "dien", "mind"])
+def test_recsys_cell_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One training-cell step (value and grad, clip 1.0, AdamW) of each
+    recsys arch at its reduced config, B 64: loss and grad norm within
+    1e-4 of the CPU, the update and first moment as ``_check_step``
+    holds them; SASRec's forward launches
+    ``flash_attention`` once a block."""
+    from repro_torch.configs import registry
+    from repro_torch.data import recsys as rdata
+    from repro_torch.models import recsys
+    cfg = registry.get(arch).make_reduced()
+    params = recsys.INITS[arch](torch.Generator().manual_seed(3), cfg)
+    kw = (dict(n_sparse=cfg.n_sparse, n_rows=cfg.n_rows)
+          if arch == "dlrm-rm2" else dict(seq_len=cfg.seq_len,
+                                          n_items=cfg.n_items))
+    gen = {"dlrm-rm2": rdata.dlrm_batch, "sasrec": rdata.sasrec_batch,
+           "dien": rdata.dien_batch, "mind": rdata.mind_batch}[arch]
+    batch = gen(5, 64, **kw, device="cpu")
+    before = fa_ops.launches
+    card, cpu = _step_on_both(cuda, recsys.LOSSES[arch], cfg, params, batch)
+    if arch == "sasrec":
+        assert fa_ops.launches - before == cfg.n_blocks
+    _check_step(card, cpu, params, arch)
+
+
+def _gnn_case(kind: str):
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data import graph
+    from repro_torch.models import gnn
+    cfg = dataclasses.replace(registry.get("gatedgcn").make_reduced(),
+                              remat=True)
+    if kind == "molecule":
+        return (gnn.GatedGCNConfig(n_layers=3, d_hidden=16, d_feat=16,
+                                   n_classes=10, graph_level=True),
+                graph.molecule_batch(0, 8, 30, 64, 16, 10, device="cpu"))
+    g = graph.random_graph(0, 300, 1200, cfg.d_feat, cfg.n_classes,
+                           device="cpu")
+    if kind == "minibatch":
+        g = graph.NeighborSampler(300, g.edge_src, g.edge_dst).sample(
+            1, np.arange(32), (5, 3), g.node_feat, g.labels, device="cpu")
+    return cfg, g
+
+
+@pytest.mark.parametrize("kind", ["full", "molecule", "minibatch"])
+def test_gnn_cell_step_on_the_card_matches_the_cpu(cuda, kind):
+    """One GatedGCN cell step (remat on) on a full graph, a molecule
+    batch and a sampled minibatch against the CPU (``_check_step``)."""
+    from repro_torch.models import gnn
+    cfg, g = _gnn_case(kind)
+    params = gnn.init(torch.Generator().manual_seed(1), cfg)
+    card, cpu = _step_on_both(cuda, gnn.loss_fn, cfg, params, g)
+    _check_step(card, cpu, params, kind)
+
+
+@pytest.mark.parametrize("positions", [2, 4])
+def test_partitioned_gradient_on_positions_of_the_card(cuda, positions):
+    """loss_fn_partitioned over 2 and 4 positions of the one card (remat
+    on, so backward recomputes each layer): its loss within 1e-5 of
+    loss_fn's on the card, every gradient within 1e-4, and no hang (a
+    backward node that waited for the other positions would block the
+    device's one autograd thread: the step must end within
+    PARTITION_TIMEOUT_S)."""
+    import threading
+    from repro_torch import optim
+    from repro_torch import tree as tree_mod
+    from repro_torch.data import graph
+    from repro_torch.distributed import collectives
+    from repro_torch.models import gnn
+    cfg, g = _gnn_case("full")
+    params = tree_mod.to(gnn.init(torch.Generator().manual_seed(2), cfg),
+                         cuda)
+    g = tree_mod.to(g, cuda)
+    (want, _), wgrads = optim.value_and_grad(gnn.loss_fn, params, cfg, g,
+                                             has_aux=True)
+    mesh = collectives.Mesh([cuda] * positions, ("data",))
+    gp = graph.partition_by_dst(g, positions)
+    box = {}
+
+    def run():
+        torch.cuda.set_device(cuda)
+        try:
+            box["out"] = optim.value_and_grad(
+                lambda p, b: gnn.loss_fn_partitioned(p, cfg, b, mesh),
+                params, gp, has_aux=True)
+            torch.cuda.synchronize(cuda)
+        except BaseException as e:      # noqa: BLE001 — re-raised below
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(PARTITION_TIMEOUT_S)
+    assert not t.is_alive(), "the partitioned step hung"
+    if "err" in box:
+        raise box["err"]
+    (loss, _), grads = box["out"]
+    mesh.close()
+    torch.testing.assert_close(loss.cpu(), want.cpu(), rtol=1e-5, atol=0)
+    _trees_close(grads, tree_mod.to(wgrads, "cpu"), "partitioned grads")

@@ -70,7 +70,9 @@ def test_port_sources_import_neither_jax_nor_the_reference():
             "core/sharded_index.py", "launch/mesh.py",
             "benchmarks/sharded_search.py", "models/recsys.py",
             "data/recsys.py", "configs/registry.py", "configs/shapes.py",
-            "configs/sasrec.py", "examples/recsys_retrieval.py"} <= walked
+            "configs/sasrec.py", "examples/recsys_retrieval.py",
+            "models/gnn.py", "data/graph.py",
+            "configs/gatedgcn.py"} <= walked
     offenders = [(f.relative_to(_ROOT).as_posix(), m) for f in files
                  for m in _imported_modules(f) if _FORBIDDEN.search(m)]
     assert not offenders, offenders
@@ -108,9 +110,11 @@ def test_importing_every_port_module_loads_no_jax():
         " 'repro_torch.benchmarks.sharded_search',"
         " 'repro_torch.models.recsys', 'repro_torch.data.recsys',"
         " 'repro_torch.configs.registry', 'repro_torch.configs.dlrm_rm2',"
-        " 'repro_torch.examples.recsys_retrieval'} <= set(mods), mods\n"
+        " 'repro_torch.examples.recsys_retrieval',"
+        " 'repro_torch.models.gnn', 'repro_torch.data.graph',"
+        " 'repro_torch.configs.gatedgcn'} <= set(mods), mods\n"
         "from repro_torch.configs import registry\n"
-        "assert len(registry.all_archs()) == 5\n"
+        "assert len(registry.all_archs()) == 6\n"
         "assert not bad, bad\n")
     env = {"PYTHONPATH": str(_ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -393,6 +397,35 @@ def test_recsys_entry_points_without_device_raise_when_cuda_is_absent(
     monkeypatch.setattr(recsys_retrieval, "N_CLUSTERS", 16)
     recsys_retrieval.main(["--device", "cpu"])
     assert "/2000 candidates" in capsys.readouterr().out
+
+
+def test_graph_entry_points_without_device_raise_when_cuda_is_absent(
+        monkeypatch):
+    """The graph data generators, the sampler and the GatedGCN parameter
+    carry-over ask for the card by default and run on the CPU when
+    asked; ``partition_by_dst`` keeps its input's device."""
+    from repro_torch.data import graph
+    from repro_torch.models import gnn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        graph.random_graph(0, 20, 40, 3, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        graph.molecule_batch(0, 2, 5, 6, 3, 2)
+    g = graph.random_graph(0, 20, 40, 3, 2, device="cpu")
+    sampler = graph.NeighborSampler(20, g.edge_src, g.edge_dst)
+    with pytest.raises(RuntimeError, match="cuda"):
+        sampler.sample(0, np.arange(4), (2,), g.node_feat, g.labels)
+    sub = sampler.sample(0, np.arange(4), (2,), g.node_feat, g.labels,
+                         device="cpu")
+    assert sub.node_feat.device.type == "cpu"
+    assert graph.partition_by_dst(g, 2).node_feat.device.type == "cpu"
+    cfg = gnn.GatedGCNConfig(n_layers=1, d_hidden=2, d_feat=3, n_classes=2)
+    leaves = {p: np.zeros(s, np.float32)
+              for p, s in ckpt._gnn_shapes(cfg).items()}
+    with pytest.raises(RuntimeError, match="cuda"):
+        ckpt.gnn_params_from_numpy(leaves, cfg)
+    params = ckpt.gnn_params_from_numpy(leaves, cfg, device="cpu")
+    assert gnn.forward(params, cfg, g).shape == (20, 2)
 
 
 def test_flash_attention_head_dims_run_in_the_next_instance_up():

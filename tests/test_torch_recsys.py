@@ -179,8 +179,8 @@ def test_data_generators_are_bitwise_equal(name, args, rows):
 
 def test_registry_and_shapes_match_the_reference_field_for_field():
     ported = registry.all_archs()
-    assert sorted(ported) == ["dien", "dlrm-rm2", "hi2-synth", "mind",
-                              "sasrec"]
+    assert sorted(ported) == ["dien", "dlrm-rm2", "gatedgcn", "hi2-synth",
+                              "mind", "sasrec"]
     ref = jregistry.all_archs()
     for aid, arch in ported.items():
         want = ref[aid]

@@ -427,6 +427,45 @@ def test_fifo_completion_under_backpressure(built, c):
     rt.close()
 
 
+def test_query_rows_enter_one_micro_batch(built, c):
+    # query() queues its rows under one hold of the lock: even with no
+    # linger the scheduler sees all 32 together and runs one batch
+    server = _plain_server(built, max_batch=32)
+    qe = np.concatenate([c.query_emb, c.query_emb[:8]])
+    qt = np.concatenate([c.query_tokens, c.query_tokens[:8]])
+    direct = server.query(qe, qt)
+    with _runtime(server, c, linger_ms=0.0) as rt:
+        got = rt.query(qe, qt, timeout=WAIT)
+        s = rt.stats()
+    assert s["n_batches"] == 1 and s["bucket_counts"][32] == 1
+    _batch_equal(got, direct)
+
+
+def test_query_admission_takes_or_rejects_the_batch_whole(built, c):
+    server = _plain_server(built, max_batch=16)
+    rt = rt_mod.ServingRuntime(
+        server, rt_mod.RuntimeConfig(queue_depth=16, linger_ms=5000.0))
+    rt.warmup(c.query_emb.shape[1], c.query_tokens.shape[1])
+    # more rows than the queue holds never fit: not a retry
+    with pytest.raises(ValueError, match="queue_depth=16"):
+        rt.query(c.query_emb[:17], c.query_tokens[:17], timeout=WAIT)
+    # the long linger holds 8 single requests in the queue; 9 more rows
+    # do not fit beside them, and none of the 9 is queued
+    futures = [rt.submit(c.query_emb[i], c.query_tokens[i])
+               for i in range(8)]
+    with pytest.raises(rt_mod.RuntimeOverloaded):
+        rt.query(c.query_emb[8:17], c.query_tokens[8:17], timeout=WAIT)
+    s = rt.stats()
+    assert s["n_rejected"] == 9 and s["n_batches"] == 0
+    rt.close(drain=True)
+    direct = server.query(c.query_emb[:8], c.query_tokens[:8])
+    for i, f in enumerate(futures):
+        _rows_equal(f.result(timeout=WAIT), direct, i)
+    with _runtime(server, c, queue_depth=16, linger_ms=0.0) as rt:
+        got = rt.query(c.query_emb[:16], c.query_tokens[:16], timeout=WAIT)
+    _batch_equal(got, server.query(c.query_emb[:16], c.query_tokens[:16]))
+
+
 def test_graceful_drain_leaves_no_dropped_requests(built, c):
     server = _plain_server(built, max_batch=4)
     rt = rt_mod.ServingRuntime(
