@@ -8,7 +8,9 @@ never prints the final line.  Every phase prints its seconds.
 
   1. card     the ``nvidia-smi`` name/power-limit line and torch's name;
   2. build    every CUDA kernel from this checkout's sources (one nvcc
-              per source, in parallel) into ``build/kernels/``;
+              per source, in parallel) into ``build/kernels/``, while
+              phase 3 synthesizes its planes on the host; joined before
+              phase 4;
   3. index    the ``serve_msmarco`` shape (configs/hi2_synth.py:
               8,841,984 docs, h=768, L=10,000, V=30,528, capacities
               1,024, OPQ m=96 k=256) synthesized on the host from
@@ -297,8 +299,33 @@ never prints the final line.  Every phase prints its seconds.
               card, ``loss_fn_partitioned``'s loss within 1e-5 of
               ``loss_fn``'s and its gradients within 1e-4, under a
               300 s timeout that ends the run (exit 1) on a hang;
+ 25. lm       the dense LM family (``models/transformer.py``) at
+              ``make_config()`` (bf16 compute, fp32 weights from
+              ``--seed``), after freeing the cuBLAS workspaces of earlier
+              phases' streams: 25a internlm2-1.8b and stablelm-3b trained
+              (the reference's ``_lm_train_cell`` step: value and grad
+              with per-layer remat, clip 1.0, AdamW at lr 1e-4, in place
+              as the cell donates) at train_4k's S 4,096, B cut to
+              LM_TRAIN_B: 3 steps each as a counted run (2·L
+              ``flash_attention`` launches a step), loss, grad norm, ms,
+              tokens/s, the model-FLOP share, peak GB, the kernel held
+              against its plain version at the arch's shape and timed
+              there beside its bound, SDPA and the plain version,
+              internlm2-1.8b's step profiled; first one step of
+              each at full width, 2 layers, f32 (B 1, S 256) against the
+              CPU as phase 24 holds a step;
+              llama3-8b's training reported as not run (its state is
+              128.5 GB); 25b llama3-8b ``prefill_step`` at prefill_32k's
+              S 32,768, B 1; 25c llama3-8b ``prefill_step`` at B 8 x
+              4,096 then 64 greedy ``serve_step`` calls, ms a token,
+              one step profiled; 25d llama3-8b at full width, 2 layers, f32
+              against the CPU (logits_fn, loss_fn, prefill_step's
+              logits and caches, 8 serve steps, within 1e-4), a window-16
+              rolling decode against logits_fn at every position (2e-4),
+              and 25c's first decoded logits (full depth, bf16) against
+              logits_fn over the same 4,097 tokens at window 4,096;
 
-then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
+The script then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
 kernel's ``launches`` is read from the counted runs of the paths that
 run it: ``pq_adc_fused`` and ``topk_scores`` from phase 5,
 ``sq8_dot_fused`` from 9c, ``assign_argmax`` from phase 10's builds,
@@ -309,15 +336,18 @@ its index build and single-device baseline searches included; 21a's
 warmups, 21b's eager checks, warmup, adds and compaction, and 21c's two
 benchmark runs whole), in phase 23 (its serve, retrieval and HI²
 calls and the example; not 23d's checks) and in phase 24 (24a's timed
-steps: SASRec's flash forwards); phase 15's counted runs are
-checked in the phase and printed.  ``flash_attention``'s entry also
-carries 23d's times at SASRec's bulk shape under ``sasrec_shape``.  It
-imports only the port, never jax or the reference package, and exits
-non-zero without a card.
+steps: SASRec's flash forwards) and in phase 25 (25a's timed steps,
+25b's prefill, 25c's prefill and decode steps); phase 15's counted runs
+are checked in the phase and printed.  ``flash_attention``'s entry also
+carries 23d's times at SASRec's bulk shape under ``sasrec_shape`` and
+the kernel's ms a launch in 25a's profiled steps under
+``lm_train_shapes``.  It imports only the port, never jax or the
+reference package, and exits non-zero without a card.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -562,6 +592,35 @@ GNN_TRAIN_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")
 # minutes); the sampled batch keeps the cell's shape
 MINIBATCH_PARENT_EDGES = 2_329_650
 
+# phase 25: the dense LM family at make_config() (bf16 compute, fp32
+# params and AdamW state, remat).  25a trains at train_4k's S with its B
+# 256 cut to what one card holds beside the fp32 state (in place, as the
+# reference's cell donates it); llama3-8b's state (128.5 GB) does not fit.
+# 25b prefills prefill_32k's length at B 1 (its B 32 cut), 25c decodes
+# after a 4,096-token prefill at B 8 (decode_32k's 128 x 32,768 cache
+# would be 550 GB).  25a and 25d hold LM_CHECK_LAYERS-layer copies at
+# full width in f32 against the CPU: 25a one cell step as phase 24's,
+# 25d logits, loss, prefill and decode within LM_TOL, the windowed
+# rolling decode against logits_fn within the reference's own oracle
+# bound (tests/test_perf_impls.py, 2e-4); 25d also holds 25c's first
+# decoded logits, full depth in bf16, against logits_fn over the same
+# 4,097 tokens at window 4,096 (a 4,096-slot cache at position 4,096 has
+# evicted position 0) within LM_BF16_REL in norm: both at bf16, in other
+# GEMM shapes, so bf16 roundings land elsewhere over 32 layers
+LM_TRAIN_ARCHS = ("internlm2-1.8b", "stablelm-3b")
+LM_TRAIN_B = {"internlm2-1.8b": 10, "stablelm-3b": 12}
+LM_PROFILE_ARCH = "internlm2-1.8b"    # 25a profiles one step, of this arch
+LM_SERVE_ARCH = "llama3-8b"
+LM_CHECK_LAYERS = 2
+LM_CHECK_TRAIN = (1, 256)            # 25a's step against the CPU: (B, S)
+LM_PREFILL_B = 1                     # 25b, at prefill_32k's S
+LM_DECODE = (8, 4_096, 64)           # 25c: (B, prefix, decode steps)
+LM_PARITY = (2, 64, 8)               # 25d in f32: (B, S, serve steps)
+LM_WINDOW = 16                       # 25d: window = cache capacity
+LM_TOL = 1e-4                        # rtol = atol, f32 sum orders
+LM_WINDOW_TOL = 2e-4
+LM_BF16_REL = 0.05
+
 # phase 19: the paper benchmarks.  Rows held against the CPU: top-R
 # ids up to swaps within PAPER_TOL, each recall or MRR within its
 # near-tie queries / n_queries + PAPER_FLOAT (the f32 mean's last bits)
@@ -692,10 +751,12 @@ def profile_batch(server, qe, qt, top: int = 12) -> None:
                  f"one batch ({server.index.codec})", top)
 
 
-def profile_call(fn, what: str, top: int = 12) -> None:
-    """:func:`profile_batch` of any call that serves one batch."""
+def profile_call(fn, what: str, top: int = 12, warm: bool = True) -> None:
+    """:func:`profile_batch` of any call that serves one batch, after one
+    unprofiled call unless ``warm`` is False."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -721,9 +782,11 @@ def profile_call(fn, what: str, top: int = 12) -> None:
             f"x{count:<4d} {key[:90]}")
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time on the card (ms) and what sets it."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS
+          ) -> tuple[float, str]:
+    """Least time on the card (ms) and what sets it, the operations at
+    ``peak`` (the rate for their inputs' type)."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1760,6 +1823,50 @@ def sup_path(dev, seed: int, built: dict) -> tuple[dict, dict]:
     return launches, shapes
 
 
+def flash_causal_times(timer, what: str, b: int, s_len: int, hq: int,
+                       hkv: int, d: int, dev, plain: bool = False) -> dict:
+    """``flash_attention`` at a causal bf16 LM shape: kernel and library
+    (``scaled_dot_product_attention``) ms beside the bound at the card's
+    bf16 tensor-core peak (and, under ``fp32_fma_bound_ms``, at the fp32
+    FMA rate the kernel's inner products run at).  With ``plain`` the
+    kernel is first held against its plain version there
+    (:func:`check_flash`, one batch row at a time; its error under
+    ``max_abs_err``) and the plain version is timed."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = _bshd(gen, dev, b, s_len, hq, d, torch.bfloat16)
+    k, v = (_bshd(gen, dev, b, s_len, hkv, d, torch.bfloat16)
+            for _ in range(2))
+    flops = 4.0 * b * hq * s_len * s_len * d / 2          # causal: half
+    # q, k, v and out in bf16, lse in f32
+    nbytes = 2.0 * b * s_len * d * (2 * hq + 2 * hkv) + 4.0 * b * hq * s_len
+    bms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    fp32_ms = bound(flops, nbytes)[0]
+    out = {}
+    if plain:
+        out["max_abs_err"] = check_flash(q, k, v, True, 0, f"at {what}",
+                                         batch_block=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out.update(
+        ms=timer.ms(lambda: fa_ops.flash_attention(q, k, v, True, 0),
+                    reps=10),
+        library_ms=timer.ms(lambda: sdpa(q, k, v, is_causal=True,
+                                         enable_gqa=True), reps=10),
+        bound_ms=bms, bound_by=by, fp32_fma_bound_ms=fp32_ms)
+    if plain:
+        out["plain_ms"] = timer.ms(lambda: fa_ref.flash_attention(
+            q, k, v, True, 0, q_chunk=fa_ops.Q_CHUNK), reps=3)
+    log(f"[times] flash_attention at {what} {(b, s_len, hq, hkv, d)} (B, S, "
+        f"Hq, Hkv, d; bf16, causal): kernel {out['ms']:.3f} ms, library "
+        f"{out['library_ms']:.3f} ms"
+        + (f", plain {out['plain_ms']:.3f} ms (out within "
+           f"{FLASH_TOL[torch.bfloat16]} of it: max abs err "
+           f"{out['max_abs_err']:.3g})" if plain else "")
+        + f", bound {bms:.3f} ms ({by}, at the bf16 tensor-core peak), "
+        f"bound / kernel {bms / out['ms']:.1%}; at the fp32 FMA rate the "
+        f"kernel's inner products run at, {fp32_ms:.3f} ms")
+    return out
+
+
 def time_new_kernels(flash_in: dict, emb, centroids) -> dict:
     """Phase 13: ``flash_attention`` at one encoder chunk's shape and
     ``assign_argmax`` at the build's KMeans and PQ shapes: kernel, plain
@@ -1788,24 +1895,7 @@ def time_new_kernels(flash_in: dict, emb, centroids) -> dict:
         f"{flash['plain_ms']:.3f} ms, library (scaled_dot_product_attention)"
         f" {flash['library_ms']:.3f} ms, bound {fa_bound[0]:.3f} ms "
         f"({fa_bound[1]}), bound / kernel {flash['bound_share']:.1%}")
-    gen = torch.Generator(device=q.device).manual_seed(1)
-    lq, lk, lv = llama_qkv(gen, q.device)
-    lb, ls, lhq, lhkv, ld = LLAMA_ATTN
-    l_flops = 4.0 * lb * lhq * ls * ls * ld / 2           # causal: half
-    l_bytes = 2.0 * lb * ls * ld * (2 * lhq + 2 * lhkv)
-    l_bound = bound(l_flops, l_bytes)
-    l_card = max(l_flops / PEAK_BF16_FLOPS, l_bytes / PEAK_BYTES) * 1e3
-    l_ms = timer.ms(lambda: fa_ops.flash_attention(lq, lk, lv, True, 0),
-                    reps=10)
-    l_lib = timer.ms(lambda: sdpa(lq, lk, lv, is_causal=True,
-                                  enable_gqa=True), reps=10)
-    log(f"[times] flash_attention at llama3-8b's shape {LLAMA_ATTN} (B, S, "
-        f"Hq, Hkv, d; bf16, causal): kernel {l_ms:.3f} ms, library "
-        f"{l_lib:.3f} ms, bound at the fp32 FMA rate {l_bound[0]:.3f} ms "
-        f"({l_bound[1]}; the kernel widens bf16 to fp32 FMAs), bound / "
-        f"kernel {l_bound[0] / l_ms:.1%} against that fp32 path; against the "
-        f"card's bf16 tensor-core peak the bound is {l_card:.3f} ms, "
-        f"{l_card / l_ms:.1%} of the kernel")
+    flash_causal_times(timer, "llama3-8b's shape", *LLAMA_ATTN, q.device)
 
     def blocked(fn, x, c):
         def run():
@@ -4264,7 +4354,7 @@ def cell_steps(loss, cfg, params, batch, base: int) -> dict:
     and grad norm a step, the median ms of steps 2.., peak GB above
     ``base`` (the bytes allocated before the cell made its parameters:
     parameters, batch and Adam state count, earlier phases' do not) and
-    launches a step."""
+    launches a step.  The steps update ``params`` in place."""
     state = optim.adam_init(params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4288,10 +4378,14 @@ def cell_steps(loss, cfg, params, batch, base: int) -> dict:
 
 def _close(what: str, got, want, rtol: float = CELL_TOL,
            atol: float = CELL_TOL) -> float:
-    got, want = got.float().cpu(), want.float().cpu()
+    """``got`` within (rtol, atol) of ``want`` elementwise, compared on
+    ``got``'s device (IEEE arithmetic: the host's answer, without moving
+    a full-width model's leaves to it)."""
+    got, want = got.float(), want.float().to(got.device)
+    if got.shape != want.shape:
+        fail(f"{what}: shapes {tuple(got.shape)}, {tuple(want.shape)}")
     err = float((got - want).abs().max()) if got.numel() else 0.0
-    if got.shape != want.shape or not torch.allclose(
-            got, want, rtol=rtol, atol=atol):
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
         fail(f"{what}: card and CPU differ by {err:.3g} (shapes "
              f"{tuple(got.shape)}, {tuple(want.shape)}; rtol {rtol:.3g}, "
              f"atol {atol:.3g})")
@@ -4301,7 +4395,7 @@ def _close(what: str, got, want, rtol: float = CELL_TOL,
 def _close_norm(what: str, got, want, rtol: float) -> float:
     """``got`` within ``rtol`` of ``want`` in norm: ||got - want|| /
     ||want||."""
-    got, want = got.double().cpu(), want.double().cpu()
+    got, want = got.double(), want.double().to(got.device)
     if got.shape != want.shape:
         fail(f"{what}: shapes {tuple(got.shape)}, {tuple(want.shape)}")
     diff, size = float((got - want).norm()), float(want.norm())
@@ -4314,10 +4408,10 @@ def _close_norm(what: str, got, want, rtol: float) -> float:
 
 def adam_first_delta(mu, nu) -> torch.Tensor:
     """A first AdamW step's update at CELL_ADAM from its moments, by the
-    reference's formula in float64 on the host."""
+    reference's formula in float64 where the moments lie."""
     a = train.CELL_ADAM
     assert a.weight_decay == 0.0
-    mu, nu = mu.double().cpu(), nu.double().cpu()
+    mu, nu = mu.double(), nu.double()
     return -a.lr * (mu / (1 - a.b1)) / ((nu / (1 - a.b2)).sqrt() + a.eps)
 
 
@@ -4328,11 +4422,14 @@ def step_vs_cpu_cell(what: str, loss, cfg, params, batch, cpu_cfg,
     CPU) tensors ``compare`` pairs, the updated leaves within CELL_TOL,
     both moments within MOMENT_RTOL in norm and each leaf's update within
     STEP_TOL of :func:`adam_first_delta` of the card's moments.  Returns
-    the largest error of each (the moments' relative to the norm)."""
-    new, state, m = train.cell_step(loss, cfg, params,
+    the largest error of each (the moments' relative to the norm).  Both
+    steps run on clones (a cell step is in place)."""
+    new, state, m = train.cell_step(loss, cfg,
+                                    tree_mod.map(torch.clone, params),
                                     optim.adam_init(params), batch)
     cpu_new, cpu_state, cpu_m = train.cell_step(
-        loss, cpu_cfg, cpu_params, optim.adam_init(cpu_params), cpu_batch)
+        loss, cpu_cfg, tree_mod.map(torch.clone, cpu_params),
+        optim.adam_init(cpu_params), cpu_batch)
     err = dict(metrics=max(_close(f"{what} {k}", m[k], cpu_m[k])
                            for k in ("loss", "grad_norm")))
     news = compare(new, cpu_new)
@@ -4587,6 +4684,309 @@ def train_cells_phase(dev, seed: int) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 25: the dense LM family, trained and served
+# --------------------------------------------------------------------------
+
+def lm_tokens(cfg, seed: int, b: int, s: int, dev) -> torch.Tensor:
+    """(b, s) token ids drawn on ``dev`` from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device=dev)
+
+
+def lm_batch(cfg, seed: int, b: int, s: int, dev) -> dict:
+    """A next-token batch: tokens and labels (b, s) of one (b, s + 1)
+    draw."""
+    ids = lm_tokens(cfg, seed, b, s + 1, dev)
+    return {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+
+
+def lm_check_cfg(arch: str):
+    """``arch``'s make_config() at LM_CHECK_LAYERS layers in f32: full
+    width, held against the CPU."""
+    return dataclasses.replace(registry.get(arch).make_config(),
+                               n_layers=LM_CHECK_LAYERS,
+                               compute_dtype=torch.float32)
+
+
+def lm_train(arch: str, dev, seed: int, launches: dict) -> dict:
+    """25a: ``arch``'s training cell at make_config() and train_4k's S,
+    B cut to LM_TRAIN_B: TRAIN_CELL_STEPS steps in place as a counted
+    run, then one profiled; first one step of its LM_CHECK_LAYERS-layer
+    f32 copy against the CPU, as phase 24 holds a step."""
+    ccfg = lm_check_cfg(arch)
+    cb, cs = LM_CHECK_TRAIN
+    with phase(f"25a {arch} {LM_CHECK_LAYERS}-layer step against the CPU"):
+        cparams = tfm.init(torch.Generator(device=dev).manual_seed(seed),
+                           ccfg)
+        check = lm_batch(ccfg, seed + 1, cb, cs, dev)
+        err = step_vs_cpu_cell(
+            f"25a {arch} ({LM_CHECK_LAYERS} layers, f32, B {cb}, S {cs})",
+            tfm.cell_loss, ccfg, cparams, check, ccfg,
+            tree_mod.to(cparams, "cpu"), tree_mod.to(check, "cpu"),
+            _same_leaves)
+        del cparams, check
+    torch.cuda.empty_cache()
+    cfg = registry.get(arch).make_config()
+    shape = rec_shapes.LM_SHAPES["train_4k"]
+    b, s = LM_TRAIN_B[arch], shape.seq_len
+    base = torch.cuda.memory_allocated()
+    params = tfm.init(torch.Generator(device=dev).manual_seed(seed), cfg)
+    batch = lm_batch(cfg, seed, b, s, dev)
+    rec = cell_steps(tfm.cell_loss, cfg, params, batch, base)
+    _add(launches, rec["counts"])
+    flash = rec["launches"]["flash_attention"]
+    if flash != 2 * cfg.n_layers:
+        fail(f"25a {arch}: {flash:g} flash_attention launches a step, not "
+             f"{2 * cfg.n_layers} (forward and remat recompute)")
+    step_s = rec["step_ms"] / 1e3
+    tok_s = b * s / step_s
+    mfu = 6 * cfg.n_params() * b * s / step_s / PEAK_BF16_FLOPS
+    if arch == LM_PROFILE_ARCH:
+        profile_call(lambda: train.cell_step(
+            tfm.cell_loss, cfg, params, optim.adam_init(params), batch),
+            f"25a {arch} one training step (B {b}, S {s})", warm=False)
+    del params, batch
+    torch.cuda.empty_cache()
+    flash_ms = flash_causal_times(
+        Timer(), f"{arch}'s train_4k shape", b, s, cfg.n_heads,
+        cfg.n_kv_heads, cfg.head_dim, dev, plain=True)
+    log(f"[lm] 25a {arch} (make_config: {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, V {cfg.vocab_size}, "
+        f"{cfg.n_params() / 1e9:.3f} B params, bf16 compute, fp32 params "
+        f"and AdamW in place, remat) at train_4k's S {s}, B {b} (cut from "
+        f"{shape.global_batch}): loss {[round(x, 6) for x in rec['losses']]}"
+        f", grad norm {[round(x, 6) for x in rec['norms']]}; "
+        f"{rec['step_ms']:.1f} ms a step (median of steps 2-"
+        f"{TRAIN_CELL_STEPS}), {tok_s:,.0f} tokens/s, model-FLOP share "
+        f"{mfu:.1%} (6 x params x tokens over {PEAK_BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s bf16 dense); peak {rec['peak_gb']:.2f} GB above "
+        f"{base / 1e9:.2f}; flash_attention {flash:g} a step, "
+        f"{flash_ms['ms']:.3f} ms a launch; one {LM_CHECK_LAYERS}-layer "
+        f"f32 step against the CPU: largest errors {err}")
+    return dict(rec, err=err, b=b, s=s, tok_s=tok_s, mfu=mfu,
+                flash=dict(flash_ms, b=b, s=s, hq=cfg.n_heads,
+                           hkv=cfg.n_kv_heads, d=cfg.head_dim,
+                           launches=rec["counts"]["flash_attention"]))
+
+
+def lm_not_run_notes() -> None:
+    cfg = registry.get(LM_SERVE_ARCH).make_config()
+    n = cfg.n_params()
+    log(f"[lm] 25a {LM_SERVE_ARCH} training not run: {n / 1e9:.3f} B "
+        f"params, {4 * n / 1e9:.1f} GB in fp32 and {16 * n / 1e9:.1f} GB "
+        f"with their gradients and AdamW's two moments; one 80 GB card "
+        f"cannot hold them")
+    shape = rec_shapes.LM_SHAPES["decode_32k"]
+    kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+    log(f"[lm] 25c decode_32k cut: its B {shape.global_batch} x "
+        f"{shape.seq_len:,} bf16 cache is "
+        f"{kv * shape.global_batch * shape.seq_len / 1e9:.0f} GB "
+        f"({kv / 1e6:.3f} MB a token a sequence); 25c decodes B "
+        f"{LM_DECODE[0]} after a {LM_DECODE[1]:,}-token prefill")
+
+
+def lm_parity(dev, seed: int) -> dict:
+    """25d in f32: LM_SERVE_ARCH at full width and LM_CHECK_LAYERS layers
+    against the CPU (logits_fn, loss_fn, prefill_step's logits and
+    caches, LM_PARITY's serve steps after it), and its windowed copy's
+    rolling decode against logits_fn at every position."""
+    cfg = lm_check_cfg(LM_SERVE_ARCH)
+    b, s, steps = LM_PARITY
+    params = tfm.init(torch.Generator(device=dev).manual_seed(seed), cfg)
+    cpu = tree_mod.to(params, "cpu")
+    ids = lm_tokens(cfg, seed + 2, b, s + steps + 1, dev)
+    cids = ids.cpu()
+    tok, lab = ids[:, :s], ids[:, 1:s + 1]
+    err = {}
+    with torch.no_grad():
+        err["logits_fn"] = _close("25d logits_fn", tfm.logits_fn(
+            params, cfg, tok)[0], tfm.logits_fn(cpu, cfg, cids[:, :s])[0],
+            LM_TOL, LM_TOL)
+        err["loss_fn"] = _close("25d loss_fn", tfm.loss_fn(
+            params, cfg, tok, lab)[0], tfm.loss_fn(
+            cpu, cfg, cids[:, :s], cids[:, 1:s + 1])[0], LM_TOL, LM_TOL)
+    logits, caches = tfm.prefill_step(params, cfg, tok)
+    want, cpu_caches = tfm.prefill_step(cpu, cfg, cids[:, :s])
+
+    def caches_close(what: str) -> float:
+        if not torch.equal(caches.cache_pos.cpu(), cpu_caches.cache_pos):
+            fail(f"25d {what}: cache_pos differs from the CPU's")
+        return max(_close(f"25d {what} k", caches.k, cpu_caches.k, LM_TOL,
+                          LM_TOL),
+                   _close(f"25d {what} v", caches.v, cpu_caches.v, LM_TOL,
+                          LM_TOL))
+
+    err["prefill_step"] = max(_close("25d prefill_step logits", logits,
+                                     want, LM_TOL, LM_TOL),
+                              caches_close("prefill_step caches"))
+    err["serve_step"] = 0.0
+    for i in range(s, s + steps):
+        got, caches = tfm.serve_step(params, cfg, caches, ids[:, i:i + 1], i)
+        want, cpu_caches = tfm.serve_step(cpu, cfg, cpu_caches,
+                                          cids[:, i:i + 1], i)
+        err["serve_step"] = max(err["serve_step"], _close(
+            f"25d serve_step at {i}", got, want, LM_TOL, LM_TOL))
+    err["serve_step"] = max(err["serve_step"],
+                            caches_close("caches after serve_step"))
+    del cpu, cpu_caches, caches
+    wcfg = dataclasses.replace(cfg, window=LM_WINDOW)
+    with torch.no_grad():
+        full, _ = tfm.logits_fn(params, wcfg, tok)
+    rolling = tfm.init_decode_caches(wcfg, b, s, device=dev)
+    if rolling.k.shape[3] != LM_WINDOW:
+        fail(f"25d: a window-{LM_WINDOW} cache of {rolling.k.shape[3]} "
+             f"slots")
+    err["windowed"] = 0.0
+    for i in range(s):
+        got, rolling = tfm.serve_step(params, wcfg, rolling, tok[:, i:i + 1],
+                                      i)
+        err["windowed"] = max(err["windowed"], _close(
+            f"25d windowed decode at {i}", got[:, 0], full[:, i],
+            LM_WINDOW_TOL, LM_WINDOW_TOL))
+    log(f"[lm] 25d {LM_SERVE_ARCH} at full width, {LM_CHECK_LAYERS} layers, "
+        f"f32, B {b}, S {s}, against the CPU (rtol = atol = {LM_TOL:g}): "
+        f"logits_fn, loss_fn, prefill_step's logits and caches, {steps} "
+        f"serve_steps and the caches after them; window {LM_WINDOW} "
+        f"(capacity {LM_WINDOW}): rolling decode over {s} positions against "
+        f"logits_fn at each (rtol = atol = {LM_WINDOW_TOL:g}); largest "
+        f"errors {err}")
+    return err
+
+
+def lm_serve(dev, seed: int, launches: dict) -> dict:
+    """25b-c, and 25d's full-depth bf16 check: LM_SERVE_ARCH at
+    make_config() (fp32 weights from ``seed`` on the card)."""
+    cfg = registry.get(LM_SERVE_ARCH).make_config()
+    before = torch.cuda.memory_allocated()
+    params = tfm.init(torch.Generator(device=dev).manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    rec = dict(weights_gb=(base - before) / 1e9)
+    shape = rec_shapes.LM_SHAPES["prefill_32k"]
+    tokens = lm_tokens(cfg, seed + 3, LM_PREFILL_B, shape.seq_len, dev)
+    torch.cuda.reset_peak_memory_stats()
+    counts: dict = {}
+    with counted(counts):
+        t0 = time.perf_counter()
+        logits, caches = tfm.prefill_step(params, cfg, tokens)
+        torch.cuda.synchronize()
+        rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["prefill_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if counts["flash_attention"] != cfg.n_layers or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"25b: {counts['flash_attention']} flash launches (not "
+             f"{cfg.n_layers}), logits finite: "
+             f"{bool(torch.isfinite(logits).all())}")
+    _add(launches, counts)
+    n_tok = LM_PREFILL_B * shape.seq_len
+    log(f"[lm] 25b {LM_SERVE_ARCH} prefill_step at prefill_32k's S "
+        f"{shape.seq_len:,}, B {LM_PREFILL_B} (cut from "
+        f"{shape.global_batch}; {rec['weights_gb']:.1f} GB of fp32 weights, "
+        f"bf16 compute): {rec['prefill_ms']:.1f} ms, "
+        f"{n_tok / rec['prefill_ms'] * 1e3:,.0f} tokens/s, peak "
+        f"{rec['prefill_peak_gb']:.2f} GB above the weights, "
+        f"{counts['flash_attention']} flash launches; caches "
+        f"{tuple(caches.k.shape)} bf16")
+    del logits, caches, tokens
+    torch.cuda.empty_cache()
+
+    b, s0, steps = LM_DECODE
+    ids = lm_tokens(cfg, seed + 4, b, s0, dev)
+    torch.cuda.reset_peak_memory_stats()
+    counts = {}
+    with counted(counts):
+        t0 = time.perf_counter()
+        last, caches = tfm.prefill_step(params, cfg, ids)
+        torch.cuda.synchronize()
+        rec["decode_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        tok = first_tok = last.argmax(-1)
+        pos = torch.tensor(s0, device=dev)
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step_logits, caches = tfm.serve_step(params, cfg, caches, tok,
+                                                 pos)
+            if i == 0:
+                first = step_logits
+            tok, pos = step_logits.argmax(-1), pos + 1
+        torch.cuda.synchronize()
+        rec["token_ms"] = (time.perf_counter() - t0) * 1e3 / steps
+    rec["decode_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if counts["flash_attention"] != cfg.n_layers or not bool(
+            torch.isfinite(first).all()):
+        fail(f"25c: {counts['flash_attention']} flash launches (not "
+             f"{cfg.n_layers} for the prefill, none a decode step)")
+    _add(launches, counts)
+    log(f"[lm] 25c {LM_SERVE_ARCH} decode: prefill_step B {b} x {s0:,} in "
+        f"{rec['decode_prefill_ms']:.1f} ms, then {steps} greedy serve_steps "
+        f"on its {s0:,}-slot caches: {rec['token_ms']:.3f} ms a token "
+        f"(a step for all {b} sequences), {b / rec['token_ms'] * 1e3:,.1f} "
+        f"tokens/s; peak {rec['decode_peak_gb']:.2f} GB above the weights")
+    profile_call(lambda: tfm.serve_step(params, cfg, caches, tok, pos),
+                 f"25c {LM_SERVE_ARCH} one decode step (B {b})", warm=False)
+    del caches
+    torch.cuda.empty_cache()
+    # 25d: the first decoded logits (position s0, whose s0-slot cache has
+    # evicted position 0) are logits_fn's over the same s0 + 1 tokens at
+    # window s0
+    seq = torch.cat([ids[:1], first_tok[:1]], dim=1)
+    with torch.no_grad():
+        full, _ = tfm.logits_fn(params, dataclasses.replace(cfg, window=s0),
+                                seq)
+    got, want = first[0, 0], full[0, s0]
+    rec["bf16_rel"] = _close_norm("25d bf16 first decode", got, want,
+                                  LM_BF16_REL)
+    rec["bf16_max_abs"] = float((got - want).abs().max())
+    log(f"[lm] 25d {LM_SERVE_ARCH} full depth, bf16: 25c's first decoded "
+        f"logits (serve_step's decode_step attention) against logits_fn "
+        f"(flash_attention) over the same {s0 + 1:,} tokens at window "
+        f"{s0:,} (sequence 0): relative error {rec['bf16_rel']:.4g} "
+        f"(tolerance {LM_BF16_REL:g} of the norm), largest absolute "
+        f"{rec['bf16_max_abs']:.4g}")
+    return rec
+
+
+def lm_phase(dev, seed: int) -> dict:
+    """Phase 25: the dense LM family, trained (25a) and served (25b-c),
+    and its checks (25d).  Returns the counted launches (25a-c) and each
+    part's record."""
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    # cuBLAS keeps a workspace for every (handle, stream) it has run on;
+    # the mesh positions' and the runtime's streams of earlier phases
+    # leave many behind
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    live = sorted(((o.numel() * o.element_size() / 1e9, tuple(o.shape),
+                    str(o.dtype)) for o in gc.get_objects()
+                   if isinstance(o, torch.Tensor) and o.is_cuda),
+                  reverse=True)
+    log(f"[lm] phase 25 starts with {held / 1e9:.2f} GB allocated by "
+        f"earlier phases, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"after freeing cuBLAS's workspaces; live CUDA tensors the "
+        f"collector sees: {len(live)}, {sum(t[0] for t in live):.2f} GB, "
+        f"the largest {live[:5]}")
+    launches: dict = {}
+    rec: dict = {"train": {}}
+    for arch in LM_TRAIN_ARCHS:
+        with phase(f"25a {arch} training"):
+            rec["train"][arch] = lm_train(arch, dev, seed, launches)
+        torch.cuda.empty_cache()
+    lm_not_run_notes()
+    with phase(f"25d {LM_SERVE_ARCH} against the CPU ({LM_CHECK_LAYERS} "
+               f"layers, f32)"):
+        rec["parity"] = lm_parity(dev, seed)
+    torch.cuda.empty_cache()
+    with phase(f"25b-d {LM_SERVE_ARCH} prefill, decode and the bf16 check"):
+        rec["serve"] = lm_serve(dev, seed, launches)
+    torch.cuda.empty_cache()
+    rec["launches"] = launches
+    log(f"[lm] phase 25 launches {launches}")
+    return rec
+
+
 def run_kernel_bench() -> dict:
     """Phase 14: the port's ``kernel_bench`` at its full shapes with
     ``--check`` semantics, as a counted run: the main path of ``pq_adc``
@@ -4653,19 +5053,25 @@ def main(argv=None) -> None:
         name = card()
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
-    with phase("2 build kernels"):
-        build_kernels()
-
-    with phase("3 index (opq)"):
-        rng = np.random.default_rng(args.seed)
-        leaves = synth_leaves(rng)
-        qe_all, qt_all = synth_queries(rng, BATCH * args.batches)
-        qrels = plant_positives(leaves, qe_all)
-        index = ckpt.index_from_numpy(leaves, "opq", device=dev)
-        torch.cuda.synchronize()
-        log(f"[index] {sum(a.nbytes for a in leaves.values()) / 1e9:.3f} "
-            f"GB on the card; budget {hi.candidate_budget(index, KC, K2)} "
-            f"slots/query")
+    # phase 2's nvcc processes run while the host synthesizes phase 3's
+    # planes (no kernel runs there); the build is joined before phase 4
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        t_build = time.perf_counter()
+        build = pool.submit(build_kernels)
+        with phase("3 index (opq)"):
+            rng = np.random.default_rng(args.seed)
+            leaves = synth_leaves(rng)
+            qe_all, qt_all = synth_queries(rng, BATCH * args.batches)
+            qrels = plant_positives(leaves, qe_all)
+            index = ckpt.index_from_numpy(leaves, "opq", device=dev)
+            torch.cuda.synchronize()
+            log(f"[index] "
+                f"{sum(a.nbytes for a in leaves.values()) / 1e9:.3f} GB on "
+                f"the card; budget {hi.candidate_budget(index, KC, K2)} "
+                f"slots/query")
+        build.result()
+        log(f"[seconds] 2 build kernels (beside phase 3): "
+            f"{time.perf_counter() - t_build:.1f} s")
     with phase("4 parity"):
         errs = parity_edges(dev, np.random.default_rng(args.seed + 1))
         qe0 = torch.from_numpy(qe_all[:BATCH]).to(dev)
@@ -4799,6 +5205,8 @@ def main(argv=None) -> None:
         rec = recsys_phase(dev, args.seed)
     with phase("24 training cells (recsys, GatedGCN)"):
         cells = train_cells_phase(dev, args.seed)
+    with phase("25 the dense LM family"):
+        lm = lm_phase(dev, args.seed)
 
     # the paths' counted runs: the builds and 18c's KMeans for
     # assign_argmax, the sup build and 18c's steps for flash_attention
@@ -4817,13 +5225,19 @@ def main(argv=None) -> None:
     log(f"[mesh-rt] phase 21 launches {mesh_rt_launches}")
     launches = {k: v + paper_launches[k] + mesh_launches.get(k, 0)
                 + mesh_rt_launches.get(k, 0) + rec["launches"].get(k, 0)
-                + cells["launches"].get(k, 0)
+                + cells["launches"].get(k, 0) + lm["launches"].get(k, 0)
                 for k, v in launches.items()}
     # phase 23: SASRec's attention at d 50, and its launches
     errs["flash_attention"] = max(errs["flash_attention"], rec["flash_err"])
     times["flash_attention"]["sasrec_shape"] = dict(
         rec["flash_times"]["serve_bulk"],
         launches=rec["launches"].get("flash_attention", 0))
+    # phase 25: the kernel at each trained LM's train_4k shape
+    errs["flash_attention"] = max(
+        errs["flash_attention"],
+        *(r["flash"]["max_abs_err"] for r in lm["train"].values()))
+    times["flash_attention"]["lm_train_shapes"] = {
+        arch: r["flash"] for arch, r in lm["train"].items()}
     kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
                     replaces=SOURCES[k][1], launches=launches[k],
                     max_abs_err=errs[k], **times[k])

@@ -488,16 +488,71 @@ def _to_tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(dev)   # own copy
 
 
+def _lm_shapes(cfg: TransformerConfig) -> dict:
+    """Every leaf path of the reference's ``transformer.init`` (a dense
+    config) → its shape, the layers stacked on a leading L axis."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE transformers (n_experts > 0) are not "
+                                  "yet ported to repro_torch")
+    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    dq, dkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    want = {"['embed']['table']": (cfg.vocab_size, d),
+            "['final_norm']['scale']": (d,),
+            "['unembed']['w']": (d, cfg.vocab_size)}
+    for key, shape in (("['attn_norm']['scale']", (d,)),
+                       ("['mlp_norm']['scale']", (d,)),
+                       ("['attn']['wq']['w']", (d, dq)),
+                       ("['attn']['wk']['w']", (d, dkv)),
+                       ("['attn']['wv']['w']", (d, dkv)),
+                       ("['attn']['wo']['w']", (dq, d)),
+                       ("['mlp']['w_gate']['w']", (d, f)),
+                       ("['mlp']['w_up']['w']", (d, f)),
+                       ("['mlp']['w_down']['w']", (f, d))):
+        want["['layers']" + key] = (n,) + shape
+    return want
+
+
+def _tree_from_leaves(leaves: dict, want: dict, what: str,
+                      dev: torch.device) -> dict:
+    """A dict tree on ``dev`` from ``keystr`` leaf paths → numpy arrays
+    that are exactly ``want``'s paths, each of the shape ``want`` gives
+    it."""
+    if sorted(leaves) != sorted(want):
+        raise KeyError(f"{what} parameters have leaves {sorted(leaves)}, "
+                       f"need {sorted(want)}")
+    root: dict = {}
+    for path, arr in leaves.items():
+        if tuple(np.shape(arr)) != want[path]:
+            raise ValueError(f"{what} leaf {path} has shape "
+                             f"{tuple(np.shape(arr))}, cfg needs "
+                             f"{want[path]}")
+        keys = [m.group(1) for m in _PATH.finditer(path)]
+        node = root
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = _to_tensor(arr, dev)
+    return root
+
+
+def lm_params_from_numpy(leaves: dict, cfg: TransformerConfig,
+                         device: dev_mod.DeviceLike = "cuda") -> dict:
+    """The port's transformer parameter tree on ``device`` from the
+    reference's ``transformer.init`` leaf paths (``keystr``) → numpy
+    arrays, checked against ``cfg``: exactly the reference's leaves of a
+    dense config, the layers stacked on a leading L axis, each of the
+    shape ``cfg`` gives it.  Refuses an MoE config."""
+    dev = dev_mod.resolve(device)
+    return _tree_from_leaves(leaves, _lm_shapes(cfg), "transformer", dev)
+
+
 def distill_params_from_numpy(leaves: dict, enc_cfg: TransformerConfig,
                               device: dev_mod.DeviceLike = "cuda"
                               ) -> DistillParams:
     """:class:`DistillParams` on ``device`` from the reference's leaf
     paths → numpy arrays of a ``DistillParams`` (``.cluster_embeddings``,
     ``.term_mlp.w1``, ``.encoder['layers']['mlp']['w_up']['w']``, ...),
-    checked against ``enc_cfg``."""
-    if enc_cfg.is_moe:
-        raise NotImplementedError("MoE encoders (n_experts > 0) are not "
-                                  "yet ported to repro_torch")
+    the encoder checked against ``enc_cfg`` as
+    :func:`lm_params_from_numpy` checks a transformer."""
     dev = dev_mod.resolve(device)
     encoder: dict = {}
     top: dict = {}
@@ -505,35 +560,21 @@ def distill_params_from_numpy(leaves: dict, enc_cfg: TransformerConfig,
         found = list(_KEY.finditer(path))
         if not found or "".join(m.group(0) for m in found) != path:
             raise ValueError(f"unreadable leaf path {path!r}")
-        keys = [m.group(1) or m.group(2) for m in found]
-        if keys[0] == "encoder":
-            node = encoder
-            for k in keys[1:-1]:
-                node = node.setdefault(k, {})
-            node[keys[-1]] = _to_tensor(arr, dev)
+        if found[0].group(1) == "encoder":
+            encoder[path[len(found[0].group(0)):]] = arr
         else:
-            top[".".join(keys)] = _to_tensor(arr, dev)
+            top[".".join(m.group(1) or m.group(2) for m in found)] = arr
     need = ["cluster_embeddings"] + [f"term_mlp.{k}" for k in TermMLP._fields]
     missing = [k for k in need if k not in top]
     if missing or not encoder:
         raise KeyError(f"DistillParams leaves missing: "
                        f"{missing + ([] if encoder else ['encoder'])}")
-    for keys, want in (
-            (("embed", "table"), (enc_cfg.vocab_size, enc_cfg.d_model)),
-            (("layers", "attn", "wq", "w"),
-             (enc_cfg.n_layers, enc_cfg.d_model,
-              enc_cfg.n_heads * enc_cfg.head_dim))):
-        node = encoder
-        for k in keys:
-            node = node.get(k, {}) if isinstance(node, dict) else {}
-        got = None if isinstance(node, dict) else tuple(node.shape)
-        if got != want:
-            raise ValueError(f"encoder leaf {'/'.join(keys)} has shape "
-                             f"{got}, enc_cfg needs {want}")
     return DistillParams(
-        cluster_embeddings=top["cluster_embeddings"],
-        term_mlp=TermMLP(*(top[f"term_mlp.{k}"] for k in TermMLP._fields)),
-        encoder=encoder)
+        cluster_embeddings=_to_tensor(top["cluster_embeddings"], dev),
+        term_mlp=TermMLP(*(_to_tensor(top[f"term_mlp.{k}"], dev)
+                           for k in TermMLP._fields)),
+        encoder=_tree_from_leaves(encoder, _lm_shapes(enc_cfg), "encoder",
+                                  dev))
 
 
 def load_distill(path: str, enc_cfg: TransformerConfig,
@@ -678,19 +719,4 @@ def gnn_params_from_numpy(leaves: dict, cfg,
     layers stacked on a leading ``n_layers`` axis, each of the shape
     ``cfg`` gives it."""
     dev = dev_mod.resolve(device)
-    want = _gnn_shapes(cfg)
-    if sorted(leaves) != sorted(want):
-        raise KeyError(f"GatedGCN parameters have leaves {sorted(leaves)}, "
-                       f"need {sorted(want)}")
-    root: dict = {}
-    for path, arr in leaves.items():
-        if tuple(np.shape(arr)) != want[path]:
-            raise ValueError(f"GatedGCN leaf {path} has shape "
-                             f"{tuple(np.shape(arr))}, cfg needs "
-                             f"{want[path]}")
-        keys = [m.group(1) for m in _PATH.finditer(path)]
-        node = root
-        for k in keys[:-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = _to_tensor(arr, dev)
-    return root
+    return _tree_from_leaves(leaves, _gnn_shapes(cfg), "GatedGCN", dev)

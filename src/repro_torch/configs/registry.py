@@ -5,7 +5,8 @@ Each entry carries the exact published config, a reduced smoke-test
 config (same family, small dims), its shape set, and per-shape skips
 with reasons (DESIGN.md §4).  The port registers the families it has:
 recsys (``dlrm-rm2``, ``sasrec``, ``dien``, ``mind``), the GNN
-(``gatedgcn``) and ``hi2-synth``; the LM archs come with their models.
+(``gatedgcn``), the dense LMs (``llama3-8b``, ``internlm2-1.8b``,
+``stablelm-3b``) and ``hi2-synth``; the MoE LMs come with their models.
 """
 from __future__ import annotations
 
@@ -47,7 +48,8 @@ def all_archs() -> dict[str, ArchDef]:
 def _load_all() -> None:
     # import side effects register each arch (the ported families)
     from repro_torch.configs import (dien, dlrm_rm2,  # noqa: F401
-                                     gatedgcn, hi2_synth, mind, sasrec)
+                                     gatedgcn, hi2_synth, internlm2_1_8b,
+                                     llama3_8b, mind, sasrec, stablelm_3b)
 
 
 def cells(include_skipped: bool = False,

@@ -9,7 +9,18 @@ and the backward recomputes the attention through the plain version
 (``ref.attention``) under autograd, exactly as the reference's ``_bwd``
 differentiates its ``ref.attention``.  The JAX package has no backward
 Pallas kernel, so that recompute is the reference's own algorithm, not
-a fallback, and there is no backward kernel to port.  ``lse`` is
+a fallback, and there is no backward kernel to port.  The recompute
+runs in blocks of query rows (:func:`_bwd_rows`), each differentiated
+on its own over the keys its rows can see (:func:`_live_keys`: under a
+causal mask the first q1 keys of a block ending at row q1), so its live
+(B, Hq, rows, keys) f32 planes stay near :data:`BWD_PLANE` elements
+however long the sequence: the reference's LM path differentiates
+``attention_chunked``, the same function with a bounded plane, and at
+S 4,096 the whole plane of an LM layer is 1-2 GB a sequence.  A block's
+dq is its rows' own; dk and dv add the blocks' contributions in f32 and
+round once to the inputs' dtype.  Where one block covers every row and
+sees every key (S 64 and 50 at the HI²_sup and SASRec shapes) the
+gradients are those of one recompute.  ``lse`` is
 returned non-differentiable.  The forward saves q, k and v themselves
 (never the kernel's output buffer), so the recompute reads nothing a
 later launch writes.
@@ -61,6 +72,8 @@ MAX_ITEMS = 2 ** 31 - 1           # B · Hq · ceil(Sq / 64) work items
 Q_TILE = 64                       # query rows per work item
 #: query rows per chunk of the plain version (bounds its score plane)
 Q_CHUNK = 512
+#: elements of one (B, Hq, rows, Sk) f32 plane of the backward's recompute
+BWD_PLANE = 2 ** 28
 #: ctypes signature of ``flash_attention_fwd`` (csrc/flash_attention.cu)
 ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12
             + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
@@ -179,13 +192,59 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out, _grad_lse):
         causal, window, scale = ctx.attn
-        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = ref.attention(*inputs, causal=causal, window=window,
-                                scale=scale)
-            grads = torch.autograd.grad(out, inputs, grad_out)
-        return tuple(g if need else None for g, need in
-                     zip(grads, ctx.needs_input_grad[:3])) + (None,) * 3
+        q, k, v = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        sq, sk = q.shape[2], k.shape[2]
+        rows = _bwd_rows(q, k)
+        dq = []
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros_like(dk)
+        for q0 in range(0, sq, rows):
+            q1 = min(q0 + rows, sq)
+            k0, k1 = _live_keys(q0, q1, sk, causal, window)
+            if k0 == k1:                  # rows that see no key: out 0
+                dq.append(torch.zeros(q[:, :, q0:q1].shape,
+                                      dtype=torch.float32, device=q.device))
+                continue
+            qf = q[:, :, q0:q1].detach().float().requires_grad_(True)
+            kf, vf = (t[:, :, k0:k1].detach().float().requires_grad_(True)
+                      for t in (k, v))
+            with torch.enable_grad():
+                out, _ = ref.flash_attention(qf, kf, vf, causal, window,
+                                             scale, q_offset=q0,
+                                             k_offset=k0)
+                gq, gk, gv = torch.autograd.grad(
+                    out, (qf, kf, vf), grad_out[:, :, q0:q1].float())
+            dq.append(gq)
+            dk[:, :, k0:k1] += gk
+            dv[:, :, k0:k1] += gv
+        grads = (torch.cat(dq, dim=2).to(q.dtype), dk.to(k.dtype),
+                 dv.to(v.dtype))
+        return tuple(g if n else None for g, n in zip(grads, need)) + (
+            None,) * 3
+
+
+def _live_keys(q0: int, q1: int, sk: int, causal: bool,
+               window: int) -> tuple[int, int]:
+    """The keys [k0, k1) that query rows [q0, q1) can see (the masks go
+    by absolute position): the rest would take a zero probability and
+    give a zero gradient."""
+    k0 = max(0, q0 - window + 1) if window > 0 else 0
+    if causal:
+        k1 = q1
+    elif window > 0:
+        k1 = q1 - 1 + window
+    else:
+        k1 = sk
+    return min(k0, sk), max(min(k1, sk), min(k0, sk))
+
+
+def _bwd_rows(q: torch.Tensor, k: torch.Tensor) -> int:
+    """Query rows a block of the backward's recompute: as many as keep
+    its (B, Hq, rows, Sk) plane within :data:`BWD_PLANE` elements, at
+    least one."""
+    b, hq = q.shape[:2]
+    return max(1, BWD_PLANE // (b * hq * k.shape[2]))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

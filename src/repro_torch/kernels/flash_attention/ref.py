@@ -36,12 +36,15 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None,
-                    q_chunk: Optional[int] = None
+                    q_chunk: Optional[int] = None, q_offset: int = 0,
+                    k_offset: int = 0
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """The function of the flash kernel: q (B, Hq, Sq, d), k/v
     (B, Hkv, Sk, d) → (out (B, Hq, Sq, d) in q's dtype, lse (B, Hq, Sq)
     f32), computed in f32 ``q_chunk`` query rows at a time (None: all at
-    once), so the live score plane is (B, Hq, q_chunk, Sk)."""
+    once), so the live score plane is (B, Hq, q_chunk, Sk).  Query row i
+    sits at absolute position ``q_offset + i`` and key j at ``k_offset +
+    j`` (slices of longer sequences)."""
     b, hq, sq, d = q.shape
     group = hq // k.shape[1]
     sk = k.shape[2]
@@ -51,13 +54,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # backward (atomic adds on CUDA) when the attention is differentiated
     kg = (k if group == 1 else k.repeat_interleave(group, dim=1)).float()
     vg = (v if group == 1 else v.repeat_interleave(group, dim=1)).float()
-    k_pos = torch.arange(sk, device=q.device)[None, :]
+    k_pos = k_offset + torch.arange(sk, device=q.device)[None, :]
     step = sq if q_chunk is None else q_chunk
     outs, lses = [], []
     for q0 in range(0, sq, max(step, 1)):
         qi = q[:, :, q0:q0 + step]
         s = torch.einsum("bhqd,bhkd->bhqk", qi.float() * scale, kg)
-        q_pos = q0 + torch.arange(qi.shape[2], device=q.device)[:, None]
+        q_pos = (q_offset + q0
+                 + torch.arange(qi.shape[2], device=q.device)[:, None])
         mask = _mask(q_pos, k_pos, causal, window)
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         p = torch.softmax(s, dim=-1)

@@ -6,11 +6,13 @@
     AdamW, ``CheckpointManager`` saves and auto-resume, and the
     straggler monitor as an observer only;
   · :func:`cell_step` — one step of the reference's training cells
-    (``launch/cells.py``'s ``train_step`` of the ``recsys/train`` and
-    ``gnn/*`` cells): the same step at :data:`CELL_ADAM`, clipped at
-    1.0, over a family's ``loss(params, cfg, batch)``
+    (``launch/cells.py``'s ``train_step`` of the ``recsys/train``,
+    ``gnn/*`` and ``lm/train`` cells): the same step at
+    :data:`CELL_ADAM`, clipped at 1.0, over a family's
+    ``loss(params, cfg, batch)``
     (:data:`repro_torch.models.recsys.LOSSES`,
-    :func:`repro_torch.models.gnn.loss_fn`);
+    :func:`repro_torch.models.gnn.loss_fn`,
+    :func:`repro_torch.models.transformer.cell_loss`);
   · :func:`train_hi2_sup` — the paper's joint optimisation (§4.3): the
     cluster embeddings, the term-scorer encoder and its MLP learned by
     KL distillation from the teacher embeddings, on ``device`` (default
@@ -52,7 +54,8 @@ from repro_torch.data import synthetic
 from repro_torch.distributed.fault import StragglerMonitor
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import (AdamConfig, AdamState, adam_init, adam_update,
-                               clip_by_global_norm, value_and_grad,
+                               adam_update_, clip_by_global_norm,
+                               clip_by_global_norm_, value_and_grad,
                                warmup_cosine)
 
 
@@ -80,11 +83,17 @@ CELL_CLIP = 1.0
 
 def cell_step(loss: Callable, cfg, params, state: AdamState, batch):
     """One training-cell step → (params, state, {"loss", "grad_norm"}):
-    :func:`train_step` of ``loss(params, cfg, batch) -> (loss, aux)`` at
-    :data:`CELL_ADAM`, clipped at :data:`CELL_CLIP`."""
-    params, state, value, gnorm = train_step(
-        lambda p, b: loss(p, cfg, b), params, state, batch, 1.0,
-        CELL_ADAM, CELL_CLIP)
+    value and grad of ``loss(params, cfg, batch) -> (loss, aux)``, clipped
+    at :data:`CELL_CLIP`, AdamW at :data:`CELL_ADAM` — :func:`train_step`'s
+    step, the same bits, in place, as the reference's cells donate params
+    and state (``launch/cells.py``, ``donate_argnums=(0, 1)``): ``params``
+    and ``state`` are consumed and the returned trees hold their tensors
+    (an LM's AdamW state at full width fits the card only so).  Clone
+    ``params`` first to keep them."""
+    (value, _), grads = value_and_grad(loss, params, cfg, batch,
+                                       has_aux=True)
+    grads, gnorm = clip_by_global_norm_(grads, CELL_CLIP)
+    params, state = adam_update_(grads, state, params, CELL_ADAM)
     return params, state, {"loss": value, "grad_norm": gnorm}
 
 

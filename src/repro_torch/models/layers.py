@@ -2,7 +2,9 @@
 ``repro/models/layers.py``: ``dense_init``, ``dense``,
 ``embedding_init``, ``embedding_lookup``, ``rmsnorm_init``,
 ``rmsnorm``, ``layernorm_init``, ``layernorm``, ``rope_freqs``,
-``apply_rope`` and ``softmax_xent``).
+``apply_rope`` and ``softmax_xent``), and :func:`matmul_f32`, the
+reference's ``jnp.matmul(..., preferred_element_type=jnp.float32)``
+kept in float32.
 
 Parameters are nested dicts of tensors in the reference's layout
 (``{"w": (d_in, d_out)}``, ``{"table": (V, d)}``, ``{"scale": (d,)}``),
@@ -80,6 +82,64 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     if x.is_floating_point() and w.dtype != x.dtype:
         w = w.to(x.dtype)
     return torch.matmul(x, w).to(x.dtype)
+
+
+def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., M, K) @ b (K, N) or (..., K, N) of one low-precision dtype,
+    accumulated and returned in float32 with no rounding in between: on
+    the card cuBLAS's bf16 GEMM with an f32 output (``out_dtype``), on
+    the CPU the product of the operands widened to f32 (exact)."""
+    if a.device.type != "cuda":
+        return torch.matmul(a.float(), b.float())
+    m, k = a.shape[-2:]
+    if b.dim() == 2:
+        out = torch.mm(a.reshape(-1, k), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    out = torch.bmm(a.reshape(-1, m, k), b.reshape(-1, k, b.shape[-1]),
+                    out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+class _MatmulF32(torch.autograd.Function):
+    """:func:`_product_f32` whose backward takes the f32 cotangent to the
+    operands' dtype and multiplies there (f32 accumulation, one rounding
+    of each gradient to that dtype, which the reference rounds to as
+    well).  The reference's CPU transpose multiplies the f32 cotangent
+    unrounded; a TPU at default precision rounds it to bf16, as here."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _product_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        grad = grad.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(grad, b.transpose(-1, -2))
+        if ctx.needs_input_grad[1]:
+            if b.dim() == 2:
+                gb = torch.matmul(a.reshape(-1, a.shape[-1]).t(),
+                                  grad.reshape(-1, grad.shape[-1]))
+            else:
+                gb = torch.matmul(a.transpose(-1, -2), grad)
+        return ga, gb
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in float32 from operands of a's dtype (b (K, N), or
+    batched like a): the reference's ``jnp.matmul(a, b,
+    preferred_element_type=jnp.float32)``.  From bf16 operands the
+    product is accumulated in f32 and never rounded to bf16 — a bf16
+    ``torch.matmul`` followed by ``.float()`` would round it once.
+    Differentiable in both operands."""
+    if b.dtype != a.dtype:
+        raise ValueError(f"operands of {a.dtype} and {b.dtype}")
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    return _MatmulF32.apply(a, b)
 
 
 def embedding_lookup(params: dict, ids: torch.Tensor) -> torch.Tensor:

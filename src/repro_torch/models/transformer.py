@@ -1,19 +1,33 @@
-"""Transformer, encoder mode (port of ``repro/models/transformer.py``:
-``TransformerConfig``, ``_init_layer``, ``init``, ``_mlp_forward``,
-``_layer_forward``, ``hidden_states`` and ``encode`` — the HI²_sup
-term-scorer backbone, the paper's Eq. 7 BERT slot).
+"""Transformer: dense decoder LMs (GQA, RoPE, sliding windows) and the
+bidirectional encoder mode (port of ``repro/models/transformer.py``:
+``TransformerConfig`` with ``n_params`` / ``n_active_params``,
+``_init_layer``, ``init``, ``_mlp_forward``, ``_layer_forward``,
+``hidden_states``, ``logits_fn``, ``loss_fn``, ``encode``,
+``init_decode_caches``, ``serve_step``, ``prefill_step`` and
+``prefill``).
 
 Parameters are the reference's pytree as nested dicts of tensors:
 ``embed.table``, ``final_norm.scale``, ``unembed.w`` and ``layers``,
 whose every leaf carries a leading L axis (the reference stacks the
 layers and runs them with ``lax.scan``; here a loop takes layer i's
-slice).  ``remat`` is a training option and changes nothing in a
-forward pass.  ``encode`` carries gradients (HI²_sup distillation
-trains through it): nothing on its path detaches.
+slice).  Under ``cfg.remat`` and autograd each layer runs inside
+``torch.utils.checkpoint`` (non-reentrant), as the reference's
+per-layer ``jax.checkpoint``: the forward values are the same and the
+backward recomputes the layer, its ``flash_attention`` launch included.
+``encode`` carries gradients (HI²_sup distillation trains through it).
 
-Not yet ported: MoE layers (``n_experts > 0``), the LM heads
-``logits_fn`` / ``loss_fn`` and the decode path ``init_decode_caches`` /
-``prefill_step`` / ``serve_step``; each raises.
+Products whose result the reference asks in f32
+(``preferred_element_type=jnp.float32`` then no cast: the SwiGLU's gate
+and up products, the logits, decode's scores) go through
+:func:`repro_torch.models.layers.matmul_f32`, so at bf16 they are never
+rounded to bf16.
+
+Decode: ``serve_step`` consumes its caches (updates them in place, as
+the reference's decode cell donates them), ``prefill_step`` is one
+full-sequence forward that also fills the caches in the rolling layout,
+and ``prefill`` is the sequential oracle through ``serve_step``.
+
+Not yet ported: MoE layers (``n_experts > 0``); each path raises.
 """
 from __future__ import annotations
 
@@ -22,6 +36,9 @@ from typing import Optional
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import device as dev_mod
 from repro_torch import tree
 from repro_torch.models import attention, layers
 
@@ -57,6 +74,25 @@ class TransformerConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    def _count(self, experts: int) -> int:
+        """Parameters with ``experts`` SwiGLU MLPs a layer (and, under
+        MoE, the router)."""
+        d, f = self.d_model, self.d_ff
+        attn = (d * self.n_heads * self.head_dim * 2
+                + d * self.n_kv_heads * self.head_dim * 2)
+        mlp = experts * 3 * d * f + (d * self.n_experts if self.is_moe
+                                     else 0)
+        return (self.vocab_size * d * 2
+                + self.n_layers * (attn + mlp + 2 * d) + d)
+
+    def n_params(self) -> int:
+        """Total parameter count (embeddings + layers + unembed)."""
+        return self._count(self.n_experts if self.is_moe else 1)
+
+    def n_active_params(self) -> int:
+        """Activated parameters per token (MoE: only the routed experts)."""
+        return self._count(self.moe_top_k if self.is_moe else 1)
 
 
 def _not_yet_ported(what: str):
@@ -113,46 +149,101 @@ def init(generator: torch.Generator, cfg: TransformerConfig) -> dict:
 
 
 # --------------------------------------------------------------------------
-# forward (encode)
+# forward (train / prefill / encode)
 # --------------------------------------------------------------------------
 
+def _embed(params: dict, cfg: TransformerConfig,
+           tokens: torch.Tensor) -> torch.Tensor:
+    """Token rows (PAD, any negative id, reads row 0) in the compute
+    dtype."""
+    return layers.embedding_lookup(params["embed"], tokens).to(
+        cfg.compute_dtype)
+
+
 def _mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: (silu(x W_gate) · x W_up) W_down, in x's dtype."""
+    """SwiGLU, (silu(x W_gate) · x W_up) W_down: the gate and up products
+    stay f32 through silu and the product, which is rounded once to x's
+    dtype, as the reference's (``preferred_element_type=jnp.float32``)."""
     w_gate = p["w_gate"]["w"].to(x.dtype)
     w_up = p["w_up"]["w"].to(x.dtype)
     w_down = p["w_down"]["w"].to(x.dtype)
-    h = torch.nn.functional.silu(torch.matmul(x, w_gate).float())
-    h = (h * torch.matmul(x, w_up).float()).to(x.dtype)
+    h = torch.nn.functional.silu(layers.matmul_f32(x, w_gate))
+    h = (h * layers.matmul_f32(x, w_up)).to(x.dtype)
     return torch.matmul(h, w_down).to(x.dtype)
+
+
+def _mlp_block(lp: dict, x: torch.Tensor) -> torch.Tensor:
+    """A block's second half: x + mlp(norm(x))."""
+    return x + _mlp_forward(lp["mlp"], layers.rmsnorm(lp["mlp_norm"], x))
+
+
+def _attention(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
+               return_kv: bool = False):
+    """A block's full-sequence attention on norm(x)."""
+    return attention.forward(
+        lp["attn"], layers.rmsnorm(lp["attn_norm"], x),
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim,
+        causal=cfg.causal, window=cfg.window, rope_theta=cfg.rope_theta,
+        use_flash=cfg.use_flash, return_kv=return_kv)
 
 
 def _layer_forward(lp: dict, cfg: TransformerConfig, x: torch.Tensor
                    ) -> torch.Tensor:
     """One pre-norm block: x + attn(norm(x)), then + mlp(norm(·))."""
-    if cfg.is_moe:
-        _not_yet_ported("the MoE layer (n_experts > 0)")
-    h = layers.rmsnorm(lp["attn_norm"], x)
-    h = attention.forward(
-        lp["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        d_head=cfg.head_dim, causal=cfg.causal, window=cfg.window,
-        rope_theta=cfg.rope_theta, use_flash=cfg.use_flash)
-    x = x + h
-    h = layers.rmsnorm(lp["mlp_norm"], x)
-    return x + _mlp_forward(lp["mlp"], h)
+    return _mlp_block(lp, x + _attention(lp, cfg, x))
 
 
 def hidden_states(params: dict, cfg: TransformerConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
     """(B, S) token ids → (B, S, D) final hidden states in
     ``cfg.compute_dtype``.  No key-padding mask: as in the reference,
-    PAD positions (id -1, read as row 0) attend and are attended to."""
+    PAD positions (id -1, read as row 0) attend and are attended to.
+    Under ``cfg.remat`` and autograd each layer is checkpointed."""
     if cfg.is_moe:
         _not_yet_ported("the MoE layer (n_experts > 0)")
-    x = layers.embedding_lookup(params["embed"], tokens).to(
-        cfg.compute_dtype)
+    x = _embed(params, cfg, tokens)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x = _layer_forward(tree.index(params["layers"], i), cfg, x)
+        lp = tree.index(params["layers"], i)
+        if remat:
+            x = checkpoint(_layer_forward, lp, cfg, x, use_reentrant=False)
+        else:
+            x = _layer_forward(lp, cfg, x)
     return layers.rmsnorm(params["final_norm"], x)
+
+
+def _logits(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (..., D) @ unembed in f32, from operands in x's dtype."""
+    return layers.matmul_f32(x, params["unembed"]["w"].to(x.dtype))
+
+
+def logits_fn(params: dict, cfg: TransformerConfig, tokens: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S) → (logits (B, S, V) f32, the MoE aux loss: a 0-dim f32
+    zero for a dense config)."""
+    logits = _logits(params, hidden_states(params, cfg, tokens))
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def loss_fn(params: dict, cfg: TransformerConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, aux_weight: float = 0.01
+            ) -> tuple[torch.Tensor, dict]:
+    """Mean next-token cross entropy (labels -1 skipped) plus
+    ``aux_weight`` times the MoE aux loss → (loss, {"loss", "xent",
+    "moe_aux"})."""
+    logits, aux = logits_fn(params, cfg, tokens)
+    xent = layers.softmax_xent(logits, labels)
+    loss = xent + aux_weight * aux
+    return loss, {"loss": loss, "xent": xent, "moe_aux": aux}
+
+
+def cell_loss(params: dict, cfg: TransformerConfig, batch: dict
+              ) -> tuple[torch.Tensor, dict]:
+    """The LM training cell's loss over a batch ``{"tokens", "labels"}``
+    (the reference's ``launch/cells.py::_lm_train_cell``), the
+    ``loss(params, cfg, batch)`` that
+    :func:`repro_torch.launch.train.cell_step` steps."""
+    return loss_fn(params, cfg, batch["tokens"], batch["labels"])
 
 
 def encode(params: dict, cfg: TransformerConfig, tokens: torch.Tensor,
@@ -166,21 +257,97 @@ def encode(params: dict, cfg: TransformerConfig, tokens: torch.Tensor,
     return hidden, pooled
 
 
-def logits_fn(*args, **kwargs):
-    _not_yet_ported("transformer.logits_fn (the LM head)")
+# --------------------------------------------------------------------------
+# decode
+# --------------------------------------------------------------------------
+
+def init_decode_caches(cfg: TransformerConfig, batch: int, seq_len: int,
+                       device: dev_mod.DeviceLike = "cuda"
+                       ) -> attention.KVCache:
+    """Empty caches for every layer, stacked on a leading L axis: k and v
+    (L, B, n_kv_heads, C, d_head) in the compute dtype, ``cache_pos``
+    (L, C) at -1, C = ``cache_capacity(seq_len, cfg.window)``."""
+    dev = dev_mod.resolve(device)
+    capacity = attention.cache_capacity(seq_len, cfg.window)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, capacity, cfg.head_dim)
+    return attention.KVCache(
+        k=torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+        v=torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+        cache_pos=torch.full((cfg.n_layers, capacity), -1,
+                             dtype=torch.int32, device=dev))
 
 
-def loss_fn(*args, **kwargs):
-    _not_yet_ported("transformer.loss_fn (the LM loss)")
+def _layer_cache(caches: attention.KVCache, i: int) -> attention.KVCache:
+    return attention.KVCache(caches.k[i], caches.v[i], caches.cache_pos[i])
 
 
-def init_decode_caches(*args, **kwargs):
-    _not_yet_ported("transformer.init_decode_caches (decode)")
+@torch.no_grad()
+def serve_step(params: dict, cfg: TransformerConfig,
+               caches: attention.KVCache, tokens_new: torch.Tensor, pos
+               ) -> tuple[torch.Tensor, attention.KVCache]:
+    """One token for the whole batch against the KV caches: tokens_new
+    (B, 1), ``pos`` the absolute position (a 0-dim tensor, or an int)
+    → (logits (B, 1, V) f32, caches).  The caches are consumed: each
+    layer's slot ``pos % C`` is written in place and the returned caches
+    are the same tensors.  Nothing is read back to the host."""
+    if cfg.is_moe:
+        _not_yet_ported("the MoE layer (n_experts > 0)")
+    x = _embed(params, cfg, tokens_new)
+    pos = torch.as_tensor(pos, device=x.device)
+    for i in range(cfg.n_layers):
+        lp = tree.index(params["layers"], i)
+        h, _ = attention.decode_step(
+            lp["attn"], _layer_cache(caches, i),
+            layers.rmsnorm(lp["attn_norm"], x), pos, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim,
+            window=cfg.window, rope_theta=cfg.rope_theta)
+        x = _mlp_block(lp, x + h)
+    x = layers.rmsnorm(params["final_norm"], x)
+    return _logits(params, x), caches
 
 
-def prefill_step(*args, **kwargs):
-    _not_yet_ported("transformer.prefill_step (decode)")
+@torch.no_grad()
+def prefill_step(params: dict, cfg: TransformerConfig, tokens: torch.Tensor
+                 ) -> tuple[torch.Tensor, attention.KVCache]:
+    """Production prefill: one full-sequence forward (B, S) on tokens'
+    device → (last-token logits (B, 1, V) f32, the stacked caches).  The
+    caches hold the last C = ``cache_capacity(S, window)`` positions in
+    the rolling layout, position p in slot p mod C, so that continued
+    decode (slot = pos mod C) evicts the oldest position, never a live
+    one."""
+    if cfg.is_moe:
+        _not_yet_ported("the MoE layer (n_experts > 0)")
+    b, s = tokens.shape
+    capacity = attention.cache_capacity(s, cfg.window)
+    p0 = s - capacity
+    shift = p0 % capacity if capacity else 0
+    shape = (cfg.n_layers, b, cfg.n_kv_heads, capacity, cfg.head_dim)
+    ks = torch.empty(shape, dtype=cfg.compute_dtype, device=tokens.device)
+    vs = torch.empty_like(ks)
+    x = _embed(params, cfg, tokens)
+    for i in range(cfg.n_layers):
+        lp = tree.index(params["layers"], i)
+        h, (k, v) = _attention(lp, cfg, x, return_kv=True)
+        ks[i] = torch.roll(k[..., -capacity:, :], shift, dims=-2)
+        vs[i] = torch.roll(v[..., -capacity:, :], shift, dims=-2)
+        x = _mlp_block(lp, x + h)
+    x = layers.rmsnorm(params["final_norm"], x[:, -1:])
+    cache_pos = torch.roll(torch.arange(p0, s, dtype=torch.int32,
+                                        device=tokens.device), shift)
+    return _logits(params, x), attention.KVCache(
+        k=ks, v=vs,
+        cache_pos=cache_pos.expand(cfg.n_layers, capacity).contiguous())
 
 
-def serve_step(*args, **kwargs):
-    _not_yet_ported("transformer.serve_step (decode)")
+def prefill(params: dict, cfg: TransformerConfig, tokens: torch.Tensor
+            ) -> tuple[torch.Tensor, attention.KVCache]:
+    """Sequential prefill through :func:`serve_step`, one position at a
+    time (the oracle tests hold :func:`prefill_step` against)."""
+    b, s = tokens.shape
+    caches = init_decode_caches(cfg, b, s, device=tokens.device)
+    logits = None
+    for i in range(s):
+        logits, caches = serve_step(
+            params, cfg, caches, tokens[:, i:i + 1],
+            torch.tensor(i, dtype=torch.int32, device=tokens.device))
+    return logits, caches

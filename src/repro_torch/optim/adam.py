@@ -38,11 +38,10 @@ def adam_init(params) -> AdamState:
                      mu=zeros, nu=tree_mod.map(torch.clone, zeros))
 
 
-@torch.no_grad()
-def adam_update(grads, state: AdamState, params, config: AdamConfig,
-                lr_scale: Union[torch.Tensor, float] = 1.0
-                ) -> tuple[Any, AdamState]:
-    """One AdamW step.  ``lr_scale`` multiplies the base lr (schedules)."""
+def _leaf_rules(state: AdamState, config: AdamConfig,
+                lr_scale: Union[torch.Tensor, float]):
+    """The step count and the per-leaf expressions of one AdamW step:
+    (step, moment1(m, g), moment2(v, g), update(p, m, v))."""
     step = state.step + 1
     b1, b2 = config.b1, config.b2
     stepf = step.float()
@@ -70,7 +69,35 @@ def adam_update(grads, state: AdamState, params, config: AdamConfig,
             delta.add_(config.weight_decay * p.float())
         return (p.float() - delta.mul_(lr)).to(p.dtype)
 
+    return step, moment1, moment2, upd
+
+
+@torch.no_grad()
+def adam_update(grads, state: AdamState, params, config: AdamConfig,
+                lr_scale: Union[torch.Tensor, float] = 1.0
+                ) -> tuple[Any, AdamState]:
+    """One AdamW step.  ``lr_scale`` multiplies the base lr (schedules)."""
+    step, moment1, moment2, upd = _leaf_rules(state, config, lr_scale)
     mu = tree_mod.map(moment1, state.mu, grads)
     nu = tree_mod.map(moment2, state.nu, grads)
     new_params = tree_mod.map(upd, params, mu, nu)
     return new_params, AdamState(step=step, mu=mu, nu=nu)
+
+
+@torch.no_grad()
+def adam_update_(grads, state: AdamState, params, config: AdamConfig,
+                 lr_scale: Union[torch.Tensor, float] = 1.0
+                 ) -> tuple[Any, AdamState]:
+    """:func:`adam_update` in place, the same bits: each leaf's moments
+    and parameter are computed as there and written into ``state``'s and
+    ``params``' own tensors, leaf by leaf, so a step holds a few
+    temporaries of one leaf beyond the trees, not a second copy of them.
+    ``params`` and ``state`` are consumed (the reference's training cell
+    donates both); the returned trees hold the same tensors."""
+    step, moment1, moment2, upd = _leaf_rules(state, config, lr_scale)
+    for p, g, m, v in zip(*(tree_mod.leaves(t) for t in
+                            (params, grads, state.mu, state.nu))):
+        m.copy_(moment1(m, g))
+        v.copy_(moment2(v, g))
+        p.copy_(upd(p, m, v))
+    return params, AdamState(step=step, mu=state.mu, nu=state.nu)

@@ -39,10 +39,25 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_mod.leaves(tree)))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree, max_norm: float):
     norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return tree_mod.map(lambda g: (g * scale).to(g.dtype), tree), norm
+
+
+@torch.no_grad()
+def clip_by_global_norm_(tree, max_norm: float):
+    """:func:`clip_by_global_norm` in place (the same bits): every leaf
+    of ``tree`` is scaled where it lies → (tree, norm)."""
+    norm = global_norm(tree)
+    scale = _clip_scale(norm, max_norm)
+    for g in tree_mod.leaves(tree):
+        g.mul_(scale)
+    return tree, norm
 
 
 def accumulate_grads(loss_fn: Callable, params, microbatches, *args):

@@ -50,7 +50,14 @@ AdamW) of each recsys arch and of GatedGCN on a full graph, a molecule
 batch and a sampled minibatch is the CPU's within 1e-4, and the
 partitioned GatedGCN over 2 and 4 positions of the card gives
 ``loss_fn``'s loss within 1e-5 and its gradients within 1e-4, under a
-timeout (a hang fails the test).
+timeout (a hang fails the test).  The dense LMs' attention (GQA 4:1 and
+2:1 at d 128, 1:1 at d 80, bf16 causal) is held as the other flash
+cases; ``decode_step`` and ``serve_step`` (after ``prefill_step``, past
+a window) on the card are the CPU's within 1e-4 with equal
+``cache_pos``; one cell step of internlm2-1.8b at full width and 2
+layers is the CPU's as the smoke holds a step (loss, grad norm and
+leaves within 1e-4, moments within 1% in norm, each update against
+AdamW's formula).
 """
 from typing import NamedTuple
 
@@ -631,6 +638,15 @@ FLASH_CASES = {
                                    0, 1),
     "f32_d40_window": (torch.float32, 2, 4, 2, 130, 130, 40, True, 32, 0),
     "bf16_d40": (torch.bfloat16, 2, 2, 2, 100, 100, 40, False, 0, 0),
+    # the dense LMs' attention, bf16 causal: llama3-8b (GQA 4:1, d 128),
+    # internlm2-1.8b (2:1, d 128), stablelm-3b (1:1, d 80, ragged in the
+    # d 128 instance)
+    "bf16_llama3_gqa4_d128": (torch.bfloat16, 1, 32, 8, 2048, 2048, 128,
+                              True, 0, 0),
+    "bf16_internlm2_gqa2_d128": (torch.bfloat16, 2, 16, 8, 2048, 2048, 128,
+                                 True, 0, 0),
+    "bf16_stablelm_d80": (torch.bfloat16, 1, 32, 32, 2048, 2048, 80, True,
+                          0, 0),
 }
 
 
@@ -1699,7 +1715,7 @@ def _step_on_both(cuda, loss, cfg, params, batch):
     from repro_torch.launch import train
     out = []
     for dev in (cuda, torch.device("cpu")):
-        p = tree_mod.to(params, dev)
+        p = tree_mod.map(torch.clone, tree_mod.to(params, dev))  # in place
         out.append(train.cell_step(loss, cfg, p, optim.adam_init(p),
                                    tree_mod.to(batch, dev)))
     return out
@@ -1818,3 +1834,126 @@ def test_partitioned_gradient_on_positions_of_the_card(cuda, positions):
     mesh.close()
     torch.testing.assert_close(loss.cpu(), want.cpu(), rtol=1e-5, atol=0)
     _trees_close(grads, tree_mod.to(wgrads, "cpu"), "partitioned grads")
+
+
+# --------------------------------------------------------------------------
+# the dense LM family: decode and a training step at full width
+# --------------------------------------------------------------------------
+
+def _lm_case(arch: str, **kw):
+    """(cfg, CPU params) of ``arch``'s config with ``kw`` replaced, f32."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(registry.get(arch).make_reduced(), **kw)
+    return cfg, tfm.init(torch.Generator().manual_seed(5), cfg)
+
+
+@pytest.mark.parametrize("window", [0, 4])
+def test_lm_decode_step_and_serve_step_on_the_card_match_the_cpu(cuda,
+                                                                  window):
+    """One layer's ``decode_step`` on a partly filled cache, then 10
+    ``serve_step`` calls (past a 4-slot window) after a ``prefill_step``,
+    on the card and on the CPU: outputs and caches within 1e-4,
+    ``cache_pos`` equal, one flash launch a prefilled layer and none a
+    decode step."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.models import attention, transformer as tfm
+    cfg, params = _lm_case("llama3-8b", window=window)
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(2, 1, cfg.d_model, generator=gen)
+    cache = attention.init_cache(2, cfg.n_kv_heads, 6, cfg.head_dim,
+                                 torch.float32)
+    cache.k.normal_(generator=gen)
+    cache.v.normal_(generator=gen)
+    cache.cache_pos[:4] = torch.tensor([0, 1, 2, 3], dtype=torch.int32)
+    lp = tree_mod.index(params["layers"], 0)["attn"]
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              d_head=cfg.head_dim, window=window)
+    outs = [attention.decode_step(tree_mod.to(lp, dev),
+                                  tree_mod.to(cache, dev), x.to(dev),
+                                  torch.tensor(4, device=dev), **kw)
+            for dev in (cuda, torch.device("cpu"))]
+    torch.testing.assert_close(outs[0][0].cpu(), outs[1][0], **CELL_TOL)
+    torch.testing.assert_close(outs[0][1].k.cpu(), outs[1][1].k, **CELL_TOL)
+    assert torch.equal(outs[0][1].cache_pos.cpu(), outs[1][1].cache_pos)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    got = []
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_mod.to(params, dev)
+        before = fa_ops.launches
+        logits, caches = tfm.prefill_step(p, cfg, tokens[:, :6].to(dev))
+        steps = [logits]
+        for i in range(6, 16):
+            logits, caches = tfm.serve_step(p, cfg, caches,
+                                            tokens[:, i:i + 1].to(dev), i)
+            steps.append(logits)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert fa_ops.launches - before == cfg.n_layers
+        got.append((steps, caches))
+    for a, b in zip(got[0][0], got[1][0]):
+        torch.testing.assert_close(a.cpu(), b, **CELL_TOL)
+    card, cpu = got[0][1], got[1][1]
+    torch.testing.assert_close(card.k.cpu(), cpu.k, **CELL_TOL)
+    torch.testing.assert_close(card.v.cpu(), cpu.v, **CELL_TOL)
+    assert torch.equal(card.cache_pos.cpu(), cpu.cache_pos)
+
+
+def test_lm_cell_step_at_full_width_on_the_card_matches_the_cpu(cuda):
+    """One training-cell step of internlm2-1.8b at full width, 2 layers,
+    f32, B 1 × S 64 (remat on), on the card and on the CPU: loss and
+    grad norm within 1e-4, every updated leaf within 1e-4, each Adam
+    moment leaf within 1% of the CPU's in norm, and each leaf's update
+    within rtol 1e-4, atol 1e-6 of AdamW's formula over the card's own
+    moments (an update is not held against the CPU's elementwise: where a
+    gradient is near eps its rounding becomes up to lr of update); the
+    step launches ``flash_attention`` twice a layer (forward and
+    recompute).  The step runs in place and gives ``train_step``'s
+    bits."""
+    import dataclasses
+    from repro_torch import optim
+    from repro_torch import tree as tree_mod
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(registry.get("internlm2-1.8b").make_config(),
+                              n_layers=2, compute_dtype=torch.float32)
+    params = tfm.init(torch.Generator(device=cuda).manual_seed(7), cfg)
+    ids = torch.randint(0, cfg.vocab_size, (1, 65), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(8))
+    batch = {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+    cpu_params = tree_mod.to(params, "cpu")
+    before = fa_ops.launches
+    stepped = tree_mod.map(torch.clone, params)
+    new, state, m = train.cell_step(tfm.cell_loss, cfg, stepped,
+                                    optim.adam_init(stepped), batch)
+    torch.cuda.synchronize()
+    assert fa_ops.launches - before == 2 * cfg.n_layers
+    cnew, cstate, cm = train.cell_step(tfm.cell_loss, cfg, cpu_params,
+                                       optim.adam_init(cpu_params),
+                                       tree_mod.to(batch, "cpu"))
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(m[key].cpu(), cm[key], **CELL_TOL)
+    a = train.CELL_ADAM
+    for (path, got), (_, want), (_, old), (_, mu), (_, nu), (_, cmu), (
+            _, cnu) in zip(*(tree_mod.leaves_with_paths(t) for t in (
+                new, cnew, params, state.mu, state.nu, cstate.mu,
+                cstate.nu))):
+        torch.testing.assert_close(got.cpu(), want, msg=path, **CELL_TOL)
+        for mine, theirs in ((mu, cmu), (nu, cnu)):
+            theirs = theirs.to(cuda).double()
+            rel = float((mine.double() - theirs).norm() / theirs.norm())
+            assert rel <= 1e-2, (path, rel)
+        formula = -a.lr * (mu.double() / (1 - a.b1)) / (
+            (nu.double() / (1 - a.b2)).sqrt() + a.eps)
+        torch.testing.assert_close(got - old, formula.float(), rtol=1e-4,
+                                   atol=1e-6, msg=path)
+    dnew, dstate, _, gnorm = train.train_step(
+        lambda p, b: tfm.cell_loss(p, cfg, b), params,
+        optim.adam_init(params), batch, 1.0, train.CELL_ADAM,
+        train.CELL_CLIP)
+    assert float(gnorm) == float(m["grad_norm"])
+    for x, y in zip(tree_mod.leaves((dnew, dstate.mu, dstate.nu)),
+                    tree_mod.leaves((new, state.mu, state.nu))):
+        assert torch.equal(x, y)

@@ -210,8 +210,9 @@ def test_one_cell_step_matches_the_reference(kind):
     jnew, jstate = joptim.adam_update(
         clipped, joptim.adam_init(jparams), jparams,
         joptim.AdamConfig(lr=1e-4, weight_decay=0.0))
-    new, state, metrics = train.cell_step(gnn.loss_fn, cfg, params,
-                                          optim.adam_init(params), g)
+    stepped = tree.map(torch.clone, params)      # the step is in place
+    new, state, metrics = train.cell_step(gnn.loss_fn, cfg, stepped,
+                                          optim.adam_init(stepped), g)
     np.testing.assert_allclose(float(metrics["loss"]), float(want),
                                **LOSS_TOL)
     np.testing.assert_allclose(float(metrics["grad_norm"]), float(norm),

@@ -112,9 +112,12 @@ def test_importing_every_port_module_loads_no_jax():
         " 'repro_torch.configs.registry', 'repro_torch.configs.dlrm_rm2',"
         " 'repro_torch.examples.recsys_retrieval',"
         " 'repro_torch.models.gnn', 'repro_torch.data.graph',"
-        " 'repro_torch.configs.gatedgcn'} <= set(mods), mods\n"
+        " 'repro_torch.configs.gatedgcn', 'repro_torch.configs.llama3_8b',"
+        " 'repro_torch.configs.internlm2_1_8b',"
+        " 'repro_torch.configs.stablelm_3b',"
+        " 'repro_torch.models.attention'} <= set(mods), mods\n"
         "from repro_torch.configs import registry\n"
-        "assert len(registry.all_archs()) == 6\n"
+        "assert len(registry.all_archs()) == 9\n"
         "assert not bad, bad\n")
     env = {"PYTHONPATH": str(_ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -426,6 +429,30 @@ def test_graph_entry_points_without_device_raise_when_cuda_is_absent(
         ckpt.gnn_params_from_numpy(leaves, cfg)
     params = ckpt.gnn_params_from_numpy(leaves, cfg, device="cpu")
     assert gnn.forward(params, cfg, g).shape == (20, 2)
+
+
+def test_lm_entry_points_without_device_raise_when_cuda_is_absent(
+        monkeypatch):
+    """The LM parameter carry-over and the decode caches ask for the card
+    by default and run on the CPU when asked; the LM functions keep their
+    inputs' device."""
+    from repro_torch.models import transformer as tfm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tfm.TransformerConfig(n_layers=1, d_model=8, n_heads=2,
+                                n_kv_heads=1, d_ff=16, vocab_size=10,
+                                compute_dtype=torch.float32)
+    leaves = {p: np.zeros(s, np.float32)
+              for p, s in ckpt._lm_shapes(cfg).items()}
+    with pytest.raises(RuntimeError, match="cuda"):
+        ckpt.lm_params_from_numpy(leaves, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tfm.init_decode_caches(cfg, 1, 4)
+    params = ckpt.lm_params_from_numpy(leaves, cfg, device="cpu")
+    caches = tfm.init_decode_caches(cfg, 1, 4, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    logits, caches = tfm.serve_step(params, cfg, caches, tokens[:, :1], 0)
+    assert logits.device.type == caches.k.device.type == "cpu"
+    assert tfm.prefill_step(params, cfg, tokens)[0].device.type == "cpu"
 
 
 def test_flash_attention_head_dims_run_in_the_next_instance_up():

@@ -157,12 +157,27 @@ def test_encode_matches_the_reference(name):
 
 
 def test_unported_transformer_paths_raise():
+    """MoE (n_experts > 0) is the transformer's one unported path: every
+    entry point refuses it; a dense config runs them."""
     cfg = transformer.TransformerConfig(
         n_layers=1, d_model=8, n_heads=2, n_kv_heads=2, d_ff=16,
         vocab_size=10, n_experts=4)
+    tokens = torch.zeros(1, 2, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        transformer.hidden_states({}, cfg, torch.zeros(1, 2, dtype=torch.long))
-    for fn in (transformer.logits_fn, transformer.prefill_step,
-               transformer.serve_step):
+        transformer.hidden_states({}, cfg, tokens)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        transformer.init(torch.Generator(), cfg)
+    for fn, args in ((transformer.logits_fn, (tokens,)),
+                     (transformer.loss_fn, (tokens, tokens)),
+                     (transformer.prefill_step, (tokens,)),
+                     (transformer.serve_step, (None, tokens[:, :1], 0))):
         with pytest.raises(NotImplementedError, match="not yet ported"):
-            fn({}, cfg, None)
+            fn({}, cfg, *args)
+    dense = dataclasses.replace(cfg, n_experts=0, compute_dtype=torch.float32)
+    params = transformer.init(torch.Generator().manual_seed(0), dense)
+    logits, _ = transformer.logits_fn(params, dense, tokens)
+    caches = transformer.init_decode_caches(dense, 1, 2, device="cpu")
+    step, _ = transformer.serve_step(params, dense, caches, tokens[:, :1], 0)
+    first, _ = transformer.prefill_step(params, dense, tokens[:, :1])
+    torch.testing.assert_close(step, first)
+    assert logits.shape == (1, 2, 10) and torch.isfinite(logits).all()

@@ -177,20 +177,28 @@ def test_data_generators_are_bitwise_equal(name, args, rows):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
+def _fields(cfg) -> dict:
+    """A config's fields, dtypes by name (torch's and numpy's differ as
+    objects)."""
+    return {k: (str(v).split(".")[-1] if isinstance(v, torch.dtype)
+                else getattr(v, "__name__", v))
+            for k, v in dataclasses.asdict(cfg).items()}
+
+
 def test_registry_and_shapes_match_the_reference_field_for_field():
     ported = registry.all_archs()
     assert sorted(ported) == ["dien", "dlrm-rm2", "gatedgcn", "hi2-synth",
-                              "mind", "sasrec"]
+                              "internlm2-1.8b", "llama3-8b", "mind",
+                              "sasrec", "stablelm-3b"]
     ref = jregistry.all_archs()
     for aid, arch in ported.items():
         want = ref[aid]
         for field in ("arch_id", "family", "source", "skip_shapes",
                       "extra"):
             assert getattr(arch, field) == getattr(want, field), (aid, field)
-        assert (dataclasses.asdict(arch.make_config())
-                == dataclasses.asdict(want.make_config())), aid
-        assert (dataclasses.asdict(arch.make_reduced())
-                == dataclasses.asdict(want.make_reduced())), aid
+        assert _fields(arch.make_config()) == _fields(want.make_config()), aid
+        assert _fields(arch.make_reduced()) == _fields(
+            want.make_reduced()), aid
         assert type(arch.make_config()).__name__ == type(
             want.make_config()).__name__
         assert list(arch.shapes) == list(want.shapes), aid
@@ -198,11 +206,12 @@ def test_registry_and_shapes_match_the_reference_field_for_field():
             assert type(shape).__name__ == type(want.shapes[name]).__name__
             assert (dataclasses.asdict(shape)
                     == dataclasses.asdict(want.shapes[name])), (aid, name)
-    families = {a.family for a in ported.values()}
     for extra in (False, True):
         want_cells = [c for c in jregistry.cells(include_extra=extra)
-                      if ref[c[0]].family in families]
+                      if c[0] in ported]
         assert registry.cells(include_extra=extra) == want_cells
+    assert ("llama3-8b", "train_4k") in registry.cells()
+    assert ("llama3-8b", "long_500k") not in registry.cells()
     for table in ("LM_SHAPES", "GNN_SHAPES", "REC_SHAPES"):
         got, want = getattr(shapes, table), getattr(jshapes, table)
         assert {k: dataclasses.asdict(v) for k, v in got.items()} == {
