@@ -324,6 +324,35 @@ never prints the final line.  Every phase prints its seconds.
               rolling decode against logits_fn at every position (2e-4),
               and 25c's first decoded logits (full depth, bf16) against
               logits_fn over the same 4,097 tokens at window 4,096;
+ 26. moe      the MoE LM family (``models/moe.py`` in
+              ``models/transformer.py``) at ``make_config()`` (bf16
+              compute, fp32 weights from ``--seed``): 26e first, in f32
+              against the CPU, every call's routes (expert, position,
+              kept) before its outputs: olmoe-1b-7b at full width and 2
+              layers (B 1, S 256: logits_fn, loss_fn, prefill_step's
+              logits and caches, 8 serve steps, one cell step as phase 24
+              holds a step), mixtral-8x22b at full width and 1 layer
+              (logits_fn, prefill_step, 8 serve steps, and a window-16
+              rolling decode at capacity factor E/k against logits_fn),
+              ``forward_shard_map`` over (2, 2) and (2, 1) positions of
+              the card at OLMoE's layer width against ``forward`` at
+              capacity factor 8.0, gradients included (3e-4); 26c
+              olmoe-1b-7b trained at train_4k's S 4,096, 8 of 16 layers,
+              B MOE_TRAIN_B: 3 steps as a counted run, loss, moe_aux,
+              grad norm, ms, tokens/s, the model-FLOP share over the
+              active parameters, peak GB, the dropped share by layer, one
+              step profiled; 26f ``flash_attention`` at 26c's shape and
+              at Mixtral's windowed shape (S 8,192, 48/8 heads, window
+              4,096) against its plain version, timed beside its bound,
+              SDPA and the plain version; 26a olmoe-1b-7b at full depth:
+              ``prefill_step`` at S 32,768, B 1; 26b its ``prefill_step``
+              at B 8 x 4,096 then 64 greedy ``serve_step`` calls, ms a
+              step, the share of a decode batch's assignments dropped at
+              capacity 1, one step profiled; 26d mixtral-8x22b at full
+              width and MOE_WIDE_LAYERS layers: the same prefill and
+              decode (over its rolling 4,096-slot cache), and one layer
+              trained at MOE_TRAIN_B; ``long_500k`` reported as not run
+              (its sizes);
 
 The script then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
 kernel's ``launches`` is read from the counted runs of the paths that
@@ -337,11 +366,13 @@ warmups, 21b's eager checks, warmup, adds and compaction, and 21c's two
 benchmark runs whole), in phase 23 (its serve, retrieval and HI²
 calls and the example; not 23d's checks) and in phase 24 (24a's timed
 steps: SASRec's flash forwards) and in phase 25 (25a's timed steps,
-25b's prefill, 25c's prefill and decode steps); phase 15's counted runs
-are checked in the phase and printed.  ``flash_attention``'s entry also
+25b's prefill, 25c's prefill and decode steps) and phase 26 (26c's and
+26d's timed steps, 26a's, 26b's and 26d's prefills and decode steps);
+phase 15's counted runs are checked in the phase and printed.  ``flash_attention``'s entry also
 carries 23d's times at SASRec's bulk shape under ``sasrec_shape`` and
 the kernel's ms a launch in 25a's profiled steps under
-``lm_train_shapes``.  It imports only the port, never jax or the
+``lm_train_shapes``, and 26f's two shapes under ``moe_shapes`` (each
+with its launches in 26c, and in 26d at Mixtral's window).  It imports only the port, never jax or the
 reference package, and exits non-zero without a card.
 """
 from __future__ import annotations
@@ -428,6 +459,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch import tune  # noqa: E402
 from repro_torch.models import gnn  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import recsys  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.optim import compression  # noqa: E402
@@ -594,8 +626,10 @@ MINIBATCH_PARENT_EDGES = 2_329_650
 
 # phase 25: the dense LM family at make_config() (bf16 compute, fp32
 # params and AdamW state, remat).  25a trains at train_4k's S with its B
-# 256 cut to what one card holds beside the fp32 state (in place, as the
-# reference's cell donates it); llama3-8b's state (128.5 GB) does not fit.
+# 256 cut (in place, as the reference's cell donates it): B 10 / 12 are
+# the largest that fit beside the fp32 state (PR 32), but with phase 26
+# after it the smoke ran past 1,050 s, so 25a takes PR 32's earlier B 4
+# / 2 (about 70 s less); llama3-8b's state (128.5 GB) does not fit.
 # 25b prefills prefill_32k's length at B 1 (its B 32 cut), 25c decodes
 # after a 4,096-token prefill at B 8 (decode_32k's 128 x 32,768 cache
 # would be 550 GB).  25a and 25d hold LM_CHECK_LAYERS-layer copies at
@@ -608,7 +642,7 @@ MINIBATCH_PARENT_EDGES = 2_329_650
 # evicted position 0) within LM_BF16_REL in norm: both at bf16, in other
 # GEMM shapes, so bf16 roundings land elsewhere over 32 layers
 LM_TRAIN_ARCHS = ("internlm2-1.8b", "stablelm-3b")
-LM_TRAIN_B = {"internlm2-1.8b": 10, "stablelm-3b": 12}
+LM_TRAIN_B = {"internlm2-1.8b": 4, "stablelm-3b": 2}
 LM_PROFILE_ARCH = "internlm2-1.8b"    # 25a profiles one step, of this arch
 LM_SERVE_ARCH = "llama3-8b"
 LM_CHECK_LAYERS = 2
@@ -620,6 +654,44 @@ LM_WINDOW = 16                       # 25d: window = cache capacity
 LM_TOL = 1e-4                        # rtol = atol, f32 sum orders
 LM_WINDOW_TOL = 2e-4
 LM_BF16_REL = 0.05
+
+# phase 26: the MoE LM family at make_config() (bf16 compute, fp32
+# params and AdamW state, remat).  olmoe-1b-7b serves at full depth
+# (27.7 GB of fp32 weights); its training state is 16 B a parameter,
+# 6.71 GB a layer, so 26c trains 8 of its 16 layers (57.0 GB).  The
+# sizes are the largest that leave 4 GB of the card's 85.0 beside the
+# ~2.9 GB the smoke holds at phase 26 and the CUDA context's ~2 GB, from
+# peaks read alone (repro_torch.benchmarks.lm_memory, PR 33 call 5):
+# OLMoE's step at B 10 / 12 / 14 75.72 / 79.37 / 83.01 GB, so B 10;
+# mixtral-8x22b (10.0 GB of fp32 weights a layer) serves at 4 / 5
+# layers at 65.30 / 75.45 GB (6 run out), so 5, and trains 1 layer
+# (46.5 GB of state) at B 6 / 8 at 70.03 / 79.79 GB (10 runs out), so
+# B 7 (about 75).  Prefill at prefill_32k's S and B 1; decode at B
+# 8 after a 4,096-token prefill, where a step routes B tokens at
+# capacity max(int(B·k·1.25/E), 1) and drops.  26e holds f32 copies at
+# full width against the CPU (every call's routes first: a route that
+# differs fails unless its router logits at the cut are within
+# MOE_ROUTE_GAP, a near tie, whose batch rows are then left out), and
+# forward_shard_map on positions of the card against forward at
+# capacity factor 8.0 within the reference's bound
+# (tests/test_perf_impls.py, 3e-4)
+MOE_SERVE = "olmoe-1b-7b"
+MOE_WIDE = "mixtral-8x22b"
+MOE_WIDE_LAYERS = 5
+MOE_TRAIN_LAYERS = {MOE_SERVE: 8, MOE_WIDE: 1}
+MOE_TRAIN_B = {MOE_SERVE: 10, MOE_WIDE: 7}
+MOE_PREFILL_B = 1                    # 26a / 26d, at prefill_32k's S
+MOE_DECODE = (8, 4_096, 64)          # (B, prefix, decode steps)
+MOE_CHECK_LAYERS = {MOE_SERVE: 2, MOE_WIDE: 1}
+MOE_CHECK_TRAIN = (1, 256)           # 26e OLMoE in f32: (B, S)
+MOE_PARITY = (1, 64, 8)              # 26e Mixtral: (B, S, serve steps)
+MOE_ROUTE_GAP = 1e-5                 # relative router-logit gap: near tie
+MOE_SHARD = ((2, 2), (2, 1))         # (data, model) positions of the card
+MOE_SHARD_TOKENS = (4, 256)          # (B, S) at OLMoE's layer width
+MOE_SHARD_CF = 8.0
+MOE_SHARD_TOL = 3e-4
+# Mixtral's windowed attention at twice its window: B, S, Hq, Hkv, d, w
+MOE_WINDOW_ATTN = (1, 8_192, 48, 8, 128, 4_096)
 
 # phase 19: the paper benchmarks.  Rows held against the CPU: top-R
 # ids up to swaps within PAPER_TOL, each recall or MRR within its
@@ -1493,12 +1565,13 @@ def _bshd(gen, dev, b, s, h, d, dtype, offset: int = 0):
 
 
 def check_flash(q, k, v, causal, window, what: str,
-                batch_block: int = 0) -> float:
+                batch_block: int = 0, q_chunk=None) -> float:
     """Kernel against the plain version: out within FLASH_TOL of its
     dtype, lse within LSE_TOL of the plain scores' logsumexp, dead rows
     (no visible key) zeros with lse NEG_INF.  ``batch_block`` > 0 runs
-    the plain version that many batch rows at a time (its score plane).
-    Returns the out error."""
+    the plain version that many batch rows at a time, and ``q_chunk``
+    that many query rows at a time (its score plane).  Returns the out
+    error."""
     out_all, lse_all = fa_ops.flash_attention(q, k, v, causal, window)
     step = batch_block or q.shape[0]
     tol, err = FLASH_TOL[q.dtype], 0.0
@@ -1506,7 +1579,7 @@ def check_flash(q, k, v, causal, window, what: str,
         rows = slice(i, i + step)
         out, lse = out_all[rows], lse_all[rows]
         want, wlse = fa_ref.flash_attention(q[rows], k[rows], v[rows],
-                                            causal, window)
+                                            causal, window, q_chunk=q_chunk)
         gap = float((out.float() - want.float()).abs().max())
         if not torch.allclose(out.float(), want.float(), rtol=tol,
                               atol=tol):
@@ -4948,17 +5021,28 @@ def lm_serve(dev, seed: int, launches: dict) -> dict:
     return rec
 
 
+def large_model_memory() -> None:
+    """Free what earlier phases cached and make the allocator's new
+    segments expandable, for the LM phases, whose steps fill the card
+    to within a few GB: with fixed segments, call 2 of PR 33 saw a 14.1
+    GiB request of 25a fail with 14.65 GiB reserved but unallocated.
+    (No CUDA graph is captured from here on.)"""
+    gc.collect()
+    # cuBLAS keeps a workspace for every (handle, stream) it has run on;
+    # the mesh positions' and the runtime's streams of earlier phases
+    # leave many behind
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+
+
 def lm_phase(dev, seed: int) -> dict:
     """Phase 25: the dense LM family, trained (25a) and served (25b-c),
     and its checks (25d).  Returns the counted launches (25a-c) and each
     part's record."""
     gc.collect()
     held = torch.cuda.memory_allocated()
-    # cuBLAS keeps a workspace for every (handle, stream) it has run on;
-    # the mesh positions' and the runtime's streams of earlier phases
-    # leave many behind
-    torch._C._cuda_clearCublasWorkspaces()
-    torch.cuda.empty_cache()
+    large_model_memory()
     live = sorted(((o.numel() * o.element_size() / 1e9, tuple(o.shape),
                     str(o.dtype)) for o in gc.get_objects()
                    if isinstance(o, torch.Tensor) and o.is_cuda),
@@ -4984,6 +5068,544 @@ def lm_phase(dev, seed: int) -> dict:
     torch.cuda.empty_cache()
     rec["launches"] = launches
     log(f"[lm] phase 25 launches {launches}")
+    return rec
+
+
+# --------------------------------------------------------------------------
+# phase 26: the MoE LM family, trained and served
+# --------------------------------------------------------------------------
+
+def moe_cfg(arch: str, **kw):
+    return dataclasses.replace(registry.get(arch).make_config(), **kw)
+
+
+def route_check(what: str, got: list, want: list, seq: int) -> set:
+    """Every layer's routes on the card (``got``) against the CPU's
+    (``want``), in call order: expert ids, positions and kept flags
+    equal.  A token whose experts differ must be a near tie (its k-th
+    and (k+1)-th router logits on the CPU within MOE_ROUTE_GAP of each
+    other, relatively); a token whose experts agree may differ in place
+    or kept only behind such a tie in its layer.  Near ties are printed
+    with their gaps; returns the batch rows (token // ``seq``) they
+    touched, which the caller leaves out of its output checks."""
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} MoE calls on the card, {len(want)} on the "
+             f"CPU")
+    touched: set = set()
+    for layer, (g, w) in enumerate(zip(got, want)):
+        ge, gp, gk = (t.cpu() for t in g[:3])
+        same_e = (ge == w.expert).all(dim=1)
+        same = same_e & (gp == w.position).all(dim=1) & (
+            gk == w.kept).all(dim=1)
+        if bool(same.all()):
+            continue
+        k = ge.shape[1]
+        top = torch.sort(w.logits, dim=-1, descending=True).values
+        gap = (top[:, k - 1] - top[:, k]).abs() / top[:, k - 1].abs().clamp(
+            min=1e-30)
+        ties = torch.nonzero(~same_e)[:, 0]
+        moved = torch.nonzero(~same)[:, 0]
+        if not len(ties) or bool((gap[ties] > MOE_ROUTE_GAP).any()) or int(
+                moved.min()) < int(ties.min()):
+            bad = moved[:4].tolist()
+            fail(f"{what}: call {layer} routes tokens {bad} otherwise than "
+                 f"the CPU (gaps {gap[moved[:4]].tolist()}, experts "
+                 f"{ge[moved[:4]].tolist()} vs {w.expert[moved[:4]].tolist()})")
+        log(f"[moe] {what}: call {layer}: near ties at tokens "
+            f"{ties.tolist()} (router-logit gaps {gap[ties].tolist()}), "
+            f"{len(moved)} tokens routed otherwise; their rows are left out")
+        touched.update((moved // seq).tolist())
+    return touched
+
+
+def close_rows(what: str, got, want, skip: set, rtol: float = LM_TOL,
+               atol: float = LM_TOL) -> float:
+    """:func:`_close` on the batch rows (dim 0) not in ``skip``."""
+    keep = [i for i in range(got.shape[0]) if i not in skip]
+    if not keep:
+        log(f"[moe] {what}: every row touched by a near tie; not compared")
+        return 0.0
+    idx = torch.tensor(keep)
+    return _close(what, got[idx.to(got.device)], want[idx], rtol, atol)
+
+
+def moe_traced(fn, *args, **kw):
+    """``fn(*args, **kw)`` and the routes of its MoE calls."""
+    with moe.record_routes() as routes:
+        out = fn(*args, **kw)
+    return out, routes
+
+
+def moe_check_olmoe(dev, seed: int) -> dict:
+    """26e OLMoE: full width, MOE_CHECK_LAYERS layers, f32, B 1 x S 256
+    against the CPU: logits_fn, loss_fn (xent, moe_aux), prefill_step's
+    logits and caches, 8 serve steps, then one cell step as phase 24
+    holds a step; every call's routes first."""
+    arch = MOE_SERVE
+    cfg = moe_cfg(arch, n_layers=MOE_CHECK_LAYERS[arch],
+                  compute_dtype=torch.float32)
+    b, s = MOE_CHECK_TRAIN
+    steps = MOE_PARITY[2]
+    params = tfm.init(torch.Generator(device=dev).manual_seed(seed), cfg)
+    cpu = tree_mod.to(params, "cpu")
+    ids = lm_tokens(cfg, seed + 5, b, s + steps + 1, dev)
+    cids = ids.cpu()
+    tok, lab = ids[:, :s], ids[:, 1:s + 1]
+    what = f"26e {arch}"
+    err, touched = {}, set()
+    with torch.no_grad():
+        (got, gm), groutes = moe_traced(tfm.loss_fn, params, cfg, tok, lab)
+        (want, wm), wroutes = moe_traced(tfm.loss_fn, cpu, cfg, cids[:, :s],
+                                         cids[:, 1:s + 1])
+        touched |= route_check(f"{what} loss_fn", groutes, wroutes, s)
+        (lg, _), groutes = moe_traced(tfm.logits_fn, params, cfg, tok)
+        (wl, _), wroutes = moe_traced(tfm.logits_fn, cpu, cfg, cids[:, :s])
+        touched |= route_check(f"{what} logits_fn", groutes, wroutes, s)
+    err["logits_fn"] = close_rows(f"{what} logits_fn", lg, wl, touched)
+    if not touched:
+        err["loss_fn"] = max(_close(f"{what} {key}", gm[key], wm[key])
+                             for key in ("loss", "xent", "moe_aux"))
+    (logits, caches), groutes = moe_traced(tfm.prefill_step, params, cfg, tok)
+    (want, cpu_caches), wroutes = moe_traced(tfm.prefill_step, cpu, cfg,
+                                             cids[:, :s])
+    touched |= route_check(f"{what} prefill_step", groutes, wroutes, s)
+    err["prefill_step"] = max(
+        close_rows(f"{what} prefill_step logits", logits, want, touched),
+        close_rows(f"{what} prefill_step k", caches.k.transpose(0, 1),
+                   cpu_caches.k.transpose(0, 1), touched),
+        close_rows(f"{what} prefill_step v", caches.v.transpose(0, 1),
+                   cpu_caches.v.transpose(0, 1), touched))
+    err["serve_step"] = 0.0
+    for i in range(s, s + steps):
+        (got, caches), groutes = moe_traced(
+            tfm.serve_step, params, cfg, caches, ids[:, i:i + 1], i)
+        (want, cpu_caches), wroutes = moe_traced(
+            tfm.serve_step, cpu, cfg, cpu_caches, cids[:, i:i + 1], i)
+        touched |= route_check(f"{what} serve_step at {i}", groutes,
+                               wroutes, 1)
+        err["serve_step"] = max(err["serve_step"], close_rows(
+            f"{what} serve_step at {i}", got, want, touched))
+    del cpu_caches, caches
+    if touched:
+        log(f"[moe] {what}: the cell step is not held against the CPU "
+            f"(a near tie above)")
+    else:
+        batch = {"tokens": tok, "labels": lab}
+        err["cell_step"] = step_vs_cpu_cell(
+            f"{what} ({cfg.n_layers} layers, f32, B {b}, S {s})",
+            tfm.cell_loss, cfg, params, batch, cfg, cpu,
+            tree_mod.to(batch, "cpu"), _same_leaves)
+    log(f"[moe] 26e {arch} at full width, {cfg.n_layers} layers, f32, B {b}, "
+        f"S {s}, against the CPU (rtol = atol = {LM_TOL:g}; routes of every "
+        f"call first): logits_fn, loss_fn (loss, xent, moe_aux "
+        f"{float(gm['moe_aux']):.6f}), prefill_step's logits and caches, "
+        f"{steps} serve_steps, one cell step; largest errors {err}")
+    return err
+
+
+def moe_check_mixtral(dev, seed: int) -> dict:
+    """26e Mixtral: full width, MOE_CHECK_LAYERS layers, f32 against the
+    CPU (logits_fn, prefill_step, serve steps after it), then a window
+    LM_WINDOW copy at capacity factor E/k decoded through its rolling
+    cache against logits_fn at every position, on the card."""
+    arch = MOE_WIDE
+    cfg = moe_cfg(arch, n_layers=MOE_CHECK_LAYERS[arch],
+                  compute_dtype=torch.float32)
+    b, s, steps = MOE_PARITY
+    params = tfm.init(torch.Generator(device=dev).manual_seed(seed), cfg)
+    cpu = tree_mod.to(params, "cpu")
+    ids = lm_tokens(cfg, seed + 6, b, s + steps, dev)
+    cids = ids.cpu()
+    tok = ids[:, :s]
+    what = f"26e {arch}"
+    err, touched = {}, set()
+    with torch.no_grad():
+        (lg, _), groutes = moe_traced(tfm.logits_fn, params, cfg, tok)
+        (wl, _), wroutes = moe_traced(tfm.logits_fn, cpu, cfg, cids[:, :s])
+    touched |= route_check(f"{what} logits_fn", groutes, wroutes, s)
+    err["logits_fn"] = close_rows(f"{what} logits_fn", lg, wl, touched)
+    (logits, caches), groutes = moe_traced(tfm.prefill_step, params, cfg, tok)
+    (want, cpu_caches), wroutes = moe_traced(tfm.prefill_step, cpu, cfg,
+                                             cids[:, :s])
+    touched |= route_check(f"{what} prefill_step", groutes, wroutes, s)
+    err["prefill_step"] = max(
+        close_rows(f"{what} prefill_step logits", logits, want, touched),
+        close_rows(f"{what} prefill_step k", caches.k.transpose(0, 1),
+                   cpu_caches.k.transpose(0, 1), touched))
+    err["serve_step"] = 0.0
+    for i in range(s, s + steps):
+        (got, caches), groutes = moe_traced(
+            tfm.serve_step, params, cfg, caches, ids[:, i:i + 1], i)
+        (want, cpu_caches), wroutes = moe_traced(
+            tfm.serve_step, cpu, cfg, cpu_caches, cids[:, i:i + 1], i)
+        touched |= route_check(f"{what} serve_step at {i}", groutes,
+                               wroutes, 1)
+        err["serve_step"] = max(err["serve_step"], close_rows(
+            f"{what} serve_step at {i}", got, want, touched))
+    del cpu, cpu_caches, caches
+    wcfg = dataclasses.replace(cfg, window=LM_WINDOW,
+                               capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    with torch.no_grad():
+        full, _ = tfm.logits_fn(params, wcfg, tok)
+    rolling = tfm.init_decode_caches(wcfg, b, s, device=dev)
+    err["windowed"] = 0.0
+    for i in range(s):
+        got, rolling = tfm.serve_step(params, wcfg, rolling, tok[:, i:i + 1],
+                                      i)
+        err["windowed"] = max(err["windowed"], _close(
+            f"{what} windowed decode at {i}", got[:, 0], full[:, i],
+            LM_WINDOW_TOL, LM_WINDOW_TOL))
+    log(f"[moe] 26e {arch} at full width, {cfg.n_layers} layer, f32, B {b}, "
+        f"S {s}, against the CPU (rtol = atol = {LM_TOL:g}; routes first): "
+        f"logits_fn, prefill_step's logits and caches, {steps} serve_steps; "
+        f"window {LM_WINDOW} at capacity factor {wcfg.capacity_factor:g} "
+        f"(nothing drops): rolling decode over {s} positions against "
+        f"logits_fn (rtol = atol = {LM_WINDOW_TOL:g}); largest errors {err}")
+    return err
+
+
+def moe_check_mesh(dev, seed: int) -> dict:
+    """26e: ``forward_shard_map`` over MOE_SHARD geometries of positions
+    on the card, at OLMoE's layer width in f32 and capacity factor
+    MOE_SHARD_CF, against ``forward`` (its aux against the mean over the
+    data positions of ``forward``'s aux on each one's rows), the
+    gradients of Σ out·g + aux with respect to x and every parameter
+    included, within MOE_SHARD_TOL; every token's experts first."""
+    cfg = registry.get(MOE_SERVE).make_config()
+    e, k = cfg.n_experts, cfg.moe_top_k
+    b, s = MOE_SHARD_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    params = moe.init(gen, cfg.d_model, cfg.d_ff, e)
+    x = torch.randn(b, s, cfg.d_model, generator=gen, device=dev)
+    g = torch.randn(b, s, cfg.d_model, generator=gen, device=dev) / (b * s)
+    kw = dict(n_experts=e, top_k=k, capacity_factor=MOE_SHARD_CF)
+
+    def run(fn):
+        p = tree_mod.map(lambda t: t.detach().clone().requires_grad_(True),
+                         params)
+        xx = x.clone().requires_grad_(True)
+        with moe.record_routes() as routes:
+            out, aux, dropped = fn(p, xx)
+            (torch.sum(out * g) + aux).backward()
+        return (out.detach(), aux.detach(), float(dropped), xx.grad,
+                [t.grad for t in tree_mod.leaves(p)], routes)
+
+    err = {}
+    for geo in MOE_SHARD:
+        n_data = geo[0]
+
+        def oracle(p, xx):
+            out, st = moe.forward(p, xx, **kw)
+            auxes = [moe.forward(p, blk, **kw)[1].aux_loss
+                     for blk in xx.chunk(n_data)]
+            return out, sum(auxes) / n_data, st.dropped_frac
+
+        mesh = collectives.Mesh([[dev] * geo[1]] * geo[0], ("data", "model"))
+
+        def sharded(p, xx):
+            out, st = moe.forward_shard_map(p, xx, mesh=mesh, **kw)
+            return out, st.aux_loss, st.dropped_frac
+
+        want, got = run(oracle), run(sharded)
+        mesh.close()
+        what = f"26e forward_shard_map {geo}"
+        if want[2] != 0.0 or got[2] != 0.0:
+            fail(f"{what}: assignments dropped at capacity factor "
+                 f"{MOE_SHARD_CF}")
+        # the forward's own call comes first; positions in data order
+        ref_route = want[5][0]
+        by_data = sorted((r for r in got[5] if r.where[1] == 0),
+                         key=lambda r: r.where[0])
+        if len(by_data) != n_data:
+            fail(f"{what}: {len(by_data)} data positions routed")
+        mine = torch.cat([r.expert for r in by_data])
+        differ = torch.nonzero((mine != ref_route.expert).any(dim=1))[:, 0]
+        if len(differ):
+            top = torch.sort(ref_route.logits, -1, descending=True).values
+            gap = ((top[:, k - 1] - top[:, k]).abs()
+                   / top[:, k - 1].abs())[differ]
+            if bool((gap > MOE_ROUTE_GAP).any()):
+                fail(f"{what}: tokens {differ[:4].tolist()} routed otherwise "
+                     f"than forward (gaps {gap[:4].tolist()})")
+            log(f"[moe] {what}: near ties at {differ.tolist()} (gaps "
+                f"{gap.tolist()}); outputs and gradients not compared")
+            continue
+        err[str(geo)] = max(
+            _close(f"{what} {name}", a, bb, MOE_SHARD_TOL, MOE_SHARD_TOL)
+            for name, a, bb in [("out", got[0], want[0]),
+                                ("aux", got[1], want[1]),
+                                ("d x", got[3], want[3])]
+            + [(f"d {p}", a, bb) for (p, _), a, bb in zip(
+                tree_mod.leaves_with_paths(params), got[4], want[4])])
+    log(f"[moe] 26e forward_shard_map over {MOE_SHARD} positions of the card "
+        f"at OLMoE's layer width (d {cfg.d_model}, d_ff {cfg.d_ff}, E {e}, "
+        f"k {k}), f32, B {b} x S {s}, capacity factor {MOE_SHARD_CF:g}, "
+        f"against forward (rtol = atol = {MOE_SHARD_TOL:g}): out, aux, the "
+        f"gradients of x and every parameter; largest errors {err}")
+    return err
+
+
+def moe_prefill(arch: str, cfg, params, dev, seed: int, launches: dict,
+                base: int) -> dict:
+    """26a / 26d: ``prefill_step`` at prefill_32k's S, B MOE_PREFILL_B."""
+    shape = rec_shapes.LM_SHAPES["prefill_32k"]
+    tokens = lm_tokens(cfg, seed + 3, MOE_PREFILL_B, shape.seq_len, dev)
+    torch.cuda.reset_peak_memory_stats()
+    counts: dict = {}
+    with counted(counts), moe.record_routes() as routes:
+        t0 = time.perf_counter()
+        logits, caches = tfm.prefill_step(params, cfg, tokens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if counts["flash_attention"] != cfg.n_layers or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"{arch} prefill: {counts['flash_attention']} flash launches "
+             f"(not {cfg.n_layers}), logits finite: "
+             f"{bool(torch.isfinite(logits).all())}")
+    _add(launches, counts)
+    dropped = 1.0 - float(torch.stack([r.kept.float().mean()
+                                       for r in routes]).mean())
+    n_tok = MOE_PREFILL_B * shape.seq_len
+    cap = moe.capacity_for(n_tok, cfg.moe_top_k, cfg.capacity_factor,
+                           cfg.n_experts)
+    log(f"[moe] {arch} prefill_step ({cfg.n_layers} layers) at prefill_32k's "
+        f"S {shape.seq_len:,}, B {MOE_PREFILL_B} (cut from "
+        f"{shape.global_batch}), capacity {cap:,} an expert: {ms:.1f} ms, "
+        f"{n_tok / ms * 1e3:,.0f} tokens/s, peak {peak:.2f} GB above the "
+        f"weights, {counts['flash_attention']} flash launches, dropped share "
+        f"{dropped:.4f} over the layers; caches {tuple(caches.k.shape)} bf16")
+    return dict(prefill_ms=ms, prefill_peak_gb=peak, prefill_dropped=dropped)
+
+
+def moe_decode(arch: str, cfg, params, dev, seed: int, launches: dict,
+               base: int, profile: bool) -> dict:
+    """26b / 26d: ``prefill_step`` at B x prefix, then greedy
+    ``serve_step`` calls; the dropped share of one decode batch read off
+    layer 0's routes of the first step."""
+    b, s0, steps = MOE_DECODE
+    ids = lm_tokens(cfg, seed + 4, b, s0, dev)
+    torch.cuda.reset_peak_memory_stats()
+    counts: dict = {}
+    rec = {}
+    with counted(counts):
+        t0 = time.perf_counter()
+        last, caches = tfm.prefill_step(params, cfg, ids)
+        torch.cuda.synchronize()
+        rec["decode_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        tok = last.argmax(-1)
+        pos = torch.tensor(s0, device=dev)
+        t0 = time.perf_counter()
+        for i in range(steps):
+            if i == 0:
+                with moe.record_routes() as routes:
+                    step_logits, caches = tfm.serve_step(params, cfg, caches,
+                                                         tok, pos)
+                first = step_logits
+            else:
+                step_logits, caches = tfm.serve_step(params, cfg, caches,
+                                                     tok, pos)
+            tok, pos = step_logits.argmax(-1), pos + 1
+        torch.cuda.synchronize()
+        rec["token_ms"] = (time.perf_counter() - t0) * 1e3 / steps
+    rec["decode_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if counts["flash_attention"] != cfg.n_layers or not bool(
+            torch.isfinite(first).all()):
+        fail(f"{arch} decode: {counts['flash_attention']} flash launches "
+             f"(not {cfg.n_layers} for the prefill, none a decode step)")
+    _add(launches, counts)
+    kept = routes[0].kept
+    rec["decode_dropped"] = 1.0 - float(kept.float().mean())
+    cap = moe.capacity_for(b, cfg.moe_top_k, cfg.capacity_factor,
+                           cfg.n_experts)
+    log(f"[moe] {arch} decode ({cfg.n_layers} layers): prefill_step B {b} x "
+        f"{s0:,} in {rec['decode_prefill_ms']:.1f} ms, then {steps} greedy "
+        f"serve_steps: {rec['token_ms']:.3f} ms a step for all {b} "
+        f"sequences, {b / rec['token_ms'] * 1e3:,.1f} tokens/s; a decode "
+        f"batch routes {b} x {cfg.moe_top_k} assignments at capacity {cap} "
+        f"an expert: layer 0 of the first step drops "
+        f"{rec['decode_dropped']:.4f} of them; peak "
+        f"{rec['decode_peak_gb']:.2f} GB above the weights")
+    if profile:
+        profile_call(lambda: tfm.serve_step(params, cfg, caches, tok, pos),
+                     f"26b {arch} one decode step (B {b})", warm=False)
+    return rec
+
+
+def moe_serve(arch: str, n_layers: int, dev, seed: int, launches: dict,
+              profile: bool) -> dict:
+    """26a-b / 26d: ``arch`` at make_config() and ``n_layers`` layers
+    (fp32 weights from ``seed`` on the card): the 32k prefill, then
+    decode."""
+    cfg = moe_cfg(arch, n_layers=n_layers)
+    before = torch.cuda.memory_allocated()
+    params = tfm.init(torch.Generator(device=dev).manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    rec = dict(weights_gb=(base - before) / 1e9, n_layers=n_layers)
+    log(f"[moe] {arch} serving: {n_layers} of {registry.get(arch).make_config().n_layers} layers, "
+        f"{cfg.n_params() / 1e9:.3f} B params ({rec['weights_gb']:.1f} GB "
+        f"fp32 on the card), bf16 compute")
+    rec.update(moe_prefill(arch, cfg, params, dev, seed, launches, base))
+    torch.cuda.empty_cache()
+    rec.update(moe_decode(arch, cfg, params, dev, seed, launches, base,
+                          profile))
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_train(arch: str, dev, seed: int, launches: dict,
+              profile: bool) -> dict:
+    """26c / 26d: ``arch``'s training cell at make_config() and train_4k's
+    S, depth cut to MOE_TRAIN_LAYERS and B to MOE_TRAIN_B:
+    TRAIN_CELL_STEPS steps in place as a counted run, then one no-grad
+    loss_fn for the moe_aux and the dropped share, and one profiled
+    step."""
+    cfg = moe_cfg(arch, n_layers=MOE_TRAIN_LAYERS[arch])
+    shape = rec_shapes.LM_SHAPES["train_4k"]
+    b, s = MOE_TRAIN_B[arch], shape.seq_len
+    base = torch.cuda.memory_allocated()
+    params = tfm.init(torch.Generator(device=dev).manual_seed(seed), cfg)
+    batch = lm_batch(cfg, seed, b, s, dev)
+    rec = cell_steps(tfm.cell_loss, cfg, params, batch, base)
+    _add(launches, rec["counts"])
+    flash = rec["launches"]["flash_attention"]
+    if flash != 2 * cfg.n_layers:
+        fail(f"26c {arch}: {flash:g} flash_attention launches a step, not "
+             f"{2 * cfg.n_layers} (forward and remat recompute)")
+    with torch.no_grad(), moe.record_routes() as routes:
+        _, metrics = tfm.cell_loss(params, cfg, batch)
+    dropped = [1.0 - float(r.kept.float().mean()) for r in routes]
+    step_s = rec["step_ms"] / 1e3
+    tok_s = b * s / step_s
+    mfu = 6 * cfg.n_active_params() * b * s / step_s / PEAK_BF16_FLOPS
+    if profile:
+        profile_call(lambda: train.cell_step(
+            tfm.cell_loss, cfg, params, optim.adam_init(params), batch),
+            f"26c {arch} one training step (B {b}, S {s})", warm=False)
+    log(f"[moe] 26c {arch} (make_config at {cfg.n_layers} of "
+        f"{registry.get(arch).make_config().n_layers} layers: d "
+        f"{cfg.d_model}, E {cfg.n_experts} top-{cfg.moe_top_k}, d_ff "
+        f"{cfg.d_ff}, {cfg.n_params() / 1e9:.3f} B params, "
+        f"{cfg.n_active_params() / 1e9:.3f} B active, bf16 compute, fp32 "
+        f"params and AdamW in place, remat) at train_4k's S {s}, B {b} (cut "
+        f"from {shape.global_batch}): loss "
+        f"{[round(x, 6) for x in rec['losses']]}, grad norm "
+        f"{[round(x, 6) for x in rec['norms']]}; after them xent "
+        f"{float(metrics['xent']):.6f}, moe_aux "
+        f"{float(metrics['moe_aux']):.6f}, dropped share by layer "
+        f"{[round(x, 4) for x in dropped]}; {rec['step_ms']:.1f} ms a step "
+        f"(median of steps 2-{TRAIN_CELL_STEPS}), {tok_s:,.0f} tokens/s, "
+        f"model-FLOP share {mfu:.1%} (6 x active params x tokens over "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 dense); peak "
+        f"{rec['peak_gb']:.2f} GB above {base / 1e9:.2f}; flash_attention "
+        f"{flash:g} a step")
+    del params, batch
+    torch.cuda.empty_cache()
+    return dict(rec, b=b, s=s, n_layers=cfg.n_layers, tok_s=tok_s, mfu=mfu,
+                moe_aux=float(metrics["moe_aux"]), dropped=dropped)
+
+
+def flash_window_times(timer, dev) -> dict:
+    """26f: ``flash_attention`` at Mixtral's windowed shape
+    (MOE_WINDOW_ATTN: B, S, Hq, Hkv, d, window; bf16, causal), held
+    against its plain version (query rows in Q_CHUNK blocks) and timed
+    beside its bound at the bf16 tensor-core peak, SDPA (the window as a
+    boolean mask) and the plain version."""
+    b, s_len, hq, hkv, d, w = MOE_WINDOW_ATTN
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = _bshd(gen, dev, b, s_len, hq, d, torch.bfloat16)
+    k, v = (_bshd(gen, dev, b, s_len, hkv, d, torch.bfloat16)
+            for _ in range(2))
+    pairs = sum(min(i + 1, w) for i in range(s_len))    # live (q, k) pairs
+    flops = 4.0 * b * hq * pairs * d
+    nbytes = 2.0 * b * s_len * d * (2 * hq + 2 * hkv) + 4.0 * b * hq * s_len
+    bms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    out = dict(max_abs_err=check_flash(q, k, v, True, w,
+                                       f"at Mixtral's window {w}",
+                                       q_chunk=fa_ops.Q_CHUNK))
+    i = torch.arange(s_len, device=dev)
+    mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out.update(
+        ms=timer.ms(lambda: fa_ops.flash_attention(q, k, v, True, w),
+                    reps=10),
+        library_ms=timer.ms(lambda: sdpa(q, k, v, attn_mask=mask,
+                                         enable_gqa=True), reps=10),
+        plain_ms=timer.ms(lambda: fa_ref.flash_attention(
+            q, k, v, True, w, q_chunk=fa_ops.Q_CHUNK), reps=3),
+        bound_ms=bms, bound_by=by, b=b, s=s_len, hq=hq, hkv=hkv, d=d,
+        window=w)
+    log(f"[times] flash_attention at Mixtral's windowed shape "
+        f"{(b, s_len, hq, hkv, d)} (B, S, Hq, Hkv, d; bf16, causal, window "
+        f"{w}): kernel {out['ms']:.3f} ms, library (SDPA, boolean mask) "
+        f"{out['library_ms']:.3f} ms, plain {out['plain_ms']:.3f} ms (out "
+        f"within {FLASH_TOL[torch.bfloat16]} of it: max abs err "
+        f"{out['max_abs_err']:.3g}), bound {bms:.3f} ms ({by}, {pairs:,} live "
+        f"pairs a head at the bf16 tensor-core peak), bound / kernel "
+        f"{bms / out['ms']:.1%}")
+    return out
+
+
+def moe_long_500k_note() -> None:
+    cfg = registry.get(MOE_WIDE).make_config()
+    shape = rec_shapes.LM_SHAPES["long_500k"]
+    n = shape.seq_len * shape.global_batch
+    cap = moe.capacity_for(n, cfg.moe_top_k, cfg.capacity_factor,
+                           cfg.n_experts)
+    plane = cfg.n_experts * cap * cfg.d_ff * 4
+    log(f"[moe] {MOE_WIDE} long_500k not run: a {n:,}-token prefill routes "
+        f"at capacity {cap:,} an expert, so each (E, C, d_ff) f32 gate and "
+        f"up plane of one MoE layer is {plane / 1e9:.0f} GB; the reference "
+        f"lowers only a decode step there (ROADMAP A6 item 6)")
+
+
+def moe_phase(dev, seed: int) -> dict:
+    """Phase 26: the MoE LM family, checked (26e), trained (26c, 26d) and
+    served (26a-b, 26d), and flash_attention at its shapes (26f).
+    Returns the counted launches and each part's record."""
+    large_model_memory()
+    launches: dict = {}
+    rec: dict = {}
+    with phase("26e the MoE layer and the MoE LMs against the CPU"):
+        rec["check"] = dict(olmoe=moe_check_olmoe(dev, seed),
+                            mixtral=moe_check_mixtral(dev, seed),
+                            mesh=moe_check_mesh(dev, seed))
+    torch.cuda.empty_cache()
+    with phase(f"26c {MOE_SERVE} training"):
+        rec["train"] = {MOE_SERVE: moe_train(MOE_SERVE, dev, seed, launches,
+                                             profile=True)}
+    with phase("26f flash_attention at the MoE shapes"):
+        t = rec["train"][MOE_SERVE]
+        cfg = registry.get(MOE_SERVE).make_config()
+        timer = Timer()
+        rec["flash"] = {
+            "olmoe_train": dict(flash_causal_times(
+                timer, f"{MOE_SERVE}'s train_4k shape", t["b"], t["s"],
+                cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dev, plain=True),
+                b=t["b"], s=t["s"], hq=cfg.n_heads, hkv=cfg.n_kv_heads,
+                d=cfg.head_dim),
+            "mixtral_window": flash_window_times(timer, dev)}
+        del timer
+    torch.cuda.empty_cache()
+    with phase(f"26a-b {MOE_SERVE} prefill and decode (full depth)"):
+        rec["serve"] = {MOE_SERVE: moe_serve(
+            MOE_SERVE, registry.get(MOE_SERVE).make_config().n_layers, dev,
+            seed, launches, profile=True)}
+    wide: dict = {}
+    with phase(f"26d {MOE_WIDE} prefill and decode ({MOE_WIDE_LAYERS} "
+               f"layers)"):
+        rec["serve"][MOE_WIDE] = moe_serve(MOE_WIDE, MOE_WIDE_LAYERS, dev,
+                                           seed, wide, profile=False)
+    with phase(f"26d {MOE_WIDE} training"):
+        rec["train"][MOE_WIDE] = moe_train(MOE_WIDE, dev, seed, wide,
+                                           profile=False)
+    _add(launches, wide)
+    rec["wide_flash_launches"] = wide.get("flash_attention", 0)
+    moe_long_500k_note()
+    rec["launches"] = launches
+    log(f"[moe] phase 26 launches {launches}")
     return rec
 
 
@@ -5207,6 +5829,8 @@ def main(argv=None) -> None:
         cells = train_cells_phase(dev, args.seed)
     with phase("25 the dense LM family"):
         lm = lm_phase(dev, args.seed)
+    with phase("26 the MoE LM family"):
+        moe_rec = moe_phase(dev, args.seed)
 
     # the paths' counted runs: the builds and 18c's KMeans for
     # assign_argmax, the sup build and 18c's steps for flash_attention
@@ -5226,6 +5850,7 @@ def main(argv=None) -> None:
     launches = {k: v + paper_launches[k] + mesh_launches.get(k, 0)
                 + mesh_rt_launches.get(k, 0) + rec["launches"].get(k, 0)
                 + cells["launches"].get(k, 0) + lm["launches"].get(k, 0)
+                + moe_rec["launches"].get(k, 0)
                 for k, v in launches.items()}
     # phase 23: SASRec's attention at d 50, and its launches
     errs["flash_attention"] = max(errs["flash_attention"], rec["flash_err"])
@@ -5238,6 +5863,16 @@ def main(argv=None) -> None:
         *(r["flash"]["max_abs_err"] for r in lm["train"].values()))
     times["flash_attention"]["lm_train_shapes"] = {
         arch: r["flash"] for arch, r in lm["train"].items()}
+    # phase 26: the kernel at OLMoE's training shape (26c's counted
+    # launches) and Mixtral's windowed shape (26d's)
+    flash_26 = moe_rec["flash"]
+    errs["flash_attention"] = max(
+        errs["flash_attention"],
+        *(r["max_abs_err"] for r in flash_26.values()))
+    flash_26["olmoe_train"]["launches"] = moe_rec["train"][MOE_SERVE][
+        "counts"]["flash_attention"]
+    flash_26["mixtral_window"]["launches"] = moe_rec["wide_flash_launches"]
+    times["flash_attention"]["moe_shapes"] = flash_26
     kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
                     replaces=SOURCES[k][1], launches=launches[k],
                     max_abs_err=errs[k], **times[k])

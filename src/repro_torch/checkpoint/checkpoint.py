@@ -489,25 +489,29 @@ def _to_tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 def _lm_shapes(cfg: TransformerConfig) -> dict:
-    """Every leaf path of the reference's ``transformer.init`` (a dense
-    config) → its shape, the layers stacked on a leading L axis."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE transformers (n_experts > 0) are not "
-                                  "yet ported to repro_torch")
-    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    """Every leaf path of the reference's ``transformer.init`` → its
+    shape, the layers stacked on a leading L axis: the SwiGLU's ``mlp``
+    leaves of a dense config, or an MoE config's ``moe`` leaves (the
+    router (d, E), ``w_gate`` / ``w_up`` (E, d, f), ``w_down``
+    (E, f, d))."""
+    n, d, f, e = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_experts
     dq, dkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     want = {"['embed']['table']": (cfg.vocab_size, d),
             "['final_norm']['scale']": (d,),
             "['unembed']['w']": (d, cfg.vocab_size)}
+    ffn = ((("['moe']['router']['w']", (d, e)),
+            ("['moe']['w_gate']", (e, d, f)),
+            ("['moe']['w_up']", (e, d, f)),
+            ("['moe']['w_down']", (e, f, d))) if cfg.is_moe else
+           (("['mlp']['w_gate']['w']", (d, f)),
+            ("['mlp']['w_up']['w']", (d, f)),
+            ("['mlp']['w_down']['w']", (f, d))))
     for key, shape in (("['attn_norm']['scale']", (d,)),
                        ("['mlp_norm']['scale']", (d,)),
                        ("['attn']['wq']['w']", (d, dq)),
                        ("['attn']['wk']['w']", (d, dkv)),
                        ("['attn']['wv']['w']", (d, dkv)),
-                       ("['attn']['wo']['w']", (dq, d)),
-                       ("['mlp']['w_gate']['w']", (d, f)),
-                       ("['mlp']['w_up']['w']", (d, f)),
-                       ("['mlp']['w_down']['w']", (f, d))):
+                       ("['attn']['wo']['w']", (dq, d))) + ffn:
         want["['layers']" + key] = (n,) + shape
     return want
 
@@ -538,9 +542,9 @@ def lm_params_from_numpy(leaves: dict, cfg: TransformerConfig,
                          device: dev_mod.DeviceLike = "cuda") -> dict:
     """The port's transformer parameter tree on ``device`` from the
     reference's ``transformer.init`` leaf paths (``keystr``) → numpy
-    arrays, checked against ``cfg``: exactly the reference's leaves of a
-    dense config, the layers stacked on a leading L axis, each of the
-    shape ``cfg`` gives it.  Refuses an MoE config."""
+    arrays, checked against ``cfg``: exactly the reference's leaves of
+    that config (dense or MoE), the layers stacked on a leading L axis,
+    each of the shape ``cfg`` gives it."""
     dev = dev_mod.resolve(device)
     return _tree_from_leaves(leaves, _lm_shapes(cfg), "transformer", dev)
 

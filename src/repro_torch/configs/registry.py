@@ -6,7 +6,8 @@ config (same family, small dims), its shape set, and per-shape skips
 with reasons (DESIGN.md §4).  The port registers the families it has:
 recsys (``dlrm-rm2``, ``sasrec``, ``dien``, ``mind``), the GNN
 (``gatedgcn``), the dense LMs (``llama3-8b``, ``internlm2-1.8b``,
-``stablelm-3b``) and ``hi2-synth``; the MoE LMs come with their models.
+``stablelm-3b``), the MoE LMs (``mixtral-8x22b``, ``olmoe-1b-7b``) and
+``hi2-synth``: every arch the reference registers.
 """
 from __future__ import annotations
 
@@ -46,17 +47,18 @@ def all_archs() -> dict[str, ArchDef]:
 
 
 def _load_all() -> None:
-    # import side effects register each arch (the ported families)
+    # import side effects register each arch
     from repro_torch.configs import (dien, dlrm_rm2,  # noqa: F401
                                      gatedgcn, hi2_synth, internlm2_1_8b,
-                                     llama3_8b, mind, sasrec, stablelm_3b)
+                                     llama3_8b, mind, mixtral_8x22b,
+                                     olmoe_1b_7b, sasrec, stablelm_3b)
 
 
 def cells(include_skipped: bool = False,
           include_extra: bool = False) -> list[tuple[str, str]]:
     """Every (arch_id, shape_name) pair — the dry-run grid.
 
-    The assigned cells of the ported families by default;
+    The assigned cells by default;
     ``include_extra`` adds the paper's own hi2-synth serving cells.
     """
     out = []

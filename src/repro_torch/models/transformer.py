@@ -1,5 +1,5 @@
-"""Transformer: dense decoder LMs (GQA, RoPE, sliding windows) and the
-bidirectional encoder mode (port of ``repro/models/transformer.py``:
+"""Transformer: dense and MoE decoder LMs (GQA, RoPE, sliding windows)
+and the bidirectional encoder mode (port of ``repro/models/transformer.py``:
 ``TransformerConfig`` with ``n_params`` / ``n_active_params``,
 ``_init_layer``, ``init``, ``_mlp_forward``, ``_layer_forward``,
 ``hidden_states``, ``logits_fn``, ``loss_fn``, ``encode``,
@@ -22,12 +22,20 @@ and up products, the logits, decode's scores) go through
 :func:`repro_torch.models.layers.matmul_f32`, so at bf16 they are never
 rounded to bf16.
 
+An MoE config (``n_experts > 0``) has a ``moe`` subtree in each layer
+where a dense one has ``mlp`` (:mod:`repro_torch.models.moe`).  The
+training forward picks ``moe.forward`` or ``moe.forward_shard_map`` by
+``cfg.moe_impl``, the latter on the ``mesh`` its caller passes (the
+reference reads an ambient mesh); ``hidden_states`` sums the layers' aux
+losses in f32 and ``loss_fn`` adds ``aux_weight`` times the sum.  Decode
+and prefill call ``moe.forward`` whatever ``moe_impl`` is, as the
+reference does: a decode step routes its B tokens with capacity
+``max(int(B·k·cf/E), 1)``, so assignments drop there.
+
 Decode: ``serve_step`` consumes its caches (updates them in place, as
 the reference's decode cell donates them), ``prefill_step`` is one
 full-sequence forward that also fills the caches in the rolling layout,
 and ``prefill`` is the sequential oracle through ``serve_step``.
-
-Not yet ported: MoE layers (``n_experts > 0``); each path raises.
 """
 from __future__ import annotations
 
@@ -40,7 +48,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as dev_mod
 from repro_torch import tree
-from repro_torch.models import attention, layers
+from repro_torch.distributed import collectives
+from repro_torch.models import attention, layers, moe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,49 +104,56 @@ class TransformerConfig:
         return self._count(self.moe_top_k if self.is_moe else 1)
 
 
-def _not_yet_ported(what: str):
-    raise NotImplementedError(f"{what} is not yet ported to repro_torch")
-
-
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
 
 def _init_layer(generator: torch.Generator, cfg: TransformerConfig) -> dict:
-    """One dense layer's parameters: the norms at 1, attention at
-    ``dense_init``'s scale, the SwiGLU weights at d_model^-½ (gate, up)
-    and d_ff^-½ (down), drawn in that order."""
-    if cfg.is_moe:
-        _not_yet_ported("the MoE layer (n_experts > 0)")
+    """One layer's parameters: the norms at 1, attention at
+    ``dense_init``'s scale, then the SwiGLU weights at d_model^-½ (gate,
+    up) and d_ff^-½ (down) — or, under MoE, the ``moe`` subtree
+    (:func:`repro_torch.models.moe.init`) — drawn in that order."""
     dev = generator.device
-    s_in, s_out = cfg.d_model ** -0.5, cfg.d_ff ** -0.5
-    return {
+    p = {
         "attn_norm": layers.rmsnorm_init(cfg.d_model, cfg.param_dtype, dev),
         "attn": attention.init(generator, cfg.d_model, cfg.n_heads,
                                cfg.n_kv_heads, cfg.head_dim,
                                cfg.param_dtype),
         "mlp_norm": layers.rmsnorm_init(cfg.d_model, cfg.param_dtype, dev),
-        "mlp": {
-            "w_gate": layers.dense_init(generator, cfg.d_model, cfg.d_ff,
-                                        cfg.param_dtype, s_in),
-            "w_up": layers.dense_init(generator, cfg.d_model, cfg.d_ff,
-                                      cfg.param_dtype, s_in),
-            "w_down": layers.dense_init(generator, cfg.d_ff, cfg.d_model,
-                                        cfg.param_dtype, s_out),
-        },
     }
+    if cfg.is_moe:
+        p["moe"] = moe.init(generator, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                            cfg.param_dtype)
+        return p
+    s_in, s_out = cfg.d_model ** -0.5, cfg.d_ff ** -0.5
+    p["mlp"] = {
+        "w_gate": layers.dense_init(generator, cfg.d_model, cfg.d_ff,
+                                    cfg.param_dtype, s_in),
+        "w_up": layers.dense_init(generator, cfg.d_model, cfg.d_ff,
+                                  cfg.param_dtype, s_in),
+        "w_down": layers.dense_init(generator, cfg.d_ff, cfg.d_model,
+                                    cfg.param_dtype, s_out),
+    }
+    return p
 
 
 def init(generator: torch.Generator, cfg: TransformerConfig) -> dict:
     """The reference's parameter tree on ``generator``'s device: the
     embedding, the layers stacked on a leading L axis, the final norm
     and the (encoder-unused) unembedding."""
-    if cfg.is_moe:
-        _not_yet_ported("the MoE layer (n_experts > 0)")
     embed = layers.embedding_init(generator, cfg.vocab_size, cfg.d_model,
                                   cfg.param_dtype)
-    stacked = tree.stack([_init_layer(generator, cfg)
-                          for _ in range(cfg.n_layers)])
+    # each layer is drawn, then copied into its slot of the stacked
+    # leaves and freed: the layers and a stacked copy of them at once
+    # would take twice the weights' memory
+    stacked = None
+    for i in range(cfg.n_layers):
+        layer = _init_layer(generator, cfg)
+        if stacked is None:
+            stacked = tree.map(lambda t: t.new_empty(
+                (cfg.n_layers,) + tuple(t.shape)), layer)
+        tree.map(lambda dst, src: dst[i].copy_(src), stacked, layer)
+        del layer
     return {
         "embed": embed,
         "layers": stacked,
@@ -172,9 +188,18 @@ def _mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(h, w_down).to(x.dtype)
 
 
-def _mlp_block(lp: dict, x: torch.Tensor) -> torch.Tensor:
-    """A block's second half: x + mlp(norm(x))."""
-    return x + _mlp_forward(lp["mlp"], layers.rmsnorm(lp["mlp_norm"], x))
+def _ffn(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
+         moe_fn=moe.forward, **kw) -> tuple[torch.Tensor, torch.Tensor]:
+    """A block's second half, x + ffn(norm(x)), and its MoE aux loss
+    (a 0-dim f32 zero for a dense config)."""
+    h = layers.rmsnorm(lp["mlp_norm"], x)
+    if not cfg.is_moe:
+        return x + _mlp_forward(lp["mlp"], h), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+    h, stats = moe_fn(lp["moe"], h, n_experts=cfg.n_experts,
+                      top_k=cfg.moe_top_k,
+                      capacity_factor=cfg.capacity_factor, **kw)
+    return x + h, stats.aux_loss
 
 
 def _attention(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
@@ -187,29 +212,39 @@ def _attention(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
         use_flash=cfg.use_flash, return_kv=return_kv)
 
 
-def _layer_forward(lp: dict, cfg: TransformerConfig, x: torch.Tensor
-                   ) -> torch.Tensor:
-    """One pre-norm block: x + attn(norm(x)), then + mlp(norm(·))."""
-    return _mlp_block(lp, x + _attention(lp, cfg, x))
+def _layer_forward(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
+                   mesh: Optional[collectives.Mesh] = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One pre-norm block: x + attn(norm(x)), then + ffn(norm(·)) →
+    (x, aux).  The MoE layer is ``moe.forward_shard_map`` on ``mesh``
+    when ``cfg.moe_impl`` is ``"shard_map"``, else ``moe.forward``."""
+    x = x + _attention(lp, cfg, x)
+    if cfg.is_moe and cfg.moe_impl == "shard_map":
+        return _ffn(lp, cfg, x, moe.forward_shard_map, mesh=mesh)
+    return _ffn(lp, cfg, x)
 
 
 def hidden_states(params: dict, cfg: TransformerConfig,
-                  tokens: torch.Tensor) -> torch.Tensor:
-    """(B, S) token ids → (B, S, D) final hidden states in
-    ``cfg.compute_dtype``.  No key-padding mask: as in the reference,
-    PAD positions (id -1, read as row 0) attend and are attended to.
-    Under ``cfg.remat`` and autograd each layer is checkpointed."""
-    if cfg.is_moe:
-        _not_yet_ported("the MoE layer (n_experts > 0)")
+                  tokens: torch.Tensor,
+                  mesh: Optional[collectives.Mesh] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S) token ids → ((B, S, D) final hidden states in
+    ``cfg.compute_dtype``, the layers' MoE aux losses summed in f32).
+    No key-padding mask: as in the reference, PAD positions (id -1, read
+    as row 0) attend and are attended to.  Under ``cfg.remat`` and
+    autograd each layer is checkpointed."""
     x = _embed(params, cfg, tokens)
     remat = cfg.remat and torch.is_grad_enabled()
+    auxes = []
     for i in range(cfg.n_layers):
         lp = tree.index(params["layers"], i)
         if remat:
-            x = checkpoint(_layer_forward, lp, cfg, x, use_reentrant=False)
+            x, aux = checkpoint(_layer_forward, lp, cfg, x, mesh,
+                                use_reentrant=False)
         else:
-            x = _layer_forward(lp, cfg, x)
-    return layers.rmsnorm(params["final_norm"], x)
+            x, aux = _layer_forward(lp, cfg, x, mesh)
+        auxes.append(aux)
+    return layers.rmsnorm(params["final_norm"], x), torch.stack(auxes).sum()
 
 
 def _logits(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -217,21 +252,23 @@ def _logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     return layers.matmul_f32(x, params["unembed"]["w"].to(x.dtype))
 
 
-def logits_fn(params: dict, cfg: TransformerConfig, tokens: torch.Tensor
+def logits_fn(params: dict, cfg: TransformerConfig, tokens: torch.Tensor,
+              mesh: Optional[collectives.Mesh] = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, S) → (logits (B, S, V) f32, the MoE aux loss: a 0-dim f32
-    zero for a dense config)."""
-    logits = _logits(params, hidden_states(params, cfg, tokens))
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    """(B, S) → (logits (B, S, V) f32, the MoE aux loss: 0-dim f32, zero
+    for a dense config)."""
+    x, aux = hidden_states(params, cfg, tokens, mesh)
+    return _logits(params, x), aux
 
 
 def loss_fn(params: dict, cfg: TransformerConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, aux_weight: float = 0.01
+            labels: torch.Tensor, aux_weight: float = 0.01,
+            mesh: Optional[collectives.Mesh] = None
             ) -> tuple[torch.Tensor, dict]:
     """Mean next-token cross entropy (labels -1 skipped) plus
     ``aux_weight`` times the MoE aux loss → (loss, {"loss", "xent",
     "moe_aux"})."""
-    logits, aux = logits_fn(params, cfg, tokens)
+    logits, aux = logits_fn(params, cfg, tokens, mesh)
     xent = layers.softmax_xent(logits, labels)
     loss = xent + aux_weight * aux
     return loss, {"loss": loss, "xent": xent, "moe_aux": aux}
@@ -250,7 +287,7 @@ def encode(params: dict, cfg: TransformerConfig, tokens: torch.Tensor,
            pad_id: int = -1) -> tuple[torch.Tensor, torch.Tensor]:
     """Encoder mode: (hidden (B, S, D), pooled (B, D)), the pooled
     embedding being the mean over non-PAD positions."""
-    hidden = hidden_states(params, cfg, tokens)
+    hidden, _ = hidden_states(params, cfg, tokens)
     mask = (tokens != pad_id)[..., None].to(hidden.dtype)
     pooled = (hidden * mask).sum(dim=1) / torch.clamp(mask.sum(dim=1),
                                                       min=1.0)
@@ -289,9 +326,8 @@ def serve_step(params: dict, cfg: TransformerConfig,
     (B, 1), ``pos`` the absolute position (a 0-dim tensor, or an int)
     → (logits (B, 1, V) f32, caches).  The caches are consumed: each
     layer's slot ``pos % C`` is written in place and the returned caches
-    are the same tensors.  Nothing is read back to the host."""
-    if cfg.is_moe:
-        _not_yet_ported("the MoE layer (n_experts > 0)")
+    are the same tensors.  Nothing is read back to the host.  An MoE
+    layer routes the B tokens of the step (``moe.forward``)."""
     x = _embed(params, cfg, tokens_new)
     pos = torch.as_tensor(pos, device=x.device)
     for i in range(cfg.n_layers):
@@ -301,7 +337,7 @@ def serve_step(params: dict, cfg: TransformerConfig,
             layers.rmsnorm(lp["attn_norm"], x), pos, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim,
             window=cfg.window, rope_theta=cfg.rope_theta)
-        x = _mlp_block(lp, x + h)
+        x, _ = _ffn(lp, cfg, x + h)
     x = layers.rmsnorm(params["final_norm"], x)
     return _logits(params, x), caches
 
@@ -314,9 +350,7 @@ def prefill_step(params: dict, cfg: TransformerConfig, tokens: torch.Tensor
     caches hold the last C = ``cache_capacity(S, window)`` positions in
     the rolling layout, position p in slot p mod C, so that continued
     decode (slot = pos mod C) evicts the oldest position, never a live
-    one."""
-    if cfg.is_moe:
-        _not_yet_ported("the MoE layer (n_experts > 0)")
+    one.  An MoE layer routes all B·S tokens at once (``moe.forward``)."""
     b, s = tokens.shape
     capacity = attention.cache_capacity(s, cfg.window)
     p0 = s - capacity
@@ -330,7 +364,7 @@ def prefill_step(params: dict, cfg: TransformerConfig, tokens: torch.Tensor
         h, (k, v) = _attention(lp, cfg, x, return_kv=True)
         ks[i] = torch.roll(k[..., -capacity:, :], shift, dims=-2)
         vs[i] = torch.roll(v[..., -capacity:, :], shift, dims=-2)
-        x = _mlp_block(lp, x + h)
+        x, _ = _ffn(lp, cfg, x + h)
     x = layers.rmsnorm(params["final_norm"], x[:, -1:])
     cache_pos = torch.roll(torch.arange(p0, s, dtype=torch.int32,
                                         device=tokens.device), shift)

@@ -57,7 +57,13 @@ a window) on the card are the CPU's within 1e-4 with equal
 ``cache_pos``; one cell step of internlm2-1.8b at full width and 2
 layers is the CPU's as the smoke holds a step (loss, grad norm and
 leaves within 1e-4, moments within 1% in norm, each update against
-AdamW's formula).
+AdamW's formula).  The MoE layer at OLMoE's width (d 2,048, 64 experts
+top-8) routes every token as the CPU does (expert, position, kept; a
+differing route fails unless its router logits tie within 1e-5) with
+outputs and gradients within 1e-4; two forward and backward runs on the
+card are equal bit for bit, so a remat step's recompute routes as its
+forward and its gradients equal a step without remat bit for bit; an MoE
+``serve_step`` after ``prefill_step`` is the CPU's within 1e-4.
 """
 from typing import NamedTuple
 
@@ -1957,3 +1963,154 @@ def test_lm_cell_step_at_full_width_on_the_card_matches_the_cpu(cuda):
     for x, y in zip(tree_mod.leaves((dnew, dstate.mu, dstate.nu)),
                     tree_mod.leaves((new, state.mu, state.nu))):
         assert torch.equal(x, y)
+
+
+# --------------------------------------------------------------------------
+# the MoE layer and the MoE LMs
+# --------------------------------------------------------------------------
+
+def _moe_layer_case(dev, n_tokens: int = 512, seed: int = 11):
+    """OLMoE's layer width (d 2,048, d_ff 1,024, 64 experts top-8) in
+    f32: parameters, rows and a cotangent from one CPU generator, on
+    ``dev``."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(seed)
+    params = moe.init(gen, 2048, 1024, 64)
+    # a shared offset skews the load, so capacity factor 1.25 drops
+    x = (torch.randn(2, n_tokens // 2, 2048, generator=gen)
+         + torch.randn(2048, generator=gen))
+    g = torch.randn(2, n_tokens // 2, 2048, generator=gen) / n_tokens
+    return (tree_mod.to(params, dev), x.to(dev), g.to(dev))
+
+
+def _moe_run(params, x, g, cf: float = 1.25):
+    """forward and the gradients of Σ out·g + aux → (out, aux, dropped,
+    dx, parameter grads, the route)."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.models import moe
+    p = tree_mod.map(lambda t: t.detach().clone().requires_grad_(True),
+                     params)
+    xx = x.clone().requires_grad_(True)
+    with moe.record_routes() as routes:
+        out, st = moe.forward(p, xx, n_experts=64, top_k=8,
+                              capacity_factor=cf)
+    (torch.sum(out * g) + st.aux_loss).backward()
+    return (out.detach(), st.aux_loss.detach(), st.dropped_frac, xx.grad,
+            [t.grad for t in tree_mod.leaves(p)], routes[0])
+
+
+@pytest.mark.parametrize("cf", [1.25, 8.0])
+def test_moe_layer_on_the_card_routes_and_matches_the_cpu(cuda, cf):
+    """Routes first (expert ids, positions, kept equal; a token whose
+    experts differ must be a near tie, router logits within 1e-5 at the
+    cut), then outputs, aux, dropped and every gradient within 1e-4."""
+    card = _moe_run(*_moe_layer_case(cuda), cf=cf)
+    cpu = _moe_run(*_moe_layer_case(torch.device("cpu")), cf=cf)
+    route, want = card[5], cpu[5]
+    same = ((route.expert.cpu() == want.expert).all(1)
+            & (route.position.cpu() == want.position).all(1)
+            & (route.kept.cpu() == want.kept).all(1))
+    if not bool(same.all()):
+        top = torch.sort(want.logits, -1, descending=True).values
+        gap = (top[:, 7] - top[:, 8]).abs() / top[:, 7].abs()
+        assert bool((gap[~same] <= 1e-5).all()), gap[~same]
+        pytest.skip(f"near ties at tokens {torch.nonzero(~same)[:, 0]}")
+    assert (float(cpu[2]) > 0) == (cf == 1.25)
+    assert float(card[2].cpu()) == float(cpu[2])
+    for name, a, b in [("out", card[0], cpu[0]), ("aux", card[1], cpu[1]),
+                       ("dx", card[3], cpu[3])] + [
+            (f"grad {i}", a, b) for i, (a, b) in enumerate(zip(card[4],
+                                                                cpu[4]))]:
+        torch.testing.assert_close(a.cpu(), b, msg=name, **CELL_TOL)
+
+
+def test_moe_layer_forward_and_backward_repeat_bit_for_bit(cuda):
+    """Two forward and backward runs at bf16 compute (where router
+    logits tie often) on the card: routes, outputs, aux and every
+    gradient the same bits."""
+    params, x, g = _moe_layer_case(cuda, n_tokens=2048)
+    x = x.bfloat16()
+    runs = [_moe_run(params, x, g.bfloat16()) for _ in range(2)]
+    for a, b in zip(runs[0][5][:4], runs[1][5][:4]):
+        assert torch.equal(a, b)
+    for i, (a, b) in enumerate(zip(
+            [runs[0][0], runs[0][1], runs[0][3]] + runs[0][4],
+            [runs[1][0], runs[1][1], runs[1][3]] + runs[1][4])):
+        assert torch.equal(a, b), i
+
+
+def test_moe_remat_step_on_the_card_equals_a_step_without_remat(cuda):
+    """olmoe-1b-7b at full width, 2 layers, bf16 compute, B 1 × S 256:
+    under remat each MoE layer's recompute routes as its forward did
+    (the routes of both runs equal), so the gradients equal those of a
+    step without remat bit for bit."""
+    import dataclasses
+    from repro_torch import optim
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(registry.get("olmoe-1b-7b").make_config(),
+                              n_layers=2)
+    params = tfm.init(torch.Generator(device=cuda).manual_seed(12), cfg)
+    ids = torch.randint(0, cfg.vocab_size, (1, 257), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(13))
+    batch = {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+    out = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        with moe.record_routes() as routes:
+            (loss, _), grads = optim.value_and_grad(
+                tfm.cell_loss, params, c, batch, has_aux=True)
+        out[remat] = (loss, grads, routes)
+    routes = out[True][2]
+    assert len(routes) == 2 * cfg.n_layers
+    for a, b in zip(routes[:2], routes[2:][::-1]):
+        for x, y in zip(a[:4], b[:4]):
+            assert torch.equal(x, y)
+    for a, b in zip(routes[:2], out[False][2]):
+        assert torch.equal(a.expert, b.expert)
+    assert torch.equal(out[True][0], out[False][0])
+    from repro_torch import tree as tree_mod
+    for (path, a), (_, b) in zip(tree_mod.leaves_with_paths(out[True][1]),
+                                 tree_mod.leaves_with_paths(out[False][1])):
+        assert torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x22b"])
+def test_moe_serve_step_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced MoE config (f32): ``prefill_step`` over 6 tokens, then
+    10 ``serve_step`` calls (each routes B = 2 tokens at capacity 1, so
+    assignments drop; Mixtral's window of 8 rolls) on the card and on
+    the CPU: every call's routes equal, logits and caches within 1e-4,
+    ``cache_pos`` equal."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    cfg, params = _lm_case(arch)
+    gen = torch.Generator().manual_seed(14)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    got = []
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_mod.to(params, dev)
+        with moe.record_routes() as routes:
+            logits, caches = tfm.prefill_step(p, cfg,
+                                              tokens[:, :6].to(dev))
+            steps = [logits]
+            for i in range(6, 16):
+                logits, caches = tfm.serve_step(p, cfg, caches,
+                                                tokens[:, i:i + 1].to(dev),
+                                                i)
+                steps.append(logits)
+        got.append((steps, caches, routes))
+    (card, ccache, croutes), (cpu, pcache, proutes) = got
+    assert len(croutes) == len(proutes) == 11 * cfg.n_layers
+    assert any(not bool(r.kept.all()) for r in proutes[cfg.n_layers:])
+    for a, b in zip(croutes, proutes):
+        for x, y in zip(a[:3], b[:3]):
+            assert torch.equal(x.cpu(), y)
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a.cpu(), b, **CELL_TOL)
+    torch.testing.assert_close(ccache.k.cpu(), pcache.k, **CELL_TOL)
+    torch.testing.assert_close(ccache.v.cpu(), pcache.v, **CELL_TOL)
+    assert torch.equal(ccache.cache_pos.cpu(), pcache.cache_pos)

@@ -115,9 +115,11 @@ def test_importing_every_port_module_loads_no_jax():
         " 'repro_torch.configs.gatedgcn', 'repro_torch.configs.llama3_8b',"
         " 'repro_torch.configs.internlm2_1_8b',"
         " 'repro_torch.configs.stablelm_3b',"
-        " 'repro_torch.models.attention'} <= set(mods), mods\n"
+        " 'repro_torch.models.attention', 'repro_torch.models.moe',"
+        " 'repro_torch.configs.mixtral_8x22b',"
+        " 'repro_torch.configs.olmoe_1b_7b'} <= set(mods), mods\n"
         "from repro_torch.configs import registry\n"
-        "assert len(registry.all_archs()) == 9\n"
+        "assert len(registry.all_archs()) == 11\n"
         "assert not bad, bad\n")
     env = {"PYTHONPATH": str(_ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -453,6 +455,48 @@ def test_lm_entry_points_without_device_raise_when_cuda_is_absent(
     logits, caches = tfm.serve_step(params, cfg, caches, tokens[:, :1], 0)
     assert logits.device.type == caches.k.device.type == "cpu"
     assert tfm.prefill_step(params, cfg, tokens)[0].device.type == "cpu"
+
+
+def test_moe_entry_points_without_device_raise_when_cuda_is_absent(
+        monkeypatch):
+    """An MoE config's parameter carry-over and decode caches ask for the
+    card by default and run on the CPU when asked (the memory probe has
+    no CPU path and refuses); the MoE layer, its mesh layout and the LM
+    functions keep their inputs' device."""
+    from repro_torch import tree
+    from repro_torch.distributed import collectives
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tfm.TransformerConfig(n_layers=1, d_model=8, n_heads=2,
+                                n_kv_heads=1, d_ff=16, vocab_size=10,
+                                n_experts=4, compute_dtype=torch.float32)
+    leaves = {p: np.full(s, 0.1, np.float32)
+              for p, s in ckpt._lm_shapes(cfg).items()}
+    assert "['layers']['moe']['w_gate']" in leaves
+    with pytest.raises(RuntimeError, match="cuda"):
+        ckpt.lm_params_from_numpy(leaves, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tfm.init_decode_caches(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        collectives.Mesh([["cuda"] * 2], ("data", "model"))
+    from repro_torch.benchmarks import lm_memory
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm_memory.main(["--arch", "olmoe-1b-7b", "--train-batches", "1"])
+    params = ckpt.lm_params_from_numpy(leaves, cfg, device="cpu")
+    caches = tfm.init_decode_caches(cfg, 1, 4, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    logits, caches = tfm.serve_step(params, cfg, caches, tokens[:, :1], 0)
+    assert logits.device.type == caches.k.device.type == "cpu"
+    assert tfm.prefill_step(params, cfg, tokens)[0].device.type == "cpu"
+    x = torch.ones((2, 3, 8))
+    lp = tree.index(params["layers"]["moe"], 0)
+    out, _ = moe.forward(lp, x, n_experts=4, top_k=2)
+    mesh = collectives.Mesh([["cpu"] * 2], ("data", "model"))
+    sharded, _ = moe.forward_shard_map(lp, x, n_experts=4, top_k=2,
+                                       mesh=mesh)
+    mesh.close()
+    assert out.device.type == sharded.device.type == "cpu"
 
 
 def test_flash_attention_head_dims_run_in_the_next_instance_up():

@@ -1,11 +1,13 @@
-"""Port parity of the dense LM family's training half: ``repro_torch.
-models.transformer`` (``logits_fn``, ``loss_fn``, ``cell_loss``,
-``hidden_states`` under remat, ``_mlp_forward`` at bf16, ``n_params`` /
-``n_active_params``), ``repro_torch.configs`` (``llama3_8b``,
-``internlm2_1_8b``, ``stablelm_3b``), ``checkpoint.lm_params_from_numpy``
-and one training-cell step (``launch.train.cell_step``, the reference's
-``launch/cells.py::_lm_train_cell``), against the live JAX package on the
-CPU.
+"""Port parity of the LM family's training half, dense and MoE:
+``repro_torch.models.transformer`` (``logits_fn`` with its MoE aux loss,
+``loss_fn``, ``cell_loss``, ``hidden_states`` under remat,
+``_mlp_forward`` at bf16, ``n_params`` / ``n_active_params``),
+``repro_torch.configs`` (``llama3_8b``, ``internlm2_1_8b``,
+``stablelm_3b``, ``mixtral_8x22b``, ``olmoe_1b_7b``),
+``checkpoint.lm_params_from_numpy`` and checkpoints of MoE parameters both
+ways, and one training-cell step (``launch.train.cell_step``, the
+reference's ``launch/cells.py::_lm_train_cell``), against the live JAX
+package on the CPU.
 
 Each arch runs at its ``make_reduced()`` config (2 layers, d 64, f32) on
 parameters the reference's ``transformer.init`` draws, carried across by
@@ -36,6 +38,7 @@ import pytest
 import torch
 
 from repro import optim as joptim
+from repro.checkpoint import checkpoint as jckpt
 from repro.configs import registry as jregistry
 from repro.models import transformer as jtfm
 from repro_torch import optim, tree
@@ -44,6 +47,7 @@ from repro_torch.configs import registry
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.launch import train
+from repro_torch.models import moe
 from repro_torch.models import transformer as tfm
 
 torch.set_num_threads(2)
@@ -60,6 +64,11 @@ BF16_GRAD_REL = 0.03
 #: bf16: |loss - reference loss| / reference loss (read: up to 8.7e-5)
 BF16_LOSS = 1e-3
 ARCHS = ("llama3-8b", "internlm2-1.8b", "stablelm-3b")
+#: the MoE archs run every f32 case (their reduced configs: 4 experts
+#: top-2 with a window of 8, and 8 experts top-2; B·S = 48 tokens at
+#: capacity factor 1.25)
+MOE_ARCHS = ("mixtral-8x22b", "olmoe-1b-7b")
+F32_ARCHS = ARCHS + MOE_ARCHS
 #: the reference's ``launch/cells.py`` optimizer
 JADAM = joptim.AdamConfig(lr=1e-4, weight_decay=0.0)
 B, S = 2, 24
@@ -150,8 +159,10 @@ def _torch_batch(arch: str) -> dict:
 # logits, loss, gradients
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", F32_ARCHS)
 def test_logits_and_loss_match_the_reference(arch):
+    """Logits, the aux loss (the layers' Switch losses summed; zero for a
+    dense arch), loss and its metrics within 1e-5."""
     ref = _reference(arch)
     batch = _torch_batch(arch)
     params = _params(arch)
@@ -159,7 +170,9 @@ def test_logits_and_loss_match_the_reference(arch):
     assert logits.dtype == torch.float32 and logits.shape == (
         B, S, ref["cfg"].vocab_size)
     np.testing.assert_allclose(logits.numpy(), ref["logits"], **LOSS_TOL)
-    assert aux.dim() == 0 and aux.dtype == torch.float32 and float(aux) == 0
+    assert aux.dim() == 0 and aux.dtype == torch.float32
+    np.testing.assert_allclose(float(aux), ref["aux"], **LOSS_TOL)
+    assert (float(aux) > 0) == ref["cfg"].is_moe
     loss, metrics = tfm.loss_fn(params, ref["cfg"], batch["tokens"],
                                 batch["labels"])
     np.testing.assert_allclose(float(loss), ref["loss"], **LOSS_TOL)
@@ -172,7 +185,7 @@ def test_logits_and_loss_match_the_reference(arch):
 
 
 @pytest.mark.parametrize("remat", [False, True])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", F32_ARCHS)
 def test_every_gradient_leaf_matches_the_reference(arch, remat):
     ref = _reference(arch, remat)
     assert ref["cfg"].remat is remat
@@ -210,7 +223,30 @@ def test_remat_recomputes_each_layer_and_its_attention(monkeypatch):
     assert len(calls) == 2
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_remat_recompute_routes_each_moe_layer_as_its_forward(arch):
+    """Under remat each MoE layer runs twice a step; the recompute's
+    routes (expert, position, kept) and router logits equal the
+    forward's, and the step's gradients equal a step without remat."""
+    cfg = dataclasses.replace(_port_cfg(_jcfg(arch)), remat=True)
+    batch = _torch_batch(arch)
+    with moe.record_routes() as routes:
+        (_, _), grads = optim.value_and_grad(tfm.cell_loss, _params(arch),
+                                             cfg, batch, has_aux=True)
+    assert len(routes) == 2 * cfg.n_layers
+    first, again = routes[:cfg.n_layers], routes[cfg.n_layers:][::-1]
+    for a, b in zip(first, again):
+        for x, y in zip(a[:4], b[:4]):
+            assert torch.equal(x, y)
+    (_, _), plain = optim.value_and_grad(
+        tfm.cell_loss, _params(arch), dataclasses.replace(cfg, remat=False),
+        batch, has_aux=True)
+    for (path, g), (_, h) in zip(tree.leaves_with_paths(grads),
+                                 tree.leaves_with_paths(plain)):
+        assert torch.equal(g, h), path
+
+
+@pytest.mark.parametrize("arch", F32_ARCHS)
 def test_one_cell_step_matches_the_reference(arch):
     """value_and_grad, clip 1.0, AdamW at lr 1e-4: the updates, moments
     and step, the step's loss and grad norm; the step runs in place, and
@@ -274,7 +310,7 @@ def test_bf16_logits_are_the_f32_product_of_the_bf16_hidden_state(arch):
     params = _params(arch)
     tokens = _torch_batch(arch)["tokens"]
     with torch.no_grad():
-        x = tfm.hidden_states(params, cfg, tokens)
+        x, _ = tfm.hidden_states(params, cfg, tokens)
         logits, _ = tfm.logits_fn(params, cfg, tokens)
     assert x.dtype == torch.bfloat16 and logits.dtype == torch.float32
     want = x.float() @ params["unembed"]["w"].bfloat16().float()
@@ -360,13 +396,14 @@ def test_n_params_and_n_active_params_match_the_reference(arch):
     assert got.n_active_params() == want.n_active_params() == (
         got.n_params())
     assert got.compute_dtype == torch.bfloat16 and got.remat
-    # the MoE branch, on an MoE arch's published fields
-    for moe in ("mixtral-8x22b", "olmoe-1b-7b"):
-        jmoe = jregistry.get(moe).make_config()
-        mine = _port_cfg(jmoe)
-        assert mine.is_moe
+    # the MoE branch, on the MoE archs' published configs
+    for arch_id in MOE_ARCHS:
+        jmoe = jregistry.get(arch_id).make_config()
+        mine = registry.get(arch_id).make_config()
+        assert mine.is_moe and mine.remat
         assert mine.n_params() == jmoe.n_params()
-        assert mine.n_active_params() == jmoe.n_active_params()
+        assert mine.n_active_params() == jmoe.n_active_params() < (
+            mine.n_params())
 
 
 def test_lm_params_from_numpy_refuses_a_wrong_layout():
@@ -398,9 +435,65 @@ def test_lm_params_from_numpy_refuses_a_wrong_layout():
     with pytest.raises(ValueError, match="embed"):
         ckpt.lm_params_from_numpy(
             leaves, dataclasses.replace(cfg, vocab_size=500), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
+    # an MoE config wants the moe leaves, not the mlp ones
+    with pytest.raises(KeyError, match="moe"):
         ckpt.lm_params_from_numpy(
             leaves, dataclasses.replace(cfg, n_experts=4), device="cpu")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_lm_params_from_numpy_carries_the_moe_leaves(arch):
+    """The reference's MoE leaves (router (L, d, E), w_gate / w_up
+    (L, E, d, f), w_down (L, E, f, d)) arrive leaf for leaf; the port's
+    init draws that layout; a leaf of the wrong shape is refused."""
+    cfg = _port_cfg(_jcfg(arch))
+    leaves = _leaves(_jparams(arch))
+    n, d, f, e = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_experts
+    params = ckpt.lm_params_from_numpy(leaves, cfg, device="cpu")
+    got = params["layers"]["moe"]
+    assert got["router"]["w"].shape == (n, d, e)
+    assert got["w_gate"].shape == got["w_up"].shape == (n, e, d, f)
+    assert got["w_down"].shape == (n, e, f, d)
+    assert "mlp" not in params["layers"]
+    for path, leaf in tree.leaves_with_paths(params):
+        assert np.array_equal(leaf.numpy(), leaves[path]), path
+    mine = tfm.init(torch.Generator().manual_seed(0), cfg)
+    assert ({p: tuple(x.shape) for p, x in tree.leaves_with_paths(mine)}
+            == {p: a.shape for p, a in leaves.items()})
+    assert mine["layers"]["moe"]["router"]["w"].dtype == torch.float32
+    bad = dict(leaves)
+    bad["['layers']['moe']['w_down']"] = np.zeros((n, e, d, f), np.float32)
+    with pytest.raises(ValueError, match="w_down"):
+        ckpt.lm_params_from_numpy(bad, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_checkpoints_round_trip_with_the_reference(arch, tmp_path):
+    """{params, Adam state} of an MoE config saved by the port restores in
+    the reference (its leaf order and shapes, the 4-D expert leaves
+    included) and the reference's save restores in the port, bit for
+    bit both ways."""
+    cfg = _port_cfg(_jcfg(arch))
+    params = _params(arch)
+    state = optim.adam_init(params)
+    state = state._replace(mu=tree.map(lambda p: p + 1.0, params),
+                           nu=tree.map(lambda p: p * 2.0, params))
+    saved = {"params": params, "opt": {"mu": state.mu, "nu": state.nu}}
+    ckpt.save(str(tmp_path / "port"), 1, saved)
+    jparams = _jparams(arch)
+    jlike = {"params": jparams, "opt": {"mu": jparams, "nu": jparams}}
+    back = jckpt.restore(str(tmp_path / "port" / "step_00000001"), jlike)
+    want = {p: a for p, a in tree.leaves_with_paths(saved)}
+    got = _leaves(back)
+    assert sorted(got) == sorted(want)
+    for path, arr in got.items():
+        assert np.array_equal(arr, want[path].numpy()), path
+    jpath = jckpt.save(str(tmp_path / "ref"), 2, back)
+    mine = ckpt.restore(jpath, tree.map(torch.zeros_like, saved))
+    for (path, a), (_, b) in zip(tree.leaves_with_paths(mine),
+                                 tree.leaves_with_paths(saved)):
+        assert torch.equal(a, b), path
+    assert cfg.is_moe
 
 
 # --------------------------------------------------------------------------

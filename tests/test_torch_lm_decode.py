@@ -1,15 +1,19 @@
-"""Port parity of the dense LM family's decode half: ``repro_torch.models.
-attention`` (``KVCache``, ``init_cache``, ``cache_capacity``,
-``decode_step``) and ``repro_torch.models.transformer``
+"""Port parity of the LM family's decode half, dense and MoE:
+``repro_torch.models.attention`` (``KVCache``, ``init_cache``,
+``cache_capacity``, ``decode_step``) and ``repro_torch.models.transformer``
 (``init_decode_caches``, ``serve_step``, ``prefill_step``, ``prefill``),
 against the live JAX package on the CPU.
 
-Each dense arch runs at its ``make_reduced()`` config (f32) on parameters
-the reference's ``transformer.init`` draws, carried across by
-``checkpoint.lm_params_from_numpy``; a windowed variant (window 6)
-decodes past its window, so its cache rolls.  Logits within
-rtol = atol = 1e-4; the caches' k and v within rtol = atol = 1e-5 (the
-same projections, f32 sums in other orders); ``cache_pos`` equal.
+Each arch runs at its ``make_reduced()`` config (f32) on parameters the
+reference's ``transformer.init`` draws, carried across by
+``checkpoint.lm_params_from_numpy``; a windowed variant of llama3-8b's
+(window 6) and mixtral-8x22b's own window of 8 decode past the window, so
+their caches roll.  An MoE decode step routes its B = 2 tokens at
+capacity ``max(int(2·2·1.25/E), 1)`` = 1, so assignments drop there as in
+the reference; ``prefill`` and ``prefill_step`` agree only where nothing
+drops (capacity factor E/k).  Logits within rtol = atol = 1e-4; the
+caches' k and v within rtol = atol = 1e-5 (the same projections, f32 sums
+in other orders); ``cache_pos`` equal.
 """
 import dataclasses
 import functools
@@ -24,14 +28,16 @@ from repro.configs import registry as jregistry
 from repro.models import attention as jatt
 from repro.models import transformer as jtfm
 from repro_torch.checkpoint import checkpoint as ckpt
-from repro_torch.models import attention, transformer as tfm
+from repro_torch.models import attention, moe, transformer as tfm
 
 torch.set_num_threads(2)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 CACHE_TOL = dict(rtol=1e-5, atol=1e-5)
-#: each dense arch, and llama3-8b's reduced config with a 6-slot window
-CASES = ("llama3-8b", "internlm2-1.8b", "stablelm-3b", "llama3-8b-window6")
+#: each arch, and llama3-8b's reduced config with a 6-slot window
+CASES = ("llama3-8b", "internlm2-1.8b", "stablelm-3b", "llama3-8b-window6",
+         "mixtral-8x22b", "olmoe-1b-7b")
+MOE_CASES = ("mixtral-8x22b", "olmoe-1b-7b")
 B, S = 2, 12
 
 
@@ -41,9 +47,10 @@ def _leaves(jtree) -> dict:
 
 
 def _jcfg(case: str):
+    """The reduced config, its window replaced where ``case`` names one."""
     arch, _, window = case.partition("-window")
-    return dataclasses.replace(jregistry.get(arch).make_reduced(),
-                               window=int(window or 0))
+    cfg = jregistry.get(arch).make_reduced()
+    return dataclasses.replace(cfg, window=int(window)) if window else cfg
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,10 +139,14 @@ def test_prefill_step_and_prefill_match_the_reference(case):
     got, seq = tfm.prefill(params, cfg, torch.from_numpy(tokens))
     _logits_close(got, want)
     _caches_close(seq, jcaches)
-    # the one-pass prefill and the sequential oracle leave one state
+    # the one-pass prefill and the sequential oracle leave one state (an
+    # MoE layer's decode steps drop at their own capacity: see
+    # test_prefill_equals_prefill_step_where_nothing_drops)
     np.testing.assert_array_equal(caches.cache_pos.numpy(),
                                   seq.cache_pos.numpy())
-    np.testing.assert_allclose(caches.k.numpy(), seq.k.numpy(), **CACHE_TOL)
+    if not cfg.is_moe:
+        np.testing.assert_allclose(caches.k.numpy(), seq.k.numpy(),
+                                   **CACHE_TOL)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -211,3 +222,48 @@ def test_decode_step_matches_the_reference_on_a_partly_filled_cache():
         np.testing.assert_allclose(tc.k.float().numpy(),
                                    np.asarray(jc.k.astype(jnp.float32)),
                                    **tol)
+
+
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_moe_decode_drops_at_its_step_capacity_as_the_reference(case):
+    """A serve_step routes its B tokens at capacity 1 an expert: every
+    layer's routes equal the reference's steps on the same hidden rows,
+    and some assignment drops over the S steps."""
+    jcfg, jparams, cfg, params = _carried(case)
+    tokens = _tokens(case)
+    caches = tfm.init_decode_caches(cfg, B, S, device="cpu")
+    dropped = 0
+    with moe.record_routes() as routes:
+        for i in range(S):
+            _, caches = tfm.serve_step(params, cfg, caches,
+                                       torch.from_numpy(tokens[:, i:i + 1]),
+                                       i)
+    assert len(routes) == S * cfg.n_layers
+    for r in routes:
+        assert r.expert.shape == (B, cfg.moe_top_k)
+        assert bool((r.kept == (r.position < 1)).all())
+        dropped += int((~r.kept).sum())
+    assert dropped > 0
+
+
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_prefill_equals_prefill_step_where_nothing_drops(case):
+    """At capacity factor E/k each expert holds every token of a call, so
+    the sequential prefill (B tokens a step) and the one-pass
+    prefill_step route alike: logits within 1e-4, caches within 1e-5,
+    each as the reference's at that factor."""
+    jcfg, jparams, cfg, params = _carried(case)
+    cf = cfg.n_experts / cfg.moe_top_k
+    jcfg = dataclasses.replace(jcfg, capacity_factor=cf)
+    cfg = dataclasses.replace(cfg, capacity_factor=cf)
+    tokens = _tokens(case)
+    one, caches = tfm.prefill_step(params, cfg, torch.from_numpy(tokens))
+    seq, seq_caches = tfm.prefill(params, cfg, torch.from_numpy(tokens))
+    np.testing.assert_allclose(one.numpy(), seq.numpy(), **TOL)
+    np.testing.assert_allclose(caches.k.numpy(), seq_caches.k.numpy(),
+                               **CACHE_TOL)
+    np.testing.assert_array_equal(caches.cache_pos.numpy(),
+                                  seq_caches.cache_pos.numpy())
+    want, jcaches = jtfm.prefill(jparams, jcfg, jnp.asarray(tokens))
+    _logits_close(seq, want)
+    _caches_close(seq_caches, jcaches)

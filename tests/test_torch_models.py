@@ -153,31 +153,32 @@ def test_encode_matches_the_reference(name):
     _close(got_p, want_p)
     want_hs, _ = jtfm.hidden_states(jparams, jcfg, jnp.asarray(tokens))
     _close(transformer.hidden_states(_torch_tree(params), cfg,
-                                     torch.from_numpy(tokens)), want_hs)
+                                     torch.from_numpy(tokens))[0], want_hs)
 
 
 def test_unported_transformer_paths_raise():
-    """MoE (n_experts > 0) is the transformer's one unported path: every
-    entry point refuses it; a dense config runs them."""
+    """No transformer path is left unported: an MoE config (n_experts >
+    0, once refused) runs every entry point — init, hidden_states,
+    logits_fn, loss_fn, serve_step, prefill_step — beside a dense one,
+    and a one-token prefill_step gives serve_step's logits."""
     cfg = transformer.TransformerConfig(
         n_layers=1, d_model=8, n_heads=2, n_kv_heads=2, d_ff=16,
-        vocab_size=10, n_experts=4)
+        vocab_size=10, n_experts=4, compute_dtype=torch.float32)
     tokens = torch.zeros(1, 2, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        transformer.hidden_states({}, cfg, tokens)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        transformer.init(torch.Generator(), cfg)
-    for fn, args in ((transformer.logits_fn, (tokens,)),
-                     (transformer.loss_fn, (tokens, tokens)),
-                     (transformer.prefill_step, (tokens,)),
-                     (transformer.serve_step, (None, tokens[:, :1], 0))):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            fn({}, cfg, *args)
-    dense = dataclasses.replace(cfg, n_experts=0, compute_dtype=torch.float32)
-    params = transformer.init(torch.Generator().manual_seed(0), dense)
-    logits, _ = transformer.logits_fn(params, dense, tokens)
-    caches = transformer.init_decode_caches(dense, 1, 2, device="cpu")
-    step, _ = transformer.serve_step(params, dense, caches, tokens[:, :1], 0)
-    first, _ = transformer.prefill_step(params, dense, tokens[:, :1])
-    torch.testing.assert_close(step, first)
-    assert logits.shape == (1, 2, 10) and torch.isfinite(logits).all()
+    dense = dataclasses.replace(cfg, n_experts=0)
+    for c in (cfg, dense):
+        params = transformer.init(torch.Generator().manual_seed(0), c)
+        assert ("moe" in params["layers"]) == c.is_moe
+        assert ("mlp" in params["layers"]) != c.is_moe
+        hidden, aux = transformer.hidden_states(params, c, tokens)
+        assert hidden.shape == (1, 2, 8) and aux.dim() == 0
+        logits, aux = transformer.logits_fn(params, c, tokens)
+        assert (float(aux) > 0) == c.is_moe
+        loss, metrics = transformer.loss_fn(params, c, tokens, tokens)
+        assert float(metrics["moe_aux"]) == float(aux)
+        caches = transformer.init_decode_caches(c, 1, 2, device="cpu")
+        step, _ = transformer.serve_step(params, c, caches, tokens[:, :1], 0)
+        first, _ = transformer.prefill_step(params, c, tokens[:, :1])
+        torch.testing.assert_close(step, first)
+        assert logits.shape == (1, 2, 10) and torch.isfinite(logits).all()
+        assert torch.isfinite(loss)

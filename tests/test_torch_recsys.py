@@ -187,10 +187,11 @@ def _fields(cfg) -> dict:
 
 def test_registry_and_shapes_match_the_reference_field_for_field():
     ported = registry.all_archs()
-    assert sorted(ported) == ["dien", "dlrm-rm2", "gatedgcn", "hi2-synth",
-                              "internlm2-1.8b", "llama3-8b", "mind",
-                              "sasrec", "stablelm-3b"]
     ref = jregistry.all_archs()
+    assert sorted(ported) == sorted(ref) == [
+        "dien", "dlrm-rm2", "gatedgcn", "hi2-synth", "internlm2-1.8b",
+        "llama3-8b", "mind", "mixtral-8x22b", "olmoe-1b-7b", "sasrec",
+        "stablelm-3b"]
     for aid, arch in ported.items():
         want = ref[aid]
         for field in ("arch_id", "family", "source", "skip_shapes",
@@ -207,9 +208,9 @@ def test_registry_and_shapes_match_the_reference_field_for_field():
             assert (dataclasses.asdict(shape)
                     == dataclasses.asdict(want.shapes[name])), (aid, name)
     for extra in (False, True):
-        want_cells = [c for c in jregistry.cells(include_extra=extra)
-                      if c[0] in ported]
-        assert registry.cells(include_extra=extra) == want_cells
+        for skipped in (False, True):
+            assert registry.cells(skipped, extra) == jregistry.cells(
+                skipped, extra)
     assert ("llama3-8b", "train_4k") in registry.cells()
     assert ("llama3-8b", "long_500k") not in registry.cells()
     for table in ("LM_SHAPES", "GNN_SHAPES", "REC_SHAPES"):

@@ -607,8 +607,20 @@ def test_init_shapes_dtypes_and_scales():
     again = tfm.init(torch.Generator().manual_seed(0), s["enc_cfg"])
     assert all(torch.equal(x, y) for x, y in
                zip(tree_mod.leaves(enc), tree_mod.leaves(again)))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tfm.init(gen, dataclasses.replace(s["enc_cfg"], n_experts=4))
+    # an MoE config draws the reference's moe leaves (no mlp) at its
+    # scales: the router at d^-½ in f32, the experts at d^-½ and f^-½
+    jmoe = jtfm.init(jax.random.key(0), dataclasses.replace(s["jcfg"],
+                                                            n_experts=4))
+    moe = tfm.init(gen, dataclasses.replace(s["enc_cfg"], n_experts=4))
+    jflat = jax.tree_util.tree_flatten_with_path(jmoe)[0]
+    assert [(p, tuple(t.shape)) for p, t in hi.index_leaves(moe)] == [
+        (jax.tree_util.keystr(p), w.shape) for p, w in jflat]
+    got = moe["layers"]["moe"]
+    for t, scale in ((got["router"]["w"], d ** -0.5),
+                     (got["w_gate"], d ** -0.5), (got["w_up"], d ** -0.5),
+                     (got["w_down"], f ** -0.5)):
+        assert t.dtype == torch.float32
+        np.testing.assert_allclose(_std(t), scale, rtol=0.05)
 
 
 def test_init_mlp_matches_reference_distribution():
