@@ -353,6 +353,21 @@ never prints the final line.  Every phase prints its seconds.
               decode (over its rolling 4,096-slot cache), and one layer
               trained at MOE_TRAIN_B; ``long_500k`` reported as not run
               (its sizes);
+ 27. dryrun   the dry run (``launch/cells.py``, ``dryrun.py``) after 26:
+              the ``topk_scores`` and ``sq8_dot_fused`` libraries' tiles
+              against the ones their fake paths shape scratch by; 27a
+              four cells on fake CUDA tensors and really on the card
+              with leaves drawn from ``--seed``, each cut alike for both
+              runs (olmoe-1b-7b ``train_4k`` at 2 layers and B 2, SASRec
+              ``serve_bulk``, hi2-synth ``serve_msmarco_bucket8`` at full
+              N, ``serve_msmarco_refine_sq8`` as one position of a (2, 2)
+              mesh of the card), counted FLOPs and argument bytes equal
+              exactly, every output's shape and dtype equal, the fake
+              peak within 10% of ``max_memory_allocated`` above the
+              start; 27b ``python -m repro_torch.launch.dryrun`` on
+              mixtral-8x22b's four shapes, GatedGCN ``ogb_products`` and
+              the five hi2-synth cells, each record ``ok``, its peak GB,
+              fits, FLOPs, dominant term and seconds printed;
 
 The script then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
 kernel's ``launches`` is read from the counted runs of the paths that
@@ -454,6 +469,10 @@ from repro_torch.kernels.pq_adc import ops as adc_ops  # noqa: E402
 from repro_torch.kernels.pq_adc import ref as adc_ref  # noqa: E402
 from repro_torch.kernels.sq8_dot import ops as sq8_ops  # noqa: E402
 from repro_torch.kernels.sq8_dot import ref as sq8_ref  # noqa: E402
+from repro_torch.launch import cells as dry_cells  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
+from repro_torch.launch import report as dry_report  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch import runtime  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
@@ -696,6 +715,14 @@ MOE_WINDOW_ATTN = (1, 8_192, 48, 8, 128, 4_096)
 # phase 19: the paper benchmarks.  Rows held against the CPU: top-R
 # ids up to swaps within PAPER_TOL, each recall or MRR within its
 # near-tie queries / n_queries + PAPER_FLOAT (the f32 mean's last bits)
+# phase 27: the dry run (launch/cells.py, dryrun.py) against real steps
+DRY_TRAIN = ("olmoe-1b-7b", "train_4k", 2, 2)     # (arch, shape, layers, B)
+DRY_SHARD_MESH = (2, 2)              # 27a's refine cell: one position of it
+DRY_MEM_TOL = 0.10                   # |fake - real| / real peak bytes
+DRY_CLI = (("mixtral-8x22b", None), ("gatedgcn", "ogb_products"),
+           ("hi2-synth", None))      # 27b's dryrun calls: --arch, --shape
+DRY_OUT = ROOT / "build" / "dryrun_smoke"
+
 PAPER_TOL = 1e-4
 PAPER_FLOAT = 1e-6
 PAPER_METRICS = ("R@10", "R@100", "MRR@10")
@@ -5609,6 +5636,146 @@ def moe_phase(dev, seed: int) -> dict:
     return rec
 
 
+def dry_cases(dev) -> list:
+    """27a's cells: (arch, shape, mesh, config, shape override); the
+    OLMoE step cut to DRY_TRAIN's layers and batch for both runs."""
+    arch, shape_name, layers, b = DRY_TRAIN
+    lm = registry.get(arch)
+    lm_shape = dataclasses.replace(lm.shapes[shape_name], global_batch=b)
+    lm_cfg = dataclasses.replace(lm.make_config(lm_shape), n_layers=layers)
+    mesh = mesh_mod.make_host_mesh(*DRY_SHARD_MESH,
+                                   devices=[dev] * int(np.prod(
+                                       DRY_SHARD_MESH)))
+    return [(arch, shape_name, None, lm_cfg, lm_shape),
+            ("sasrec", "serve_bulk", None, None, None),
+            ("hi2-synth", "serve_msmarco_bucket8", None, None, None),
+            ("hi2-synth", "serve_msmarco_refine_sq8", mesh, None, None)]
+
+
+def _leaf_specs(out) -> list:
+    """(path, shape, dtype) of each output tensor, dicts by sorted key
+    (a fake cell's parameter dicts are rebuilt in that order)."""
+    if isinstance(out, tuple) and not hasattr(out, "_fields"):
+        out = list(out)
+    return [(path, tuple(t.shape), t.dtype)
+            for path, t in tree_mod.leaves_with_paths(out)]
+
+
+def fake_vs_real(dev, seed: int, arch: str, shape_name: str, mesh, cfg,
+                 shape) -> dict:
+    """One 27a cell on fake CUDA tensors and really on the card (leaves
+    drawn from ``seed``), both counted: FLOPs and argument bytes equal
+    exactly, the outputs' shapes and dtypes equal, the fake peak within
+    DRY_MEM_TOL of ``max_memory_allocated`` above the start."""
+    name = f"{arch}/{shape_name}"
+    t0 = time.perf_counter()
+    fake = dry_cells.execute(dry_cells.build_cell(
+        arch, shape_name, mesh, device=dev, config=cfg, shape=shape))
+    t_fake = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated(dev)
+    cell = dry_cells.build_cell(arch, shape_name, mesh, device=dev,
+                                fake=False, seed=seed, config=cfg,
+                                shape=shape)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    real = dry_cells.execute(cell)
+    peak = torch.cuda.max_memory_allocated(dev) - start
+    err = abs(fake.memory["peak"] - peak) / peak
+    rec = dict(flops=fake.count.flops, real_flops=real.count.flops,
+               argument=fake.memory["argument"],
+               real_argument=real.memory["argument"],
+               fake_peak_gb=fake.memory["peak"] / 1e9,
+               real_peak_gb=peak / 1e9, counted_real_peak_gb=real.memory[
+                   "peak"] / 1e9, mem_err=err, fake_s=t_fake,
+               real_s=real.seconds, kernels={
+                   k: v["calls"] for k, v in fake.count.kernels.items()})
+    log(f"[dryrun] 27a {name}: FLOPs fake {rec['flops']:,} real "
+        f"{rec['real_flops']:,}; argument bytes fake {rec['argument']:,} "
+        f"real {rec['real_argument']:,}; peak fake "
+        f"{rec['fake_peak_gb']:.3f} GB, card {rec['real_peak_gb']:.3f} GB "
+        f"(max_memory_allocated above the start; the counter saw "
+        f"{rec['counted_real_peak_gb']:.3f} GB), error {100 * err:.2f}%; "
+        f"fake step {t_fake:.2f} s, real {real.seconds:.2f} s; kernel "
+        f"calls {rec['kernels']}")
+    if rec["flops"] != rec["real_flops"]:
+        fail(f"27a {name}: fake FLOPs {rec['flops']} != real "
+             f"{rec['real_flops']}")
+    if rec["argument"] != rec["real_argument"]:
+        fail(f"27a {name}: argument bytes differ")
+    if _leaf_specs(fake.out) != _leaf_specs(real.out):
+        fail(f"27a {name}: outputs differ: {_leaf_specs(fake.out)} vs "
+             f"{_leaf_specs(real.out)}")
+    if err > DRY_MEM_TOL:
+        fail(f"27a {name}: fake peak {rec['fake_peak_gb']:.3f} GB vs the "
+             f"card's {rec['real_peak_gb']:.3f} GB")
+    del fake, real, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dryrun_cli(dev) -> dict:
+    """27b: ``python -m repro_torch.launch.dryrun`` on the cells no phase
+    runs whole; every record must be ``ok``."""
+    shutil.rmtree(DRY_OUT, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for arch, shape in DRY_CLI:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--extra",
+               "--device", str(dev), "--out", str(DRY_OUT), "--arch", arch]
+        cmd += ["--shape", shape] if shape else []
+        proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        log(proc.stdout.strip())
+        if proc.returncode:
+            fail(f"27b {' '.join(cmd[2:])} exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+    recs = {}
+    for rec in dry_report.load_records(str(DRY_OUT), "sp"):
+        if rec["status"] != "ok":
+            fail(f"27b {rec['cell']}: {rec['status']} "
+                 f"{rec.get('error', rec.get('reason', ''))}")
+        row = dry_report.roofline_row(rec)
+        recs[rec["cell"]] = dict(
+            per_device_gb=rec["memory"]["per_device_gb"], fits=rec["fits"],
+            flops=rec["cost"]["flops"], dominant=row["dominant"],
+            seconds=rec["seconds"])
+        log(f"[dryrun] 27b {rec['cell']}: {json.dumps(recs[rec['cell']])}")
+    if len(recs) != 10:
+        fail(f"27b: {len(recs)} records, want 10: {sorted(recs)}")
+    return recs
+
+
+def dryrun_phase(dev, seed: int) -> dict:
+    """Phase 27: the dry run held against real steps on the card (27a),
+    then run through its CLI on the cells no phase runs whole (27b)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    differ = []
+    for kname, mirrored, got in (
+            ("topk_scores", at_ops.HOPPER_TILES,
+             at_ops.tiles(_build.library("topk_scores"))),
+            ("sq8_dot_fused", sq8_ops.HOPPER_TILES,
+             sq8_ops.tiles(_build.library("sq8_dot_fused")))):
+        log(f"[dryrun] {kname} tiles {got}; the fake path's {mirrored}")
+        if got != mirrored:
+            differ.append(kname)
+    if differ:
+        fail(f"{differ}: the fake paths' tiles differ from the built "
+             f"libraries'")
+    rec: dict = {"fake_vs_real": {}}
+    with phase("27a the dry run's fake steps against real steps"):
+        for arch, shape_name, mesh, cfg, shape in dry_cases(dev):
+            rec["fake_vs_real"][f"{arch}/{shape_name}"] = fake_vs_real(
+                dev, seed, arch, shape_name, mesh, cfg, shape)
+            if mesh is not None:
+                mesh.close()
+    with phase("27b python -m repro_torch.launch.dryrun"):
+        rec["cli"] = dryrun_cli(dev)
+    return rec
+
+
 def run_kernel_bench() -> dict:
     """Phase 14: the port's ``kernel_bench`` at its full shapes with
     ``--check`` semantics, as a counted run: the main path of ``pq_adc``
@@ -5831,6 +5998,8 @@ def main(argv=None) -> None:
         lm = lm_phase(dev, args.seed)
     with phase("26 the MoE LM family"):
         moe_rec = moe_phase(dev, args.seed)
+    with phase("27 the dry run"):
+        dryrun_phase(dev, args.seed)
 
     # the paths' counted runs: the builds and 18c's KMeans for
     # assign_argmax, the sup build and 18c's steps for flash_attention

@@ -398,25 +398,29 @@ def flash_shapes(gen):
         return torch.randn((b, s, h, d), generator=gen, device="cuda").to(
             dtype).transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    def counted(qkv, causal):
+        q, k = qkv[0], qkv[1]
+        flops, nbytes = fa_ops.work(q.shape[0], q.shape[1], k.shape[1],
+                                    q.shape[2], k.shape[2], q.shape[3],
+                                    causal, 0, q.element_size())
+        return dict(qkv=qkv, causal=causal, flops=flops, nbytes=nbytes)
+
     yield "encoder", dict(
-        qkv=[bshd(4096, 64, 12, 64, torch.float32) for _ in range(3)],
-        causal=False, flops=4.0 * 4096 * 12 * 64 * 64 * 64,
-        nbytes=4.0 * (4 * 4096 * 12 * 64 * 64 + 4096 * 12 * 64),
+        counted([bshd(4096, 64, 12, 64, torch.float32) for _ in range(3)],
+                False),
         library=lambda q, k, v: sdpa(q, k, v))
     yield "llama3_8b", dict(
-        qkv=[bshd(1, 4096, 32, 128, torch.bfloat16)]
-        + [bshd(1, 4096, 8, 128, torch.bfloat16) for _ in range(2)],
-        causal=True, flops=4.0 * 32 * 4096 * 4096 * 128 / 2,
-        nbytes=2.0 * 4096 * 128 * (2 * 32 + 2 * 8),
+        counted([bshd(1, 4096, 32, 128, torch.bfloat16)]
+                + [bshd(1, 4096, 8, 128, torch.bfloat16) for _ in range(2)],
+                True),
         library=lambda q, k, v: sdpa(q, k, v, is_causal=True,
                                      enable_gqa=True))
     # SASRec's two blocks at serve_bulk (configs/sasrec.py): d = 50 runs
     # ragged in the d = 64 instance, which the parent does not have
     b, s_len, d = 262_144, 50, 50
     yield "sasrec_bulk", dict(
-        qkv=[bshd(b, s_len, 1, d, torch.float32) for _ in range(3)],
-        causal=True, flops=4.0 * b * s_len * (s_len + 1) / 2 * d,
-        nbytes=4.0 * (4 * b * s_len * d + b * s_len),
+        counted([bshd(b, s_len, 1, d, torch.float32) for _ in range(3)],
+                True),
         library=lambda q, k, v: sdpa(q, k, v, is_causal=True),
         parent=False)
 
@@ -609,8 +613,8 @@ def topk_main(args) -> dict:
                                  args.reps) for _ in range(2)]
     times["plain"] = [timer.ms(lambda: at_ref.topk_scores(x, emb, k),
                                args.reps) for _ in range(2)]
-    bound = 1e3 * max(2.0 * n * l * h / PEAK_FP32_FLOPS,
-                      (4.0 * (n * h + l * h) + 8.0 * n * k) / PEAK_BYTES)
+    flops, nbytes = at_ops.work(n, l, h, k)
+    bound = 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
     report_times("served", bound, times)
     if failed:      # after the times, which still tell where time goes
         print(json.dumps({"served": dict(bound_ms=bound, **times)}))
@@ -1038,8 +1042,8 @@ def sq8_main(args) -> dict:
         fixed = 9.0 * b * c + 4.0 * q.numel()     # ids, live, out, q
         per_lane = fixed + tr["live"] * h
         grouped_bytes = fixed + tr["reads"] * h
-        bound = 1e3 * max(2.0 * tr["live"] * h / PEAK_FP32_FLOPS,
-                          (fixed + tr["distinct"] * h) / PEAK_BYTES)
+        flops, nbytes = sq8_ops.work(b, c, h, tr["live"], tr["distinct"])
+        bound = 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
         print(f"[traffic] {sname} B={b} C={c} h={h}: {tr['live']} live "
               f"slots over {tr['distinct']} distinct rows; each live lane "
               f"reading its row moves {per_lane / 1e9:.3f} GB "
@@ -1313,10 +1317,9 @@ def adc_main(args) -> dict:
                 failed.append("new against pq_adc at served")
             del fused, unfused
         tr = adc_traffic(libs, persistent, lut, plane, ids, live)
-        nbytes = (9.0 * b * c + 4.0 * lut.numel()
-                  + tr["distinct"] * m * plane.element_size())
-        bound = 1e3 * max(tr["live"] * m / PEAK_FP32_FLOPS,
-                          nbytes / PEAK_BYTES)
+        flops, nbytes = adc_ops.fused_work(b, c, m, k, plane.element_size(),
+                                           tr["live"], tr["distinct"])
+        bound = 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
         print(f"[traffic] {sname} B={b} C={c} m={m} k={k}: {tr['live']} "
               f"live lanes over {tr['distinct']} distinct rows; row bytes "
               f"requested {tr['row_bytes'] / 1e9:.3f} GB; bound bytes "

@@ -17,8 +17,10 @@ width R′ and the refine step:
 
 The sharding hooks split the doc planes over document shards
 (``partition``) and place the params (``replicate``) for
-:mod:`repro_torch.core.sharded_index`.  ``abstract`` (the dry-run's
-shape-only planes) comes with the dry-run family (ROADMAP.md A6).
+:mod:`repro_torch.core.sharded_index`.  ``abstract`` gives the params
+and planes of an index of a given size as uninitialized tensors, which
+under the caller's ``FakeTensorMode`` allocate nothing: the dry run's
+HI² cells (:mod:`repro_torch.launch.cells`).
 """
 from __future__ import annotations
 
@@ -83,6 +85,13 @@ class Codec:
     def decode(self, params: Any, doc_planes: dict) -> torch.Tensor:
         """Reconstruct (n_docs, h) f32 embeddings — the numerics oracle
         of the round-trip tests; not on the search path."""
+        raise NotImplementedError
+
+    def abstract(self, n_docs: int, hidden: int, *, pq_m: int = 8,
+                 pq_k: int = 256, device=None) -> tuple[Any, dict]:
+        """(params, doc_planes) of ``n_docs`` documents at width
+        ``hidden`` as ``torch.empty`` tensors on ``device`` (the default
+        device when None), in the reference's shapes and dtypes."""
         raise NotImplementedError
 
     # --- search-time -----------------------------------------------------

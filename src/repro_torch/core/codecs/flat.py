@@ -50,6 +50,11 @@ class FlatCodec(base.Codec):
     def decode(self, params, doc_planes: dict) -> torch.Tensor:
         return doc_planes["emb"]
 
+    def abstract(self, n_docs: int, hidden: int, *, pq_m: int = 8,
+                 pq_k: int = 256, device=None):
+        return None, {"emb": torch.empty((n_docs, hidden),
+                                         dtype=torch.float32, device=device)}
+
     def make_scorer(self, params, doc_planes: dict, queries: torch.Tensor):
         q = queries.float()
         emb = doc_planes["emb"]

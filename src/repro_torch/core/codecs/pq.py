@@ -171,10 +171,14 @@ def pq_full_scores(codebook: PQCodebook, queries: torch.Tensor,
     return adc_score(lut, codes[None].expand(lut.shape[0], -1, -1))
 
 
-def _pack_codes(codes: torch.Tensor, k: int) -> torch.Tensor:
+def _code_dtype(k: int) -> torch.dtype:
     """uint8 codes when k ≤ 256 (4× less device memory and gather
     traffic than int32), else int32."""
-    return codes.to(torch.uint8) if k <= 256 else codes
+    return torch.uint8 if k <= 256 else torch.int32
+
+
+def _pack_codes(codes: torch.Tensor, k: int) -> torch.Tensor:
+    return codes.to(_code_dtype(k))
 
 
 def _adc_scorer(lut: torch.Tensor, codes_plane: torch.Tensor):
@@ -204,6 +208,14 @@ class PQCodec(base.Codec):
     def decode(self, params: PQCodebook, doc_planes: dict) -> torch.Tensor:
         return pq_decode(params, doc_planes["codes"])
 
+    def abstract(self, n_docs: int, hidden: int, *, pq_m: int = 8,
+                 pq_k: int = 256, device=None):
+        params = PQCodebook(codewords=torch.empty(
+            (pq_m, pq_k, hidden // pq_m), dtype=torch.float32,
+            device=device))
+        return params, {"codes": torch.empty(
+            (n_docs, pq_m), dtype=_code_dtype(pq_k), device=device)}
+
     def make_scorer(self, params: PQCodebook, doc_planes: dict,
                     queries: torch.Tensor):
         return _adc_scorer(adc_lut(params, queries), doc_planes["codes"])
@@ -226,6 +238,14 @@ class OPQCodec(PQCodec):
         # decode in rotated space, rotate back (R orthogonal: R⁻¹ = Rᵀ)
         return (pq_decode(params.codebook, doc_planes["codes"])
                 @ params.rotation.T)
+
+    def abstract(self, n_docs: int, hidden: int, *, pq_m: int = 8,
+                 pq_k: int = 256, device=None):
+        cb, planes = PQCodec.abstract(self, n_docs, hidden, pq_m=pq_m,
+                                      pq_k=pq_k, device=device)
+        return OPQCodebook(rotation=torch.empty(
+            (hidden, hidden), dtype=torch.float32, device=device),
+            codebook=cb), planes
 
     def make_scorer(self, params: OPQCodebook, doc_planes: dict,
                     queries: torch.Tensor):

@@ -43,6 +43,15 @@ class RefineCodec(base.Codec):
         # stage-2 representation: what the final ranking is computed on
         return doc_planes["refine_emb"].float()
 
+    def abstract(self, n_docs, hidden, *, pq_m=8, pq_k=256, device=None):
+        params, planes = self.base.abstract(n_docs, hidden, pq_m=pq_m,
+                                            pq_k=pq_k, device=device)
+        planes = dict(planes)
+        planes["refine_emb"] = torch.empty((n_docs, hidden),
+                                           dtype=torch.float16,
+                                           device=device)
+        return params, planes
+
     # --- search-time -----------------------------------------------------
     def make_scorer(self, params, doc_planes: dict, queries: torch.Tensor):
         # stage 1 is the base codec; the refine plane is never gathered

@@ -55,6 +55,15 @@ class SQ8Codec(base.Codec):
     def decode(self, params: dict, doc_planes: dict) -> torch.Tensor:
         return doc_planes["codes"].float() * params["scale"] + params["lo"]
 
+    def abstract(self, n_docs: int, hidden: int, *, pq_m: int = 8,
+                 pq_k: int = 256, device=None):
+        params = {name: torch.empty((hidden,), dtype=torch.float32,
+                                    device=device)
+                  for name in ("lo", "scale")}
+        return params, {"codes": torch.empty((n_docs, hidden),
+                                             dtype=torch.uint8,
+                                             device=device)}
+
     def make_scorer(self, params: dict, doc_planes: dict,
                     queries: torch.Tensor):
         q = queries.float()

@@ -1,2 +1,3 @@
-"""Data (port of ``repro/data``: the synthetic retrieval corpus and the
-sharded pipeline, ``pipeline.py``)."""
+"""Data (port of ``repro/data``: the synthetic retrieval corpus, the
+sharded pipeline, ``pipeline.py``, and the hash tokenizer,
+``tokenizer.py``)."""

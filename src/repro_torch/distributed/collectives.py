@@ -62,6 +62,17 @@ all-reduce (:func:`flat_allreduce`, :func:`hierarchical_allreduce`,
 reference's ``NamedSharding`` of dim 0), for the data loader and the
 elastic restore.
 
+A position's thread runs under the dispatch modes its caller's thread
+had when it called :meth:`Mesh.run` (a fake-tensor mode and the dry
+run's counters, :mod:`repro_torch.launch.roofline`).  Those modes keep
+state that is not thread-safe (a fake tensor reports the meta device
+while its mode runs a kernel on any thread), so then the positions take
+turns: one runs at a time, and a position waiting at a collective lets
+the next one run.  With no mode pushed the positions run together as
+before.  Every collective adds the bytes each position receives from
+the others to the dry run's tally
+(:func:`repro_torch.work.add_collective`).
+
 Training across positions (:func:`repro_torch.models.gnn.
 forward_partitioned`) runs each position's block in :meth:`Mesh.run`
 with ``grad=True`` and joins the blocks with :func:`replicate` and
@@ -72,6 +83,7 @@ other positions would wait for itself.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import queue
@@ -81,9 +93,11 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _python_dispatch
 
 from repro_torch import device as dev_mod
 from repro_torch import tree as tree_mod
+from repro_torch import work
 
 #: seconds a position waits at a collective for the others (a mesh
 #: reads it when it is built)
@@ -106,14 +120,19 @@ class Group:
         self._slots: list = [None] * self.size
         self._barrier = threading.Barrier(self.size, timeout=TIMEOUT_S)
 
-    def _exchange(self, rank: int, xs: tuple, combine: Callable):
+    def _exchange(self, rank: int, xs: tuple, combine: Callable,
+                  op: str, share: int = 1):
+        """Post ``xs``, meet the group, ``combine`` every rank's; this
+        rank receives ``1 / share`` of each other rank's bytes."""
+        work.add_collective(op, (self.size - 1) * sum(
+            _nbytes(t) for t in xs) // share)
         dev = xs[0].device
-        if self.one_card and dev.type == "cuda":
+        if self.one_card and dev.type == "cuda" and not work.is_fake(xs[0]):
             stream = torch.cuda.current_stream(dev)
             posted = torch.cuda.Event()
             posted.record(stream)
             self._slots[rank] = (xs, posted)
-            self._barrier.wait()
+            _wait(self._barrier)
             for ys, ready in self._slots:
                 stream.wait_event(ready)
                 for t in ys:
@@ -122,11 +141,11 @@ class Group:
         else:
             _settle(dev)                 # what we post is complete
             self._slots[rank] = (xs, None)
-            self._barrier.wait()
+            _wait(self._barrier)
             out = combine([[t.to(dev) for t in ys]
                            for ys, _ in self._slots])
             _settle(dev)                 # what we read is consumed
-        self._barrier.wait()
+        _wait(self._barrier)
         return out
 
     def all_gather(self, rank: int, xs: Sequence[torch.Tensor],
@@ -136,13 +155,13 @@ class Group:
         concatenated along dim 0 (``jax.lax.all_gather(..., tiled=True)``)."""
         join = torch.cat if tiled else torch.stack
         return self._exchange(rank, tuple(xs), lambda parts: tuple(
-            join(col) for col in zip(*parts)))
+            join(col) for col in zip(*parts)), "all-gather")
 
     def psum(self, rank: int, x: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``x``, added in rank order
         (((x₀ + x₁) + x₂) + …), the same bits on every rank."""
         return self._exchange(rank, (x,), lambda parts: _add(
-            [p[0] for p in parts]))
+            [p[0] for p in parts]), "all-reduce")
 
     def psum_scatter(self, rank: int, x: torch.Tensor) -> torch.Tensor:
         """Block ``rank`` of the rank-order sum of every rank's ``x``,
@@ -156,7 +175,8 @@ class Group:
         block = x.shape[0] // self.size
         lo = rank * block
         return self._exchange(rank, (x,), lambda parts: _add(
-            [p[0][lo:lo + block] for p in parts]))
+            [p[0][lo:lo + block] for p in parts]), "reduce-scatter",
+            share=self.size)
 
     def abort(self) -> None:
         self._barrier.abort()
@@ -164,6 +184,10 @@ class Group:
     def reset(self) -> None:
         self._slots = [None] * self.size
         self._barrier.reset()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _add(xs: list) -> torch.Tensor:
@@ -192,11 +216,13 @@ class _Replicate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, devices):
         ctx.home = x.device
+        work.add_collective("broadcast", (len(devices) - 1) * _nbytes(x))
         return tuple(x.to(d, copy=True) for d in devices)
 
     @staticmethod
     def backward(ctx, *grads):
         live = [g.to(ctx.home) for g in grads if g is not None]
+        work.add_collective("reduce", sum(map(_nbytes, live[1:])))
         return (_add(live) if live else None), None
 
 
@@ -205,6 +231,8 @@ class _AllGatherTiled(torch.autograd.Function):
     def forward(ctx, devices, *blocks):
         ctx.sizes = [b.shape[0] for b in blocks]
         ctx.devices = [b.device for b in blocks]
+        total = sum(map(_nbytes, blocks))
+        work.add_collective("all-gather", (len(devices) - 1) * total)
         return tuple(torch.cat([b.to(d) for b in blocks]) for d in devices)
 
     @staticmethod
@@ -213,6 +241,8 @@ class _AllGatherTiled(torch.autograd.Function):
         lo = 0
         for n, dev in zip(ctx.sizes, ctx.devices):
             live = [g[lo:lo + n].to(dev) for g in grads if g is not None]
+            work.add_collective("reduce-scatter",
+                                sum(map(_nbytes, live[1:])))
             out.append(_add(live) if live else None)
             lo += n
         return tuple(out)
@@ -289,6 +319,53 @@ class _Call:
                 self.done.set()
 
 
+#: held by the one position that runs while its caller's modes are
+#: pushed; a position waiting at a collective lets it go
+_TURN = threading.Lock()
+_turn = threading.local()
+
+
+def _wait(barrier: threading.Barrier) -> None:
+    """``barrier.wait()``, giving up this position's turn meanwhile."""
+    if not getattr(_turn, "held", False):
+        barrier.wait()
+        return
+    _TURN.release()
+    try:
+        barrier.wait()
+    finally:
+        _TURN.acquire()
+
+
+@contextlib.contextmanager
+def _modes(modes: list):
+    """The caller's dispatch modes (bottom first) pushed on this thread
+    for one job, which then runs in turn (:data:`_TURN`); nothing when
+    there are none.  A fake-tensor mode on a host without a card also
+    makes ``torch.tensor`` lift its data through the CPU, by a
+    thread-local flag its own ``__enter__`` sets on the caller's thread:
+    set here too."""
+    if not modes:
+        yield
+        return
+    lift = any(getattr(m, "avoid_device_init", False) for m in modes)
+    prev_lift = torch._C._only_lift_cpu_tensors()
+    _TURN.acquire()
+    _turn.held = True
+    if lift:
+        torch._C._set_only_lift_cpu_tensors(True)
+    for mode in modes:
+        _python_dispatch._push_mode(mode)
+    try:
+        yield
+    finally:
+        for mode in reversed(modes):
+            _python_dispatch._pop_mode(getattr(mode, "_mode_key", None))
+        torch._C._set_only_lift_cpu_tensors(prev_lift)
+        _turn.held = False
+        _TURN.release()
+
+
 def _worker(coord, device: torch.device, jobs: "queue.SimpleQueue",
             groups: list) -> None:
     """A position's thread: runs each job on its own stream (a card) in
@@ -305,10 +382,11 @@ def _worker(coord, device: torch.device, jobs: "queue.SimpleQueue",
         job = jobs.get()
         if job is None:
             return
-        fn, ready, call, join, grad = job
+        fn, ready, call, join, grad, modes = job
         out = finished = None
         try:
-            with torch.enable_grad() if grad else torch.inference_mode():
+            with torch.enable_grad() if grad else torch.inference_mode(), \
+                    _modes(modes):
                 if stream is None:
                     out = fn(coord)
                 else:
@@ -329,7 +407,7 @@ def _worker(coord, device: torch.device, jobs: "queue.SimpleQueue",
             call.post(coord, out, None, finished)
         # hold nothing of the job while idle: its closure may keep the
         # mesh alive, and the mesh stops its threads when it is freed
-        del job, fn, ready, call, out, finished
+        del job, fn, ready, call, out, finished, modes
 
 
 def _record_on_caller(out) -> None:
@@ -337,7 +415,7 @@ def _record_on_caller(out) -> None:
     stream, so the allocator does not hand their blocks back to the
     position's stream while the caller still reads them."""
     if isinstance(out, torch.Tensor):
-        if out.is_cuda:
+        if out.is_cuda and not work.is_fake(out):
             out.record_stream(torch.cuda.current_stream(out.device))
     elif isinstance(out, (tuple, list)):
         for x in out:
@@ -498,8 +576,9 @@ class Mesh:
                 ready = torch.cuda.Event()
                 ready.record(torch.cuda.current_stream(first))
             call = _Call(self.size)
+            modes = _python_dispatch._get_current_dispatch_mode_stack()
             for q in self._queues.values():
-                q.put((fn, ready, call, join, grad))
+                q.put((fn, ready, call, join, grad, modes))
             while not call.done.is_set():
                 with call.lock:
                     left = call.left

@@ -43,7 +43,11 @@ kernel's registers and times.
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
 launches the kernel on the current stream, without synchronizing, or
 raises.  :data:`launches` counts ``topk_scores`` launches and
-:data:`assign_launches` ``assign_argmax`` launches.
+:data:`assign_launches` ``assign_argmax`` launches.  ``topk_scores`` on
+fake CUDA tensors (the dry run, :mod:`repro_torch.launch.cells`) takes
+its fake path: the launch's outputs and scratch, shaped by
+:data:`HOPPER_TILES`, nothing built or launched; both CUDA paths add
+:func:`work`'s count to the dry run's tally (:mod:`repro_torch.work`).
 """
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import work as work_mod
 from repro_torch.kernels import _build
 from repro_torch.kernels.assign_topk import ref
 
@@ -82,6 +87,13 @@ class Tiles(NamedTuple):
     centroid_tile: int
     blocks_per_sm: int
 
+
+#: ``topk_tiles`` of the built library on an H100 (smoke phase 27a
+#: holds it equal), which the fake path shapes its scratch by
+HOPPER_TILES = Tiles(queries_per_block=32, centroid_tile=256,
+                     blocks_per_sm=1)
+#: SMs of an H100 SXM, the fake path's where no card is visible
+HOPPER_SMS = 132
 
 #: ctypes signature of ``topk_scores_launch`` (csrc/topk_scores.cu)
 ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -142,6 +154,17 @@ def launch(lib: ctypes.CDLL, x, emb, k: int, slices: int, bufs: list
     _build.check(lib, err, "topk_scores")
 
 
+def work(n: int, l: int, h: int, k: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call: 2·N·L·h, and x, emb read once and the
+    (N, k) scores and ids written once."""
+    return 2 * n * l * h, 4 * (n * h + l * h) + 8 * n * k
+
+
+def _count(x, emb, k: int) -> None:
+    work_mod.add_kernel("topk_scores", *work(x.shape[0], emb.shape[0],
+                                             x.shape[1], k))
+
+
 def topk_scores(x: torch.Tensor, emb: torch.Tensor, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (N, h) f32; emb (L, h) f32 → ((N, k) f32 scores, (N, k) i32
@@ -161,6 +184,14 @@ def topk_scores(x: torch.Tensor, emb: torch.Tensor, k: int
     if n == 0:
         return (torch.empty((0, k), dtype=torch.float32, device=x.device),
                 torch.empty((0, k), dtype=torch.int32, device=x.device))
+    if work_mod.is_fake(x):
+        sms = (torch.cuda.get_device_properties(x.device)
+               .multi_processor_count if torch.cuda.is_available()
+               else HOPPER_SMS)
+        bufs = buffers(x, k, HOPPER_TILES,
+                       n_slices(n, l, sms, HOPPER_TILES))
+        _count(x, emb, k)
+        return bufs[0], bufs[1]
     lib = _build.library("topk_scores")
     dev = x.device.index
     tl = _TILES.get(dev)
@@ -172,6 +203,7 @@ def topk_scores(x: torch.Tensor, emb: torch.Tensor, k: int
     bufs = buffers(x, k, tl, slices)
     launch(lib, x, emb, k, slices, bufs)
     launches += 1
+    _count(x, emb, k)
     return bufs[0], bufs[1]
 
 

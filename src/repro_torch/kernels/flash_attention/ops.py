@@ -50,15 +50,25 @@ no padded copy.
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
 launches the kernel on the current stream, without synchronizing, or
 raises.  :data:`launches` counts kernel launches (forward launches; the
-backward launches none).
+backward launches none).  A fake CUDA tensor (the dry run,
+:mod:`repro_torch.launch.cells`) takes the fake path: the kernel's
+outputs, allocated as the launch allocates them, nothing built or
+launched.  Both CUDA paths add :func:`work`'s count to the dry run's
+tally (:mod:`repro_torch.work`).  On fake inputs the backward runs only
+its largest block's recompute, for the working set it holds, and counts
+every other block by :func:`recompute_flops`, which equals what
+``torch.utils.flop_counter`` counts over that block's recompute.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch import work as work_mod
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
@@ -149,14 +159,59 @@ def instance_dim(d: int) -> int:
     return next(h for h in HEAD_DIMS if h >= d)
 
 
-def _launch(q, k, v, causal: bool, window: int, scale: float
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel on CUDA tensors (already checked) → (out, lse)."""
-    global launches
+def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the masks leave visible, query row i and
+    key j at absolute positions i and j (:func:`_live_keys` a row)."""
+    i = np.arange(sq, dtype=np.int64)
+    k0 = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
+    if causal:
+        k1 = i + 1
+    elif window > 0:
+        k1 = i + window
+    else:
+        k1 = np.full_like(i, sk)
+    k0 = np.minimum(k0, sk)
+    return int(np.maximum(np.minimum(k1, sk) - k0, 0).sum())
+
+
+def work(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
+         causal: bool, window: int, elem: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one forward: the two products over the visible
+    pairs (4·B·Hq·d a pair), and q, k, v and out read or written once in
+    ``elem``-byte elements, lse in f32."""
+    flops = 4 * b * hq * d * visible_pairs(sq, sk, causal, window)
+    nbytes = elem * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
+    return flops, nbytes + 4 * b * hq * sq
+
+
+def _count(q, k, causal: bool, window: int) -> None:
+    b, hq, sq, d = q.shape
+    work_mod.add_kernel("flash_attention", *work(
+        b, hq, k.shape[1], sq, k.shape[2], d, causal, window,
+        q.element_size()))
+
+
+def _check_launch(q) -> None:
     b, hq, sq, d = q.shape
     instance_dim(d)                   # raises above MAX_HEAD_DIM
     if b * hq * -(-sq // Q_TILE) > MAX_ITEMS:
         raise ValueError(f"B·Hq·ceil(Sq/{Q_TILE}) must be <= {MAX_ITEMS}")
+
+
+def _fake(q, k, causal: bool, window: int
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fake path on fake CUDA tensors: the launch's outputs, no
+    launch."""
+    _check_launch(q)
+    _count(q, k, causal, window)
+    return outputs(q)
+
+
+def _launch(q, k, v, causal: bool, window: int, scale: float
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on CUDA tensors (already checked) → (out, lse)."""
+    global launches
+    _check_launch(q)
     out, lse = outputs(q)
     vec = vector_loads(q, k, v, out)
     lib = _build.library("flash_attention")
@@ -169,6 +224,7 @@ def _launch(q, k, v, causal: bool, window: int, scale: float
                               stream))
     _build.check(lib, err, "flash_attention")
     launches += 1
+    _count(q, k, causal, window)
     return out, lse
 
 
@@ -182,6 +238,8 @@ class _FlashAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             out, lse = ref.flash_attention(q, k, v, causal, window, scale,
                                            q_chunk=Q_CHUNK)
+        elif work_mod.is_fake(q):
+            out, lse = _fake(q, k, causal, window)
         else:
             out, lse = _launch(q, k, v, causal, window, scale)
         ctx.save_for_backward(q, k, v)
@@ -194,34 +252,90 @@ class _FlashAttention(torch.autograd.Function):
         causal, window, scale = ctx.attn
         q, k, v = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
-        sq, sk = q.shape[2], k.shape[2]
-        rows = _bwd_rows(q, k)
+        blocks = bwd_blocks(q, k, causal, window)
+        fake = work_mod.is_fake(q)
+        if fake:
+            # the largest block's recompute runs (its working set is the
+            # backward's peak); every other block is counted, not run
+            blocks = [max(blocks, key=lambda blk: (blk[1] - blk[0])
+                          * (blk[3] - blk[2]))]
         dq = []
         dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
         dv = torch.zeros_like(dk)
-        for q0 in range(0, sq, rows):
-            q1 = min(q0 + rows, sq)
-            k0, k1 = _live_keys(q0, q1, sk, causal, window)
-            if k0 == k1:                  # rows that see no key: out 0
-                dq.append(torch.zeros(q[:, :, q0:q1].shape,
-                                      dtype=torch.float32, device=q.device))
-                continue
-            qf = q[:, :, q0:q1].detach().float().requires_grad_(True)
-            kf, vf = (t[:, :, k0:k1].detach().float().requires_grad_(True)
-                      for t in (k, v))
-            with torch.enable_grad():
-                out, _ = ref.flash_attention(qf, kf, vf, causal, window,
-                                             scale, q_offset=q0,
-                                             k_offset=k0)
-                gq, gk, gv = torch.autograd.grad(
-                    out, (qf, kf, vf), grad_out[:, :, q0:q1].float())
-            dq.append(gq)
-            dk[:, :, k0:k1] += gk
-            dv[:, :, k0:k1] += gv
-        grads = (torch.cat(dq, dim=2).to(q.dtype), dk.to(k.dtype),
-                 dv.to(v.dtype))
+        with (work_mod.counting(local=True) if fake
+              else contextlib.nullcontext()) as ran:
+            for q0, q1, k0, k1 in blocks:
+                if k0 == k1:              # rows that see no key: out 0
+                    dq.append(torch.zeros(q[:, :, q0:q1].shape,
+                                          dtype=torch.float32,
+                                          device=q.device))
+                    continue
+                gq, gk, gv = _recompute(q, k, v, grad_out, q0, q1, k0, k1,
+                                        causal, window, scale)
+                dq.append(gq)
+                dk[:, :, k0:k1] += gk
+                dv[:, :, k0:k1] += gv
+        if fake:
+            dq = _fake_dq(q, k, blocks[0], dq[0], ran.op_bytes, causal,
+                          window)
+        else:
+            dq = torch.cat(dq, dim=2)
+        grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
         return tuple(g if n else None for g, n in zip(grads, need)) + (
             None,) * 3
+
+
+def _recompute(q, k, v, grad_out, q0: int, q1: int, k0: int, k1: int,
+               causal: bool, window: int, scale: float) -> tuple:
+    """One block of the backward: query rows [q0, q1) against keys
+    [k0, k1), differentiated through the plain version in f32 → (dq
+    rows, dk and dv over [k0, k1))."""
+    qf = q[:, :, q0:q1].detach().float().requires_grad_(True)
+    kf, vf = (t[:, :, k0:k1].detach().float().requires_grad_(True)
+              for t in (k, v))
+    with torch.enable_grad():
+        out, _ = ref.flash_attention(qf, kf, vf, causal, window, scale,
+                                     q_offset=q0, k_offset=k0)
+        return torch.autograd.grad(out, (qf, kf, vf),
+                                   grad_out[:, :, q0:q1].float())
+
+
+def _fake_dq(q, k, big: tuple, gq: torch.Tensor, big_bytes: int,
+             causal: bool, window: int) -> torch.Tensor:
+    """The fake backward's dq (f32) after its largest block ran: the
+    other blocks' rows stand beside that block's, and their recompute is
+    counted, FLOPs by :func:`recompute_flops` and bytes as the block
+    that ran moved, in proportion to rows x keys."""
+    b, hq, sq, d = q.shape
+    size = (big[1] - big[0]) * (big[3] - big[2])
+    flops = nbytes = 0
+    for q0, q1, k0, k1 in bwd_blocks(q, k, causal, window):
+        if (q0, q1, k0, k1) != big:
+            flops += recompute_flops(b, hq, q1 - q0, k1 - k0, d)
+            nbytes += big_bytes * (q1 - q0) * (k1 - k0) // max(size, 1)
+    if flops:
+        work_mod.add_kernel("flash_attention.recompute", flops, nbytes)
+    rest = torch.empty((b, hq, sq - gq.shape[2], d), dtype=torch.float32,
+                       device=q.device)
+    return torch.cat([rest, gq], dim=2)
+
+
+def recompute_flops(b: int, hq: int, rows: int, keys: int, d: int) -> int:
+    """FLOPs of one backward block's recompute as
+    ``torch.utils.flop_counter`` counts them: the forward's two batched
+    products and the four of their gradients, 2·B·Hq·rows·keys·d each."""
+    return 12 * b * hq * rows * keys * d
+
+
+def bwd_blocks(q: torch.Tensor, k: torch.Tensor, causal: bool,
+               window: int) -> list:
+    """The backward's blocks (q0, q1, k0, k1): :func:`_bwd_rows` query
+    rows each, over the keys they see (:func:`_live_keys`)."""
+    sq, sk = q.shape[2], k.shape[2]
+    rows = _bwd_rows(q, k)
+    return [(q0, min(q0 + rows, sq))
+            + _live_keys(q0, min(q0 + rows, sq), sk, causal, window)
+            for q0 in range(0, sq, rows)]
 
 
 def _live_keys(q0: int, q1: int, sk: int, causal: bool,

@@ -27,7 +27,11 @@ for bit.  It is bound by the bytes of the codes tensor.
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
 launches the kernel on the current stream, without synchronizing, or
 raises.  :data:`launches` and :data:`unfused_launches` count kernel
-launches.
+launches.  ``pq_adc_fused`` on fake CUDA tensors (the dry run,
+:mod:`repro_torch.launch.cells`) takes its fake path: the launch's
+output, nothing built or launched; both CUDA paths add
+:func:`fused_work`'s count to the dry run's tally
+(:mod:`repro_torch.work`).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import work as work_mod
 from repro_torch.kernels import _build
 from repro_torch.kernels.pq_adc import ref
 
@@ -200,6 +205,19 @@ def launch(lib: ctypes.CDLL, lut, codes_plane, ids, live,
     return out
 
 
+def fused_work(b: int, c: int, m: int, k: int, elem: int,
+               live: int | None = None, distinct: int | None = None
+               ) -> tuple[int, int]:
+    """(FLOPs, bytes) of one ``pq_adc_fused`` call: m adds a live lane;
+    the ids, live flags and scores (9 bytes a lane), the LUTs, and each
+    distinct live row of ``elem``-byte codes read once.  Without data
+    every lane counts as live and each lane's row as distinct (the dry
+    run's count)."""
+    live = b * c if live is None else live
+    distinct = live if distinct is None else distinct
+    return live * m, 9 * b * c + 4 * b * m * k + distinct * m * elem
+
+
 def pq_adc_fused(lut: torch.Tensor, codes_plane: torch.Tensor,
                  ids: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
     """lut (B, m, k) f32; codes_plane (N, m) uint8/int32; ids (B, C)
@@ -219,8 +237,14 @@ def pq_adc_fused(lut: torch.Tensor, codes_plane: torch.Tensor,
         raise ValueError("pq_adc_fused needs contiguous inputs")
     if ids.numel() == 0:
         return torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
-    out = launch(_build.library("pq_adc_fused"), lut, codes_plane, ids, live)
-    launches += 1
+    if work_mod.is_fake(lut):
+        out = torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
+    else:
+        out = launch(_build.library("pq_adc_fused"), lut, codes_plane, ids,
+                     live)
+        launches += 1
+    work_mod.add_kernel("pq_adc_fused", *fused_work(
+        b, ids.shape[1], m, k, codes_plane.element_size()))
     return out
 
 

@@ -29,7 +29,11 @@ in-kernel mask (``-inf`` + bias stays ``-inf``).
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
 launches the kernel on the current stream, after the schedule's torch
 ops and without synchronizing, or raises.  :data:`launches` counts kernel
-launches.
+launches.  On fake CUDA tensors (the dry run,
+:mod:`repro_torch.launch.cells`) the wrapper takes its fake path: the
+output and the schedule's tensors, shaped by :data:`HOPPER_TILES`,
+nothing built or launched; both CUDA paths add :func:`work`'s count to
+the dry run's tally (:mod:`repro_torch.work`).
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import work as work_mod
 from repro_torch.kernels import _build
 from repro_torch.kernels.sq8_dot import ref
 
@@ -57,6 +62,9 @@ class Tiles(NamedTuple):
 
 
 _TILES: dict[str, Tiles] = {}     # library path → its tiles
+#: ``tiles`` of the built library (smoke phase 27a holds it equal), which
+#: the fake path shapes the schedule by
+HOPPER_TILES = Tiles(tile_slots=1024, group_max=2, max_h=24432)
 
 
 def tiles(lib: ctypes.CDLL) -> Tiles:
@@ -172,6 +180,17 @@ def launch(lib: ctypes.CDLL, q_scaled, codes_plane, ids, live,
     return out
 
 
+def work(b: int, c: int, h: int, live: int | None = None,
+         distinct: int | None = None) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call: 2·h a live lane; the ids, live flags
+    and scores (9 bytes a lane), the queries, and each distinct live row
+    read once.  Without data every lane counts as live and each lane's
+    row as distinct (the dry run's count)."""
+    live = b * c if live is None else live
+    distinct = live if distinct is None else distinct
+    return 2 * live * h, 9 * b * c + 4 * b * h + distinct * h
+
+
 def sq8_dot_fused(q_scaled: torch.Tensor, codes_plane: torch.Tensor,
                   ids: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
     """q_scaled (B, h) f32 (queries times the per-dim scale);
@@ -191,7 +210,16 @@ def sq8_dot_fused(q_scaled: torch.Tensor, codes_plane: torch.Tensor,
         raise ValueError("sq8_dot_fused needs contiguous inputs")
     if ids.numel() == 0:
         return torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
-    out = launch(_build.library("sq8_dot_fused"), q_scaled, codes_plane,
-                 ids, live)
-    launches += 1
+    if work_mod.is_fake(q_scaled):
+        # the launch's output and its schedule (skey, order)
+        out = torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
+        items = ids.shape[0] * -(-ids.shape[1] // HOPPER_TILES.tile_slots)
+        torch.empty(items, dtype=torch.int32, device=ids.device)
+        torch.empty(items, dtype=torch.int64, device=ids.device)
+    else:
+        out = launch(_build.library("sq8_dot_fused"), q_scaled,
+                     codes_plane, ids, live)
+        launches += 1
+    work_mod.add_kernel("sq8_dot_fused", *work(*ids.shape,
+                                               q_scaled.shape[1]))
     return out

@@ -46,7 +46,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import tree
+from repro_torch import tree, work
 from repro_torch.core.kmeans import segment_sum
 from repro_torch.distributed import collectives
 from repro_torch.models import layers
@@ -249,7 +249,8 @@ def forward_partitioned(params: dict, cfg: GatedGCNConfig,
 
         def one(r, i=i, full=full, h=h, e=e):
             x = full[r]
-            if x.is_cuda:   # made on the caller's stream, read on this one
+            # made on the caller's stream, read on this one
+            if x.is_cuda and not work.is_fake(x):
                 x.record_stream(torch.cuda.current_stream(x.device))
             return _run_layer(cfg, tree.index(local[r]["layers"], i), h[r],
                               e[r], src[r], dst[r], emask[r], n_local,

@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import work
 from repro_torch.distributed import collectives
 from repro_torch.models import layers
 
@@ -108,8 +109,12 @@ def _positions(flat_e: torch.Tensor, n_experts: int
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Each assignment's place among its expert's assignments in flat
     (token, slot) order — the reference's cumsum over the (N·k, E)
-    one-hot, from a stable sort by expert — and the count an expert."""
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    one-hot, from a stable sort by expert — and the count an expert
+    (int64, added into E zeros: a static shape, so the routes also run on
+    fake tensors, where ``bincount``'s output size depends on the
+    data)."""
+    counts = flat_e.new_zeros(n_experts).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     order = torch.sort(flat_e, stable=True).indices
     rank = torch.arange(flat_e.numel(), device=flat_e.device) - (
@@ -291,7 +296,8 @@ def forward_shard_map(params: dict, x: torch.Tensor, *, n_experts: int,
     def body(coord):
         t = inputs[coord]
         for v in t.values():
-            if v.is_cuda:   # made on the caller's stream, read on this one
+            # made on the caller's stream, read on this one
+            if v.is_cuda and not work.is_fake(v):
                 v.record_stream(torch.cuda.current_stream(v.device))
         return _local_moe_body(t["x"], t["router"], t["w_gate"], t["w_up"],
                                t["w_down"], n_experts=n_experts,

@@ -72,7 +72,9 @@ def test_port_sources_import_neither_jax_nor_the_reference():
             "data/recsys.py", "configs/registry.py", "configs/shapes.py",
             "configs/sasrec.py", "examples/recsys_retrieval.py",
             "models/gnn.py", "data/graph.py",
-            "configs/gatedgcn.py"} <= walked
+            "configs/gatedgcn.py", "data/tokenizer.py", "work.py",
+            "launch/cells.py", "launch/dryrun.py", "launch/roofline.py",
+            "launch/report.py", "launch/hillclimb.py"} <= walked
     offenders = [(f.relative_to(_ROOT).as_posix(), m) for f in files
                  for m in _imported_modules(f) if _FORBIDDEN.search(m)]
     assert not offenders, offenders
@@ -112,6 +114,10 @@ def test_importing_every_port_module_loads_no_jax():
         " 'repro_torch.configs.registry', 'repro_torch.configs.dlrm_rm2',"
         " 'repro_torch.examples.recsys_retrieval',"
         " 'repro_torch.models.gnn', 'repro_torch.data.graph',"
+        " 'repro_torch.data.tokenizer', 'repro_torch.work',"
+        " 'repro_torch.launch.cells', 'repro_torch.launch.dryrun',"
+        " 'repro_torch.launch.roofline', 'repro_torch.launch.report',"
+        " 'repro_torch.launch.hillclimb',"
         " 'repro_torch.configs.gatedgcn', 'repro_torch.configs.llama3_8b',"
         " 'repro_torch.configs.internlm2_1_8b',"
         " 'repro_torch.configs.stablelm_3b',"
@@ -166,6 +172,17 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     tuned, points = tune.tune_index(index, qe, qt, oracle, top_r=5,
                                     grid=((1, 1), (2, 2)), device="cpu")
     assert len(points) == 2 and tuned.rungs[-1] == (tuned.kc, tuned.k2)
+    # the dry run's entry points: the card by default (its kernels' fake
+    # paths), the plain versions when asked for the CPU
+    from repro_torch.launch import dryrun, hillclimb
+    with pytest.raises(RuntimeError, match="cuda"):
+        dryrun.run_cell("sasrec", "serve_p99", False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        hillclimb.measure("sasrec", "serve_p99", {})
+    rec = dryrun.run_cell("sasrec", "serve_p99", False, device="cpu")
+    assert rec["status"] == "ok" and rec["fits"] is None
+    assert hillclimb.measure("sasrec", "serve_p99", {},
+                             device="cpu")["hbm_gb"] > 0
 
 
 def test_mutable_entry_points_without_device_raise_when_cuda_is_absent(
