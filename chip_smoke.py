@@ -48,7 +48,9 @@ never prints the final line.  Every phase prints its seconds.
               encoding (the codec's own train + encode, on the card),
               then phases 4–8 again for ``sq8_dot_fused`` at that width;
  10. build    the port's own index build on the card: the synthetic
-              corpus at N = 1,048,576 (full widths), built as
+              corpus at N = 1,048,576 (full widths; made on the host by
+              a process of its own from the start, beside phases 3-9),
+              built as
               ``refine:sq8:4``, then ``opq`` and ``flat`` over the same
               KMeans; each is served in 256-query batches and scored
               (R@100, MRR@10) beside the brute-force ``flat.search``;
@@ -368,6 +370,25 @@ never prints the final line.  Every phase prints its seconds.
               mixtral-8x22b's four shapes, GatedGCN ``ogb_products`` and
               the five hi2-synth cells, each record ``ok``, its peak GB,
               fits, FLOPs, dominant term and seconds printed;
+ 28. bench    the port's bench driver and regression gate, each call in
+              a fresh process under a timeout that kills its session:
+              28a ``python -m repro_torch.benchmarks.run --list`` names
+              the reference's 14 benchmarks, and ``run --device cuda``,
+              the whole suite with the driver's extras, prints each of
+              the reference's 71 rows once, no flag that a ``--check``
+              contract requires reading other than True; 28b:
+              ``kernel_bench`` and
+              ``table3_codec`` at ``--smoke --check`` and
+              ``sharded_search`` at the driver's arguments, twice each
+              into ``build/bench_gate/{a,b}``; ``check_regression
+              --timing-ratio inf`` holds b to a (exit 0: every exact
+              field bit-equal across processes), each wall-clock
+              field's max/min ratio printed, and a copy of b with one
+              ``R@100`` moved by one ulp must exit 1 naming that path.
+              28a's processes start before phase 27 and run beside it;
+              28b's six run after it, one after another with nothing
+              else on the card.  Their launches are their own, in no
+              count here;
 
 The script then prints the ``kernels`` JSON line and, last, the ``ok`` line.  Each
 kernel's ``launches`` is read from the counted runs of the paths that
@@ -398,9 +419,12 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
+import multiprocessing
 import os
 import pathlib
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -415,6 +439,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.benchmarks import autotune  # noqa: E402
 from repro_torch.benchmarks import bucket_invariance  # noqa: E402
+from repro_torch.benchmarks import check_regression  # noqa: E402
 from repro_torch.benchmarks import common as paper  # noqa: E402
 from repro_torch.benchmarks import fig3_tradeoff  # noqa: E402
 from repro_torch.benchmarks import fig4_ablation  # noqa: E402
@@ -722,6 +747,57 @@ DRY_MEM_TOL = 0.10                   # |fake - real| / real peak bytes
 DRY_CLI = (("mixtral-8x22b", None), ("gatedgcn", "ogb_products"),
            ("hi2-synth", None))      # 27b's dryrun calls: --arch, --shape
 DRY_OUT = ROOT / "build" / "dryrun_smoke"
+# phase 10's corpus, written by a process of its own while phases 3-9 run
+CORPUS_DIR = ROOT / "build" / "smoke_corpus"
+
+# phase 28: the bench driver and the regression gate, in fresh processes
+BENCH_NAMES = ("autotune", "kernel_bench", "table1_main",
+               "table2_robustness", "table3_codec", "fig3_tradeoff",
+               "fig4_ablation", "sharded_search", "sup_distill",
+               "streaming_updates", "filtered_search", "hybrid_fusion",
+               "serving_load", "mesh_serving")
+# the reference's rows of a whole run (the driver's extras first)
+BENCH_ROWS = (
+    "hi2_search_batch", "hi2_search_64q", "kernel/pq_adc_oracle",
+    *(f"autotune/{n}" for n in ("default", "tuned", "adaptive", "runtime")),
+    *(f"fig3/{n}" for n in ("IVF-OPQ", "HI2_unsup", "HI2_sup")),
+    *(f"fig4/{n}" for n in ("w.o.Term(IVF)", "w.o.Clus(term-only)",
+                            "HI2(full)")),
+    *(f"filtered/{n}" for n in ("pass1.00", "pass0.50", "pass0.25",
+                                "pass0.12", "pass0.06", "allow_all")),
+    *(f"hybrid/{n}" for n in ("dense_only", "w0.00", "w0.25", "w0.50",
+                              "w0.75", "w1.00", "best")),
+    *(f"kernel_bench/{n}" for n in ("pq_adc", "sq8_dot", "assign_topk")),
+    *(f"mesh/{n}" for n in ("1x1", "2x1", "4x1", "1x2", "2x2", "failover")),
+    *(f"serving/{n}" for n in ("plain", "sharded", "mutable",
+                               "sharded_mutable")),
+    "sharded/baseline", "sharded/2shards",
+    *(f"streaming/{n}" for n in ("fill0.00", "fill0.25", "fill0.50",
+                                 "fill1.00", "compaction")),
+    *(f"sup_distill/{n}" for n in ("train", "kc1k22", "kc2k24", "kc4k26",
+                                   "kc6k28", "kc8k212", "kc12k216",
+                                   "variants")),
+    *(f"table1/{n}" for n in ("Flat(brute force)", "IVF-OPQ", "Distill-VQ",
+                              "TermOnly(w.o.Clus)", "HI2_unsup", "HI2_sup")),
+    *(f"table2/{m}/{n}" for m in ("encA", "encB(weaker)")
+      for n in ("Flat", "IVF-OPQ", "HI2_unsup")),
+    *(f"table3/{n}" for n in ("flat", "opq", "pq", "refine", "sq8")))
+# derived keys whose value a --check contract of the reference requires
+# True
+BENCH_REQUIRED = ("identical", "isolated", "equals_unfiltered",
+                  "equal_to_rebuild", "tombstones_absent", "partial",
+                  "rejoin_identical", "fused_ge_dense", "fallback",
+                  "roundtrip", "compact", "fused_matches_ref",
+                  "unfused_matches_ref", "ids_bit_identical",
+                  "scores_match")
+BENCH_GATE = ROOT / "build" / "bench_gate"
+BENCH_GATE_RUNS = (   # (module, the driver's arguments, report file)
+    ("kernel_bench", ["--smoke", "--check"], "BENCH_kernels.json"),
+    ("table3_codec", ["--smoke", "--check"], "BENCH_codec.json"),
+    ("sharded_search", ["--devices", "2", "--docs", "4000", "--queries",
+                        "64"], "sharded_search.json"))
+BENCH_DRIVER_S = 420                 # the driver's whole run, timeout
+BENCH_ONE_S = 240                    # one 28b benchmark process, timeout
 
 PAPER_TOL = 1e-4
 PAPER_FLOAT = 1e-6
@@ -1473,9 +1549,34 @@ def unfused_at_width(inp: dict, errs: dict) -> dict:
     return {"pq_adc": out["u8"]}
 
 
-def build_on_card(dev, seed: int) -> dict:
+def write_corpus(seed: int) -> float:
+    """Phase 10's corpus made in a process of its own while phases 3-9
+    run, one ``.npy`` a field under CORPUS_DIR; returns its seconds."""
+    t0 = time.perf_counter()
+    corpus = synthetic.generate(seed, n_docs=BUILD_DOCS,
+                                n_queries=BUILD_QUERIES, hidden=HIDDEN,
+                                vocab_size=VOCAB, query_len=QUERY_LEN,
+                                make_model_b=False)
+    CORPUS_DIR.mkdir(parents=True, exist_ok=True)
+    for f in dataclasses.fields(corpus):
+        value = getattr(corpus, f.name)
+        if isinstance(value, np.ndarray):
+            np.save(CORPUS_DIR / f"{f.name}.npy", value)
+    return time.perf_counter() - t0
+
+
+def read_corpus() -> synthetic.Corpus:
+    """What :func:`write_corpus` wrote, read back (and removed)."""
+    arrays = {p.stem: np.load(p) for p in CORPUS_DIR.glob("*.npy")}
+    shutil.rmtree(CORPUS_DIR)
+    return synthetic.Corpus(vocab_size=VOCAB, **arrays)
+
+
+def build_on_card(dev, seed: int, corpus_job) -> dict:
     """Phase 10: the port's build on the card at N = BUILD_DOCS (full
-    widths), three codecs over one KMeans, each served and scored.  Each
+    widths), three codecs over one KMeans, each served and scored.  The
+    corpus is ``corpus_job``'s, a future of :func:`write_corpus` started
+    with the run.  Each
     build is a counted run that must launch ``assign_argmax`` exactly
     BUILD_ASSIGN_LAUNCHES times.  The ``opq`` build carries the BM25
     impact plane (``sparse=True``) and is served fused too.  Returns what phase 12 reuses: the
@@ -1485,10 +1586,9 @@ def build_on_card(dev, seed: int) -> dict:
     indexes and the brute-force top-100 ids; and phase 19b's ``flat``
     index."""
     with phase("build: synthetic corpus on the host"):
-        corpus = synthetic.generate(seed, n_docs=BUILD_DOCS,
-                                    n_queries=BUILD_QUERIES, hidden=HIDDEN,
-                                    vocab_size=VOCAB, query_len=QUERY_LEN,
-                                    make_model_b=False)
+        log(f"[build] corpus made beside phases 3-9 in "
+            f"{corpus_job.result():.1f} s")
+        corpus = read_corpus()
         emb = torch.from_numpy(corpus.doc_emb).to(dev)
         tokens = torch.from_numpy(corpus.doc_tokens).to(dev).long()
         qe, qt = corpus.query_emb, corpus.query_tokens
@@ -5776,6 +5876,167 @@ def dryrun_phase(dev, seed: int) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 28: the bench driver and the regression gate, in fresh processes
+# --------------------------------------------------------------------------
+
+def run_sub(what: str, args: list, timeout: int) -> tuple:
+    """``python -m repro_torch.benchmarks.<args>`` in a session of its own
+    (return code, stdout, stderr); past ``timeout`` the whole session,
+    the driver's own subprocesses included, is killed and the phase
+    fails with what it printed."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.benchmarks.{args[0]}",
+         *args[1:]], env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        fail(f"28 {what}: no exit within {timeout} s; stdout "
+             f"{out[-3000:]} stderr {err[-3000:]}")
+    return proc.returncode, out, err
+
+
+def timed_sub(what: str, args: list, timeout: int) -> tuple:
+    """:func:`run_sub` and its seconds."""
+    t0 = time.perf_counter()
+    return (*run_sub(what, args, timeout), time.perf_counter() - t0)
+
+
+def start_driver(pool) -> dict:
+    """28a's processes, started before phase 27 and run beside it:
+    ``run --list`` and the driver's whole suite; futures of
+    :func:`timed_sub`.  Phase 27's checks hold no time and read only this
+    process's memory, and 28a's hold no time either, so neither bends the
+    other's checks; both print seconds of a shared card and host."""
+    return {"list": pool.submit(timed_sub, "run --list", ["run", "--list"],
+                                120),
+            "driver": pool.submit(timed_sub, "run --device cuda",
+                                  ["run", "--device", "cuda"],
+                                  BENCH_DRIVER_S)}
+
+
+def bench_driver(futs: dict) -> dict:
+    """28a: ``run --list`` named the reference's 14 benchmarks; the whole
+    suite on the card printed each of the reference's rows once, and no
+    flag that a ``--check`` contract requires reads False."""
+    code, out, err, _ = futs["list"].result()
+    if code or out.split() != sorted(BENCH_NAMES):
+        fail(f"28a run --list exited {code}: {out.split()} {err[-2000:]}")
+    code, out, err, seconds = futs["driver"].result()
+    log(out.strip())
+    if code:
+        fail(f"28a run --device cuda exited {code}: {err[-4000:]}")
+    lines = out.strip().splitlines()
+    if lines[0] != "name,us_per_call,derived":
+        fail(f"28a header {lines[0]!r}")
+    rows = [line.split(",", 2) for line in lines[1:]]
+    names = [r[0] for r in rows]
+    wrong = sorted({n for n in set(names) | set(BENCH_ROWS)
+                    if names.count(n) != (n in BENCH_ROWS)})
+    if wrong:
+        fail(f"28a rows not printed exactly once, or not the "
+             f"reference's: {wrong}")
+    false = [f"{name}: {kv}" for name, _, derived in rows
+             for kv in derived.split(";")
+             if kv.partition("=")[0] in BENCH_REQUIRED
+             and kv.partition("=")[2] != "True"]
+    if false:
+        fail(f"28a required flags not True: {false}")
+    log(f"[bench] 28a {len(rows)} rows, {len(set(names))} names; the "
+        f"driver's run {seconds:.1f} s")
+    return {"rows": len(rows), "seconds": seconds}
+
+
+def _timing_ratios(a, b, path: str = "$", key: str = "") -> dict:
+    """max/min of every wall-clock leaf of two reports of one bench."""
+    if isinstance(a, dict):
+        return {k: v for k2 in a for k, v in _timing_ratios(
+            a[k2], b[k2], f"{path}.{k2}", k2).items()}
+    if isinstance(a, list):
+        return {k: v for i, (x, y) in enumerate(zip(a, b))
+                for k, v in _timing_ratios(x, y, f"{path}[{i}]", key)
+                .items()}
+    if (isinstance(a, (int, float)) and not isinstance(a, bool)
+            and check_regression.timing_direction(key) and min(a, b) > 0):
+        return {path: max(a, b) / min(a, b)}
+    return {}
+
+
+def bench_gate() -> dict:
+    """28b: three benchmarks run twice, into ``build/bench_gate/{a,b}``,
+    one process after another with nothing else on the card, so the
+    wall-clock fields' max/min ratios are run-to-run repeatability.  The
+    gate holds run b to run a (every exact field bit-equal, timing
+    unbounded) and, at the same time, a copy of b with one exact field
+    moved by one ulp, which it must refuse, naming the field."""
+    shutil.rmtree(BENCH_GATE, ignore_errors=True)
+    secs = {}
+    for run in "ab":
+        for mod, args, fname in BENCH_GATE_RUNS:
+            what = f"{mod} ({run})"
+            code, _, err, secs[what] = timed_sub(
+                what, [mod, *args, "--device", "cuda", "--out",
+                       str(BENCH_GATE / run / fname)], BENCH_ONE_S)
+            if code:
+                fail(f"28b {what} exited {code}: {err[-3000:]}")
+    log(f"[bench] 28b benchmark processes, one after another, seconds: "
+        f"{ {k: round(v, 1) for k, v in secs.items()} }")
+    shutil.copytree(BENCH_GATE / "b", BENCH_GATE / "c")
+    codec = json.loads((BENCH_GATE / "c" / "BENCH_codec.json").read_text())
+    codec["rows"][0]["R@100"] = math.nextafter(codec["rows"][0]["R@100"],
+                                               math.inf)
+    (BENCH_GATE / "c" / "BENCH_codec.json").write_text(json.dumps(codec))
+    files = [fname for _, _, fname in BENCH_GATE_RUNS]
+    gate = ["check_regression", "--baseline-dir", str(BENCH_GATE / "a"),
+            "--files", *files, "--timing-ratio", "inf", "--fresh-dir"]
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        same, ulp = (pool.submit(run_sub, f"check_regression (a, {run})",
+                                 gate + [str(BENCH_GATE / run)], 60)
+                     for run in "bc")
+        code, out, err = same.result()
+        ulp_code, _, ulp_err = ulp.result()
+    log(f"[bench] 28b gate a -> b: exit {code}; {out.strip()}{err.strip()}")
+    if code:
+        fail(f"28b an exact field differs between two processes: {err}")
+    ratios = {}
+    for fname in files:
+        a, b = (json.loads((BENCH_GATE / run / fname).read_text())
+                for run in "ab")
+        for path, r in _timing_ratios(a, b).items():
+            ratios[f"{fname} {path}"] = r
+            log(f"[bench] 28b {fname} {path}: max/min of the two runs "
+                f"{r:.3f}")
+    worst = max(ratios, key=ratios.get)
+    log(f"[bench] 28b largest wall-clock ratio {ratios[worst]:.3f} "
+        f"({worst}; two processes, nothing else on the card)")
+    log(f"[bench] 28b gate a -> c (one ulp): exit {ulp_code}; "
+        f"{ulp_err.strip()}")
+    want = "BENCH_codec.json $.rows[0].R@100:"
+    if ulp_code != 1 or want not in ulp_err or ulp_err.count("\n  ") != 1:
+        fail(f"28b the gate took a one-ulp drift: exit {ulp_code}, "
+             f"{ulp_err!r}")
+    shutil.rmtree(BENCH_GATE)
+    return {"largest_ratio": ratios[worst], "at": worst}
+
+
+def bench_phase(futs: dict) -> dict:
+    """Phase 28: the port's bench driver over the whole suite (28a,
+    started by :func:`start_driver` before phase 27) and its regression
+    gate over two runs of three benchmarks (28b, after it), every one in
+    fresh processes on the card.  Their kernels launch in those
+    processes, so none of their launches is in the ``kernels`` line."""
+    rec = {}
+    with phase("28a python -m repro_torch.benchmarks.run"):
+        rec["driver"] = bench_driver(futs)
+    with phase("28b two runs held by check_regression"):
+        rec["gate"] = bench_gate()
+    return rec
+
+
 def run_kernel_bench() -> dict:
     """Phase 14: the port's ``kernel_bench`` at its full shapes with
     ``--check`` semantics, as a counted run: the main path of ``pq_adc``
@@ -5838,6 +6099,10 @@ def main(argv=None) -> None:
     # its linger (phase 16's one batch a bucket)
     gc.freeze()
     t_start = time.perf_counter()
+    # phase 10's corpus is made on the host beside phases 3-9
+    corpus_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    corpus_job = corpus_pool.submit(write_corpus, args.seed)
     with phase("1 card"):
         name = card()
         dev = torch.device("cuda", 0)
@@ -5951,7 +6216,8 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
 
     with phase("10 build on the card"):
-        built = build_on_card(dev, args.seed)
+        built = build_on_card(dev, args.seed, corpus_job)
+    corpus_pool.shutdown()
     mine_index = built["indexes"]["opq"]      # 18c mines its negatives
     with phase("17 the width tuner"):
         tuner_phase(dev, built)
@@ -5998,8 +6264,13 @@ def main(argv=None) -> None:
         lm = lm_phase(dev, args.seed)
     with phase("26 the MoE LM family"):
         moe_rec = moe_phase(dev, args.seed)
-    with phase("27 the dry run"):
-        dryrun_phase(dev, args.seed)
+    # 28a's processes start before phase 27 and run beside it
+    with concurrent.futures.ThreadPoolExecutor(2) as bench_pool:
+        benches = start_driver(bench_pool)
+        with phase("27 the dry run"):
+            dryrun_phase(dev, args.seed)
+        with phase("28 the bench driver and the regression gate"):
+            bench_phase(benches)
 
     # the paths' counted runs: the builds and 18c's KMeans for
     # assign_argmax, the sup build and 18c's steps for flash_attention

@@ -74,7 +74,8 @@ def test_port_sources_import_neither_jax_nor_the_reference():
             "models/gnn.py", "data/graph.py",
             "configs/gatedgcn.py", "data/tokenizer.py", "work.py",
             "launch/cells.py", "launch/dryrun.py", "launch/roofline.py",
-            "launch/report.py", "launch/hillclimb.py"} <= walked
+            "launch/report.py", "launch/hillclimb.py", "benchmarks/run.py",
+            "benchmarks/check_regression.py"} <= walked
     offenders = [(f.relative_to(_ROOT).as_posix(), m) for f in files
                  for m in _imported_modules(f) if _FORBIDDEN.search(m)]
     assert not offenders, offenders
@@ -123,7 +124,9 @@ def test_importing_every_port_module_loads_no_jax():
         " 'repro_torch.configs.stablelm_3b',"
         " 'repro_torch.models.attention', 'repro_torch.models.moe',"
         " 'repro_torch.configs.mixtral_8x22b',"
-        " 'repro_torch.configs.olmoe_1b_7b'} <= set(mods), mods\n"
+        " 'repro_torch.configs.olmoe_1b_7b',"
+        " 'repro_torch.benchmarks.run',"
+        " 'repro_torch.benchmarks.check_regression'} <= set(mods), mods\n"
         "from repro_torch.configs import registry\n"
         "assert len(registry.all_archs()) == 11\n"
         "assert not bad, bad\n")
@@ -183,6 +186,30 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     assert rec["status"] == "ok" and rec["fits"] is None
     assert hillclimb.measure("sasrec", "serve_p99", {},
                              device="cpu")["hbm_gb"] > 0
+
+
+def test_bench_driver_without_device_exits_nonzero_when_cuda_is_absent(
+        monkeypatch, capsys):
+    """The driver resolves ``--device`` (default cuda) before it prints a
+    row, so without a card it fails instead of benchmarking the CPU;
+    ``--list`` needs no card."""
+    from repro_torch.benchmarks import run as bench_run
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench_run.main(["--only", "kernel_bench"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench_run.main([])
+    assert capsys.readouterr().out == ""
+    bench_run.main(["--list"])
+    assert len(capsys.readouterr().out.split()) == 14
+    env = {"PYTHONPATH": str(_ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.run", "--only",
+         "kernel_bench"], env=env, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode != 0 and proc.stdout == ""
+    assert "torch.cuda.is_available() is False" in proc.stderr
 
 
 def test_mutable_entry_points_without_device_raise_when_cuda_is_absent(

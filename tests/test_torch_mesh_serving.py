@@ -382,3 +382,31 @@ def test_mesh_serving_smoke_check_passes_on_cpu(tmp_path):
     assert set(drill) == _returned_keys(funcs["run_drill"])
     assert drill["runtime_partial_flagged"] and drill["rejoin_bit_identical"]
     assert drill["epoch_bumps"] == 2
+
+
+@pytest.mark.parametrize("per_card", [None, 2])
+def test_mesh_serving_scaling_gate_holds_emulated_devices_only(per_card):
+    """``check`` applies the reference's emulated (2, 1) >= 1.6x gate
+    where the positions are emulated devices (``positions_per_card``
+    None, the CPU run) and not where they share one card, whose reading
+    (0.65x in a smoke run on an H100) ``check_scaling`` still reports;
+    the result contracts hold on both."""
+    from repro_torch.benchmarks import mesh_serving
+    geo = {"positions_per_card": per_card, "warm_compiles": {"2": 1},
+           "post_warmup_compiles": 0, "runtime_bit_identical": True,
+           "dispatch_all_replicas": True}
+    report = {"geometries": {g: dict(geo) for g in ("1x1", "2x1")},
+              "doc_ids_identical_across_geometries": True,
+              "speedup_emulated_2x1": 0.65,
+              "failover": dict.fromkeys(
+                  ("partial_flagged", "runtime_partial_flagged",
+                   "lost_range_excluded", "degraded_differs",
+                   "restored_not_partial", "rejoin_bit_identical"), True)}
+    scaling = mesh_serving.check_scaling(report)
+    assert len(scaling) == 1 and "0.65x" in scaling[0]
+    assert mesh_serving.emulated(report) is (per_card is None)
+    assert mesh_serving.check(report) == (scaling if per_card is None
+                                          else [])
+    report["failover"]["rejoin_bit_identical"] = False
+    assert "failover drill: rejoin_bit_identical is False" in \
+        mesh_serving.check(report)
