@@ -82,8 +82,8 @@ never prints the final line.  Every phase prints its seconds.
               4,096-doc chunk); 4 x 256 queries served and 8 checked
               against the CPU; R@100 / MRR@10 beside phase 10's;
  13. times    ``flash_attention`` (at the encoder chunk's and llama3-8b's
-              shapes, with its share of the bound; at llama3-8b against
-              both its own fp32 FMA path and the card's bf16 tensor-core
+              shapes, with its share of the bound; at llama3-8b the
+              tensor-core instance against the card's bf16 tensor-core
               peak) and ``assign_argmax`` at the build's KMeans and PQ
               shapes, beside their bounds, plain versions and library
               yardsticks;
@@ -698,6 +698,8 @@ LM_WINDOW = 16                       # 25d: window = cache capacity
 LM_TOL = 1e-4                        # rtol = atol, f32 sum orders
 LM_WINDOW_TOL = 2e-4
 LM_BF16_REL = 0.05
+LM_BF16_REL_FMA = 0.0175             # 25d's reading when bf16 flash ran
+                                     # the fp32 FMA kernel (PERF.md)
 
 # phase 26: the MoE LM family at make_config() (bf16 compute, fp32
 # params and AdamW state, remat).  olmoe-1b-7b serves at full depth
@@ -1789,12 +1791,15 @@ def flash_parity(dev, seed: int) -> float:
     q, k, v = llama_qkv(gen, dev)
     err[torch.bfloat16] = max(err[torch.bfloat16], check_flash(
         q, k, v, True, 0, f"llama3-8b {LLAMA_ATTN} bf16 causal"))
+    inst = {dtype: ", ".join(fa_ops.instance_name(d, dtype)
+                             for d in (16, 64, 128)) for dtype in err}
     log(f"[flash] {n_cases} edge cases + 2 dead-row cases ({n_dead} dead "
         f"rows) + 2 misaligned views + 828 items + the encoder "
         f"chunk + llama3-8b full size: max abs out err f32 "
-        f"{err[torch.float32]:.3g} (tol {FLASH_TOL[torch.float32]}), bf16 "
-        f"{err[torch.bfloat16]:.3g} (tol {FLASH_TOL[torch.bfloat16]}); lse "
-        f"within {LSE_TOL}")
+        f"{err[torch.float32]:.3g} (tol {FLASH_TOL[torch.float32]}; "
+        f"{inst[torch.float32]}), bf16 {err[torch.bfloat16]:.3g} (tol "
+        f"{FLASH_TOL[torch.bfloat16]}; {inst[torch.bfloat16]}); lse within "
+        f"{LSE_TOL}")
     return max(err.values())
 
 
@@ -2025,10 +2030,11 @@ def sup_path(dev, seed: int, built: dict) -> tuple[dict, dict]:
 
 def flash_causal_times(timer, what: str, b: int, s_len: int, hq: int,
                        hkv: int, d: int, dev, plain: bool = False) -> dict:
-    """``flash_attention`` at a causal bf16 LM shape: kernel and library
-    (``scaled_dot_product_attention``) ms beside the bound at the card's
-    bf16 tensor-core peak (and, under ``fp32_fma_bound_ms``, at the fp32
-    FMA rate the kernel's inner products run at).  With ``plain`` the
+    """``flash_attention`` at a causal bf16 LM shape (the tensor-core
+    kernel): kernel and library (``scaled_dot_product_attention``) ms
+    beside the bound at the card's bf16 tensor-core peak (and, under
+    ``fp32_fma_bound_ms``, at the fp32 FMA rate, the floor of the FMA
+    kernel that ran bf16 before the tensor-core one).  With ``plain`` the
     kernel is first held against its plain version there
     (:func:`check_flash`, one batch row at a time; its error under
     ``max_abs_err``) and the plain version is timed."""
@@ -2056,14 +2062,16 @@ def flash_causal_times(timer, what: str, b: int, s_len: int, hq: int,
         out["plain_ms"] = timer.ms(lambda: fa_ref.flash_attention(
             q, k, v, True, 0, q_chunk=fa_ops.Q_CHUNK), reps=3)
     log(f"[times] flash_attention at {what} {(b, s_len, hq, hkv, d)} (B, S, "
-        f"Hq, Hkv, d; bf16, causal): kernel {out['ms']:.3f} ms, library "
+        f"Hq, Hkv, d; bf16, causal; "
+        f"{fa_ops.instance_name(d, torch.bfloat16)}): kernel "
+        f"{out['ms']:.3f} ms, library "
         f"{out['library_ms']:.3f} ms"
         + (f", plain {out['plain_ms']:.3f} ms (out within "
            f"{FLASH_TOL[torch.bfloat16]} of it: max abs err "
            f"{out['max_abs_err']:.3g})" if plain else "")
         + f", bound {bms:.3f} ms ({by}, at the bf16 tensor-core peak), "
-        f"bound / kernel {bms / out['ms']:.1%}; at the fp32 FMA rate the "
-        f"kernel's inner products run at, {fp32_ms:.3f} ms")
+        f"bound / kernel {bms / out['ms']:.1%} of the bf16 bound; at the "
+        f"fp32 FMA rate, {fp32_ms:.3f} ms")
     return out
 
 
@@ -4477,7 +4485,8 @@ def rec_flash(dev, seed: int, d: int) -> tuple[float, dict]:
         err[dtype] = max(err[dtype], check_flash(
             q, k, v, True, 0, f"d {d} {dtype} misaligned view"))
     torch.cuda.empty_cache()
-    log(f"[flash] 23d d = {d} (instance {fa_ops.instance_dim(d)}): "
+    log(f"[flash] 23d d = {d} ({fa_ops.instance_name(d, torch.float32)}, "
+        f"{fa_ops.instance_name(d, torch.bfloat16)}): "
         f"{n_cases} cases + 2 misaligned views: max abs out err f32 "
         f"{err[torch.float32]:.3g}, bf16 {err[torch.bfloat16]:.3g}")
     timer, sdpa = Timer(), torch.nn.functional.scaled_dot_product_attention
@@ -5143,7 +5152,8 @@ def lm_serve(dev, seed: int, launches: dict) -> dict:
         f"logits (serve_step's decode_step attention) against logits_fn "
         f"(flash_attention) over the same {s0 + 1:,} tokens at window "
         f"{s0:,} (sequence 0): relative error {rec['bf16_rel']:.4g} "
-        f"(tolerance {LM_BF16_REL:g} of the norm), largest absolute "
+        f"(tolerance {LM_BF16_REL:g} of the norm; {LM_BF16_REL_FMA:g} when "
+        f"bf16 flash ran the fp32 FMA kernel), largest absolute "
         f"{rec['bf16_max_abs']:.4g}")
     return rec
 
@@ -5666,12 +5676,13 @@ def flash_window_times(timer, dev) -> dict:
         window=w)
     log(f"[times] flash_attention at Mixtral's windowed shape "
         f"{(b, s_len, hq, hkv, d)} (B, S, Hq, Hkv, d; bf16, causal, window "
-        f"{w}): kernel {out['ms']:.3f} ms, library (SDPA, boolean mask) "
+        f"{w}; {fa_ops.instance_name(d, torch.bfloat16)}): kernel "
+        f"{out['ms']:.3f} ms, library (SDPA, boolean mask) "
         f"{out['library_ms']:.3f} ms, plain {out['plain_ms']:.3f} ms (out "
         f"within {FLASH_TOL[torch.bfloat16]} of it: max abs err "
         f"{out['max_abs_err']:.3g}), bound {bms:.3f} ms ({by}, {pairs:,} live "
         f"pairs a head at the bf16 tensor-core peak), bound / kernel "
-        f"{bms / out['ms']:.1%}")
+        f"{bms / out['ms']:.1%} of the bf16 bound")
     return out
 
 

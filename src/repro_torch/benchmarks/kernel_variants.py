@@ -12,7 +12,8 @@ assign_argmax.cu > build/assign_parent.cu
     git show HEAD:src/repro_torch/kernels/flash_attention/csrc/\\
 flash_attention.cu > build/flash_parent.cu
     python -m repro_torch.benchmarks.kernel_variants \\
-        --kernel flash_attention --parent build/flash_parent.cu
+        --kernel flash_attention --parent build/flash_parent.cu \\
+        [--variant kQRows=64,kWarps=4] [--sass DIR]
 
     git show HEAD:src/repro_torch/kernels/sq8_dot/csrc/\\
 sq8_dot_fused.cu > build/sq8_parent.cu
@@ -35,8 +36,8 @@ time is not counted; :class:`~repro_torch.benchmarks.timing.Timer`), the
 50 MB L2 flushed before every launch, taken in the order parent, change,
 change, parent, beside the library call that computes the same function
 and the bound (the larger of bytes at 3.35 TB/s and FLOPs at 67
-TFLOP/s).  The last line is a JSON object of the times (ms).  Needs a
-card.
+TFLOP/s, 989 for bf16 flash_attention).  The last line is a JSON object
+of the times (ms).  Needs a card.
 
 ``topk_scores``: at the served dispatch shape (N 256, L 10,000, h 768,
 k 30) and at the edge shapes of :data:`TOPK_SHAPES`, every build must
@@ -62,17 +63,26 @@ timed beside the library call, ``torch.argmax(x @ c.T − ½‖c‖²)`` in
 ``--variant`` as for ``topk_scores``.
 
 ``flash_attention``: at the HI²_sup encoder chunk's shape (B 4,096, H
-12, S 64, d 64 f32, non-causal) and at llama3-8b's attention (B 1, S
-4,096, Hq 32, Hkv 8, d 128 bf16, causal): both builds against the plain
-version (f32 out within 1e-4, bf16 within 2e-2, lse within 1e-4; the
-change in both load instances), timed beside
-``scaled_dot_product_attention``.  Before that, every instance the parent
-has (d 16, 32, 64, 128; f32 and bf16; the 16-byte and element-wise
-loads; causal, ragged S) must give the parent's out and lse bit for bit.
-SASRec's attention (B 262,144, S 50, d 50 f32, causal; a head dim the
-parent refuses) is checked and timed for the change alone.  A parent
-whose C entry lacks the ``vec`` flag (before the element-wise instance)
-is called without it.
+12, S 64, d 64 f32, non-causal), at the bf16 causal LM shapes of
+:data:`FLASH_LM_SHAPES` (llama3-8b, internlm2-1.8b and olmoe-1b-7b
+train_4k, stablelm-3b at d 80, Mixtral's window 4,096) and at SASRec's
+(B 262,144, S 50, d 50 f32, causal; the change alone): every build in
+both load instances against the plain version (f32 out within 1e-4,
+bf16 within 2e-2, lse within 1e-4, dead rows zeros with lse -1e30; the
+LM shapes one batch row at a time), timed beside
+``scaled_dot_product_attention`` (Mixtral's window as a boolean mask)
+and the bound, at 989 TFLOP/s for bf16.  Before that, every f32
+instance (d 16, 32, 64, 128; the 16-byte and element-wise loads;
+causal, ragged S), which the FMA kernel runs, must give the parent's
+out and lse bit for bit, and every bf16 instance (d 16, 32, 64, 80,
+128, the tensor-core kernel) of each build of this checkout must agree
+with the plain version (a non-causal window with dead rows too): its
+products sum in another order than the parent's and P is rounded to
+bf16.  A failure fails the run after the times.  ``--variant`` as for
+``topk_scores`` (``kQRows=64,kWarps=4``, ``kStages=3``); ``--sass`` as
+for ``sq8_dot_fused`` (``HMMA`` counts the tensor-core products,
+``LDSM`` the ldmatrix reads).  A parent whose C entry lacks the ``vec``
+flag (before the element-wise instance) is called without it.
 
 ``sq8_dot_fused``: at the ``serve_msmarco_refine_sq8`` candidate plane of
 ``chip_smoke.py``'s phase 9 from the same ``--seed`` (B 256, C 63,488, h
@@ -144,6 +154,19 @@ from repro_torch.kernels.sq8_dot import ref as sq8_ref
 ROOT = pathlib.Path(__file__).resolve().parents[3]
 OUT_DIR = ROOT / "build" / "kernel_variants"
 PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+PEAK_BF16_FLOPS = 989e12     # bf16 on the tensor cores, dense
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # out, rtol = atol
+LSE_TOL = 1e-4
+#: name: (b, s, hq, hkv, d, window) of flash_attention's bf16 causal LM
+#: shapes: each train_4k shape at the largest batch its step fits on one
+#: card, llama3-8b's attention and Mixtral's window
+FLASH_LM_SHAPES = {
+    "llama3_8b": (1, 4096, 32, 8, 128, 0),
+    "internlm2_1_8b_train_4k": (10, 4096, 16, 8, 128, 0),
+    "olmoe_1b_7b_train_4k": (10, 4096, 16, 16, 128, 0),
+    "stablelm_3b_train_4k": (12, 4096, 32, 32, 80, 0),
+    "mixtral_8x22b_window": (1, 8192, 48, 8, 128, 4096),
+}
 TOPK_TOL = 1e-5          # rtol = atol: the h products' summation order
 ASSIGN_TOL = 1e-5        # rtol = atol: the same
 ASSIGN_BLOCK = 65_536    # points per block of a plain or library plane
@@ -220,7 +243,7 @@ ADC_SHAPES = {
 }
 #: SASS opcodes counted per kernel function by --sass
 SASS_OPS = ("I2F", "PRMT", "FADD", "FFMA", "LDS", "LDG", "STS", "STG",
-            "SHFL", "VIMNMX", "LEA")
+            "SHFL", "VIMNMX", "LEA", "HMMA", "LDSM")
 # the per-tile merge of topk_scores.cu and what --gemm-only puts in its
 # place: the tile row is still read, so the product is not optimized away
 MERGE = re.compile(r"warp_merge\(sm\.ls\[q\], sm\.li\[q\], cnt\[u\], n, k, "
@@ -321,8 +344,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--variant", action="append", default=[],
                     type=parse_consts, metavar="NAME=VALUE[,NAME=VALUE]",
                     help="also build this checkout's source with these "
-                         "constexpr int tile constants (topk_scores, "
-                         "assign_argmax, sq8_dot_fused, pq_adc_fused)")
+                         "constexpr int tile constants (every kernel)")
     ap.add_argument("--gemm-only", action="store_true",
                     help="also build every source without its per-tile "
                          "merge (topk_scores)")
@@ -336,7 +358,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--sass", type=pathlib.Path, default=None,
                     metavar="DIR", help="write each build's SASS into DIR "
                     "and print its instruction counts (sq8_dot_fused, "
-                    "pq_adc_fused)")
+                    "pq_adc_fused, flash_attention)")
     return ap.parse_args(argv)
 
 
@@ -376,11 +398,11 @@ def report_times(sname: str, bound: float, times: dict) -> None:
 # --------------------------------------------------------------------------
 
 def call_flash(lib, with_vec: bool, q, k, v, causal: bool,
-               vec: bool = True):
+               vec: bool = True, window: int = 0):
     """One launch through ``ops``' calling convention; ``with_vec`` False
     drops the ``vec`` argument for a C entry that lacks it."""
     out, lse = fa_ops.outputs(q)
-    args = fa_ops.kernel_args(q, k, v, out, lse, causal, 0,
+    args = fa_ops.kernel_args(q, k, v, out, lse, causal, window,
                               q.shape[-1] ** -0.5,
                               vec and fa_ops.vector_loads(q, k, v, out),
                               torch.cuda.current_stream().cuda_stream)
@@ -393,30 +415,68 @@ def call_flash(lib, with_vec: bool, q, k, v, causal: bool,
     return out, lse
 
 
+def flash_agrees(got, q, k, v, causal: bool, window: int,
+                 batch_block: int = 0) -> tuple[bool, float]:
+    """``chip_smoke.check_flash``'s rule: out within FLASH_TOL of its
+    dtype and lse within LSE_TOL of the plain version (``batch_block`` >
+    0: that many batch rows at a time, query rows in Q_CHUNK blocks),
+    dead rows (no visible key) zeros with lse NEG_INF.  Returns (ok, max
+    abs out error)."""
+    out_all, lse_all = got
+    step = batch_block or q.shape[0]
+    tol, ok, err = FLASH_TOL[q.dtype], True, 0.0
+    for i in range(0, q.shape[0], step):
+        rows = slice(i, i + step)
+        out, lse = out_all[rows], lse_all[rows]
+        want, wlse = fa_ref.flash_attention(
+            q[rows], k[rows], v[rows], causal, window,
+            q_chunk=fa_ops.Q_CHUNK if batch_block else None)
+        err = max(err, float((out.float() - want.float()).abs().max()))
+        dead = wlse == fa_ref.NEG_INF
+        ok &= (torch.allclose(out.float(), want.float(), rtol=tol, atol=tol)
+               and torch.allclose(lse, wlse, rtol=LSE_TOL, atol=LSE_TOL)
+               and torch.equal(lse == fa_ref.NEG_INF, dead)
+               and not bool((out[dead] != 0).any()))
+    return ok, err
+
+
 def flash_shapes(gen):
+    """(name, shape): the encoder chunk (f32), the LM shapes of
+    :data:`FLASH_LM_SHAPES` (bf16, causal; checked one batch row at a
+    time) and SASRec's bulk batch (f32, d 50; the change alone)."""
     def bshd(b, s, h, d, dtype):
         return torch.randn((b, s, h, d), generator=gen, device="cuda").to(
             dtype).transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    def counted(qkv, causal):
+
+    def counted(qkv, causal, window=0):
         q, k = qkv[0], qkv[1]
         flops, nbytes = fa_ops.work(q.shape[0], q.shape[1], k.shape[1],
                                     q.shape[2], k.shape[2], q.shape[3],
-                                    causal, 0, q.element_size())
-        return dict(qkv=qkv, causal=causal, flops=flops, nbytes=nbytes)
+                                    causal, window, q.element_size())
+        return dict(qkv=qkv, causal=causal, window=window, flops=flops,
+                    nbytes=nbytes)
 
     yield "encoder", dict(
         counted([bshd(4096, 64, 12, 64, torch.float32) for _ in range(3)],
                 False),
         library=lambda q, k, v: sdpa(q, k, v))
-    yield "llama3_8b", dict(
-        counted([bshd(1, 4096, 32, 128, torch.bfloat16)]
-                + [bshd(1, 4096, 8, 128, torch.bfloat16) for _ in range(2)],
-                True),
-        library=lambda q, k, v: sdpa(q, k, v, is_causal=True,
-                                     enable_gqa=True))
+    for name, (b, s_len, hq, hkv, d, w) in FLASH_LM_SHAPES.items():
+        qkv = [bshd(b, s_len, hq, d, torch.bfloat16)] + [
+            bshd(b, s_len, hkv, d, torch.bfloat16) for _ in range(2)]
+        if w:       # SDPA takes the window as a boolean mask
+            i = torch.arange(s_len, device="cuda")
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
+            library = (lambda m: lambda q, k, v: sdpa(
+                q, k, v, attn_mask=m, enable_gqa=True))(mask)
+        else:
+            library = lambda q, k, v: sdpa(q, k, v, is_causal=True,
+                                           enable_gqa=True)
+        yield name, dict(counted(qkv, True, w), library=library,
+                         batch_block=1)
+        del qkv
     # SASRec's two blocks at serve_bulk (configs/sasrec.py): d = 50 runs
-    # ragged in the d = 64 instance, which the parent does not have
+    # ragged in the f32 d = 64 instance
     b, s_len, d = 262_144, 50, 50
     yield "sasrec_bulk", dict(
         counted([bshd(b, s_len, 1, d, torch.float32) for _ in range(3)],
@@ -425,29 +485,34 @@ def flash_shapes(gen):
         parent=False)
 
 
-def flash_instances(gen):
-    """(name, q, k, v, causal, offset) at every instance a parent has:
-    d in HEAD_DIMS, f32 and bf16, aligned and one element off 16 bytes,
-    a ragged Sq / Sk and a causal mask."""
-    for d in fa_ops.HEAD_DIMS:
-        for dtype in (torch.float32, torch.bfloat16):
-            for offset in (0, 1):
-                def bshd(b, s, h):
-                    n = b * s * h * d
-                    flat = torch.randn(n + offset, generator=gen,
-                                       device="cuda").to(dtype)
-                    return flat[offset:].view(b, s, h, d).transpose(1, 2)
-                name = f"d{d} {str(dtype)[6:]} offset {offset}"
-                yield name, bshd(3, 130, 4), bshd(3, 100, 2), \
-                    bshd(3, 100, 2), bool(offset), offset
+def flash_instances(gen, dtype):
+    """(name, q, k, v, causal, window, offset) at every instance of
+    ``dtype`` (d in its HEAD_DIMS), on ``gen``'s device, aligned and one
+    element off 16 bytes, with a ragged Sq / Sk and a causal mask; for
+    bf16 also a non-causal window with Sq > Sk, whose last rows see no
+    key."""
+    for d in fa_ops.HEAD_DIMS[dtype]:
+        for offset in (0, 1):
+            def bshd(b, s, h):
+                n = b * s * h * d
+                flat = torch.randn(n + offset, generator=gen,
+                                   device=gen.device).to(dtype)
+                return flat[offset:].view(b, s, h, d).transpose(1, 2)
+            name = f"d{d} {str(dtype)[6:]} offset {offset}"
+            yield name, bshd(3, 130, 4), bshd(3, 100, 2), \
+                bshd(3, 100, 2), bool(offset), 0, offset
+            if dtype == torch.bfloat16:
+                yield f"{name} dead rows", bshd(2, 300, 4), \
+                    bshd(2, 70, 1), bshd(2, 70, 1), False, 32, offset
 
 
 def flash_bitwise(libs: dict, with_vec: dict, gen) -> list:
     """The change's out and lse against the parent's, bit for bit, at
-    :func:`flash_instances` in every load instance the input allows;
-    returns the names that differ."""
+    the f32 :func:`flash_instances` (the FMA kernel, unchanged) in every
+    load instance the input allows; returns the names that differ."""
     failed = []
-    for name, q, k, v, causal, offset in flash_instances(gen):
+    for name, q, k, v, causal, _, offset in flash_instances(
+            gen, torch.float32):
         for vec in ((False,) if offset else (True, False)):
             got = call_flash(libs["new"], True, q, k, v, causal, vec)
             want = call_flash(libs["parent"], with_vec["parent"], q, k, v,
@@ -460,51 +525,90 @@ def flash_bitwise(libs: dict, with_vec: dict, gen) -> list:
     return failed
 
 
+def flash_tolerance(libs: dict, gen) -> list:
+    """Each build of this checkout (the parent excepted) against the
+    plain version (:func:`flash_agrees`) at the bf16
+    :func:`flash_instances` (the tensor-core kernel), in every load
+    instance the input allows; returns the failures."""
+    failed = []
+    for name, q, k, v, causal, window, offset in flash_instances(
+            gen, torch.bfloat16):
+        for lname in (n for n in libs if n != "parent"):
+            for vec in ((False,) if offset else (True, False)):
+                ok, err = flash_agrees(
+                    call_flash(libs[lname], True, q, k, v, causal, vec,
+                               window), q, k, v, causal, window)
+                print(f"[tolerance] {name} {lname} vec={vec}: max abs out "
+                      f"err {err:.3g} {'ok' if ok else 'FAILED'}",
+                      flush=True)
+                if not ok:
+                    failed.append(f"{name} {lname} vec={vec}")
+    return failed
+
+
 def flash_main(args) -> dict:
-    with_vec = {"parent": takes_vec(args.parent.read_text()), "new": True}
-    libs = build({"parent": args.parent,
-                  "new": _build.SOURCES["flash_attention"]})
+    src = _build.SOURCES["flash_attention"]
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    sources = {"parent": args.parent, "new": src}
+    for i, consts in enumerate(args.variant):
+        sources[f"variant{i}"] = OUT_DIR / f"flash_variant{i}.cu"
+        sources[f"variant{i}"].write_text(
+            variant_source(src.read_text(), consts))
+        print(f"[variant] variant{i}: {consts}")
+    with_vec = {name: name != "parent" or takes_vec(args.parent.read_text())
+                for name in sources}
+    libs = build(sources)
+    if args.sass:
+        report_sass(libs, args.sass, "flash")
     timer = Timer(queued=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     differ = flash_bitwise(libs, with_vec, gen)
-    report = {"bitwise_differs": differ}
+    failed = flash_tolerance(libs, gen)
+    report = {"bitwise_differs": differ, "tolerance_failed": failed}
     for sname, sh in flash_shapes(gen):
         q, k, v = sh["qkv"]
-        want, wlse = fa_ref.flash_attention(q, k, v, sh["causal"], 0)
-        tol = 1e-4 if q.dtype == torch.float32 else 2e-2
-        names = list(libs) if sh.get("parent", True) else ["new"]
+        causal, window = sh["causal"], sh["window"]
+        names = list(libs) if sh.get("parent", True) else [
+            n for n in libs if n != "parent"]
         for name in names:
-            lib = libs[name]
             for vec in (True, False)[:1 + with_vec[name]]:
-                out, lse = call_flash(lib, with_vec[name], q, k, v,
-                                      sh["causal"], vec)
-                err = float((out.float() - want.float()).abs().max())
-                ok = (torch.allclose(out.float(), want.float(), rtol=tol,
-                                     atol=tol)
-                      and torch.allclose(lse, wlse, rtol=1e-4, atol=1e-4))
+                ok, err = flash_agrees(
+                    call_flash(libs[name], with_vec[name], q, k, v, causal,
+                               vec, window), q, k, v, causal, window,
+                    sh.get("batch_block", 0))
                 print(f"[check] {sname} {name} vec={vec}: max abs out err "
                       f"{err:.3g} {'ok' if ok else 'FAILED'}", flush=True)
                 if not ok:
-                    sys.exit(f"{name} disagrees with the plain version")
-        del want, wlse
+                    failed.append(f"{sname} {name} vec={vec}")
         times = {}
-        for name in (("parent", "new", "new", "parent") if len(names) == 2
-                     else ("new", "new")):
-            times.setdefault(name, []).append(timer.ms(
-                lambda: call_flash(libs[name], with_vec[name], q, k, v,
-                                   sh["causal"]), args.reps))
-        times["new_scalar"] = [timer.ms(
-            lambda: call_flash(libs["new"], True, q, k, v, sh["causal"],
-                               False), max(args.reps // 2, 3))]
+
+        def run(name, vec=True):
+            return lambda: call_flash(libs[name], with_vec[name], q, k, v,
+                                      causal, vec, window)
+        order = (("parent", "new", "new", "parent") if "parent" in names
+                 else ("new", "new"))
+        for name in order + tuple(n for n in names if n.startswith("var")):
+            times.setdefault(name, []).append(timer.ms(run(name),
+                                                       args.reps))
+        times["new_scalar"] = [timer.ms(run("new", False),
+                                        max(args.reps // 2, 3))]
         times["library"] = [timer.ms(lambda: sh["library"](q, k, v),
                                      args.reps) for _ in range(2)]
-        bound = 1e3 * max(sh["flops"] / PEAK_FP32_FLOPS,
-                          sh["nbytes"] / PEAK_BYTES)
+        peak = (PEAK_BF16_FLOPS if q.dtype == torch.bfloat16
+                else PEAK_FP32_FLOPS)
+        bound = 1e3 * max(sh["flops"] / peak, sh["nbytes"] / PEAK_BYTES)
         report[sname] = dict(bound_ms=bound, **times)
         report_times(sname, bound, times)
-    if differ:
-        print(json.dumps(report))
-        sys.exit(f"the change differs from the parent: {', '.join(differ)}")
+        new_ms = sum(times["new"]) / len(times["new"])
+        print(f"[share] {sname}: bound / new {bound / new_ms:.1%} "
+              f"({'bf16 tensor-core' if peak == PEAK_BF16_FLOPS else 'fp32'}"
+              f" peak {peak / 1e12:.0f} TFLOP/s)", flush=True)
+        del q, k, v, sh
+    if differ or failed:    # after the times, which still tell where
+        print(json.dumps(report))          # time goes
+        sys.exit(f"flash_attention: differs from the parent: "
+                 f"{', '.join(differ) or 'none'}; disagrees with the plain "
+                 f"version: {', '.join(failed) or 'none'}")
     return report
 
 
@@ -1005,6 +1109,18 @@ def sass_counts(lib_path: pathlib.Path, out: pathlib.Path) -> dict:
     return counts
 
 
+def report_sass(libs: dict, out_dir: pathlib.Path, prefix: str) -> None:
+    """Write each build's SASS into ``out_dir`` and print its
+    :data:`SASS_OPS` counts, function by function."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name in libs:
+        counts = sass_counts(OUT_DIR / f"{name}.so",
+                             out_dir / f"{prefix}_{name}.sass")
+        for fn, ops in counts.items():
+            print(f"[sass] {name} {fn[-60:]}: " + ", ".join(
+                f"{op} {n}" for op, n in ops.items()), flush=True)
+
+
 def sq8_main(args) -> dict:
     src = _build.SOURCES["sq8_dot_fused"]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -1021,13 +1137,7 @@ def sq8_main(args) -> dict:
         if grouped[name]:
             print(f"[tiles] {name}: {sq8_ops.tiles(lib)}", flush=True)
     if args.sass:
-        args.sass.mkdir(parents=True, exist_ok=True)
-        for name in libs:
-            counts = sass_counts(OUT_DIR / f"{name}.so",
-                                 args.sass / f"sq8_{name}.sass")
-            for fn, ops in counts.items():
-                print(f"[sass] {name} {fn[-60:]}: " + ", ".join(
-                    f"{op} {n}" for op, n in ops.items()), flush=True)
+        report_sass(libs, args.sass, "sq8")
     dev = torch.device("cuda", torch.cuda.current_device())
     failed, report = [], {}
     for sname in SQ8_SHAPES:
@@ -1291,13 +1401,7 @@ def adc_main(args) -> dict:
                   for name, path in sources.items()}
     libs = build(sources)
     if args.sass:
-        args.sass.mkdir(parents=True, exist_ok=True)
-        for name in libs:
-            counts = sass_counts(OUT_DIR / f"{name}.so",
-                                 args.sass / f"adc_{name}.sass")
-            for fn, ops in counts.items():
-                print(f"[sass] {name} {fn[-60:]}: " + ", ".join(
-                    f"{op} {n}" for op, n in ops.items()), flush=True)
+        report_sass(libs, args.sass, "adc")
     dev = torch.device("cuda", torch.cuda.current_device())
     failed, report = [], {}
     for sname in ADC_SHAPES:

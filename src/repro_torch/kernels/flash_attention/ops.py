@@ -26,26 +26,35 @@ returned non-differentiable.  The forward saves q, k and v themselves
 later launch writes.
 
 Replaces the TPU kernel
-``repro/kernels/flash_attention/kernel.py::_flash_kernel``.  On the H100
-it is bound by bytes at the HI²_sup term scorer's shape (S = 64: one
-score tile per head, about 8 FLOPs per byte of q, k, v and out, with
-the fp32 FMA floor close behind) and by operations at long sequences.
-``csrc/flash_attention.cu`` gives each (batch, q-head, 64-row q tile)
-item a 128-thread block that loops over the item's live 64-key kv
-tiles, copied into shared memory by 16-byte ``cp.async`` (four blocks
-per SM at d <= 64, so one block's loads overlap the others' FMAs); the
-online-softmax state stays in registers, the products are fp32 FMAs (no
-TF32) fed by 128-bit shared reads, fully-masked kv tiles are skipped,
-and the ragged edges are masked from the true lengths.  It reads q, k
-and v through their strides, so the (B, H, S, d) views of (B, S, H, d)
-projections cost no copy, and writes ``out`` as a (B, H, S, d) view of
-(B, S, H, d) memory, which the attention layer reshapes back for free.
-Inputs that are not 16-byte aligned (:func:`vector_loads`) take the
-same kernel's element-wise load instance.  A head dim d outside
-:data:`HEAD_DIMS` (SASRec's d = 50) runs in the next instance up
-(:func:`instance_dim`): the kernel zero-fills columns d .. D - 1 as it
-loads them and never stores them, so q, k and v are read in place, with
-no padded copy.
+``repro/kernels/flash_attention/kernel.py::_flash_kernel`` with two
+kernels in ``csrc/flash_attention.cu``, one for each dtype; both give
+each (batch, q-head, q tile) item one block that loops over the item's
+live kv tiles (fully-masked tiles are skipped, the ragged edges masked
+from the true lengths), with the online-softmax state in registers.
+
+* bf16 (the LM shapes, bound by the tensor cores' operations): 128-row
+  q tiles, 16 rows a warp, QKᵀ and P·V on ``mma.sync`` m16n8k16 with
+  fp32 accumulation (a bf16 product is exact in fp32, so only the order
+  of summation differs from the reference's f32 dot), operands by
+  ``ldmatrix`` from 64-key K and V tiles that 16-byte ``cp.async``
+  copies into a two-stage ring, the softmax in registers and P rounded
+  to bf16 as the A operand of P·V (the one rounding it adds: ``out`` is
+  bf16 and ``lse`` does not see it).  Instances at D in {16, 32, 64,
+  80, 128}: stablelm-3b's d 80 has its own.
+* f32 (the HI²_sup encoder and SASRec, bound by bytes at S 64 and d 64):
+  64-row q tiles of 128 threads, products in fp32 FMAs (no TF32) fed by
+  128-bit shared reads, four blocks an SM at d <= 64 so one block's
+  loads overlap the others' FMAs.
+
+Both read q, k and v through their strides, so the (B, H, S, d) views
+of (B, S, H, d) projections cost no copy, and write ``out`` as a (B, H,
+S, d) view of (B, S, H, d) memory, which the attention layer reshapes
+back for free.  Inputs that are not 16-byte aligned
+(:func:`vector_loads`) take the same kernel's element-wise load
+instance.  A head dim d outside its dtype's :data:`HEAD_DIMS` (SASRec's
+d = 50) runs in the next instance up (:func:`instance_dim`): the kernel
+zero-fills columns d .. D - 1 as it loads them and never stores them,
+so q, k and v are read in place, with no padded copy.
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
 launches the kernel on the current stream, without synchronizing, or
@@ -75,11 +84,16 @@ from repro_torch.kernels.flash_attention import ref
 #: kernel launches in this process (CPU calls do not count)
 launches = 0
 
-HEAD_DIMS = (16, 32, 64, 128)     # the kernel's template cases
-MAX_HEAD_DIM = HEAD_DIMS[-1]      # any 1 <= d <= 128 runs (ragged above)
+#: the kernel instances (head dims D) of each dtype: the f32 FMA kernel's
+#: and the bf16 tensor-core kernel's
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128),
+             torch.bfloat16: (16, 32, 64, 80, 128)}
+MAX_HEAD_DIM = 128                # any 1 <= d <= 128 runs (ragged above)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ITEMS = 2 ** 31 - 1           # B · Hq · ceil(Sq / 64) work items
-Q_TILE = 64                       # query rows per work item
+#: query rows per work item of the f32 kernel, which the item limit
+#: counts (the bf16 kernel's items are 128 rows, so fewer)
+Q_TILE = 64
 #: query rows per chunk of the plain version (bounds its score plane)
 Q_CHUNK = 512
 #: elements of one (B, Hq, rows, Sk) f32 plane of the backward's recompute
@@ -150,13 +164,20 @@ def kernel_args(q, k, v, out, lse, causal: bool, window: int, scale: float,
             int(vec), stream]
 
 
-def instance_dim(d: int) -> int:
-    """The kernel instance that runs head dim ``d``: the least of
-    :data:`HEAD_DIMS` >= d (``d`` itself when it is one)."""
+def instance_dim(d: int, dtype: torch.dtype = torch.float32) -> int:
+    """The kernel instance that runs head dim ``d`` in ``dtype``: the
+    least of its :data:`HEAD_DIMS` >= d (``d`` itself when it is one)."""
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} is outside the kernel's 1 .. "
                          f"{MAX_HEAD_DIM}")
-    return next(h for h in HEAD_DIMS if h >= d)
+    return next(h for h in HEAD_DIMS[dtype] if h >= d)
+
+
+def instance_name(d: int, dtype: torch.dtype) -> str:
+    """Which kernel and instance runs head dim ``d`` in ``dtype``, e.g.
+    ``"tensor-core D 80"`` (bf16) or ``"fp32 FMA D 64"`` (f32)."""
+    kind = "tensor-core" if dtype == torch.bfloat16 else "fp32 FMA"
+    return f"{kind} D {instance_dim(d, dtype)}"
 
 
 def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
@@ -193,7 +214,7 @@ def _count(q, k, causal: bool, window: int) -> None:
 
 def _check_launch(q) -> None:
     b, hq, sq, d = q.shape
-    instance_dim(d)                   # raises above MAX_HEAD_DIM
+    instance_dim(d, q.dtype)          # raises above MAX_HEAD_DIM
     if b * hq * -(-sq // Q_TILE) > MAX_ITEMS:
         raise ValueError(f"B·Hq·ceil(Sq/{Q_TILE}) must be <= {MAX_ITEMS}")
 

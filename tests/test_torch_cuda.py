@@ -653,7 +653,23 @@ FLASH_CASES = {
                                  True, 0, 0),
     "bf16_stablelm_d80": (torch.bfloat16, 1, 32, 32, 2048, 2048, 80, True,
                           0, 0),
+    # the bf16 tensor-core kernel: d 80 (its own instance) with GQA 6:1
+    # under a causal window; a causal Sq < Sk (absolute positions); q and
+    # k scaled x8 (FLASH_SCALED: scores ~64x, so the online rescale
+    # moves); d 16; 384 items, more than one wave of the 132 blocks
+    # resident at d 128, with a ragged last q tile
+    "bf16_d80_gqa6_window": (torch.bfloat16, 1, 12, 2, 300, 300, 80, True,
+                             64, 0),
+    "bf16_causal_sq70_sk300": (torch.bfloat16, 2, 4, 2, 70, 300, 64, True,
+                               0, 0),
+    "bf16_large_scores_x8": (torch.bfloat16, 2, 8, 2, 500, 500, 128, True,
+                             0, 0),
+    "bf16_d16": (torch.bfloat16, 2, 4, 2, 130, 130, 16, True, 0, 0),
+    "bf16_many_items_ragged": (torch.bfloat16, 3, 16, 8, 1000, 1000, 128,
+                               False, 0, 0),
 }
+#: cases whose q and k are multiplied by this factor (exact in bf16)
+FLASH_SCALED = {"bf16_large_scores_x8": 8.0}
 
 
 def _bshd_at(g, dev, b, s, h, d, dtype, offset):
@@ -672,6 +688,8 @@ def test_flash_attention_kernel_matches_plain(cuda, name):
     q = _bshd_at(g, cuda, b, sq, hq, d, dtype, offset)
     k, v = (_bshd_at(g, cuda, b, sk, hkv, d, dtype, offset)
             for _ in range(2))
+    if name in FLASH_SCALED:
+        q, k = (t * FLASH_SCALED[name] for t in (q, k))
     assert fa_ops.vector_loads(q, k, v) is (
         offset == 0 and d * q.element_size() % 16 == 0)
     before = fa_ops.launches
@@ -688,6 +706,21 @@ def test_flash_attention_kernel_matches_plain(cuda, name):
     assert bool((out[dead] == 0).all())
     if name == "f32_dead_rows":
         assert bool(dead.any())
+
+
+def test_flash_attention_bf16_negative_scale_matches_plain(cuda):
+    """A negative scale: the tensor-core kernel negates Q's fragments
+    (exactly) and scales by |scale|, so its row max is still the max."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = _bshd_at(g, cuda, 2, 200, 4, 64, torch.bfloat16, 0)
+    k, v = (_bshd_at(g, cuda, 2, 200, 2, 64, torch.bfloat16, 0)
+            for _ in range(2))
+    out, lse = fa_ops.flash_attention(q, k, v, True, 0, scale=-0.125)
+    want, wlse = fa_ref.flash_attention(q, k, v, True, 0, scale=-0.125)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, wlse, rtol=1e-4, atol=1e-4)
 
 
 def test_sasrec_user_embedding_on_the_card_matches_the_cpu(cuda):

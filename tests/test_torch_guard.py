@@ -544,11 +544,21 @@ def test_moe_entry_points_without_device_raise_when_cuda_is_absent(
 
 
 def test_flash_attention_head_dims_run_in_the_next_instance_up():
-    """Any head dim 1 .. 128 has an instance (d = 50, SASRec's, runs in
-    the d = 64 one); the kernel has none above 128."""
+    """Any head dim 1 .. 128 has an instance in either dtype (d = 50,
+    SASRec's, runs in the d = 64 one); f32 (the FMA kernel) has D 16,
+    32, 64 and 128, bf16 (the tensor-core kernel) also D 80, so
+    stablelm-3b's d 80 runs in its own; none above 128."""
     assert [fa_ops.instance_dim(d) for d in (1, 16, 17, 40, 50, 64, 65,
                                              128)] == [16, 16, 32, 64, 64,
                                                        64, 128, 128]
-    for d in (0, 129, 256):
-        with pytest.raises(ValueError, match="head dim"):
-            fa_ops.instance_dim(d)
+    assert [fa_ops.instance_dim(d, torch.float32) for d in (50, 80)] == [
+        64, 128]
+    assert [fa_ops.instance_dim(d, torch.bfloat16)
+            for d in (1, 16, 17, 40, 50, 64, 65, 80, 81, 128)] == [
+        16, 16, 32, 64, 64, 64, 80, 80, 128, 128]
+    assert fa_ops.instance_name(80, torch.bfloat16) == "tensor-core D 80"
+    assert fa_ops.instance_name(50, torch.float32) == "fp32 FMA D 64"
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (0, 129, 256):
+            with pytest.raises(ValueError, match="head dim"):
+                fa_ops.instance_dim(d, dtype)

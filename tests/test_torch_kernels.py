@@ -702,6 +702,85 @@ def test_flash_attention_lse_and_fully_masked_rows_match_the_kernel():
     assert np.isfinite(lse.numpy()[:, :, ~dead]).all()
 
 
+def _tc_emulation(q, k, v, causal, window, scale=None, tile=64):
+    """The bf16 tensor-core kernel's arithmetic, written out blockwise in
+    f32 on the CPU: 64-key tiles, the online softmax in f32 with scores
+    in log2 units (the scale applied after the product), P rounded to
+    bf16 before P·V, l summed from the f32 p, out rounded to bf16.
+    q, k, v hold bf16 values (any float dtype)."""
+    b, hq, sq, d = q.shape
+    group, sk = hq // k.shape[1], k.shape[2]
+    scale = 1.0 / np.sqrt(d) if scale is None else scale
+    sc = torch.tensor(scale * np.log2(np.e), dtype=torch.float32)
+    qf = q.float()
+    kg = k.float().repeat_interleave(group, dim=1)
+    vg = v.float().repeat_interleave(group, dim=1)
+    m = torch.full((b, hq, sq), -torch.inf)
+    l = torch.zeros((b, hq, sq))
+    o = torch.zeros((b, hq, sq, d))
+    qp = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, tile):
+        s = qf @ kg[:, :, k0:k0 + tile].transpose(-1, -2)
+        kp = torch.arange(k0, min(k0 + tile, sk))[None, :]
+        ok = torch.ones((sq, kp.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= qp >= kp
+        if window > 0:
+            ok &= qp - kp < window
+            if not causal:
+                ok &= kp - qp < window
+        s = torch.where(ok, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1) * sc)
+        base = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha = torch.exp2(m - base)
+        p = torch.exp2(s * sc - base[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + (p.to(torch.bfloat16).float()
+                                    @ vg[:, :, k0:k0 + tile])
+        m = m_new
+    live = l > 0
+    out = torch.where(live[..., None], o / torch.where(live, l, 1.0)[
+        ..., None], 0.0).to(torch.bfloat16)
+    lse = torch.where(live, m * float(np.log(2.0)) + torch.log(
+        torch.where(live, l, 1.0)), fa_ref.NEG_INF)
+    return out, lse
+
+
+@pytest.mark.parametrize("case", [
+    # name: (b, hq, hkv, sq, sk, d, causal, window)
+    ("gqa4_d128", (1, 8, 2, 200, 200, 128, True, 0)),
+    ("d80", (2, 4, 4, 150, 150, 80, True, 0)),
+    ("causal_ragged_sq70_sk300", (2, 4, 2, 70, 300, 64, True, 0)),
+    ("window32_dead_rows", (1, 4, 2, 300, 70, 32, False, 32)),
+], ids=lambda c: c[0])
+def test_flash_tensor_core_rounding_fits_the_contract(case):
+    """The bf16 tensor-core kernel's design, emulated blockwise on the
+    CPU (:func:`_tc_emulation`), agrees with the Pallas kernel (interpret
+    mode, one block per sequence so no padding enters) and with the
+    port's plain version within the kernel's own tolerances (out 2e-2,
+    lse 1e-4), rows with no visible key zeros with lse -1e30: the bf16
+    P and the scale after the product stay inside the contract."""
+    _, (b, hq, hkv, sq, sk, d, causal, window) = case
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(sq * 7 + d, b, hq, hkv, sq, sk, d))
+    out, lse = _tc_emulation(q, k, v, causal, window)
+    jout, jlse = jfa_kernel.flash_attention(
+        *(jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16)
+          for t in (q, k, v)),
+        causal=causal, window=window, blk_q=sq, blk_k=sk, interpret=True)
+    pout, plse = fa_ref.flash_attention(q, k, v, causal, window)
+    for want, wlse in ((np.asarray(jout, dtype=np.float32),
+                        np.asarray(jlse)),
+                       (pout.float().numpy(), plse.numpy())):
+        np.testing.assert_allclose(out.float().numpy(), want, rtol=2e-2,
+                                   atol=2e-2)
+        np.testing.assert_allclose(lse.numpy(), wlse, rtol=1e-4, atol=1e-4)
+    dead = (plse == fa_ref.NEG_INF).numpy()
+    assert dead.any() == (case[0] == "window32_dead_rows")
+    assert (lse.numpy()[dead] == fa_ref.NEG_INF).all()
+    assert (out.float().numpy()[dead] == 0).all()
+
+
 def _offset_view(shape, dtype, offset):
     """A contiguous (B, H, S, d) tensor starting ``offset`` elements into
     its storage."""
@@ -782,6 +861,83 @@ def test_flash_variants_arguments_and_parent_entry(tmp_path):
         "                        float scale, void* stream) {")
     with pytest.raises(ValueError, match="no flash_attention_fwd"):
         kv.takes_vec("int main() { return 0; }")
+
+
+def test_flash_variants_hold_f32_bitwise_and_bf16_within_tolerance(
+        monkeypatch):
+    """``--kernel flash_attention`` holds the f32 instances (d 16, 32, 64,
+    128; the FMA kernel, unchanged) to the parent bit for bit, in both
+    load instances where the input allows, and every bf16 instance (d
+    16, 32, 64, 80, 128; the tensor-core kernel, whose products sum in
+    another order and whose P is bf16) of each build but the parent to
+    the plain version within 2e-2 / 1e-4, a non-causal window with dead
+    rows among them.  The launch is stood in for by the plain version
+    on the CPU, so which builds, dtypes, head dims and load instances
+    are checked is what the test sees."""
+    from repro_torch.benchmarks import kernel_variants as kv
+    calls = []
+
+    def fake_call(lib, with_vec, q, k, v, causal, vec=True, window=0):
+        calls.append((lib, q.dtype, q.shape[-1], vec, window))
+        out, lse = fa_ref.flash_attention(q, k, v, causal, window)
+        return (out + 1, lse) if lib == "bad" else (out, lse)
+
+    monkeypatch.setattr(kv, "call_flash", fake_call)
+    libs = {"parent": "parent", "new": "new", "variant0": "variant0"}
+    with_vec = dict.fromkeys(libs, True)
+    gen = torch.Generator().manual_seed(0)
+    assert kv.flash_bitwise(libs, with_vec, gen) == []
+    assert {c[:2] for c in calls} == {("new", torch.float32),
+                                      ("parent", torch.float32)}
+    assert sorted({c[2] for c in calls}) == [16, 32, 64, 128]
+    # offset 0: both load instances; offset 1: the element-wise one
+    assert sum(c[3] for c in calls) == 2 * 4 and len(calls) == 2 * 4 * 3
+    calls.clear()
+    assert kv.flash_tolerance(libs, gen) == []
+    assert {c[:2] for c in calls} == {("new", torch.bfloat16),
+                                      ("variant0", torch.bfloat16)}
+    assert sorted({c[2] for c in calls}) == [16, 32, 64, 80, 128]
+    assert {c[4] for c in calls} == {0, 32}       # 32: the dead-row case
+    assert len(calls) == 2 * 5 * 2 * 3
+    failed = kv.flash_tolerance({"parent": "parent", "new": "bad"}, gen)
+    assert len(failed) == 5 * 2 * 3 and all("new" in f for f in failed)
+    assert kv.flash_agrees(fa_ref.flash_attention(
+        *(torch.ones(1, 2, 3, 16) for _ in range(3)), True, 0),
+        *(torch.ones(1, 2, 3, 16) for _ in range(3)), True, 0) == (
+        True, 0.0)
+
+
+def test_flash_variants_shapes_bound_and_constants():
+    """The LM shapes ``--kernel flash_attention`` checks and times (the
+    three train_4k shapes, stablelm-3b at d 80, llama3-8b, Mixtral's
+    window), their bound at the bf16 tensor-core peak, the SASS opcodes
+    that show the tensor-core products, and ``--variant`` / ``--sass``
+    on this checkout's source (its tile constants, each found once)."""
+    from repro_torch.benchmarks import kernel_variants as kv
+    assert kv.FLASH_LM_SHAPES == {
+        "llama3_8b": (1, 4096, 32, 8, 128, 0),
+        "internlm2_1_8b_train_4k": (10, 4096, 16, 8, 128, 0),
+        "olmoe_1b_7b_train_4k": (10, 4096, 16, 16, 128, 0),
+        "stablelm_3b_train_4k": (12, 4096, 32, 32, 80, 0),
+        "mixtral_8x22b_window": (1, 8192, 48, 8, 128, 4096)}
+    assert kv.PEAK_BF16_FLOPS == 989e12
+    assert {"HMMA", "LDSM"} <= set(kv.SASS_OPS)
+    flops, nbytes = fa_ops.work(10, 16, 8, 4096, 4096, 128, True, 0, 2)
+    assert 1e3 * max(flops / kv.PEAK_BF16_FLOPS,
+                     nbytes / kv.PEAK_BYTES) == pytest.approx(0.69500762)
+    args = kv.parse_args(["--kernel", "flash_attention", "--parent", "p.cu",
+                          "--variant", "kQRows=64,kWarps=4", "--sass", "s"])
+    assert (args.variant, args.sass) == ([{"kQRows": "64", "kWarps": "4"}],
+                                         pathlib.Path("s"))
+    src = _build.SOURCES["flash_attention"].read_text()
+    var = kv.variant_source(src, {"kQRows": "64", "kWarps": "4",
+                                  "kKeys": "32", "kStages": "3"})
+    for line in ("constexpr int kQRows = 64;", "constexpr int kWarps = 4;",
+                 "constexpr int kKeys = 32;", "constexpr int kStages = 3;"):
+        assert line in var
+    assert "constexpr int kBQ = 64;" in var      # the f32 kernel's, as is
+    with pytest.raises(ValueError, match="constant 'kRows'"):
+        kv.variant_source(src, {"kRows": "64"})
 
 
 @pytest.mark.parametrize("kernel", ["assign_argmax", "flash_attention",
