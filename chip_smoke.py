@@ -19,8 +19,9 @@ never prints the final line.  Every phase prints its seconds.
   4. parity   each kernel against its plain PyTorch version on the
               card at edge shapes (for ``topk_scores`` also h = 37 and a
               view one element off 16-byte alignment, which take its
-              element-wise copies), and the two kernels of the ``opq``
-              path at its full width;
+              element-wise copies, scores rising with the id, all scores
+              equal, k 128 of L 129 and the runtime's buckets 1 and 8),
+              and the two kernels of the ``opq`` path at its full width;
   5. serving  ``Server(ServeConfig(kc=30, k2=32, top_r=100,
               max_batch=256))`` answers ``--batches`` batches of 256
               queries with every launch count reset just before; each
@@ -1040,24 +1041,40 @@ def parity_edges(dev, prng: np.random.Generator) -> dict:
         adc_ops.pq_adc_fused(lut, plane, ids, live),
         adc_ref.pq_adc_fused(lut, plane, ids, live), "unaligned_rows"))
 
-    topk_cases = [  # (name, n, l, h, k, duplicated centroid rows,
-        #                elements off 16-byte alignment)
-        ("ties", 33, 300, 32, 12, True, 0),
-        ("small", 5, 37, 16, 4, False, 0),
-        ("k_equals_l", 3, 2, 16, 2, True, 0),
-        ("ragged_tiles", 17, 129, 40, 8, True, 0),
-        ("k_max", 2, 10_000, 768, at_ops.MAX_K, False, 0),
+    topk_cases = [  # (name, n, l, h, k, centroid layout, elements off
+        #                16-byte alignment); layouts: "ties" duplicates the
+        #                first half of the rows, "ascending" makes every
+        #                query's scores rise with the id (every candidate
+        #                beats the running k-th: the buffers overflow),
+        #                "equal" repeats one row (ids decide)
+        ("ties", 33, 300, 32, 12, "ties", 0),
+        ("small", 5, 37, 16, 4, "random", 0),
+        ("k_equals_l", 3, 2, 16, 2, "ties", 0),
+        ("ragged_tiles", 17, 129, 40, 8, "ties", 0),
+        ("k_max", 2, 10_000, 768, at_ops.MAX_K, "random", 0),
         # the element-wise copies: h % 4 != 0, and x off alignment
-        ("h37_elementwise", 40, 1000, 37, 30, False, 0),
-        ("misaligned_view", 64, 3000, 768, 30, False, 1),
+        ("h37_elementwise", 40, 1000, 37, 30, "random", 0),
+        ("misaligned_view", 64, 3000, 768, 30, "random", 1),
+        # the selection's adversarial orders; the runtime's buckets 1
+        # and 8 (one query tile, 40 slices)
+        ("ascending", 64, 3000, 768, 30, "ascending", 0),
+        ("all_equal", 40, 1000, 64, 30, "equal", 0),
+        ("k128_l129", 5, 129, 40, 128, "random", 0),
+        ("bucket1", 1, 10_000, 768, 30, "random", 0),
+        ("bucket8", 8, 10_000, 768, 30, "random", 0),
     ]
-    for cname, n, l, h, k, ties, offset in topk_cases:
+    for cname, n, l, h, k, layout, offset in topk_cases:
         x = prng.normal(size=(n, h))
-        x = (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(
-            np.float32)
-        emb = prng.normal(size=(l, h)).astype(np.float32)
-        if ties:
+        x = x / np.linalg.norm(x, axis=-1, keepdims=True)
+        emb = prng.normal(size=(l, h))
+        if layout == "ties":
             emb = np.concatenate([emb[: (l + 1) // 2]] * 2)[:l]
+        elif layout == "ascending":
+            x = x * np.where(x @ emb[0] < 0, -1.0, 1.0)[:, None]
+            emb = (np.arange(1, l + 1) / l)[:, None] * emb[0]
+        elif layout == "equal":
+            emb = np.repeat(emb[:1], l, axis=0)
+        x, emb = x.astype(np.float32), emb.astype(np.float32)
         x, emb = _cases_to(dev, np.concatenate(
             [np.zeros(offset, np.float32), x.ravel()]), emb)
         x = x[offset:].view(n, h)

@@ -40,16 +40,24 @@ TFLOP/s, 989 for bf16 flash_attention).  The last line is a JSON object
 of the times (ms).  Needs a card.
 
 ``topk_scores``: at the served dispatch shape (N 256, L 10,000, h 768,
-k 30) and at the edge shapes of :data:`TOPK_SHAPES`, every build must
-equal the parent bit for bit and agree with the plain version within
-``TOPK_TOL``; a disagreement fails the run after the times.  Each build
+k 30) and at the edge and adversarial shapes of :data:`TOPK_SHAPES`
+(scores rising with the id, all scores equal, k 128 of L 129, the
+runtime's buckets 1 and 8), every build must equal the parent bit for
+bit and agree with the plain version within ``TOPK_TOL``; a
+disagreement fails the run after the times.  The served shape and
+bucket 8 (N 8: one query tile, 40 slices) are timed, beside
+``torch.topk(x @ emb.T, k)`` and its two halves: ``x @ emb.T`` alone
+(``library_matmul``, the GEMM half's yardstick) and ``torch.topk`` on the
+precomputed plane (``library_topk``, the selection's).  Each build
 launches at its own wrapper's slice count (a parent library without
 ``topk_scores_tiles`` has 16-query, 64-centroid tiles, sliced as its
 wrapper sliced them).  ``--variant kHC=16,kMinBlocks=2`` adds a copy of
 this checkout's source with those ``constexpr int`` tile constants set;
-``--gemm-only`` adds a copy of every build with its per-tile merge cut
-out (the product and the tile store only; timed, not checked), which
-splits its time into GEMM and selection.
+``--gemm-only`` adds a copy of every build with its per-tile selection
+cut out (timed, not checked), which splits its time into GEMM and
+selection: the text between the source's :data:`SELECTION_MARKS`, or in
+a source without them (before the marks) the ``warp_merge`` call that
+:data:`MERGE` finds, whose tile store and barrier stay.
 
 ``assign_argmax``: at the build's KMeans shape (N 1,048,576, L 10,000,
 h 768), at its PQ shape (m 96, N 1,048,576, k 256, d_sub 8 as the
@@ -190,15 +198,22 @@ ASSIGN_SHAPES = {
 #: an SM its wrapper sized the slices for
 PARENT_TILES = at_ops.Tiles(queries_per_block=16, centroid_tile=64,
                             blocks_per_sm=4)
-#: name: (n, l, h, k, duplicated centroid rows, elements off alignment)
+#: name: (n, l, h, k, centroid layout (:func:`topk_inputs`), elements
+#: off alignment); "served" and "bucket8" are timed
 TOPK_SHAPES = {
-    "served": (256, 10_000, 768, 30, False, 0),
-    "h37_elementwise": (40, 1000, 37, 30, False, 0),
-    "misaligned_view": (64, 3000, 768, 30, False, 1),
-    "n33_ragged": (33, 2000, 768, 30, False, 0),
-    "ties_k128": (20, 1000, 64, 128, True, 0),
-    "ragged_tiles": (17, 129, 40, 8, True, 0),
+    "served": (256, 10_000, 768, 30, "random", 0),
+    "h37_elementwise": (40, 1000, 37, 30, "random", 0),
+    "misaligned_view": (64, 3000, 768, 30, "random", 1),
+    "n33_ragged": (33, 2000, 768, 30, "random", 0),
+    "ties_k128": (20, 1000, 64, 128, "ties", 0),
+    "ragged_tiles": (17, 129, 40, 8, "ties", 0),
+    "ascending": (64, 3000, 768, 30, "ascending", 0),
+    "all_equal": (40, 1000, 64, 30, "equal", 0),
+    "k128_l129": (5, 129, 40, 128, "random", 0),
+    "bucket1": (1, 10_000, 768, 30, "random", 0),
+    "bucket8": (8, 10_000, 768, 30, "random", 0),
 }
+TOPK_TIMED = ("served", "bucket8")
 SQ8_TOL = (1e-4, 1e-2)   # rtol, atol: the JAX kernel test's own
 SQ8_PLAIN_CHUNK = 16     # queries a plain call: it builds (B, C, h) f32
 SQ8_ROWS = 700           # plane rows of the edge shapes
@@ -244,8 +259,20 @@ ADC_SHAPES = {
 #: SASS opcodes counted per kernel function by --sass
 SASS_OPS = ("I2F", "PRMT", "FADD", "FFMA", "LDS", "LDG", "STS", "STG",
             "SHFL", "VIMNMX", "LEA", "HMMA", "LDSM")
-# the per-tile merge of topk_scores.cu and what --gemm-only puts in its
-# place: the tile row is still read, so the product is not optimized away
+# the per-tile selection of topk_scores.cu, between these two comments,
+# and what --gemm-only puts in its place: a use of every accumulator, so
+# the product is not optimized away
+SELECTION_MARKS = ("// <per-tile selection>", "// </per-tile selection>")
+SELECTION_STAND_IN = """{
+      float z = 0.f;
+#pragma unroll
+      for (int i = 0; i < kTQ; ++i)
+#pragma unroll
+        for (int r = 0; r < kTC; ++r) z += acc[i][r];
+      if (z != z) sm.is_last = 1;
+    }"""
+# a source without the marks (a parent from before them): its per-tile
+# merge call, and its stand-in, which still reads the stored tile row
 MERGE = re.compile(r"warp_merge\(sm\.ls\[q\], sm\.li\[q\], cnt\[u\], n, k, "
                    r"lane,.*?\}\);", re.S)
 MERGE_STAND_IN = "if (row[lane] != row[lane]) cnt[u] = 0;"
@@ -274,7 +301,9 @@ def variant_source(source: str, consts: dict[str, str] | None = None,
                    gemm_only: bool = False) -> str:
     """A ``topk_scores.cu`` with each ``constexpr int NAME = ...;`` of
     ``consts`` set to its value and, with ``gemm_only``, the per-tile
-    merge cut out.  ValueError where a part is not found exactly once."""
+    selection cut out: the text between :data:`SELECTION_MARKS` or, in a
+    source without them, the merge call :data:`MERGE` finds.  ValueError
+    where a part is not found exactly once."""
     for name, value in (consts or {}).items():
         source, n = re.subn(
             rf"^(constexpr int {re.escape(name)} = )[^;]+;",
@@ -283,9 +312,22 @@ def variant_source(source: str, consts: dict[str, str] | None = None,
             raise ValueError(f"constant {name!r}: found {n} definitions, "
                              f"want 1")
     if gemm_only:
-        source, n = MERGE.subn(MERGE_STAND_IN, source)
-        if n != 1:
-            raise ValueError(f"per-tile merge: found {n} matches, want 1")
+        begin, end = SELECTION_MARKS
+        if begin in source or end in source:
+            counts = (source.count(begin), source.count(end))
+            head, _, rest = source.partition(begin)
+            if counts != (1, 1) or end not in rest:
+                raise ValueError(f"per-tile selection marks: found "
+                                 f"{counts[0]} begin and {counts[1]} end "
+                                 f"(end after begin: {end in rest}), want "
+                                 f"one pair in order")
+            source = (head + SELECTION_STAND_IN
+                      + rest.partition(end)[2])
+        else:
+            source, n = MERGE.subn(MERGE_STAND_IN, source)
+            if n != 1:
+                raise ValueError(f"per-tile merge: found {n} matches, "
+                                 f"want 1")
     return source
 
 
@@ -616,16 +658,28 @@ def flash_main(args) -> dict:
 # topk_scores
 # --------------------------------------------------------------------------
 
-def topk_inputs(gen, n, l, h, ties, offset):
-    """Unit-norm queries and Gaussian centroids on the card; ``ties``
-    duplicates the first half of the centroids; ``offset`` > 0 makes x a
+def topk_inputs(gen, n, l, h, layout, offset):
+    """Unit-norm queries and centroids on the card.  ``layout``:
+    "random" Gaussian rows; "ties" duplicates the first half of them;
+    "ascending" scales one Gaussian row by (j + 1) / L for centroid j,
+    each query's sign set so that every score rises with the id (every
+    candidate beats the running k-th); "equal" repeats one row (every
+    score of a query equal, ids decide).  ``offset`` > 0 makes x a
     contiguous view that many elements past an aligned base."""
     flat = torch.randn(n * h + offset, generator=gen, device="cuda")
     x = flat[offset:].view(n, h)
     x /= x.norm(dim=1, keepdim=True)
     emb = torch.randn((l, h), generator=gen, device="cuda")
-    if ties:
+    if layout == "ties":
         emb = torch.cat([emb[: (l + 1) // 2]] * 2)[:l].contiguous()
+    elif layout == "ascending":
+        x *= torch.where(x @ emb[0] < 0, -1.0, 1.0)[:, None]
+        ramp = torch.arange(1, l + 1, device="cuda") / l
+        emb = (ramp[:, None] * emb[0]).contiguous()
+    elif layout == "equal":
+        emb = emb[:1].expand(l, h).contiguous()
+    elif layout != "random":
+        raise ValueError(f"unknown centroid layout {layout!r}")
     return x, emb
 
 
@@ -678,8 +732,8 @@ def topk_main(args) -> dict:
         print(f"[tiles] {name}: {t}", flush=True)
     failed = []
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for sname, (n, l, h, k, ties, offset) in TOPK_SHAPES.items():
-        x, emb = topk_inputs(gen, n, l, h, ties, offset)
+    for sname, (n, l, h, k, layout, offset) in TOPK_SHAPES.items():
+        x, emb = topk_inputs(gen, n, l, h, layout, offset)
         want = at_ref.topk_scores(x, emb, k)
         base = call_topk(libs["parent"], tl["parent"], x, emb, k)
         for name in exact:
@@ -691,39 +745,48 @@ def topk_main(args) -> dict:
                   f"parent: {same}", flush=True)
             if not ok or not same:
                 failed.append(f"{name} at {sname}")
-    n, l, h, k, ties, offset = TOPK_SHAPES["served"]
-    x, emb = topk_inputs(gen, n, l, h, ties, offset)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sms = torch.cuda.get_device_properties("cuda").multi_processor_count
     timer = Timer(queued=True)
-    times = {}
+    report = {}
+    for sname in TOPK_TIMED:
+        n, l, h, k, layout, offset = TOPK_SHAPES[sname]
+        x, emb = topk_inputs(gen, n, l, h, layout, offset)
+        times = {}
 
-    def run(name):
-        """One launch, its buffers allocated before the timed window and
-        its ticket counters zeroed inside it (as every call needs)."""
-        slices = topk_slices(libs[name], tl[name], n, l, sms)
-        print(f"[slices] {name}: {slices}", flush=True)
-        bufs = at_ops.buffers(x, k, tl[name], slices)
+        def run(name):
+            """One launch, its buffers allocated before the timed window
+            and its ticket counters zeroed inside it (as every call
+            needs)."""
+            slices = topk_slices(libs[name], tl[name], n, l, sms)
+            print(f"[slices] {sname} {name}: {slices}", flush=True)
+            bufs = at_ops.buffers(x, k, tl[name], slices)
 
-        def launch():
-            bufs[4].zero_()
-            at_ops.launch(libs[name], x, emb, k, slices, bufs)
-        return launch
-    for name in ("parent", "new", "new", "parent"):
-        times.setdefault(name, []).append(timer.ms(run(name), args.reps))
-    for name in libs:
-        if name not in times:
-            times[name] = [timer.ms(run(name), args.reps)]
-    times["library"] = [timer.ms(lambda: torch.topk(x @ emb.T, k),
-                                 args.reps) for _ in range(2)]
-    times["plain"] = [timer.ms(lambda: at_ref.topk_scores(x, emb, k),
-                               args.reps) for _ in range(2)]
-    flops, nbytes = at_ops.work(n, l, h, k)
-    bound = 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
-    report_times("served", bound, times)
+            def launch():
+                bufs[4].zero_()
+                at_ops.launch(libs[name], x, emb, k, slices, bufs)
+            return launch
+        for name in ("parent", "new", "new", "parent"):
+            times.setdefault(name, []).append(timer.ms(run(name), args.reps))
+        for name in libs:
+            if name not in times:
+                times[name] = [timer.ms(run(name), args.reps)]
+        plane = x @ emb.T
+        times["library"] = [timer.ms(lambda: torch.topk(x @ emb.T, k),
+                                     args.reps) for _ in range(2)]
+        times["library_matmul"] = [timer.ms(lambda: x @ emb.T, args.reps)
+                                   for _ in range(2)]
+        times["library_topk"] = [timer.ms(lambda: torch.topk(plane, k),
+                                          args.reps) for _ in range(2)]
+        times["plain"] = [timer.ms(lambda: at_ref.topk_scores(x, emb, k),
+                                   args.reps) for _ in range(2)]
+        flops, nbytes = at_ops.work(n, l, h, k)
+        bound = 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
+        report_times(sname, bound, times)
+        report[sname] = dict(bound_ms=bound, **times)
     if failed:      # after the times, which still tell where time goes
-        print(json.dumps({"served": dict(bound_ms=bound, **times)}))
+        print(json.dumps(report))
         sys.exit(f"disagrees: {', '.join(failed)}")
-    return {"served": dict(bound_ms=bound, **times)}
+    return report
 
 
 # --------------------------------------------------------------------------

@@ -8,13 +8,17 @@
 fp32 FMAs, kept off the TF32 tensor cores so dispatch ids match the fp32
 plain path on near-ties.  ``csrc/topk_scores.cu`` streams queries ×
 centroids through shared memory by double-buffered ``cp.async`` copies
-into 4 × 8 register tiles fed by 128-bit shared reads, merges each score
-tile into a running top-k in shared memory (the (N, L) plane never
-reaches device memory), splits the centroids over parallel slices to
-fill the card, and merges the slice lists in the last block of each
-query tile — one launch.  The tile shape and the blocks an SM holds come
-from the library (:func:`tiles`); :func:`n_slices` sizes the slices from
-them.
+into 4 × 8 register tiles fed by 128-bit shared reads (the (N, L) plane
+never reaches device memory).  At the end of each tile every score is
+tested in registers against its query's running k-th, and only those
+that beat it enter a small per-query buffer (ballot-ranked slots); one
+warp a query merges the buffer into a sorted running list by a bitonic
+network in registers (warp shuffles), a round more wherever a buffer
+filled.  The centroids are split over parallel slices to fill the card,
+and the last block of each query tile merges the slice lists by a tree
+of pairwise merges — one launch.  The tile shape and the blocks an SM
+holds come from the library (:func:`tiles`); :func:`n_slices` sizes the
+slices from them.
 
 The reference wrapper pads L with zero rows masked through ``l_true``;
 here the kernel bounds-checks the ragged edge itself, so nothing is

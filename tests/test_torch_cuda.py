@@ -255,34 +255,56 @@ def test_pq_adc_kernel_equals_pq_adc_fused_on_live_lanes(cuda):
 
 
 TOPK_CASES = {
-    # name: (n, l, h, k, duplicated centroid rows, elements off alignment)
-    "ties": (33, 300, 32, 12, True, 0),
-    "ragged_tiles": (17, 129, 40, 8, True, 0),
-    "k_max": (3, 2000, 96, at_ops.MAX_K, False, 0),
-    "many_slices": (300, 5000, 64, 30, False, 0),
-    "served": (256, 10_000, 768, 30, False, 0),
-    "h37_elementwise": (40, 1000, 37, 30, False, 0),
-    "misaligned_view": (64, 3000, 768, 30, False, 1),
-    "n33_ragged_query_tile": (33, 2000, 768, 30, False, 0),
-    "ties_k128": (20, 1000, 64, 128, True, 0),
+    # name: (n, l, h, k, centroid layout, elements off alignment); layouts
+    # as kernel_variants.topk_inputs: "ties" duplicates the first half of
+    # the rows, "ascending" makes every query's scores rise with the id
+    # (every candidate beats the running k-th, so the buffers overflow),
+    # "equal" repeats one row (ids decide)
+    "ties": (33, 300, 32, 12, "ties", 0),
+    "ragged_tiles": (17, 129, 40, 8, "ties", 0),
+    "k_max": (3, 2000, 96, at_ops.MAX_K, "random", 0),
+    "many_slices": (300, 5000, 64, 30, "random", 0),
+    "served": (256, 10_000, 768, 30, "random", 0),
+    "h37_elementwise": (40, 1000, 37, 30, "random", 0),
+    "misaligned_view": (64, 3000, 768, 30, "random", 1),
+    "n33_ragged_query_tile": (33, 2000, 768, 30, "random", 0),
+    "ties_k128": (20, 1000, 64, 128, "ties", 0),
     # the width tuner's sweep dispatches k = kc = 1 .. 12 (WIDTH_GRID)
-    "sweep_k1": (256, 10_000, 768, 1, False, 0),
-    "sweep_k1_ties": (33, 300, 32, 1, True, 0),
-    "sweep_k2_misaligned": (64, 3000, 768, 2, False, 1),
+    "sweep_k1": (256, 10_000, 768, 1, "random", 0),
+    "sweep_k1_ties": (33, 300, 32, 1, "ties", 0),
+    "sweep_k2_misaligned": (64, 3000, 768, 2, "random", 1),
+    # the selection's adversarial orders, and the runtime's buckets 1 and
+    # 8 (one query tile, 40 slices)
+    "ascending": (64, 3000, 768, 30, "ascending", 0),
+    "all_equal": (40, 1000, 64, 30, "equal", 0),
+    "k128_l129": (5, 129, 40, 128, "random", 0),
+    "bucket1": (1, 10_000, 768, 30, "random", 0),
+    "bucket8": (8, 10_000, 768, 30, "random", 0),
 }
+
+
+def topk_layout(rng, n, l, h, layout):
+    """Unit-norm queries and centroids in ``layout`` (numpy, float64)."""
+    x = rng.normal(size=(n, h))
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    emb = rng.normal(size=(l, h))
+    if layout == "ties":
+        emb = np.concatenate([emb[: (l + 1) // 2]] * 2)[:l]
+    elif layout == "ascending":
+        x *= np.where(x @ emb[0] < 0, -1.0, 1.0)[:, None]
+        emb = (np.arange(1, l + 1) / l)[:, None] * emb[0]
+    elif layout == "equal":
+        emb = np.repeat(emb[:1], l, axis=0)
+    return x, emb
 
 
 @pytest.mark.parametrize("name", sorted(TOPK_CASES))
 def test_topk_scores_kernel_matches_plain(cuda, name):
     """h = 37 and a contiguous view one element past a 16-byte boundary
     take the kernel's element-wise copies, the rest the 16-byte ones."""
-    n, l, h, k, ties, offset = TOPK_CASES[name]
+    n, l, h, k, layout, offset = TOPK_CASES[name]
     rng = np.random.default_rng(n + l)
-    x = rng.normal(size=(n, h))
-    x /= np.linalg.norm(x, axis=-1, keepdims=True)
-    emb = rng.normal(size=(l, h))
-    if ties:
-        emb = np.concatenate([emb[: (l + 1) // 2]] * 2)[:l]
+    x, emb = topk_layout(rng, n, l, h, layout)
     flat = torch.zeros(n * h + offset, dtype=torch.float32, device=cuda)
     x = flat[offset:].view(n, h).copy_(torch.tensor(x))
     assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
@@ -302,7 +324,7 @@ def test_topk_scores_kernel_matches_plain(cuda, name):
 
 def test_topk_scores_tiles_and_residency(cuda):
     """The built kernel reports its 32 × 256 tile and one block an SM
-    (occupancy API: 146 KB of shared memory), and the served shape's
+    (occupancy API: 145 KB of shared memory), and the served shape's
     slices fill one wave."""
     from repro_torch.kernels import _build
     tl = at_ops.tiles(_build.library("topk_scores"))

@@ -230,23 +230,34 @@ def test_pq_adc_equals_pq_adc_fused_on_gathered_codes():
 # --------------------------------------------------------------------------
 
 TOPK_CASES = {
-    # name: (n, l, h, k, duplicated centroid rows)
-    "small": (5, 37, 16, 4, False),
-    "ties": (33, 300, 32, 12, True),
-    "k_equals_l": (3, 2, 16, 2, True),
-    "ragged_l": (70, 600, 32, 30, False),
-    "ties_ragged": (16, 129, 16, 8, True),
+    # name: (n, l, h, k, centroid layout): "ties" duplicates the first
+    # half of the rows (every score tied 2x), "ascending" scales one row by
+    # (j + 1) / L with each query's sign set so that its scores rise with
+    # the id, "equal" repeats one row (every score of a query tied)
+    "small": (5, 37, 16, 4, "random"),
+    "ties": (33, 300, 32, 12, "ties"),
+    "k_equals_l": (3, 2, 16, 2, "ties"),
+    "ragged_l": (70, 600, 32, 30, "random"),
+    "ties_ragged": (16, 129, 16, 8, "ties"),
+    "ascending": (16, 600, 32, 30, "ascending"),
+    "all_equal": (12, 300, 16, 30, "equal"),
+    "k128_l129": (5, 129, 40, 128, "random"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(TOPK_CASES))
 def test_topk_scores_plain_matches_jax(name):
-    n, l, h, k, ties = TOPK_CASES[name]
+    n, l, h, k, layout = TOPK_CASES[name]
     rng = np.random.default_rng(n * 13 + l)
     x = rng.normal(size=(n, h)).astype(np.float32)
     emb = rng.normal(size=(l, h)).astype(np.float32)
-    if ties:             # duplicate the first half: every score tied 2x
+    if layout == "ties":
         emb = np.concatenate([emb[: (l + 1) // 2]] * 2)[:l]
+    elif layout == "ascending":
+        x *= np.where(x @ emb[0] < 0, -1, 1).astype(np.float32)[:, None]
+        emb = (np.arange(1, l + 1, dtype=np.float32) / l)[:, None] * emb[0]
+    elif layout == "equal":
+        emb = np.repeat(emb[:1], l, axis=0)
     gs, gi = at_ops.topk_scores(torch.from_numpy(x), torch.from_numpy(emb), k)
     for ws, wi in (jat_ops.topk_scores(jnp.asarray(x), jnp.asarray(emb), k,
                                        l_blk=128),
@@ -974,10 +985,12 @@ def test_kernel_variants_topk_parent_tiles_and_cuts():
     """A parent library without ``topk_scores_tiles`` is taken to have
     the (16, 64) tiles it was built with and is sliced as its wrapper
     sliced it (33 slices at the served shape on 132 SMs); a variant sets
-    its tile constants and ``--gemm-only`` cuts the per-tile merge, each
-    in a copy of the source, or refuses where its part is not there
-    exactly once.  The source here is a stand-in, so the kernel's own
-    text is free to change."""
+    its tile constants and ``--gemm-only`` cuts the per-tile selection,
+    each in a copy of the source, or refuses where its part is not there
+    exactly once: between the selection marks where the source has
+    them, else (a parent from before the marks) the merge call.  The
+    sources here are stand-ins, so the kernel's own text is free to
+    change; the checkout's own source must carry one pair of marks."""
     from repro_torch.benchmarks import kernel_variants as kv
     assert kv.topk_tiles(object()) == at_ops.Tiles(16, 64, 4)
     assert kv.topk_slices(object(), kv.PARENT_TILES, 256, 10_000, 132) == 33
@@ -1002,6 +1015,27 @@ def test_kernel_variants_topk_parent_tiles_and_cuts():
         kv.variant_source(src, {"kTQ": "8"})
     with pytest.raises(ValueError, match="per-tile merge: found 0"):
         kv.variant_source(gemm, gemm_only=True)
+    begin, end = kv.SELECTION_MARKS
+    marked = ("constexpr int kHC = 32;          // features per chunk\n"
+              "    float acc[kTQ][kTC] = {};\n"
+              f"    {begin}\n"
+              "    offer(sm, acc, pend);\n"
+              "    warp_merge(sm.ls[q], sm.li[q], cnt[u], n, k, lane,\n"
+              "               [&](int c, float& s, int& i) { s = 0; });\n"
+              f"    {end}\n"
+              "    merge_slices(part_s, part_i);\n")
+    gemm = kv.variant_source(marked, gemm_only=True)
+    assert kv.SELECTION_STAND_IN in gemm and "warp_merge(" not in gemm
+    assert "offer(" not in gemm and begin not in gemm and end not in gemm
+    assert gemm.startswith("constexpr int kHC = 32;")
+    assert gemm.endswith("merge_slices(part_s, part_i);\n")
+    for bad in (marked.replace(end, ""), marked + begin + "\n",
+                marked.replace(begin, "@").replace(end, begin)
+                .replace("@", end)):
+        with pytest.raises(ValueError, match="selection marks"):
+            kv.variant_source(bad, gemm_only=True)
+    own = _build.SOURCES["topk_scores"].read_text()
+    assert kv.SELECTION_STAND_IN in kv.variant_source(own, gemm_only=True)
 
 
 def test_kernel_variants_assign_entry_and_constants():
